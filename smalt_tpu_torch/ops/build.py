@@ -1,0 +1,72 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
+`nvcc` for Hopper (`sm_90a`) into `build/kernels/` at the repository
+root, under a name keyed on a hash of the source and the flags, then
+loaded with `ctypes`.  Nothing is compiled at import: the first call
+of `load(name)` builds (a few seconds for a plain-C-interface file) and
+later calls reuse the loaded library.  A missing `nvcc` or a failed
+build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+# per library: {"path", "seconds" (spent building, ~0 when the .so was
+# already there), "log" (nvcc's output: ptxas registers and spills)}
+build_info: dict = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: $CUDA_HOME/bin/nvcc, then PATH."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's "
+                           "CUDA kernels are built from source at first use")
+    return found
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = os.path.join(CSRC, name + ".cu")
+        with open(src, "rb") as f:
+            key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        so = os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
+        t0 = time.perf_counter()
+        log = ""
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+                                  capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            os.replace(tmp, so)
+        build_info[name] = {"path": so, "log": log,
+                            "seconds": time.perf_counter() - t0}
+        lib = _libs[name] = ctypes.CDLL(so)
+        return lib
