@@ -5,21 +5,44 @@
 
 1. Prints the toolchain (card, power limit, CUDA, nvcc); fails without
    a GPU.
-2. Builds the CUDA kernel ops/csrc/sw_full.cu from the checkout.
-3. Holds the kernel against its plain torch version (sw_score_ref) on
+2. Builds the CUDA kernels ops/csrc/sw_full.cu and ops/csrc/sw_band.cu
+   from the checkout, one nvcc each, side by side.
+3. Holds sw_full against its plain torch version (sw_score_ref) on
    the card: exact equality of (best, ti, tj) and of the score-only
-   instance at the main-path shape Q=112 / S=128 / B=12,288 and at the
-   edge shapes Q=80 / S=128 and Q=512 / S=640; times both.
+   instance at the single-end shape Q=112 / S=128 / B=12,288, the
+   paired shape Q=160 / S=256 / B=24,576 and the edge shapes Q=80 /
+   S=128 and Q=512 / S=640; times both.
+3b. Holds sw_band (tracked and score-only) against sw_band_score_ref
+   the same way, at the long-read windows of Q = 640, 1504 (the main
+   path), 4096 (W = 768, two warps a window) on 12,288 windows each,
+   and Q = 16,384 (W = 3,072, the kernel's widest band); times both
+   (the plain version over 2 calls after one warm-up) and prints GCUPS
+   over the band's cells.
 4. Drives `map --fast` through the port's CLI at E. coli scale (4.6 Mb
    genome with ~5% planted repeats, 100,000 reads of 100 bp, k13 s2):
    one SAM record per read, >= 95% placed within 8 bp on the right
    strand, the kernel launched, and the first 4,096 reads' packed step
    output and SAM byte-identical to the port's `--device cpu` run.
-5. Prints the kernels' JSON line, the card's name and power limit, and
+5. Long reads on the same genome and index: 8,192 reads of 1,500 bp
+   with 1% substitutions and 1.5% indels, half reverse-complemented
+   (bench.py:771), batch 4,096: one record per read, >= 85% placed
+   within 150 bp on the right strand, sw_band_track launched and
+   sw_full_track not, the first 256 reads' SAM equal to `--device cpu`;
+   the device step's and the host tail's time for one batch.
+6. Pairs on the same genome and index: 50,000 pairs of 2 x 150 bp,
+   inserts 300 +- 30 in FR orientation, 1% substitutions, batch 4,096
+   pairs: one record per mate, >= 95% of mates within 8 bp on the right
+   strand, the share flagged proper pair, the first batch's packed
+   [12, 8,192] step output and its 4,096 pairs' SAM equal to
+   `--device cpu`.
+7. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line {"ok": true, "device": {...}}.
 
-Any failed check exits non-zero without the last line.  Data is made
-from a fixed seed under build/smoke/ and removed at the end.
+Kernel launch counts are set to 0 just before each mapping run (4, 5,
+6) and read just after it; the comparisons with the plain versions do
+not count.  Any failed check exits non-zero without the last line.
+Data is made from a fixed seed under build/smoke/ and removed at the
+end.
 """
 import contextlib
 import io
@@ -30,6 +53,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -42,7 +66,19 @@ KMER, NSKIP = 13, 2
 BATCH = 4096                      # the CLI's default batch
 PLACE_TOL = 8
 MIN_PLACED = 0.95
-KERNEL_SHAPES = [(112, 128, 3 * BATCH), (80, 128, 4096), (512, 640, 1024)]
+# full-matrix kernel: (Q, S, windows).  The first is the single-end
+# path's shape; (160, 256) is the paired path's (both mates in one step).
+KERNEL_SHAPES = [(112, 128, 3 * BATCH), (80, 128, 4096), (512, 640, 1024),
+                 (160, 256, 6 * BATCH)]
+# banded kernel: (Q, windows); S, pad and W follow from Q as on the main
+# path.  Q = 1504 (1,500 bp reads) is the main-path shape.
+BAND_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH), (4096, 3 * BATCH),
+               (16384, 64)]
+BAND_MAIN_Q = 1504
+LONG_READLEN, N_LONG, LONG_HEAD = 1500, 8192, 256
+LONG_TOL, MIN_LONG = 150, 0.85    # tests/test_longread_concordance.py:110
+PAIR_READLEN, N_PAIRS, PAIR_HEAD = 150, 50_000, 4096
+INSERT_MEAN, INSERT_SD = 300, 30
 
 
 def fail(msg: str):
@@ -77,20 +113,90 @@ def make_genome(rng, n: int) -> np.ndarray:
     return g
 
 
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def substitute(rng, code: np.ndarray, rate: float) -> np.ndarray:
+    """Codes 0..3 with a share `rate` changed, never to the same base."""
+    mut = rng.random(code.shape) < rate
+    return np.where(mut, (code + 1 + rng.integers(0, 3, code.shape)) % 4,
+                    code)
+
+
 def make_reads(rng, genome: np.ndarray, n: int, qlen: int):
     """n reads of qlen with 1% substitutions (never to the same base),
     half reverse-complemented.  Returns (codes [n, qlen] ASCII, truth
     positions, is_reverse)."""
     pos = rng.integers(0, len(genome) - qlen, n)
     reads = genome[pos[:, None] + np.arange(qlen)]
-    idx = np.frombuffer(b"ACGT", np.uint8)
-    code = np.searchsorted(idx, reads)
-    mut = rng.random((n, qlen)) < 0.01
-    code = np.where(mut, (code + 1 + rng.integers(0, 3, (n, qlen))) % 4,
-                    code)
+    code = substitute(rng, np.searchsorted(ACGT, reads), 0.01)
     rev = rng.random(n) < 0.5
     code[rev] = 3 - code[rev, ::-1]
-    return idx[code], pos, rev
+    return ACGT[code], pos, rev
+
+
+def make_long_reads(rng, genome: np.ndarray, n: int, rl: int):
+    """bench.py:771's kilobase reads, vectorised: from a source of rl +
+    100 bases, each event deletes a base (0.75%), inserts a random one
+    (0.75%), substitutes (1%) or copies, until rl bases are out; half
+    reverse-complemented.  Returns (ASCII [n, rl], positions, is_reverse)."""
+    K = rl + 200
+    pos = rng.integers(0, len(genome) - rl - 100, n)
+    src = np.searchsorted(ACGT, genome[pos[:, None] + np.arange(rl + 100)])
+    r = rng.random((n, K))
+    dele, ins, sub = r < 0.0075, (r >= 0.0075) & (r < 0.015), \
+        (r >= 0.015) & (r < 0.025)
+    adv = ~ins
+    j = np.minimum(np.cumsum(adv, axis=1) - adv, rl + 99)
+    base = np.take_along_axis(src, j, 1)
+    code = np.where(ins, rng.integers(0, 4, (n, K)),
+                    np.where(sub, (base + 1 + rng.integers(0, 3, (n, K))) % 4,
+                             base))
+    emit = ~dele
+    if int(emit.sum(axis=1).min()) < rl:
+        fail("long-read generator ran out of events")
+    first = np.argsort(dele, axis=1, kind="stable")[:, :rl]
+    code = np.take_along_axis(code, first, 1)
+    rev = rng.random(n) < 0.5
+    code[rev] = 3 - code[rev, ::-1]
+    return ACGT[code], pos, rev
+
+
+def make_pairs(rng, genome: np.ndarray, n: int, rl: int):
+    """n FR pairs of rl bp from fragments of INSERT_MEAN +- INSERT_SD,
+    1% substitutions; in half of them the fragment comes from the reverse
+    strand (mate 1 reads its right end reverse-complemented).  Returns
+    (mate1, mate2 ASCII [n, rl], truth positions [2, n], is_reverse
+    [2, n])."""
+    flen = np.clip(np.rint(rng.normal(INSERT_MEAN, INSERT_SD, n)),
+                   rl + 10, None).astype(np.int64)
+    start = rng.integers(0, len(genome) - flen)
+    left = start[:, None] + np.arange(rl)
+    right = (start + flen - rl)[:, None] + np.arange(rl)
+    lc = substitute(rng, np.searchsorted(ACGT, genome[left]), 0.01)
+    rc = 3 - substitute(rng, np.searchsorted(ACGT, genome[right]),
+                        0.01)[:, ::-1]
+    swap = rng.random(n) < 0.5
+    m1 = np.where(swap[:, None], rc, lc)
+    m2 = np.where(swap[:, None], lc, rc)
+    lpos, rpos = start, start + flen - rl
+    truth = np.stack([np.where(swap, rpos, lpos), np.where(swap, lpos, rpos)])
+    rev = np.stack([swap, ~swap])
+    return ACGT[m1], ACGT[m2], truth, rev
+
+
+def write_fastq(path: str, reads, prefix: bytes = b"r", head=None):
+    """reads [n, L] ASCII as FASTQ named prefix + index; the first `head`
+    records also go to path's `_head` twin.  Returns (path, head path)."""
+    qual = b"I" * reads.shape[1]
+    hp = path.replace(".fq", "_head.fq")
+    with open(path, "wb") as f, open(hp, "wb") as h:
+        for i, r in enumerate(reads):
+            rec = b"@%s%d\n%s\n+\n%s\n" % (prefix, i, r.tobytes(), qual)
+            f.write(rec)
+            if head is not None and i < head:
+                h.write(rec)
+    return path, hp
 
 
 def write_inputs(d: str, genome, reads):
@@ -118,8 +224,11 @@ def sam_body(path: str):
                 if ln and not ln.startswith("@")]
 
 
-def placement(body, truth, rev):
-    """Reads placed within PLACE_TOL of the truth on the right strand."""
+def placement(body, truth, rev, tol: int = PLACE_TOL):
+    """Reads placed within tol of the truth on the right strand.  With
+    truth and rev of shape [2, n], records are mates, told apart by
+    their 0x40 / 0x80 flags."""
+    truth, rev = np.asarray(truth), np.asarray(rev)
     ok = 0
     for ln in body:
         f = ln.split("\t", 4)
@@ -127,8 +236,12 @@ def placement(body, truth, rev):
         i = int(f[0][1:])
         if flag & 4:
             continue
-        if abs(int(f[3]) - 1 - truth[i]) <= PLACE_TOL and \
-                bool(flag & 16) == bool(rev[i]):
+        if truth.ndim == 2:
+            t, r = truth[0 if flag & 0x40 else 1, i], \
+                rev[0 if flag & 0x40 else 1, i]
+        else:
+            t, r = truth[i], rev[i]
+        if abs(int(f[3]) - 1 - t) <= tol and bool(flag & 16) == bool(r):
             ok += 1
     return ok
 
@@ -154,11 +267,46 @@ def kernel_windows(rng, B: int, Q: int, S: int):
     return q, s, slens
 
 
-def time_ms(fn, reps: int) -> float:
+def band_windows(rng, B: int, Q: int):
+    """Long-read windows as the main path builds them (S = window_len,
+    pad = window_pad, W and the band centre as the wrapper fixes them):
+    each query follows its window from column pad + a shift (within W/8
+    for most, up to W either way for a tenth: partly or wholly outside
+    the band) with an indel random walk, 2% substitutions and N codes;
+    one in twenty is unrelated noise, half are shorter than Q (pad code
+    7), and subject lengths vary.  Returns (q, s, slens, pad, W, S)."""
+    from smalt_tpu_torch.ops.sw import clamp_band_width
+    from smalt_tpu_torch.parallel.mesh import window_len, window_pad
+    S, pad = window_len(Q), window_pad(Q)
+    W = clamp_band_width(Q, pad)
+    s = rng.integers(0, 4, (B, S), dtype=np.int32)
+    off = rng.integers(-(W // 8), W // 8 + 1, B)
+    far = rng.random(B) < 0.1
+    off[far] = rng.integers(-W, W + 1, int(far.sum()))
+    step = (rng.random((B, Q)) < 0.0075).astype(np.int32) - \
+        (rng.random((B, Q)) < 0.0075)
+    idx = pad + off[:, None] + np.arange(Q, dtype=np.int32) + \
+        np.cumsum(step, axis=1, dtype=np.int32)
+    q = np.take_along_axis(s, np.clip(idx, 0, S - 1), 1)
+    noise = ((idx < 0) | (idx >= S) | (rng.random((B, Q)) < 0.02) |
+             (rng.random(B) < 0.05)[:, None])
+    q = np.where(noise, rng.integers(0, 4, (B, Q), dtype=np.int32), q)
+    del idx, noise, step
+    q[rng.random((B, Q)) < 0.005] = 5
+    qlen = np.where(rng.random(B) < 0.5, Q, rng.integers(Q * 3 // 4, Q + 1, B))
+    q[np.arange(Q)[None, :] >= qlen[:, None]] = 7
+    s[rng.random((B, S)) < 0.003] = 5
+    slens = np.where(rng.random(B) < 0.7, S,
+                     rng.integers(S // 2, S + 1, B)).astype(np.int32)
+    s[np.arange(S)[None, :] >= slens[:, None]] = 7
+    return q, s, slens, pad, W, S
+
+
+def time_ms(fn, reps: int, warm: int = 3) -> float:
     """Mean time of fn() on the stream over reps calls (CUDA events,
-    after three warm-up calls)."""
+    after `warm` warm-up calls)."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -212,8 +360,62 @@ def check_kernel(rng, card: str):
               f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} GCUPS) | {card}",
               flush=True)
         if main is None:
-            main = (k_ms, p_ms)
-    return worst, main[0], main[1]
+            p0_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat, go, ge),
+                            3)
+            main = (k_ms, p_ms, k0_ms, p0_ms)
+    return (worst,) + main
+
+
+def check_band_kernel(rng, card: str):
+    """Phase 3b: sw_band (tracked and score-only) against its plain
+    version sw_band_score_ref, on the card.  Returns (max_abs_err,
+    track ms, plain ms, score-only ms, plain score-only ms) at the
+    main-path shape Q = BAND_MAIN_Q."""
+    import torch
+    from smalt_tpu.align import core as ali
+    from smalt_tpu_torch.ops import sw
+    m, go, ge = ali.make_score_matrix()
+    go, ge = -go, -ge
+    dev = torch.device("cuda")
+    mat = torch.from_numpy(m).to(dev)
+    worst = 0
+    main = None
+    for Q, B in BAND_SHAPES:
+        q, s, sl, pad, W, S = band_windows(rng, B, Q)
+        q, s, sl = (torch.from_numpy(x).to(dev) for x in (q, s, sl))
+        got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=True)
+        got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=False)
+        want = sw.sw_band_score_ref(q, s, sl, mat, go, ge, pad, W,
+                                    track=True)
+        torch.cuda.synchronize()
+        errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+        err0 = int((got0 - want[0]).abs().max())
+        worst = max(worst, *errs, err0)
+        if max(errs + [err0]) != 0:
+            fail(f"sw_band differs from sw_band_score_ref at Q={Q} W={W} "
+                 f"S={S}: max |diff| best/ti/tj {errs}, score-only {err0}")
+        if int(want[0].max()) <= 0:
+            fail(f"degenerate band windows at Q={Q}")
+        reps = 5 if B * W * S > 2e10 else 20
+        k_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                               track=True), reps)
+        k0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad,
+                                                W, track=False), reps)
+        # the plain version takes seconds a call at the wide shapes
+        p_ms = time_ms(lambda: sw.sw_band_score_ref(
+            q, s, sl, mat, go, ge, pad, W, track=True), 2, warm=1)
+        cells = B * W * S
+        print(f"# sw_band Q={Q} W={W} S={S} B={B}: equal to "
+              f"sw_band_score_ref (best, ti, tj and score-only); track "
+              f"{k_ms:.4f} ms ({cells / k_ms / 1e6:.1f} GCUPS), score-only "
+              f"{k0_ms:.4f} ms ({cells / k0_ms / 1e6:.1f} GCUPS), plain "
+              f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} GCUPS) | {card}",
+              flush=True)
+        if Q == BAND_MAIN_Q:
+            main = (k_ms, p_ms, k0_ms, time_ms(lambda: sw.sw_band_score_ref(
+                q, s, sl, mat, go, ge, pad, W), 2, warm=1))
+        del q, s, sl, got, got0, want
+    return (worst,) + main
 
 
 def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
@@ -309,6 +511,186 @@ def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
     return launches
 
 
+def ptxas_summary(log: str) -> str:
+    """ptxas -v output as 'registers per instance <template args>' and the
+    spill bytes over all instances."""
+    regs, spills, cur = [], 0, "?"
+    for ln in log.splitlines():
+        m = re.search(r"kernelI(\w+?)EEv", ln)
+        if "Compiling entry function" in ln and m:
+            cur = ",".join(re.findall(r"L[ib](\d+)", m.group(1)))
+        elif "registers" in ln:
+            regs.append(f"<{cur}>:{re.search(r'Used (\d+) reg', ln).group(1)}")
+        elif "spill" in ln:
+            spills += sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
+    return f"registers {' '.join(regs)}; spill bytes {spills}"
+
+
+def map_cli(device: str, idx_name: str, sam: str, reads, batch: int):
+    """`map --fast` through the port's CLI with the launch counts set to
+    0 just before and read just after.  reads: [fq] or [fq, mates].
+    Returns (launches, wall seconds, the SMALT_TIMING match)."""
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.ops import sw
+    os.environ["SMALT_TIMING"] = "1"
+    os.environ["SMALT_FAST_BATCH"] = str(batch)
+    err = io.StringIO()
+    for k in sw.launches:
+        sw.launches[k] = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["map", "--fast", "-f", "sam", "-o", sam,
+                           "--device", device, idx_name] + list(reads))
+    finally:
+        os.environ.pop("SMALT_FAST_BATCH")
+    wall = time.perf_counter() - t0
+    launches = dict(sw.launches)
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"map --fast on {device} ({reads}) exited {rc}")
+    m = re.search(r"fast pipeline: (\d+) reads in (\d+) batches, "
+                  r"([\d.]+) s \((\d+) reads/s\)", err.getvalue())
+    return launches, wall, m
+
+
+def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
+                card: str, check_cpu: bool = False):
+    """One batch of a mapping phase, outside the CLI run (so its launches
+    are not counted there): the device step's time (CUDA events over 5
+    calls) against the host tail's (one call of the pipeline's tail).
+    With check_cpu, the packed step output must also equal the CPU
+    step's on the same batch."""
+    import torch
+    from smalt_tpu.index.table import KmerIndex
+    from smalt_tpu.map.fastmode import (RawBatch, _tail_init, _tail_render,
+                                        encode_batch)
+    from smalt_tpu.seq.refset import RefSet
+    from smalt_tpu_torch.map.fastmode import get_device_step
+    from smalt_tpu_torch.parallel.mesh import (OUT_KEYS, window_len,
+                                               window_pad)
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    raw = isinstance(item, RawBatch)
+    n = item.n if raw else len(item[0])
+    qmax = int(item.seq_len.max()) if raw else max(len(x) for x in item[1])
+    Q = max(32, -(-qmax // 16) * 16)
+    arr = torch.from_numpy(item.encode(Q) if raw
+                           else encode_batch(item[1], Q)).to(device)
+    step = get_device_step(refset, idx, device, (1, -2, -4, -3))
+    step_ms = time_ms(lambda: step(arr), 5)
+    packed = step(arr).cpu()
+    if check_cpu:
+        packed_cpu = get_device_step(refset, idx, "cpu", (1, -2, -4, -3))(
+            arr.cpu())
+        if not torch.equal(packed, packed_cpu):
+            bad = (packed != packed_cpu).any(dim=1).nonzero().flatten()
+            fail(f"{what}: packed step output differs from the CPU path in "
+                 f"rows {bad.tolist()} (OUT_KEYS order)")
+        print(f"# {what}: packed [12, {n}] step output equal to the CPU "
+              f"path", flush=True)
+    packed = packed.numpy()
+    outs = {k: packed[i, :n] for i, k in enumerate(OUT_KEYS)}
+    _tail_init(refset, (1, -2, -4, -3), 18, (True, False))
+    t0 = time.perf_counter()
+    _tail_render((paired, item, outs, window_len(Q), window_pad(Q), Q, 0))
+    tail_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"# {what}, one batch of {n} reads (Q={Q}): device step "
+          f"{step_ms:.3f} ms (CUDA events, 5 calls), host tail "
+          f"{tail_ms:.1f} ms (one call) | {card}", flush=True)
+
+
+def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
+    """Phase 5: kilobase reads on the phase-4 genome and index."""
+    from smalt_tpu.map.fastmode import iter_fastq_hybrid
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    reads, truth, rev = make_long_reads(rng, genome, N_LONG, LONG_READLEN)
+    fq, fq_head = write_fastq(os.path.join(d, "long.fq"), reads, b"L",
+                              LONG_HEAD)
+    print(f"# long-read data: {time.perf_counter() - t0:.2f} s ({N_LONG} "
+          f"reads of {LONG_READLEN} bp, 1% substitutions + 1.5% indels)",
+          flush=True)
+    sam = os.path.join(d, f"long_{device}.sam")
+    launches, wall, m = map_cli(device, idx_name, sam, [fq], BATCH)
+    body = sam_body(sam)
+    if len(body) != N_LONG:
+        fail(f"{len(body)} SAM records for {N_LONG} long reads")
+    placed = placement(body, truth, rev, LONG_TOL)
+    print(f"# map --fast, long reads on {device}: {N_LONG} reads in {wall:.3f} s "
+          f"end to end ({N_LONG / wall:.1f} reads/s incl. index load and "
+          f"upload); pipeline {m.group(4) if m else '?'} reads/s "
+          f"({m.group(3) if m else '?'} s, {m.group(2) if m else '?'} "
+          f"batches); placed {placed}/{N_LONG} ({placed / N_LONG:.4f}) "
+          f"within {LONG_TOL} bp; launches {launches} | {card}", flush=True)
+    if device == "cuda" and launches["sw_band_track"] < 1:
+        fail("the long-read path never launched the sw_band kernel")
+    if launches["sw_full_track"] != 0:
+        fail("the long-read path launched sw_full")
+    if placed < MIN_LONG * N_LONG:
+        fail(f"only {placed}/{N_LONG} long reads placed within {LONG_TOL} bp")
+
+    batch_split("long reads", idx_name, next(iter(iter_fastq_hybrid(
+        fq, BATCH))), False, device, card)
+    sam_cpu = os.path.join(d, "long_head_cpu.sam")
+    t0 = time.perf_counter()
+    map_cli("cpu", idx_name, sam_cpu, [fq_head], LONG_HEAD)
+    if sam_body(sam_cpu) != body[:LONG_HEAD]:
+        fail(f"SAM of the first {LONG_HEAD} long reads differs from the "
+             f"CPU path")
+    print(f"# SAM of the first {LONG_HEAD} long reads byte-identical to "
+          f"--device cpu ({time.perf_counter() - t0:.1f} s on the CPU)",
+          flush=True)
+    return launches
+
+
+def run_pairs(d: str, genome, card: str, device: str = "cuda"):
+    """Phase 6: paired reads on the phase-4 genome and index."""
+    from smalt_tpu.map.fastmode import iter_fastq_batches
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    m1, m2, truth, rev = make_pairs(rng, genome, N_PAIRS, PAIR_READLEN)
+    fq1, h1 = write_fastq(os.path.join(d, "pairs_1.fq"), m1, b"p",
+                          PAIR_HEAD)
+    fq2, h2 = write_fastq(os.path.join(d, "pairs_2.fq"), m2, b"p",
+                          PAIR_HEAD)
+    print(f"# pair data: {time.perf_counter() - t0:.2f} s ({N_PAIRS} pairs "
+          f"of 2 x {PAIR_READLEN} bp, inserts {INSERT_MEAN} +- {INSERT_SD}, "
+          f"FR, 1% substitutions)", flush=True)
+    sam = os.path.join(d, f"pairs_{device}.sam")
+    launches, wall, m = map_cli(device, idx_name, sam, [fq1, fq2], BATCH)
+    body = sam_body(sam)
+    nm = 2 * N_PAIRS
+    if len(body) != nm:
+        fail(f"{len(body)} SAM records for {nm} mates")
+    placed = placement(body, truth, rev)
+    proper = sum(1 for ln in body if int(ln.split("\t", 2)[1]) & 2)
+    print(f"# map --fast, pairs on {device}: {N_PAIRS} pairs in {wall:.3f} s end "
+          f"to end ({nm / wall:.1f} reads/s incl. index load and upload); "
+          f"pipeline {m.group(4) if m else '?'} reads/s "
+          f"({m.group(3) if m else '?'} s, {m.group(2) if m else '?'} "
+          f"batches); mates placed {placed}/{nm} ({placed / nm:.4f}) within "
+          f"{PLACE_TOL} bp; proper pair {proper}/{nm} ({proper / nm:.4f}); "
+          f"launches {launches} | {card}", flush=True)
+    if device == "cuda" and launches["sw_full_track"] < 1:
+        fail("the paired path never launched the sw_full kernel")
+    if placed < MIN_PLACED * nm:
+        fail(f"only {placed}/{nm} mates placed within {PLACE_TOL} bp")
+    (n1, s1, q1), (n2, s2, q2) = (next(iter_fastq_batches(f, BATCH))
+                                  for f in (fq1, fq2))
+    batch_split("pairs", idx_name, (n1 + n2, s1 + s2, q1 + q2), True,
+                device, card, check_cpu=True)
+    sam_cpu = os.path.join(d, "pairs_head_cpu.sam")
+    t0 = time.perf_counter()
+    map_cli("cpu", idx_name, sam_cpu, [h1, h2], BATCH)
+    if sam_body(sam_cpu) != body[: 2 * PAIR_HEAD]:
+        fail(f"SAM of the first {PAIR_HEAD} pairs differs from the CPU path")
+    print(f"# SAM of the first {PAIR_HEAD} pairs byte-identical to --device "
+          f"cpu ({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -325,35 +707,64 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    sw._kernel_lib()
-    info = build.build_info["sw_full"]
-    print(f"# build sw_full.cu: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info['seconds']:.2f} s)", flush=True)
-    for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"#   {ln.strip()}")
+    names = ["sw_full", "sw_band"]
+    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc each, together
+        list(pool.map(sw._kernel_lib, names))
+    for name in names:
+        info = build.build_info[name]
+        print(f"# build {name}.cu: nvcc {info['seconds']:.2f} s; "
+              f"{ptxas_summary(info['log'])}", flush=True)
+    print(f"# phase 2 (build, side by side): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     rng = np.random.default_rng(SEED)
-    err, k_ms, p_ms = check_kernel(rng, card)
+    t0 = time.perf_counter()
+    err, k_ms, p_ms, k0_ms, p0_ms = check_kernel(rng, card)
+    print(f"# phase 3 (sw_full against plain): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    berr, bk_ms, bp_ms, bk0_ms, bp0_ms = check_band_kernel(rng, card)
+    print(f"# phase 3b (sw_band against plain): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     d = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     try:
-        launches = run_main_path(d, "cuda", N_READS, GENOME_LEN, card)
+        t0 = time.perf_counter()
+        se = run_main_path(d, "cuda", N_READS, GENOME_LEN, card)
+        print(f"# phase 4 (single-end): {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        genome = make_genome(np.random.default_rng(SEED), GENOME_LEN)
+        t0 = time.perf_counter()
+        lr = run_long_reads(d, genome, card)
+        print(f"# phase 5 (long reads): {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        pe = run_pairs(d, genome, card)
+        print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
+              flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    if launches["sw_full_track"] < 1:
+    if se["sw_full_track"] < 1:
         fail("the main path never launched the sw_full kernel")
     if "jax" in sys.modules:
         fail("jax was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "sw_full_track", "route": "cuda",
-        "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
-        "replaces": "smalt_tpu/ops/sw.py:60",
-        "launches": launches["sw_full_track"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    launches = {k: se[k] + lr[k] + pe[k] for k in sw.launches}
+    full = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
+            "replaces": "smalt_tpu/ops/sw.py:60"}
+    band = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_band.cu",
+            "replaces": "smalt_tpu/ops/sw.py:269"}
+    print(json.dumps({"kernels": [
+        dict(name="sw_full_track", **full, launches=launches["sw_full_track"],
+             max_abs_err=err, ms=k_ms, plain_ms=p_ms),
+        dict(name="sw_full", **full, launches=launches["sw_full"],
+             max_abs_err=err, ms=k0_ms, plain_ms=p0_ms),
+        dict(name="sw_band_track", **band, launches=launches["sw_band_track"],
+             max_abs_err=berr, ms=bk_ms, plain_ms=bp_ms),
+        dict(name="sw_band", **band, launches=launches["sw_band"],
+             max_abs_err=berr, ms=bk0_ms, plain_ms=bp0_ms)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """Command line of the PyTorch port.
 
     python -m smalt_tpu_torch.cli map --fast [--device cuda|cpu] [options]
-        <index_name> <reads.fq> > out.sam
+        <index_name> <reads.fq> [<mates.fq>] > out.sam
     python -m smalt_tpu_torch.cli index [-k wordlen] [-s step] <index_name>
         <ref.fa>
 
-`map --fast` runs the port's device pass (single-end, one device) and
-writes the same SAM as `smalt_tpu map --fast`.  `--device` defaults to
+`map --fast` runs the port's device pass (one device; single-end reads,
+or pairs with a mates file) and writes the same SAM as
+`smalt_tpu map --fast`.  `--device` defaults to
 `cuda`; without a GPU that fails rather than running on the CPU, and
 `--device cpu` exists for the tests.  `map` without `--fast` (the exact
 host lane) and the other host-only subcommands run as smalt_tpu.cli
@@ -83,7 +84,6 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
         print("--fast emits SAM only", file=sys.stderr)
         return 1
     for bad, what, item in (
-            (a.mates is not None, "paired reads with --fast", "Queue 1 #3"),
             (a.mesh_spec is not None, "--mesh", "Queue 1 #8"),
             (a.profdir is not None, "--profile", "Queue 1 #12"),
             (a.nthreads > 1, "-n > 1 with --fast", "Queue 1 #11"),
@@ -121,7 +121,8 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
                           penalties=ref_cli._parse_penalties(a.scorspec),
                           minscor=(a.minscor if a.minscor is not None
                                    else 18),
-                          device=device, insert_min=insert_min,
+                          device=device, mates_path=a.mates,
+                          insert_min=insert_min,
                           insert_max=insert_max, exact_engine=exact_engine,
                           seed=(a.randseed if a.randseed is not None else 1),
                           libcode=libcode, ihist=ihist)

@@ -1,11 +1,13 @@
 """`map --fast` on one torch device: device pass + host traceback tail.
 
-Counterpart of the single-device, single-end pipeline in
-smalt_tpu/map/fastmode.py (`run_fast_pipeline`, fastmode.py:1137).  The
+Counterpart of the single-device pipeline in smalt_tpu/map/fastmode.py
+(`run_fast_pipeline`, fastmode.py:1137), single-end and paired.  The
 host layers are the reference's own and are imported, not copied: the
-bulk FASTQ reader (`iter_fastq_hybrid`), the batch encoders, and the
-traceback + SAM tail (`_tail_init` / `_tail_render`, FastTail).  The
-device step is the port's (parallel/mesh.py).
+FASTQ readers (`iter_fastq_hybrid`, `iter_fastq_batches`), the batch
+encoders, and the traceback + SAM tail (`_tail_init` / `_tail_render`,
+FastTail, with its native C renderers for single reads and for pairs).
+The device step is the port's (parallel/mesh.py).  Paired runs put both
+mates of a batch through one step of 2 x batch reads.
 
 Per batch: encode to uint8 [B, Q] on the host, copy to the device, run
 the step on the current stream, and start a non-blocking copy of the
@@ -28,7 +30,8 @@ import torch
 from smalt_tpu.align import core as ali_mod
 from smalt_tpu.index.table import KmerIndex
 from smalt_tpu.map.fastmode import (RawBatch, _tail_init, _tail_render,
-                                    encode_batch, iter_fastq_hybrid)
+                                    encode_batch, iter_fastq_batches,
+                                    iter_fastq_hybrid)
 from smalt_tpu.seq.refset import RefSet
 
 from ..parallel.mesh import (OUT_KEYS, DeviceIndex, make_device_step,
@@ -90,12 +93,14 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                       libcode=None, ihist=None,
                       host_id: int = 0, n_hosts: int = 1,
                       shard_writer=None, resume_log=None) -> None:
-    """Map single-end reads with the device pass + host traceback tail,
-    writing headerless SAM records to `out` in input order.  With
-    `exact_engine`, reads whose seed search the device pass truncated
-    are remapped through the exact host lane (--fallback-exact)."""
+    """Map reads with the device pass + host traceback tail, writing
+    headerless SAM records to `out` in input order.  With `mates_path`,
+    pairs map together: both mates go through the device pass in one
+    batch and the pair tail rescues, pairs and flags them.  With
+    `exact_engine`, reads (or pairs) whose seed search the device pass
+    truncated are remapped through the exact host lane
+    (--fallback-exact)."""
     unported = [
-        (mates_path is not None, "paired reads", "Queue 1 #3"),
         (mesh_spec is not None or n_hosts > 1 or shard_writer is not None,
          "a device mesh or several hosts", "Queue 1 #8"),
         (nthreads > 1, "a forked tail pool (nthreads > 1)", "Queue 1 #11"),
@@ -111,17 +116,30 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
         raise RuntimeError("device cuda requested but no GPU is visible")
     step = get_device_step(refset, idx, device, penalties)
     writer_args = (True, False)   # soft_clip, x_mismatch
+    paired = mates_path is not None
+
+    def raw_batches():
+        if not paired:
+            yield from iter_fastq_hybrid(reads_path, batch)
+            return
+        it2 = iter_fastq_batches(mates_path, batch)
+        for n1, s1, q1 in iter_fastq_batches(reads_path, batch):
+            n2, s2, q2 = next(it2)
+            if len(n2) != len(n1):
+                raise ValueError("mate files differ in read count")
+            yield n1 + n2, s1 + s2, q1 + q2
 
     def force(work):
         item, pend, wl, wp, Q, base = work
         arr = pend.result()
         outs = {k: arr[i, : _nreads(item)] for i, k in enumerate(OUT_KEYS)}
-        return (False, item, outs, wl, wp, Q, base)
+        return (paired, item, outs, wl, wp, Q, base)
 
     def batches():
         pending = deque()
         base = 0
-        for item in iter_fastq_hybrid(reads_path, batch):
+        want = batch * (2 if paired else 1)   # PE: both mates
+        for item in raw_batches():
             if isinstance(item, RawBatch):
                 qmax = int(item.seq_len.max()) if item.n else 0
             else:
@@ -133,10 +151,10 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                 arr = item.encode(Q)
             else:
                 arr = encode_batch(item[1], Q)
-            if arr.shape[0] < batch:
+            if arr.shape[0] < want:
                 # keep ONE batch shape for the whole run; pad rows are
                 # all-7 (no seeds -> score 0) and force() drops them
-                arr = np.pad(arr, ((0, batch - arr.shape[0]), (0, 0)),
+                arr = np.pad(arr, ((0, want - arr.shape[0]), (0, 0)),
                              constant_values=7)
             pending.append((item, _InFlight(step, arr, device),
                             window_len(Q), window_pad(Q), Q, base))

@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 root, under a name keyed on a hash of the source and the flags, then
 loaded with `ctypes`.  Nothing is compiled at import: the first call
 of `load(name)` builds (a few seconds for a plain-C-interface file) and
-later calls reuse the loaded library.  A missing `nvcc` or a failed
+later calls reuse the loaded library; builds of different sources may
+run side by side from several threads.  A missing `nvcc` or a failed
 build raises; there is no fallback.
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ BUILD_DIR = os.path.join(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_locks: dict = {}          # one per source: builds of different sources overlap
+_locks_guard = threading.Lock()
 _libs: dict = {}
 # per library: {"path", "seconds" (spent building, ~0 when the .so was
 # already there), "log" (nvcc's output: ptxas registers and spills)}
@@ -47,7 +49,9 @@ def nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -70,3 +74,4 @@ def load(name: str) -> ctypes.CDLL:
                             "seconds": time.perf_counter() - t0}
         lib = _libs[name] = ctypes.CDLL(so)
         return lib
+

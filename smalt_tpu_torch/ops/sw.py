@@ -1,18 +1,20 @@
-"""Batched Smith-Waterman scores: the Hopper kernel and its plain version.
+"""Batched Smith-Waterman scores: the Hopper kernels and their plain versions.
 
-Counterpart of smalt_tpu/ops/sw.py (the full-matrix Pallas kernel,
-`sw_score_batch`, and the `sw_score_ref` oracle).  Full-matrix
-affine-gap local alignment in int32, with the score taken over the
-diagonal values T = H[i-1,j-1] + W[i,j] and F from the prefix-max
-identity (exact whenever gapopen >= gapext):
+Counterpart of smalt_tpu/ops/sw.py: the full-matrix Pallas kernel
+(`sw_score_batch`, oracle `sw_score_ref`) and the banded one for long
+reads (`sw_band_score_batch`, oracle `sw_band_score_ref`).  Affine-gap
+local alignment in int32, with the score taken over the diagonal values
+T = H[i-1,j-1] + W[i,j] and F from the prefix-max identity (exact
+whenever gapopen >= gapext):
 
     F[j] = cummax(H0[j'] + j'*ge)[j-1] - gapopen - (j-1)*ge
 
-`sw_score_batch` is the public function.  On a CPU tensor it runs the
-plain torch version `sw_score_ref`; on a CUDA tensor it launches the
-hand-written kernel `csrc/sw_full.cu` (built at first use) and raises if
-that fails.  Both return what the Pallas wrapper returns: max(best, 0)
-and, with `track`, the row-major-first argmax cell (ti, tj).
+`sw_score_batch` and `sw_band_score_batch` are the public functions.
+On a CPU tensor each runs its plain torch version; on a CUDA tensor it
+launches its hand-written kernel (`csrc/sw_full.cu`, `csrc/sw_band.cu`,
+built at first use) and raises if that fails.  Both return what the
+Pallas wrappers return: max(best, 0) and, with `track`, the
+row-major-first argmax cell (ti, tj).
 """
 from __future__ import annotations
 
@@ -21,13 +23,15 @@ import ctypes
 import torch
 
 NEG = -(1 << 28)
-MAX_Q = 512        # widest query the kernel keeps in registers (16 a lane)
+MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
+MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
 
-# launches of the CUDA kernel by instance; the wrapper adds one per
+# launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these)
-launches = {"sw_full_track": 0, "sw_full": 0}
+launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
+            "sw_band": 0}
 
-_lib = None
+_libs: dict = {}
 
 
 def _as_i32(x, device) -> torch.Tensor:
@@ -78,17 +82,41 @@ def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
     return vmax
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
+# ctypes signatures of the kernels' plain C entry points (p pointer, i int)
+_SIGS = {"sw_full": "ppppiiiiiipppp", "sw_band": "ppppiiiiiiiipppp"}
+
+
+def _kernel_lib(name: str):
+    """Build (at first use) and bind csrc/<name>.cu."""
+    lib = _libs.get(name)
+    if lib is None:
         from .build import load
-        lib = load("sw_full")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sw_full_launch.restype = ci
-        lib.sw_full_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       ci, vp, vp, vp, vp]
-        _lib = lib
-    return _lib
+        lib = load(name)
+        fn = getattr(lib, name + "_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in _SIGS[name]]
+        _libs[name] = lib
+    return lib
+
+
+def _check_args(kname: str, qcodes, subj, slens, matrix):
+    """What every kernel wrapper takes: contiguous int32 tensors on one
+    CUDA device, q [B, Q], subj [B, S], slens [B], matrix [8, 8]."""
+    dev = qcodes.device
+    for name, t in (("qcodes", qcodes), ("subj", subj), ("slens", slens),
+                    ("matrix", matrix)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{kname}: {name} must be on {dev} (cuda), "
+                             f"got {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{kname}: {name} must be contiguous int32")
+    B = qcodes.shape[0]
+    if qcodes.dim() != 2 or subj.dim() != 2 or subj.shape[0] != B or \
+            slens.shape != (B,) or matrix.shape != (8, 8):
+        raise ValueError(f"{kname}: shapes q {tuple(qcodes.shape)} subj "
+                         f"{tuple(subj.shape)} slens {tuple(slens.shape)} "
+                         f"matrix {tuple(matrix.shape)}")
 
 
 def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
@@ -96,24 +124,13 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     """Launch csrc/sw_full.cu on the current stream.  Same arguments
     and results as sw_score_ref; every tensor contiguous int32 on one
     CUDA device."""
+    _check_args("sw_full", qcodes, subj, slens, matrix)
     dev = qcodes.device
-    for name, t in (("qcodes", qcodes), ("subj", subj), ("slens", slens),
-                    ("matrix", matrix)):
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"sw_full: {name} must be on {dev} (cuda), "
-                             f"got {t.device}")
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"sw_full: {name} must be contiguous int32")
     B, Q = qcodes.shape
-    if subj.dim() != 2 or subj.shape[0] != B or slens.shape != (B,) or \
-            matrix.shape != (8, 8):
-        raise ValueError(f"sw_full: shapes q {tuple(qcodes.shape)} subj "
-                         f"{tuple(subj.shape)} slens {tuple(slens.shape)} "
-                         f"matrix {tuple(matrix.shape)}")
     if not 1 <= Q <= MAX_Q:
         raise ValueError(f"sw_full: query length {Q} outside 1..{MAX_Q}")
     S = subj.shape[1]
-    lib = _kernel_lib()
+    lib = _kernel_lib("sw_full")
     best = torch.empty(B, dtype=torch.int32, device=dev)
     ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
     tj = torch.empty(B, dtype=torch.int32, device=dev) if track else None
@@ -151,3 +168,126 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     if device.type == "cuda":
         return sw_full_cuda(*args, gapopen_pos, gapext_pos, track=track)
     raise ValueError(f"sw_score_batch: no kernel for device {device}")
+
+
+def band_width_for(Q: int, pad: int) -> int:
+    """Band width for a long-read window (smalt_tpu/ops/sw.py:417): wide
+    enough for the window pad plus ~3% indel drift each way, rounded up
+    to 128.  Part of the contract: W and the centre pad + W//2 decide
+    which cells lie in the band, and the host tail's drift band is
+    W // 2 of the same formula (native/fastlane.c fl_band_width_for)."""
+    need = 2 * pad + 2 * max(32, Q // 32)
+    return max(128, -(-need // 128) * 128)
+
+
+def sw_band_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
+                      gapext_pos: int, pad: int, W: int,
+                      track: bool = False):
+    """Plain torch version of the banded kernel (the jnp oracle of
+    smalt_tpu/ops/sw.py:475): band lane t of subject row i holds query
+    column i - prepad + t (prepad = pad + W//2; code 7 outside the
+    query), the diagonal predecessor stays in its lane and E comes from
+    lane t + 1.  Returns best [B] (>= 0) or, with track, (best, ti, tj):
+    the row-major-first argmax cell in (subject row, query column)."""
+    device = qcodes.device
+    B, Q = qcodes.shape
+    S = subj.shape[1]
+    go, ge = int(gapopen_pos), int(gapext_pos)
+    i32 = torch.int32
+    prepad = pad + W // 2
+    tidx = torch.arange(W, dtype=i32, device=device)
+    qlong = qcodes.long()
+    H = torch.zeros((B, W), dtype=i32, device=device)
+    E = torch.full((B, W), NEG, dtype=i32, device=device)
+    vmax = torch.zeros(B, dtype=i32, device=device)
+    bi = torch.zeros(B, dtype=i32, device=device)
+    bl = torch.zeros(B, dtype=i32, device=device)
+    negcol = torch.full((B, 1), NEG, dtype=i32, device=device)
+    big = torch.full((B, W), 1 << 28, dtype=i32, device=device)
+    for i in range(S):
+        j = i - prepad + tidx
+        inq = (j >= 0) & (j < Q)
+        qc = torch.where(inq, qlong[:, j.clamp(0, Q - 1).long()], 7)
+        T = H + matrix[subj[:, i].long()[:, None], qc]
+        E_in = torch.cat([E[:, 1:], negcol], dim=1)
+        H0 = torch.clamp_min(torch.maximum(T, E_in), 0)
+        cm = torch.cummax(H0 + tidx * ge, dim=1).values
+        F = torch.cat([negcol, cm[:, :-1]], dim=1) - go - (tidx - 1) * ge
+        Hn = torch.maximum(H0, F)
+        En = torch.maximum(E_in - ge, Hn - go)
+        keep = i < slens
+        H = torch.where(keep[:, None], Hn, H)
+        E = torch.where(keep[:, None], En, E)
+        rowmax = T.amax(dim=1)
+        upd = keep & (rowmax > vmax)
+        minlane = torch.where(T == rowmax[:, None], tidx, big).amin(dim=1)
+        vmax = torch.where(upd, rowmax, vmax)
+        bi = torch.where(upd, i, bi).to(i32)
+        bl = torch.where(upd, minlane, bl)
+    if track:
+        return vmax, bi, bi + bl - prepad
+    return vmax
+
+
+def clamp_band_width(Q: int, pad: int, W: int = 0) -> int:
+    """The band width the Pallas wrapper runs (sw.py:449-451): W, or
+    band_width_for when 0, clamped to the query rounded up to 128 plus
+    128.  The band is then centred pad + W//2 columns left of the
+    window start."""
+    return min(W or band_width_for(Q, pad), -(-Q // 128) * 128 + 128)
+
+
+def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
+                 gapext_pos: int, pad: int, W: int, track: bool = False):
+    """Launch csrc/sw_band.cu on the current stream.  Same arguments
+    and results as sw_band_score_ref (W as given, 1..MAX_BAND_W); every
+    tensor contiguous int32 on one CUDA device."""
+    if not 1 <= W <= MAX_BAND_W:
+        raise ValueError(f"sw_band: band width {W} outside 1..{MAX_BAND_W} "
+                         f"(the kernel's limit: reads up to ~16 kb)")
+    _check_args("sw_band", qcodes, subj, slens, matrix)
+    dev = qcodes.device
+    B, Q = qcodes.shape
+    if Q < 1:
+        raise ValueError("sw_band: empty query")
+    S = subj.shape[1]
+    lib = _kernel_lib("sw_band")
+    best = torch.empty(B, dtype=torch.int32, device=dev)
+    ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
+    tj = torch.empty(B, dtype=torch.int32, device=dev) if track else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sw_band_launch(
+            qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
+            matrix.data_ptr(), B, Q, S, W, pad + W // 2, int(gapopen_pos),
+            int(gapext_pos), 1 if track else 0, best.data_ptr(),
+            ti.data_ptr() if track else None,
+            tj.data_ptr() if track else None, stream)
+    if rc != 0:
+        raise RuntimeError(f"sw_band launch failed (code {rc})")
+    launches["sw_band_track" if track else "sw_band"] += 1
+    return (best, ti, tj) if track else best
+
+
+def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
+                        gapext_pos: int, pad: int, W: int = 0, *, device,
+                        track: bool = False):
+    """Banded batched SW scores for long reads on `device`, cost O(W*S)
+    instead of O(Q*S) (sw.py:425).  Subject row i covers query columns
+    [i - pad - W/2, i - pad + W/2): `pad` is the window's left backoff,
+    so the seed diagonal sits mid-band.  W defaults to band_width_for
+    and is clamped as the Pallas wrapper clamps it (clamp_band_width).
+
+    Returns best [B] int32, or (best, ti, tj) with track=True: the
+    row-major-first argmax cell in (subject row, query column)."""
+    assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
+    device = torch.device(device)
+    W = clamp_band_width(int(qcodes.shape[1]), pad, W)
+    args = [_as_i32(x, device) for x in (qcodes, subj, slens, matrix)]
+    if device.type == "cpu":
+        return sw_band_score_ref(*args, gapopen_pos, gapext_pos, pad, W,
+                                 track=track)
+    if device.type == "cuda":
+        return sw_band_cuda(*args, gapopen_pos, gapext_pos, pad, W,
+                            track=track)
+    raise ValueError(f"sw_band_score_batch: no kernel for device {device}")

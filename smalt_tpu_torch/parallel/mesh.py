@@ -4,9 +4,10 @@ Counterpart of the single-device half of smalt_tpu/parallel/mesh.py.
 `device_map_step` is the device pass of `map --fast`: k-mer words ->
 index lookup -> rarest+common seed selection -> hit expansion ->
 densest-diagonal vote per strand -> three reference windows per read ->
-tracked Smith-Waterman (the Hopper kernel in ops/sw.py) -> best and
-runner-up window per read.  The host then runs the traceback tail and
-writes SAM (smalt_tpu.map.fastmode.FastTail).
+tracked Smith-Waterman (the Hopper kernels in ops/sw.py: full-matrix for
+reads padded to at most LONG_READ_Q, banded above) -> best and runner-up
+window per read.  The host then runs the traceback tail and writes SAM
+(smalt_tpu.map.fastmode.FastTail).
 
 Everything here is plain torch on int32 tensors, held to the JAX step
 value for value.  Places where torch would otherwise drift from JAX:
@@ -17,8 +18,7 @@ JAX; every gather index is clipped as the JAX code clips it, since an
 out-of-range index is a device-side fault on CUDA.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the k = 16..20 hi/lo split-word index, the banded kernel for
-reads longer than LONG_READ_Q, and the sharded steps.
+item): the k = 16..20 hi/lo split-word index and the sharded steps.
 """
 from __future__ import annotations
 
@@ -35,11 +35,11 @@ from smalt_tpu.index.table import KmerIndex
 from smalt_tpu.seq import codec
 from smalt_tpu.seq.refset import RefSet
 
-from ..ops.sw import sw_score_batch
+from ..ops.sw import band_width_for, sw_band_score_batch, sw_score_batch
 
 # Re-declared from smalt_tpu/parallel/mesh.py (which imports jax); a
 # test holds them equal.
-LONG_READ_Q = 512  # longer reads need the banded kernel (not ported)
+LONG_READ_Q = 512  # reads padded longer run the banded kernel
 NSEED = 16         # rarest query k-mers expanded per strand
 NSEED_COMMON = 4   # highest-count query k-mers expanded per strand
 MAXC = 6           # positions expanded per k-mer word
@@ -329,10 +329,6 @@ def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos: int,
     Returns the per-read dict of OUT_KEYS, int32 [B] tensors."""
     reads = reads.to(_I32)
     B, Q = reads.shape
-    if Q > LONG_READ_Q:
-        raise NotImplementedError(
-            f"reads padded to {Q} > {LONG_READ_Q} need the banded SW "
-            "kernel, which is not ported yet (ROADMAP.md Queue 1 #4)")
     k = di.wordlen
     S = window_len(Q)
     pad = window_pad(Q)
@@ -365,9 +361,17 @@ def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos: int,
                          sel_rev.to(_I32)])
     qcs = torch.cat([reads, qc_r, qc_2])
     slens = torch.full((3 * B,), S, dtype=_I32, device=reads.device)
-    scores, tis, tjs = sw_score_batch(qcs, wins, slens, matrix,
-                                      gapopen_pos, gapext_pos,
-                                      device=reads.device, track=True)
+    if Q > LONG_READ_Q:
+        # kilobase reads: banded scoring around the seed diagonal, which
+        # the window gather placed `pad` columns in; the tracked anchor
+        # centres the host tail's narrow traceback band (mesh.py:663)
+        scores, tis, tjs = sw_band_score_batch(
+            qcs, wins, slens, matrix, gapopen_pos, gapext_pos, pad=pad,
+            W=band_width_for(Q, pad), device=reads.device, track=True)
+    else:
+        scores, tis, tjs = sw_score_batch(qcs, wins, slens, matrix,
+                                          gapopen_pos, gapext_pos,
+                                          device=reads.device, track=True)
     scores = torch.where(votes > 0, scores, 0)
     v1 = torch.where(sel_rev, v1r, v1f)
     return _pick_best(scores.reshape(3, B), starts.reshape(3, B),

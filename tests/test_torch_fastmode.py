@@ -1,7 +1,8 @@
 """`map --fast` through the port (smalt_tpu_torch) against smalt_tpu on the
 CPU: byte-identical SAM from run_fast_pipeline and from the two CLIs,
-unported options refused with their ROADMAP item, and no jax in a
-process that imports and runs the port."""
+for short single-end reads, kilobase reads (the banded kernel) and
+pairs; unported options refused with their ROADMAP item, and no jax in
+a process that imports and runs the port."""
 import io
 import os
 import subprocess
@@ -15,6 +16,7 @@ from smalt_tpu.map import fastmode as jfast
 from smalt_tpu.seq import codec
 from smalt_tpu.seq.refset import RefSet
 from smalt_tpu_torch.map import fastmode as tfast
+from test_torch_mesh import jax_band_oracle  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,7 +106,7 @@ def test_contig_boundary_identical(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mates_path": "m.fq"}, "Queue 1 #3"),
+    ({"n_hosts": 2}, "Queue 1 #8"),
     ({"mesh_spec": "2,1"}, "Queue 1 #8"),
     ({"nthreads": 2}, "Queue 1 #11"),
     ({"resume_log": object()}, "Queue 1 #13"),
@@ -114,6 +116,124 @@ def test_pipeline_unported_options_raise(simulated, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tfast.run_fast_pipeline(refset, idx, fq, io.StringIO(),
                                 device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def kilobase(tmp_path_factory):
+    """tests/test_longread_concordance.py:34-59's corpus: 16 reads of
+    900-1,400 bp (2% substitutions, 1.5% indels) on a 200 kb genome,
+    k13 s4."""
+    d = tmp_path_factory.mktemp("tlong")
+    rng = np.random.default_rng(19)
+    L = 200_000
+    g = rng.choice(np.array(list(b"ACGT"), np.uint8), L).tobytes().decode()
+    fa = d / "g.fa"
+    fa.write_text(">lg\n" + "\n".join(g[i:i + 60]
+                                      for i in range(0, L, 60)) + "\n")
+    comp = str.maketrans("ACGT", "TGCA")
+    recs = []
+    for i in range(16):
+        RL = int(rng.integers(900, 1400))
+        st = int(rng.integers(0, L - RL - 200))
+        out = []
+        for ch in g[st:st + RL]:
+            r = rng.random()
+            if r < 0.0075:
+                continue
+            if r < 0.015:
+                out.append("ACGT"[int(rng.integers(0, 4))])
+            if rng.random() < 0.02:
+                ch = "ACGT"[int(rng.integers(0, 4))]
+            out.append(ch)
+        s = "".join(out)
+        if i % 2:
+            s = s.translate(comp)[::-1]
+        recs.append(f"@L{i}\n{s}\n+\n{'I' * len(s)}\n")
+    fq = d / "r.fq"
+    fq.write_text("".join(recs))
+    refset = RefSet.from_fasta(str(fa))
+    return refset, build_index(refset, 13, 4), str(fq), d
+
+
+def test_long_reads_sam_identical(kilobase, jax_band_oracle):
+    refset, idx, fq, _ = kilobase
+    want, got = _both(refset, idx, fq, 16)
+    body = got.splitlines()
+    assert len(body) == 16
+    assert sum(1 for ln in body if not int(ln.split("\t")[1]) & 4) >= 14
+    assert got == want
+
+
+QLEN_PE, INSERT_PE = 80, 300
+
+
+def _pe_world(d, seed=53, n=20, orient="pe"):
+    """tests/test_fast_pe.py's corpus: a 20 kb genome (k11 s2) and n
+    fragments of 300 bp read as 2 x 80 bp in pe (fwd + revcomp), mp
+    (revcomp + fwd) or pp (fwd + fwd) orientation."""
+    rng = np.random.default_rng(seed)
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, 20000))
+    fa = os.path.join(d, "g.fa")
+    with open(fa, "w") as f:
+        f.write(">g\n" + "".join(genome[j : j + 60] + "\n"
+                                 for j in range(0, len(genome), 60)))
+    refset = RefSet.from_fasta(fa)
+    idx = build_index(refset, 11, 2)
+    comp = str.maketrans("ACGT", "TGCA")
+    r1, r2 = [], []
+    for i in range(n):
+        st = int(rng.integers(0, len(genome) - INSERT_PE))
+        frag = genome[st : st + INSERT_PE]
+        a, b = frag[:QLEN_PE], frag[-QLEN_PE:]
+        if orient == "pe":
+            b = b.translate(comp)[::-1]
+        elif orient == "mp":
+            a = a.translate(comp)[::-1]
+        r1.append(f"@p{i}\n{a}\n+\n{'I' * QLEN_PE}\n")
+        r2.append(f"@p{i}\n{b}\n+\n{'I' * QLEN_PE}\n")
+    fq1, fq2 = os.path.join(d, f"{orient}_1.fq"), os.path.join(d, f"{orient}_2.fq")
+    with open(fq1, "w") as f:
+        f.write("".join(r1))
+    with open(fq2, "w") as f:
+        f.write("".join(r2))
+    return refset, idx, fq1, fq2
+
+
+@pytest.mark.parametrize("orient", ["pe", "mp", "pp"])
+def test_pairs_sam_identical(tmp_path, orient):
+    from smalt_tpu.results.pairs import (LIB_MATEPAIR, LIB_PAIREDEND,
+                                         LIB_SAMESTRAND)
+    libcode = {"pe": LIB_PAIREDEND, "mp": LIB_MATEPAIR,
+               "pp": LIB_SAMESTRAND}[orient]
+    refset, idx, fq1, fq2 = _pe_world(str(tmp_path), orient=orient)
+    want, got = _both(refset, idx, fq1, 32, mates_path=fq2, insert_min=0,
+                      insert_max=500, libcode=libcode)
+    body = got.splitlines()
+    assert len(body) == 40
+    assert sum(1 for ln in body if int(ln.split("\t")[1]) & 2) >= 36
+    assert got == want
+
+
+def test_pairs_batch_split_identical(tmp_path):
+    """Pairs split over several padded batches (batch 8 of 20 pairs)
+    give the SAM of one batch: pairs are mapped independently."""
+    refset, idx, fq1, fq2 = _pe_world(str(tmp_path))
+    outs = []
+    for batch in (8, 32):
+        buf = io.StringIO()
+        tfast.run_fast_pipeline(refset, idx, fq1, buf, batch=batch,
+                                device="cpu", mates_path=fq2)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 40
+
+
+def test_pairs_unequal_mate_files_raise(tmp_path):
+    refset, idx, fq1, fq2 = _pe_world(str(tmp_path))
+    short = tmp_path / "short.fq"
+    short.write_text("".join(open(fq2).readlines()[:-8]))
+    with pytest.raises(ValueError, match="mate files differ"):
+        tfast.run_fast_pipeline(refset, idx, fq1, io.StringIO(), batch=32,
+                                device="cpu", mates_path=str(short))
 
 
 def _run(args, env_extra=None, **kw):
@@ -149,6 +269,28 @@ def test_cli_matches_jax_cli(saved_index):
     assert _body(got.stdout) == _body(want.stdout)
 
 
+@pytest.fixture(scope="module")
+def saved_pairs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("tpe"))
+    refset, idx, fq1, fq2 = _pe_world(d, seed=61, n=40)
+    name = os.path.join(d, "idx")
+    refset.save(name)
+    idx.save(name)
+    return name, fq1, fq2
+
+
+def test_cli_pairs_match_jax_cli(saved_pairs):
+    name, fq1, fq2 = saved_pairs
+    got = _run(["-m", "smalt_tpu_torch.cli", "map", "--fast", "--device",
+                "cpu", name, fq1, fq2])
+    assert got.returncode == 0, got.stderr
+    want = _run(["-m", "smalt_tpu.cli", "map", "--fast", name, fq1, fq2])
+    assert want.returncode == 0, want.stderr
+    assert len([ln for ln in got.stdout.splitlines()
+                if not ln.startswith("@")]) == 80
+    assert _body(got.stdout) == _body(want.stdout)
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--mesh", "2,1"], "Queue 1 #8"),
     (["--profile", "prof"], "Queue 1 #12"),
@@ -173,8 +315,23 @@ def test_cli_cuda_without_gpu_fails(saved_index):
                 if ln and not ln.startswith("@")]
 
 
-def test_port_never_imports_jax(saved_index):
-    name, fq = saved_index
+@pytest.mark.parametrize("what", ["single", "long", "pairs"])
+def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
+    """A run of the port imports no jax: short single-end reads, kilobase
+    reads (the banded path and the long-read host tail) and pairs (the
+    pair tail)."""
+    if what == "single":
+        name, fq = saved_index
+        reads, n = f"{fq!r}", 200
+    elif what == "long":
+        refset, idx, fq, d = kilobase
+        name = os.path.join(d, "idx")
+        refset.save(name)
+        idx.save(name)
+        reads, n = f"{fq!r}", 16
+    else:
+        name, fq1, fq2 = saved_pairs
+        reads, n = f"{fq1!r}, mates_path={fq2!r}", 80
     code = (
         "import io, sys\n"
         "from smalt_tpu.seq.refset import RefSet\n"
@@ -183,8 +340,9 @@ def test_port_never_imports_jax(saved_index):
         "from smalt_tpu_torch.map.fastmode import run_fast_pipeline\n"
         f"rs, ix = RefSet.load({name!r}), KmerIndex.load({name!r})\n"
         "buf = io.StringIO()\n"
-        f"run_fast_pipeline(rs, ix, {fq!r}, buf, batch=16, device='cpu')\n"
-        "assert len(buf.getvalue().splitlines()) == 200\n"
+        f"run_fast_pipeline(rs, ix, {reads}, out=buf, batch=16, "
+        "device='cpu')\n"
+        f"assert len(buf.getvalue().splitlines()) == {n}\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     r = _run(["-c", code])

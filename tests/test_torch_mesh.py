@@ -10,6 +10,7 @@ import torch
 
 from smalt_tpu.align import core as ali
 from smalt_tpu.index.table import build_index
+from smalt_tpu.ops import sw as jsw
 from smalt_tpu.parallel import mesh as jm
 from smalt_tpu.seq import codec
 from smalt_tpu_torch.parallel import mesh as tm
@@ -234,9 +235,74 @@ def test_device_map_step_repeats(repeat_genome):
     _step_equal(jdi, tdi, _reads(refset, 3, 32, 112, qlen=100, mut=0.01))
 
 
-def test_long_reads_not_ported(k13):
-    refset, idx, jdi, tdi = k13
-    m, go, ge = ali.make_score_matrix()
-    reads = torch.full((2, tm.LONG_READ_Q + 16), 7, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.device_map_step(tdi, reads, torch.from_numpy(m), -go, -ge)
+@pytest.fixture(scope="module")
+def long_genome():
+    """tests/test_longreads.py:32-47's genome (200 kb, seed 17), k13 s4."""
+    from smalt_tpu.seq.refset import RefSet
+    rng = np.random.default_rng(17)
+    g = rng.choice(np.array(list(b"ACGT"), np.uint8), 200_000)
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        fa = f"{d}/lg.fa"
+        with open(fa, "w") as f:
+            f.write(">lg\n" + g.tobytes().decode() + "\n")
+        refset = RefSet.from_fasta(fa)
+    idx = build_index(refset, 13, 4)
+    return (refset, jm.DeviceIndex.build(refset, idx),
+            tm.DeviceIndex.build(refset, idx, "cpu"))
+
+
+def _long_reads(refset, seed, B, Q):
+    """Noisy kilobase reads: substitutions, indels, N codes, half
+    reverse-complemented, lengths from 3Q/4 to Q, one all-7 pad row."""
+    rng = np.random.default_rng(seed)
+    reads = np.full((B, Q), 7, np.int32)
+    for i in range(B - 1):
+        n = int(rng.integers(Q * 3 // 4, Q + 1))
+        st = int(rng.integers(0, refset.total_len - 2 * n))
+        seg = list(codec.alpha(refset.codes[st : st + 2 * n]))
+        out = []
+        for c in seg:
+            r = rng.random()
+            if r < 0.005:
+                continue
+            if r < 0.01:
+                out.append(int(rng.integers(0, 4)))
+            out.append(int(rng.integers(0, 4)) if rng.random() < 0.03
+                       else int(c))
+            if len(out) >= n:
+                break
+        seg = np.asarray(out[:n], np.int32)
+        seg[rng.random(n) < 0.005] = 5
+        if i % 2:
+            seg = seg[::-1]
+            seg = np.where(seg & 4, seg, seg ^ 3)
+        reads[i, :n] = seg
+    return reads
+
+
+@pytest.fixture
+def jax_band_oracle(monkeypatch):
+    """The JAX step scores long reads with the banded jnp oracle, as
+    tests/test_longreads.py:64 does (the Pallas kernel equals it,
+    tests/test_sw_band_kernel.py); W as the Pallas wrapper fixes it
+    (smalt_tpu/ops/sw.py:449-451)."""
+
+    def band_oracle(q, s, sl, mat, go, ge, pad, W=0, interpret=None,
+                    track=False):
+        Q = q.shape[1]
+        W = min(W or jsw.band_width_for(Q, pad), -(-Q // 128) * 128 + 128)
+        return jsw.sw_band_score_ref(q, s, sl, mat, go, ge, pad, W,
+                                     track=track)
+
+    monkeypatch.setattr(jm, "sw_band_score_batch", band_oracle)
+
+
+@pytest.mark.parametrize("Q", [528, 1008])
+def test_device_map_step_long_reads(long_genome, jax_band_oracle, Q):
+    """Q > LONG_READ_Q: the banded branch, all 12 OUT_KEYS equal to the
+    JAX step, which scores with the banded jnp oracle."""
+    refset, jdi, tdi = long_genome
+    assert Q > tm.LONG_READ_Q
+    got = _step_equal(jdi, tdi, _long_reads(refset, Q, 12, Q))
+    assert (got[0, :-1] > Q // 2).all() and got[0, -1] == 0
