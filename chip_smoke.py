@@ -5,19 +5,26 @@
 
 1. Prints the toolchain (card, power limit, CUDA, nvcc); fails without
    a GPU.
-2. Builds the CUDA kernels ops/csrc/sw_full.cu and ops/csrc/sw_band.cu
-   from the checkout, one nvcc each, side by side.
+2. Builds the CUDA kernels ops/csrc/sw_full.cu, ops/csrc/sw_band.cu and
+   ops/csrc/swq.cu from the checkout, one nvcc each, side by side.
 3. Holds sw_full against its plain torch version (sw_score_ref) on
    the card: exact equality of (best, ti, tj) and of the score-only
    instance at the single-end shape Q=112 / S=128 / B=12,288, the
-   paired shape Q=160 / S=256 / B=24,576 and the edge shapes Q=80 /
-   S=128 and Q=512 / S=640; times both.
+   paired shape Q=160 / S=256 / B=24,576, the edge shapes Q=80 /
+   S=128 and Q=512 / S=640, and the device-exact pass-1 pool shapes
+   Q=128 / S=128 and Q=256 / S=384 on 6 x 4,096 windows; times both.
 3b. Holds sw_band (tracked and score-only) against sw_band_score_ref
    the same way, at the long-read windows of Q = 640, 1504 (the main
    path), 4096 (W = 768, two warps a window) on 12,288 windows each,
    and Q = 16,384 (W = 3,072, the kernel's widest band); times both
    (the plain version over 2 calls after one warm-up) and prints GCUPS
    over the band's cells.
+3c. Holds swq (device pass 2: banded fill + walk) against its plain
+   version swq_fill_walk_ref, exactly (best, mi, mj and every record
+   row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
+   path) and Qp=256 / Sp=512 with lead-pinned, s_left > 0, dummy and
+   best-0 windows; times both.  Phase 7 adds the windows of its first
+   pass-2 batch.
 4. Drives `map --fast` through the port's CLI at E. coli scale (4.6 Mb
    genome with ~5% planted repeats, 100,000 reads of 100 bp, k13 s2):
    one SAM record per read, >= 95% placed within 8 bp on the right
@@ -35,14 +42,26 @@
    strand, the share flagged proper pair, the first batch's packed
    [12, 8,192] step output and its 4,096 pairs' SAM equal to
    `--device cpu`.
-7. Prints the kernels' JSON line, the card's name and power limit, and
+7. `map --device-exact` on the same genome and index: 20,480 reads of
+   100 bp (five batches of 4,096) through the host C lane (`map`, no
+   device flag), then `map --device-exact` on the card with SMALT_DX_P2
+   unset and with SMALT_DX_P2=1: both SAMs byte-identical to the host
+   lane's (the @PG line aside), no batch rendered on the host, the
+   score-only sw_full launched in both runs and swq in the second with
+   p2_hit > 0; reads/s of the three runs, the lane's counters, and one
+   batch's collate step and pass-2 step (CUDA events).  That batch's
+   collate outputs (pool, counts2, scores, fallback) and packed pass-2
+   output must equal the port's CPU steps on the same batch (the SAM
+   alone cannot show a wrong device step: the lane re-stages what it
+   flags), and its pass-2 windows go through the swq check of phase 3c.
+8. Prints the kernels' JSON line, the card's name and power limit, and
    as the last line {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6) and read just after it; the comparisons with the plain versions do
-not count.  Any failed check exits non-zero without the last line.
-Data is made from a fixed seed under build/smoke/ and removed at the
-end.
+6, and 7's two device runs) and read just after it; the comparisons
+with the plain versions do not count.  Any failed check exits non-zero
+without the last line.  Data is made from a fixed seed under
+build/smoke/ and removed at the end.
 """
 import contextlib
 import io
@@ -67,9 +86,13 @@ BATCH = 4096                      # the CLI's default batch
 PLACE_TOL = 8
 MIN_PLACED = 0.95
 # full-matrix kernel: (Q, S, windows).  The first is the single-end
-# path's shape; (160, 256) is the paired path's (both mates in one step).
+# path's shape; (160, 256) is the paired path's (both mates in one step);
+# the last two are the device-exact pass-1 pools of 100 bp and 150 bp
+# reads (score-only).
 KERNEL_SHAPES = [(112, 128, 3 * BATCH), (80, 128, 4096), (512, 640, 1024),
-                 (160, 256, 6 * BATCH)]
+                 (160, 256, 6 * BATCH), (128, 128, 6 * BATCH),
+                 (256, 384, 6 * BATCH)]
+POOL_SHAPE = (128, 128, 6 * BATCH)    # the score-only main-path shape
 # banded kernel: (Q, windows); S, pad and W follow from Q as on the main
 # path.  Q = 1504 (1,500 bp reads) is the main-path shape.
 BAND_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH), (4096, 3 * BATCH),
@@ -79,6 +102,9 @@ LONG_READLEN, N_LONG, LONG_HEAD = 1500, 8192, 256
 LONG_TOL, MIN_LONG = 150, 0.85    # tests/test_longread_concordance.py:110
 PAIR_READLEN, N_PAIRS, PAIR_HEAD = 150, 50_000, 4096
 INSERT_MEAN, INSERT_SD = 300, 30
+# device pass 2: (Qp, Sp, windows); the first is the 100 bp lane's shape
+SWQ_SHAPES = [(128, 256, 8192), (256, 512, 8192)]
+N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
 
 
 def fail(msg: str):
@@ -321,7 +347,9 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
 
 def check_kernel(rng, card: str):
     """Phase 3: the kernel against its plain version, on the card.
-    Returns (max_abs_err, kernel ms, plain ms) at the main-path shape."""
+    Returns (max_abs_err, track ms, plain track ms) at the fast path's
+    shape (the first) and (score-only ms, plain score-only ms) at the
+    device-exact pool's (POOL_SHAPE)."""
     import torch
     from smalt_tpu.align import core as ali
     from smalt_tpu_torch.ops import sw
@@ -360,9 +388,68 @@ def check_kernel(rng, card: str):
               f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} GCUPS) | {card}",
               flush=True)
         if main is None:
-            p0_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat, go, ge),
-                            3)
-            main = (k_ms, p_ms, k0_ms, p0_ms)
+            main = (k_ms, p_ms)
+        if (Q, S, B) == POOL_SHAPE:
+            pool = (k0_ms, time_ms(lambda: sw.sw_score_ref(q, s, sl, mat, go,
+                                                           ge), 3))
+    return (worst,) + main + pool
+
+
+def check_swq_pair(qa, sj, par, mat, go: int, ge: int, what: str):
+    """swq_cuda against swq_fill_walk_ref on the same windows, exactly.
+    Returns the max |difference| over best, mi, mj and rec (0)."""
+    import torch
+    from smalt_tpu_torch.parallel import exact_pass2 as p2
+    got = p2.swq_cuda(qa, sj, par, mat, go, ge)
+    want = p2.swq_fill_walk_ref(qa, sj, par, mat, go, ge)
+    torch.cuda.synchronize()
+    errs = [int((g.to(torch.int32) - w).abs().max()) for g, w in
+            zip(got, want)]
+    if max(errs) != 0:
+        bad = (got[3].to(torch.int32) != want[3]).any(dim=1)
+        bad |= (got[0] != want[0]) | (got[1] != want[1]) | (got[2] != want[2])
+        fail(f"swq differs from swq_fill_walk_ref on {what}: max |diff| "
+             f"best/mi/mj/rec {errs}; windows "
+             f"{bad.nonzero().flatten()[:8].tolist()}")
+    return max(errs), want
+
+
+def check_swq_kernel(rng, card: str):
+    """Phase 3c: swq against its plain version on SWQ_SHAPES.  Returns
+    (max_abs_err, kernel ms, plain ms) at the main-path shape (the
+    first)."""
+    import torch
+    from smalt_tpu.align import core as ali
+    from smalt_tpu_torch.parallel import exact_pass2 as p2
+    m, go, ge = ali.make_score_matrix()
+    go, ge = -go, -ge
+    dev = torch.device("cuda")
+    mat = torch.from_numpy(m).to(dev)
+    worst, main = 0, None
+    for Qp, Sp, W in SWQ_SHAPES:
+        qa, sj, par = (torch.from_numpy(x).to(dev)
+                       for x in p2.synth_windows(rng, W, Qp, Sp))
+        err, want = check_swq_pair(qa, sj, par, mat, go, ge,
+                                   f"Qp={Qp} Sp={Sp}")
+        worst = max(worst, err)
+        best = want[0]
+        nz, n0 = int((best > 0).sum()), int((best == 0).sum())
+        walked = int((want[3] != 0).any(dim=1).sum())
+        if nz < W // 2 or n0 < W // 16:
+            fail(f"degenerate swq windows at Qp={Qp} Sp={Sp}: {nz} with "
+                 f"best > 0, {n0} with best 0")
+        k_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, go, ge), 20)
+        p_ms = time_ms(lambda: p2.swq_fill_walk_ref(qa, sj, par, mat, go, ge),
+                       2, warm=1)
+        cells = W * Qp * Sp
+        print(f"# swq Qp={Qp} Sp={Sp} W={W}: equal to swq_fill_walk_ref "
+              f"(best, mi, mj, every rec row; {nz} windows with best > 0, "
+              f"{n0} with best 0, {walked} with a record); kernel {k_ms:.4f} ms ({cells / k_ms / 1e6:.1f} "
+              f"GCUPS over the full frame), plain {p_ms:.3f} ms | {card}",
+              flush=True)
+        if main is None:
+            main = (k_ms, p_ms)
+        del qa, sj, par, want
     return (worst,) + main
 
 
@@ -691,6 +778,161 @@ def run_pairs(d: str, genome, card: str, device: str = "cuda"):
     return launches
 
 
+def exact_batch_split(idx_name: str, fq: str, card: str):
+    """Phase 7, one batch outside the CLI runs (so its launches are not
+    counted there): the collate step and the pass-2 step of the first
+    batch, timed with CUDA events; both held against the port's CPU
+    steps on the same batch (equal outputs), and swq against its plain
+    version on that batch's pass-2 windows.  Returns (max_abs_err,
+    collate ms, pass-2 ms)."""
+    import torch
+    from smalt_tpu.index.table import KmerIndex
+    from smalt_tpu.map.engine import MapEngine, MapParams
+    from smalt_tpu.map.fastmode import iter_fastq_batches
+    from smalt_tpu.seq.refset import RefSet
+    from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.parallel import exact_pass2 as p2
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    eng = MapEngine(refset, idx, MapParams())
+    dev = DeviceExact.make(eng, "sam", True, False, False, False,
+                           device="cuda")
+    cpu = DeviceExact.make(eng, "sam", True, False, False, False,
+                           device="cpu")
+    dev._p2_on = True
+    raw = next(iter(iter_fastq_batches(fq, dev.batch)))
+    host, dargs = dev._prepare(*raw)
+    step = dev._collate_fn()
+    col_ms = time_ms(lambda: step(*dargs), 3, warm=1)
+    outs = dev._collate_outputs(dargs)
+    # the exactness protocol re-stages what a wrong device step flags, so
+    # the SAM alone cannot show a collate fault: hold the CUDA step
+    # against the port's CPU step on the same batch
+    t0 = time.perf_counter()
+    chost, cargs = cpu._prepare(*raw)
+    for name, g, w in zip(("pool", "counts2", "scores", "fallback"), outs,
+                          cpu._collate_outputs(cargs)):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"the CUDA collate step's {name} differs from the CPU "
+                 f"step's on the first batch of phase 7")
+    cpu_col_s = time.perf_counter() - t0
+    item, _ = dev._post_batch(host, outs)
+    wd, _, Sp, nw = dev._p2_args(item[-1][2])
+    p2_step = dev._pass2_step()
+    p2_ms = time_ms(lambda: p2_step(dev._di.ref_alpha, host[10], host[11], wd,
+                                    Sp), 10)
+    # and the whole pass-2 step (gather, strands, dummies, packing)
+    t0 = time.perf_counter()
+    p2_got = p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp).cpu()
+    p2_cpu = cpu._pass2_step()(cpu._di.ref_alpha, chost[10], chost[11],
+                               wd.cpu(), Sp)
+    if not torch.equal(p2_got, p2_cpu):
+        fail("the CUDA pass-2 step differs from the CPU step on the first "
+             "batch of phase 7")
+    cpu_p2_s = time.perf_counter() - t0
+    qa, sj, par = p2.pass2_inputs(dev._di.ref_alpha, host[10], host[11], wd,
+                                  Sp)
+    mat = torch.from_numpy(np.asarray(eng.matrix, np.int32)).cuda()
+    err, want = check_swq_pair(qa, sj, par, mat, -eng.gapopen, -eng.gapext,
+                               "the first pass-2 batch of phase 7")
+    W, Qp = qa.shape
+    print(f"# device-exact, one batch of {dev.batch} reads: collate step "
+          f"{col_ms:.3f} ms (CUDA events, 3 calls; H={dev._cfg.H}, pool "
+          f"{dev._cfg.pool}), pass-2 step {p2_ms:.3f} ms (10 calls; {nw} "
+          f"windows padded to W={W}, Qp={Qp}, Sp={Sp}); swq equal to "
+          f"swq_fill_walk_ref on them ({int((want[0][:nw] > 0).sum())} with "
+          f"best > 0); collate outputs (pool, counts2, scores, fallback: "
+          f"{int(outs[3][:len(raw[0])].sum())} reads flagged) and the packed "
+          f"pass-2 output equal to the port's CPU steps ({cpu_col_s:.1f} s "
+          f"and {cpu_p2_s:.1f} s on the host) | {card}", flush=True)
+    return err, col_ms, p2_ms
+
+
+def run_exact(d: str, genome, card: str):
+    """Phase 7: `map --device-exact` against the host C lane on the
+    phase-4 genome and index.  Returns (launches of the SMALT_DX_P2=1
+    run, launches of the run without, swq max_abs_err on the first
+    pass-2 batch)."""
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.ops import sw
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 3)
+    reads, _, _ = make_reads(rng, genome, N_EXACT, READLEN)
+    fq, _ = write_fastq(os.path.join(d, "exact.fq"), reads, b"x")
+    bodies, launches = {}, {}
+    for label, flags, p2 in (("host C lane", [], None),
+                             ("--device-exact", ["--device-exact"], None),
+                             ("--device-exact SMALT_DX_P2=1",
+                              ["--device-exact"], "1")):
+        os.environ["SMALT_DP1_TIMING"] = "1"
+        if p2 is None:
+            os.environ.pop("SMALT_DX_P2", None)
+        else:
+            os.environ["SMALT_DX_P2"] = p2
+        sam = os.path.join(d, f"exact_{len(bodies)}.sam")
+        err = io.StringIO()
+        for k in sw.launches:
+            sw.launches[k] = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["map", "-r", "1", "-f", "sam", "-o", sam] +
+                              flags + [idx_name, fq])
+        finally:
+            os.environ.pop("SMALT_DX_P2", None)
+            os.environ.pop("SMALT_DP1_TIMING", None)
+        wall = time.perf_counter() - t0
+        launches[label] = dict(sw.launches)
+        if rc != 0:
+            sys.stderr.write(err.getvalue())
+            fail(f"map {' '.join(flags)} (SMALT_DX_P2={p2}) exited {rc}")
+        with open(sam) as f:
+            bodies[label] = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("@PG")]
+        n = sum(1 for ln in bodies[label] if not ln.startswith("@"))
+        if n != N_EXACT:
+            fail(f"{label}: {n} SAM records for {N_EXACT} reads")
+        m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
+                      r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)",
+                      err.getvalue())
+        stages = {}
+        for st, sec in re.findall(r"# dx-(prep|dev|post|pass2) ([\d.]+)s",
+                                  err.getvalue()):
+            stages[st] = stages.get(st, 0.0) + float(sec)
+        lane = "" if m is None else (
+            f"; lane {m.group(1)} s ({N_EXACT / float(m.group(1)):.1f} "
+            f"reads/s), n_restaged {m.group(2)}, p2_used {m.group(3)}, "
+            f"p2_fb {m.group(4)}, p2_hit {m.group(5)}, host_batches "
+            f"{m.group(6)}; seconds summed over batches: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()) +
+            " (dev: collate step + copy back, on the worker thread)")
+        print(f"# map {label}: {N_EXACT} reads of {READLEN} bp in {wall:.3f} "
+              f"s through the CLI ({N_EXACT / wall:.1f} reads/s incl. index "
+              f"load){lane}; launches {launches[label]} | {card}", flush=True)
+        if flags:
+            if m is None:
+                fail(f"{label}: no dx-total line")
+            if int(m.group(6)) != 0:
+                fail(f"{label}: {m.group(6)} batches rendered on the host")
+            if bodies[label] != bodies["host C lane"]:
+                diff = next(i for i, (a, b) in enumerate(zip(
+                    bodies[label], bodies["host C lane"])) if a != b)
+                fail(f"{label}: SAM differs from the host C lane at line "
+                     f"{diff}: {bodies[label][diff][:120]!r} vs "
+                     f"{bodies['host C lane'][diff][:120]!r}")
+            if launches[label]["sw_full"] < 1:
+                fail(f"{label}: the score-only sw_full was never launched")
+            if p2 and (launches[label]["swq"] < 1 or int(m.group(5)) < 1):
+                fail(f"{label}: swq launched {launches[label]['swq']} "
+                     f"times, p2_hit {m.group(5)}")
+            if not p2 and launches[label]["swq"] != 0:
+                fail(f"{label}: swq launched without SMALT_DX_P2=1")
+    print(f"# device-exact SAM (SMALT_DX_P2 unset and =1) byte-identical to "
+          f"the host C lane on {N_EXACT} reads", flush=True)
+    err, _, _ = exact_batch_split(idx_name, fq, card)
+    return (launches["--device-exact SMALT_DX_P2=1"],
+            launches["--device-exact"], err)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -707,7 +949,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    names = ["sw_full", "sw_band"]
+    names = ["sw_full", "sw_band", "swq"]
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc each, together
         list(pool.map(sw._kernel_lib, names))
     for name in names:
@@ -725,6 +967,10 @@ def main() -> int:
     t0 = time.perf_counter()
     berr, bk_ms, bp_ms, bk0_ms, bp0_ms = check_band_kernel(rng, card)
     print(f"# phase 3b (sw_band against plain): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    qerr, qk_ms, qp_ms = check_swq_kernel(rng, card)
+    print(f"# phase 3c (swq against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     d = os.path.join(ROOT, "build", "smoke")
@@ -744,6 +990,11 @@ def main() -> int:
         pe = run_pairs(d, genome, card)
         print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        dx, dx0, qerr7 = run_exact(d, genome, card)
+        qerr = max(qerr, qerr7)
+        print(f"# phase 7 (device-exact): {time.perf_counter() - t0:.2f} s",
+              flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -751,11 +1002,14 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("jax was imported")
 
-    launches = {k: se[k] + lr[k] + pe[k] for k in sw.launches}
+    launches = {k: se[k] + lr[k] + pe[k] + dx[k] + dx0[k]
+                for k in sw.launches}
     full = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
             "replaces": "smalt_tpu/ops/sw.py:60"}
     band = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_band.cu",
             "replaces": "smalt_tpu/ops/sw.py:269"}
+    swq = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/swq.cu",
+           "replaces": "smalt_tpu/parallel/exact_pass2.py:179"}
     print(json.dumps({"kernels": [
         dict(name="sw_full_track", **full, launches=launches["sw_full_track"],
              max_abs_err=err, ms=k_ms, plain_ms=p_ms),
@@ -764,7 +1018,9 @@ def main() -> int:
         dict(name="sw_band_track", **band, launches=launches["sw_band_track"],
              max_abs_err=berr, ms=bk_ms, plain_ms=bp_ms),
         dict(name="sw_band", **band, launches=launches["sw_band"],
-             max_abs_err=berr, ms=bk0_ms, plain_ms=bp0_ms)]}))
+             max_abs_err=berr, ms=bk0_ms, plain_ms=bp0_ms),
+        dict(name="swq", **swq, launches=launches["swq"],
+             max_abs_err=qerr, ms=qk_ms, plain_ms=qp_ms)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

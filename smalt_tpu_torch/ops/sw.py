@@ -29,7 +29,7 @@ MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
 # launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these)
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
-            "sw_band": 0}
+            "sw_band": 0, "swq": 0}
 
 _libs: dict = {}
 
@@ -83,7 +83,8 @@ def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
 
 
 # ctypes signatures of the kernels' plain C entry points (p pointer, i int)
-_SIGS = {"sw_full": "ppppiiiiiipppp", "sw_band": "ppppiiiiiiiipppp"}
+_SIGS = {"sw_full": "ppppiiiiiipppp", "sw_band": "ppppiiiiiiiipppp",
+         "swq": "ppppiiiiipppppp"}
 
 
 def _kernel_lib(name: str):

@@ -105,6 +105,19 @@ class DeviceIndex:
         return cls.from_numpy(arrays, meta, device)
 
     @classmethod
+    def build_ref_only(cls, refset: RefSet, idx: KmerIndex,
+                       device) -> "DeviceIndex":
+        """The reference codes only (mesh.py:178), for the host-hits
+        regime of `--device-exact`, whose device step never reads the
+        k-mer table: no table or positions upload, and no k limit."""
+        z = np.zeros(1, np.int32)
+        return cls.from_numpy(
+            {"words": z, "starts": z, "pos": z,
+             "ref_alpha": codec.alpha(refset.codes).astype(np.int32)},
+            {"wordlen": idx.wordlen, "nskip": idx.nskip,
+             "ref_len": refset.total_len}, device)
+
+    @classmethod
     def from_numpy(cls, arrays: dict, meta: dict, device) -> "DeviceIndex":
         """Carry an index across from numpy arrays named after the
         fields (words, starts, pos, ref_alpha, optional table) and

@@ -1,0 +1,409 @@
+"""`map --device-exact` through the port (smalt_tpu_torch) against
+smalt_tpu on the CPU, with exact integer equality and equal dtypes: the
+pass-2 fill + walk and its step, the host-hits collate step and its
+sorts, the lane end to end (SAM byte-identical to the host C lane and
+to the JAX lane, with equal counters) and the CLI."""
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smalt_tpu import rand
+from smalt_tpu.align.core import AliBand, BandError
+from smalt_tpu.index.table import build_index
+from smalt_tpu.map import fastlane as jfl
+from smalt_tpu.map.engine import MapEngine, MapParams
+from smalt_tpu.map.fastlane import FastLane, codec_encode_bulk
+from smalt_tpu.map.pipeline import run_pipeline_raw_fastq
+from smalt_tpu.native import get_lib
+from smalt_tpu.parallel import exact_collate as jcol
+from smalt_tpu.parallel import exact_pass2 as jp2
+from smalt_tpu.seq.refset import RefSet
+from smalt_tpu_torch.map.fastlane import DeviceExact
+from smalt_tpu_torch.map.pipeline import run_device_exact_fastq
+from smalt_tpu_torch.parallel import exact_collate as tcol
+from smalt_tpu_torch.parallel import exact_pass2 as tp2
+from test_device_pass2 import default_matrix, gen_case
+
+GI, GE = 4, 3
+QLEN = 100
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_same(got, want, what):
+    got, want = _np(got), _np(want)
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _windows(rng, n, Qp, Sp):
+    """gen_case windows (tests/test_device_pass2.py) in the oracle's par
+    layout, with lead-pinned rows (q_left > l_edge) and the edges of
+    mark_edge_windows: s_left > 0, dummy (valid 0 / slen -1) and best-0
+    (an all-pad subject) windows."""
+    matrix = default_matrix()
+    qa = np.full((n, Qp), 7, np.int32)
+    sj = np.full((n, Sp), 7, np.int32)
+    par = np.zeros((n, 8), np.int32)
+    w = 0
+    while w < n:
+        qlen, qalpha, subj, slen, cqs, cqe, bl, br, _ = \
+            gen_case(rng, matrix, GI, GE)
+        if slen > Sp or qlen > Qp:
+            continue
+        try:
+            band = AliBand.make(bl, br, cqs, cqe, qlen, 0, slen - 1, slen)
+        except BandError:
+            continue
+        qa[w, :qlen] = qalpha
+        sj[w, :slen] = subj
+        par[w] = [band.l_edge, band.r_edge, band.q_left, band.q_len,
+                  band.s_len, 1, band.s_left, 0]
+        w += 1
+    tp2.mark_edge_windows(rng, sj, par)
+    return qa, sj, par
+
+
+@pytest.mark.parametrize("gen,seed,Qp,Sp", [
+    ("gen_case", 1, 128, 192), ("gen_case", 2, 128, 256),
+    ("gen_case", 3, 256, 96),
+    # the generator chip_smoke.py holds the kernel against its plain
+    # version with, at the lane's shapes
+    ("synth", 6, 128, 256), ("synth", 7, 256, 512)])
+def test_swq_ref_matches_jax(gen, seed, Qp, Sp):
+    rng = np.random.default_rng(seed)
+    if gen == "synth":
+        qa, sj, par = tp2.synth_windows(rng, 96, Qp, Sp)
+    else:
+        qa, sj, par = _windows(rng, 96, Qp, Sp)
+    matrix = default_matrix()
+    want = jp2.swq_fill_walk_ref(qa, sj, par, matrix, GI, GE)
+    got = tp2.swq_fill_walk_ref(torch.from_numpy(qa), torch.from_numpy(sj),
+                                torch.from_numpy(par),
+                                torch.from_numpy(matrix), GI, GE)
+    for g, w_, what in zip(got, want, ("best", "mi", "mj", "rec")):
+        _assert_same(g, w_, what)
+    best = _np(want[0])
+    assert (best == 0).sum() >= 12 and (best > 0).sum() >= 24
+    assert (_np(want[3]) & 3 == 0).any()           # some SUSPECT / blank
+
+
+def _pass2_inputs(rng, B=24, Qp=128, Sp=256, nw=160, L=6000):
+    """A resident reference, a batch of mangled reads and pass-2 window
+    descriptors on both strands, with wlen = 0 (dummy) windows."""
+    ref_alpha = rng.integers(0, 4, L).astype(np.uint8)
+    ref_alpha[rng.random(L) < 0.01] = 4
+    qlens = rng.integers(60, Qp + 1, B).astype(np.int32)
+    reads = np.zeros((B, Qp), np.uint8)
+    starts = rng.integers(0, L - Sp, B)
+    for b in range(B):
+        s = np.frombuffer(b"ACGT", np.uint8)[
+            ref_alpha[starts[b]: starts[b] + qlens[b]] & 3].copy()
+        s[rng.random(qlens[b]) < 0.03] = ord("N")
+        reads[b, :qlens[b]] = np.frombuffer(codec_encode_bulk(s), np.uint8)
+    wd = np.zeros((nw, 12), np.int32)
+    w = 0
+    while w < nw:
+        b = int(rng.integers(0, B))
+        q = int(qlens[b])
+        slen = int(rng.integers(q // 2, Sp + 1))
+        cqs = int(rng.integers(0, q // 3))
+        cqe = int(rng.integers(2 * q // 3, q))
+        bl = int(rng.integers(-20, 10))
+        try:
+            band = AliBand.make(bl, bl + int(rng.integers(2, 40)), cqs, cqe,
+                                q, 0, slen - 1, slen)
+        except BandError:
+            continue
+        wlen = 0 if w % 9 == 4 else int(rng.integers(band.s_len, Sp + 1))
+        wd[w] = [max(0, int(starts[b]) + int(rng.integers(-8, 8))),
+                 band.s_len, b, w % 2, band.l_edge, band.r_edge,
+                 band.q_left, band.q_len, band.s_left, wlen, 0, 0]
+        w += 1
+    return ref_alpha, reads, qlens, wd
+
+
+def test_pass2_step_matches_jax():
+    ref_alpha, reads, qlens, wd = _pass2_inputs(np.random.default_rng(4))
+    m = default_matrix()
+    Sp = 256
+    want = np.asarray(jp2.build_pass2_step(m.tobytes(), m.shape, GI, GE,
+                                           False)(
+        jnp.asarray(ref_alpha), jnp.asarray(reads), jnp.asarray(qlens),
+        jnp.asarray(wd), Sp))
+    got = tp2.build_pass2_step(m, GI, GE, "cpu")(
+        torch.from_numpy(ref_alpha), torch.from_numpy(reads),
+        torch.from_numpy(qlens), torch.from_numpy(wd), Sp)
+    _assert_same(got, want, "packed [W, 3 + Sp/2]")
+    best = want[:, 0]
+    assert (best > 0).sum() >= 60 and (best[wd[:, 9] == 0] == 0).all()
+    for g, w_ in zip(tp2.unpack_pass2(_np(got), 150, Sp),
+                     jp2.unpack_pass2(want, 150, Sp)):
+        _assert_same(g, w_, "unpack_pass2")
+
+
+def test_redeclared_constants_match_jax():
+    """The port re-declares what it cannot import without jax."""
+    for name in ("SEG_DIFFSHIFT", "EDGE_BAND_FACTOR", "MAX_BANDEDGE_2POW",
+                 "MINLEN_QUERY_STRIPED", "BWSCAL_QLEN", "BIG", "MMALI_BIT"):
+        assert int(getattr(tcol, name)) == int(getattr(jcol, name)), name
+    assert tp2.NEG == jp2.NEG
+    a = jcol.CollateCfg(wordlen=13, nskip=2, maxhit=9, B=4, Q=128)
+    b = tcol.CollateCfg(wordlen=13, nskip=2, maxhit=9, B=4, Q=128)
+    assert vars(a) == vars(b) and a.pool == b.pool
+
+
+def test_lexsort_matches_lax_sort():
+    """Equal k1 (ties broken by k2, then ks), negative k1 and the BIG
+    pad sort as jax.lax.sort(num_keys=2 / 3) sorts them."""
+    rng = np.random.default_rng(9)
+    R, H = 16, 64
+    k1 = rng.integers(-40, 40, (R, H)).astype(np.int32)
+    k2 = rng.integers(0, 8, (R, H)).astype(np.int32)
+    ks = rng.integers(0, 3, (R, H)).astype(np.int32)
+    pad = np.arange(H)[None, :] >= rng.integers(0, H, R)[:, None]
+    big = np.int32(tcol.BIG)
+    k1, k2, ks = (np.where(pad, big, x) for x in (k1, k2, ks))
+    k1[0, :4] = [-(1 << 30), 1 << 30, -5, -5]
+    for keys in ([k1, k2], [ks, k1, k2]):
+        want = jax.lax.sort([jnp.asarray(x) for x in keys],
+                            num_keys=len(keys))
+        got = tcol.lexsort_rows([torch.from_numpy(x) for x in keys])
+        for g, w_ in zip(got, want):
+            _assert_same(g, w_, f"{len(keys)} keys")
+
+
+def _corpus(tmp_path, kind):
+    """The three corpora of tests/test_device_exact.py:188-397 (two
+    sequences with a heavy repeat; one sequence; many contigs), ~200
+    reads each plus repeat-unit reads the device must re-stage."""
+    rng = np.random.default_rng({"two_seq": 11, "one_seq": 23,
+                                 "contigs": 31}[kind])
+    bases = "ACGT"
+    comp = str.maketrans("ACGT", "TGCA")
+    if kind == "contigs":
+        unit = "".join(rng.choice(list(bases), 300))
+        seqs = []
+        for s in range(60):
+            g = "".join(rng.choice(list(bases), 1200 + 507 * (s % 5)))
+            if s % 3 == 0:
+                at = int(rng.integers(0, len(g) - 300))
+                g = g[:at] + unit + g[at + 300:]
+            seqs.append(g)
+        k = 16
+    else:
+        unit = "".join(rng.choice(list(bases), 400))
+        seqs = []
+        for _ in range(2 if kind == "two_seq" else 1):
+            L = 15000 if kind == "two_seq" else 30000
+            g = "".join(rng.choice(list(bases), L))
+            for _ in range(25 if kind == "two_seq" else 20):
+                at = int(rng.integers(0, L - 400))
+                g = g[:at] + unit + g[at + 400:]
+            seqs.append(g)
+        k = 11
+    fa = tmp_path / "g.fa"
+    fa.write_text("".join(f">c{i}\n{g}\n" for i, g in enumerate(seqs)))
+    refset = RefSet.from_fasta(str(fa))
+    idx = build_index(refset, k, 2)
+    _ = idx.addrs
+    recs = []
+    for i in range(200):
+        s = int(rng.integers(0, len(seqs)))
+        pos = int(rng.integers(0, max(len(seqs[s]) - QLEN, 1)))
+        r = list(seqs[s][pos:pos + QLEN].ljust(QLEN, "A"))
+        if i % 2:
+            for _ in range(3):
+                r[int(rng.integers(0, QLEN))] = bases[int(rng.integers(0, 4))]
+        r = "".join(r)
+        if rng.random() < 0.5:
+            r = r.translate(comp)[::-1]
+        recs.append(f"@r{i}\n{r}\n+\n{'5' * QLEN}\n")
+    for i in range(4):
+        recs.append(f"@rep{i}\n{unit[:QLEN]}\n+\n{'5' * QLEN}\n")
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(recs))
+    return refset, idx, str(fq)
+
+
+def _raw_batch(fq, n):
+    from smalt_tpu.map.fastmode import iter_fastq_batches
+    return next(iter(iter_fastq_batches(fq, n)))
+
+
+@pytest.mark.parametrize("kind", ["one_seq", "contigs"])
+def test_collate_matches_jax(tmp_path, kind):
+    """The host-hits collate step on inputs made by DeviceExact._pre:
+    one sequence (NS = 1, no per-hit sequence ids) and 60 contigs
+    (NS > 1, sort led by the sequence id)."""
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    refset, idx, fq = _corpus(tmp_path, kind)
+    eng = MapEngine(refset, idx, MapParams())
+    port = DeviceExact.make(eng, "sam", True, False, False, False,
+                            batch=256, device="cpu")
+    assert port is not None and port._host_hits
+    host, dargs = port._prepare(*_raw_batch(fq, 256))
+    assert (len(dargs) == 7) == (kind == "contigs")
+    ref = jfl.DeviceExact.make(eng, "sam", True, False, False, False,
+                               batch=256, interpret=True)
+    want = ref._collate_fn()(*[jnp.asarray(x.numpy()) for x in dargs])
+    got = port._collate_outputs(dargs)
+    for g, w_, what in zip(got, want, ("pool", "counts2", "scores",
+                                       "fallback")):
+        _assert_same(g, w_, what)
+    pool, counts2, scores, fb = got
+    assert counts2.sum() > 204 and (scores > 0).sum() > 150
+    assert fb.any() and not fb.all()      # repeat reads flag, others pass
+
+
+def test_non_host_hits_raises(tmp_path):
+    """nskip > wordlen needs the device hit expansion: not ported."""
+    fa = tmp_path / "g.fa"
+    rng = np.random.default_rng(3)
+    fa.write_text(">c\n" + "".join(rng.choice(list("ACGT"), 5000)) + "\n")
+    refset = RefSet.from_fasta(str(fa))
+    eng = MapEngine(refset, build_index(refset, 11, 12), MapParams())
+    dev = DeviceExact.make(eng, "sam", True, False, False, False, batch=8,
+                           device="cpu")
+    assert dev is not None and not dev._host_hits
+    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
+        dev._collate_fn()
+
+
+@pytest.mark.parametrize("kind,p2", [("two_seq", "1"), ("one_seq", None),
+                                     ("contigs", "1")])
+def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
+    """The port's lane on the CPU == the host C lane == the JAX lane,
+    byte for byte, with the JAX lane's counters."""
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    if p2 is None:
+        monkeypatch.delenv("SMALT_DX_P2", raising=False)
+    else:
+        monkeypatch.setenv("SMALT_DX_P2", p2)
+    refset, idx, fq = _corpus(tmp_path, kind)
+    outs, counters = [], []
+    for which in ("host", "jax", "port"):
+        rand.ranseed(1)
+        eng = MapEngine(refset, idx, MapParams())
+        buf = io.StringIO()
+        if which == "host":
+            assert run_pipeline_raw_fastq(eng, fq, buf, refset)
+        elif which == "jax":
+            lane = FastLane.make(eng, "sam", True, False, False, False)
+            dev = jfl.DeviceExact.make(eng, "sam", True, False, False,
+                                       False, batch=64, interpret=True)
+            dev.run_raw_fastq(fq, buf, lambda a, b, c:
+                              lane.render_raw_block(a, b, c))
+        else:
+            dev = run_device_exact_fastq(eng, fq, buf, refset, batch=64,
+                                         device="cpu")
+            assert dev.host_batches == 0
+        if which != "host":
+            counters.append((dev.n_restaged, dev.p2_used, dev.p2_fb,
+                             dev.p2_hit))
+        outs.append(buf.getvalue())
+    assert len(outs[0].splitlines()) == 204
+    assert outs[2] == outs[0] and outs[1] == outs[0]
+    assert counters[1] == counters[0], counters
+    n_restaged, p2_used, _, p2_hit = counters[1]
+    assert n_restaged > 0
+    assert (p2_used >= 50 and p2_hit >= 5) if p2 else p2_used == 0
+
+
+@pytest.mark.parametrize("p2", [None, "1"])
+def test_host_rendered_batch_keeps_input_order(tmp_path, monkeypatch, p2):
+    """A batch the lane does not take (here the third of 64 reads, which
+    holds one read over QMAX = 255 bp) is rendered on the host in its
+    place: the SAM and the repeat placements drawn from the RNG equal
+    the host C lane's, byte for byte."""
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    if p2 is None:
+        monkeypatch.delenv("SMALT_DX_P2", raising=False)
+    else:
+        monkeypatch.setenv("SMALT_DX_P2", p2)
+    refset, idx, fq = _corpus(tmp_path, "two_seq")
+    genome = (tmp_path / "g.fa").read_text().splitlines()[1]
+    long_read = genome[5000:5300]
+    recs = open(fq).read().splitlines(keepends=True)
+    at = 4 * 150                                   # read 150: batch 2
+    recs[at:at] = [f"@long\n{long_read}\n+\n{'5' * len(long_read)}\n"]
+    with open(fq, "w") as f:
+        f.write("".join(recs))
+    outs = []
+    for which in ("host", "port"):
+        rand.ranseed(1)
+        eng = MapEngine(refset, idx, MapParams())
+        buf = io.StringIO()
+        if which == "host":
+            assert run_pipeline_raw_fastq(eng, fq, buf, refset)
+        else:
+            dev = run_device_exact_fastq(eng, fq, buf, refset, batch=64,
+                                         device="cpu")
+            assert dev.host_batches == 1 and dev.n_restaged > 0
+        outs.append(buf.getvalue())
+    lines = outs[1].splitlines()
+    assert len(lines) == 205 and lines[150].startswith("long\t")
+    assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("p2", [None, "1"])
+def test_cli_matches_jax_cli(tmp_path, monkeypatch, p2):
+    from smalt_tpu import cli as jcli
+    from smalt_tpu_torch import cli as tcli
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    if p2 is None:
+        monkeypatch.delenv("SMALT_DX_P2", raising=False)
+    else:
+        monkeypatch.setenv("SMALT_DX_P2", p2)
+    refset, idx, fq = _corpus(tmp_path, "two_seq")
+    name = str(tmp_path / "idx")
+    refset.save(name)
+    idx.save(name)
+    got, want = str(tmp_path / "got.sam"), str(tmp_path / "want.sam")
+    assert tcli.main(["map", "--device-exact", "--device", "cpu", "-r", "1", "-o", got,
+                      name, fq]) == 0
+    assert jcli.main(["map", "-r", "1", "-o", want, name, fq]) == 0
+    body = [open(p).read().splitlines() for p in (got, want)]
+    assert body[0][0].startswith("@HD")
+    assert len([ln for ln in body[0] if not ln.startswith("@")]) == 204
+    assert [ln for ln in body[0] if not ln.startswith("@PG")] == \
+        [ln for ln in body[1] if not ln.startswith("@PG")]
+
+
+def test_swq_cuda_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version: a tensor off the
+    card is an error (build_pass2_step picks the plain version by the
+    device instead)."""
+    qa, sj, par = _windows(np.random.default_rng(5), 4, 128, 64)
+    m = default_matrix()
+    with pytest.raises(ValueError, match="cuda"):
+        tp2.swq_cuda(*(torch.from_numpy(x) for x in (qa, sj, par, m)),
+                     GI, GE)
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["-f", "bam"], "Queue 1 #6c"),
+    (["--resume"], "Queue 1 #6d"),
+    (["-n", "2"], "Queue 1 #6e"),
+    (["-S", "gapopen=-1,gapext=-3"], "Queue 1 #6e"),   # make refuses
+])
+def test_cli_unported_exact_cases_exit_2(tmp_path, capsys, extra, item):
+    from smalt_tpu_torch import cli as tcli
+    refset, idx, fq = _corpus(tmp_path, "one_seq")
+    name = str(tmp_path / "idx")
+    refset.save(name)
+    idx.save(name)
+    rc = tcli.main(["map", "--device-exact", "--device", "cpu", "-o",
+                    str(tmp_path / "o.sam")] + extra + [name, fq])
+    assert rc == 2
+    assert f"ROADMAP.md {item})" in capsys.readouterr().err

@@ -292,17 +292,19 @@ def test_cli_pairs_match_jax_cli(saved_pairs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh", "2,1"], "Queue 1 #8"),
-    (["--profile", "prof"], "Queue 1 #12"),
-    (["-n", "2"], "Queue 1 #11"),
-    (["--device-exact"], "Queue 1 #6"),
+    (["--fast", "--mesh", "2,1"], "Queue 1 #8"),
+    (["--fast", "--profile", "prof"], "Queue 1 #12"),
+    (["--fast", "-n", "2"], "Queue 1 #11"),
+    (["--device-exact"], "Queue 1 #6a"),     # with a mates file
+    (["--device-pass1"], "Queue 1 #5"),
 ])
-def test_cli_unported_options_exit_nonzero(saved_index, extra, item):
+def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys):
     from smalt_tpu_torch import cli
     name, fq = saved_index
-    fast = [] if extra == ["--device-exact"] else ["--fast"]
-    rc = cli.main(["map"] + fast + extra + ["--device", "cpu", name, fq])
+    mates = [fq] if extra == ["--device-exact"] else []
+    rc = cli.main(["map"] + extra + ["--device", "cpu", name, fq] + mates)
     assert rc == 2
+    assert f"ROADMAP.md {item})" in capsys.readouterr().err
 
 
 def test_cli_cuda_without_gpu_fails(saved_index):
@@ -315,11 +317,31 @@ def test_cli_cuda_without_gpu_fails(saved_index):
                 if ln and not ln.startswith("@")]
 
 
-@pytest.mark.parametrize("what", ["single", "long", "pairs"])
+@pytest.mark.parametrize("what", ["single", "long", "pairs", "exact"])
 def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
     """A run of the port imports no jax: short single-end reads, kilobase
-    reads (the banded path and the long-read host tail) and pairs (the
-    pair tail)."""
+    reads (the banded path and the long-read host tail), pairs (the
+    pair tail) and the device-exact lane with device pass 2."""
+    if what == "exact":
+        name, fq = saved_index
+        code = (
+            "import io, os, sys\n"
+            "os.environ['SMALT_DX_P2'] = '1'\n"
+            "from smalt_tpu.seq.refset import RefSet\n"
+            "from smalt_tpu.index.table import KmerIndex\n"
+            "from smalt_tpu.map.engine import MapEngine, MapParams\n"
+            "from smalt_tpu_torch.map.pipeline import run_device_exact_fastq\n"
+            f"rs, ix = RefSet.load({name!r}), KmerIndex.load({name!r})\n"
+            "buf = io.StringIO()\n"
+            "dev = run_device_exact_fastq(MapEngine(rs, ix, MapParams()), "
+            f"{fq!r}, buf, rs, batch=64, device='cpu')\n"
+            "assert len(buf.getvalue().splitlines()) == 200\n"
+            "assert dev.p2_used > 0 and dev.host_batches == 0\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "print('ok')\n")
+        r = _run(["-c", code])
+        assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+        return
     if what == "single":
         name, fq = saved_index
         reads, n = f"{fq!r}", 200
