@@ -13,12 +13,19 @@
    paired shape Q=160 / S=256 / B=24,576, the edge shapes Q=80 /
    S=128 and Q=512 / S=640, and the device-exact pass-1 pool shapes
    Q=128 / S=128 and Q=256 / S=384 on 6 x 4,096 windows; times both.
+   Then the same on tie-heavy windows (a low-complexity query against
+   a repeat of itself: the maximum is reached in many rows and lanes)
+   at the single-end, the pool and the paired shape.
+   Phases 3, 3b and 3c print each kernel's roofline bound at each shape
+   (smalt_tpu_torch/ops/bounds.py: the cells and bytes these inputs
+   need), which of operations and bytes bounds it, and the share of the
+   bound the kernel reached.
 3b. Holds sw_band (tracked and score-only) against sw_band_score_ref
    the same way, at the long-read windows of Q = 640, 1504 (the main
    path), 4096 (W = 768, two warps a window) on 12,288 windows each,
    and Q = 16,384 (W = 3,072, the kernel's widest band); times both
-   (the plain version over 2 calls after one warm-up) and prints GCUPS
-   over the band's cells.
+   (the plain version over 2 calls after one warm-up, one call at the
+   two widest shapes) and prints GCUPS over the band's cells.
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -54,14 +61,18 @@
    output must equal the port's CPU steps on the same batch (the SAM
    alone cannot show a wrong device step: the lane re-stages what it
    flags), and its pass-2 windows go through the swq check of phase 3c.
-8. Prints the kernels' JSON line, the card's name and power limit, and
-   as the last line {"ok": true, "device": {...}}.
+8. Prints each kernel's launches by path (and per 4,096 reads), the
+   kernels' JSON line (time, plain version's time, bound; no PyTorch
+   call computes a Smith-Waterman score, so library_ms is null), the
+   card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
 6, and 7's two device runs) and read just after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
-build/smoke/ and removed at the end.
+build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
+imported: the script fails if either is in sys.modules at the end.
 """
 import contextlib
 import io
@@ -345,18 +356,75 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound_line(what: str, work: dict, ms: float, card: str) -> str:
+    """One '# bound' line: the least time the card could take for this
+    call's work (ops/bounds.py), what bounds it, and the share reached."""
+    from smalt_tpu_torch.ops import bounds
+    sh = bounds.share(work["bound_ms"], ms)
+    if sh > 1:
+        fail(f"{what}: {ms} ms is below its bound {work['bound_ms']} ms")
+    return (f"# bound {what}: {work['cells']} cells, {work['bytes']} bytes; "
+            f"bound {work['bound_ms']:.4f} ms by {work['bound_by']} "
+            f"(operations {work['ops_ms']:.4f} ms at {bounds.OPS_PER_CELL} "
+            f"ALU instructions a cell, {bounds.SMS} SMs x "
+            f"{bounds.INT_LANES_PER_SM} lanes x {bounds.CLOCK_HZ / 1e9:.2f} GHz;"
+            f" bytes {work['bytes_ms']:.4f} ms at "
+            f"{bounds.MEM_BYTES_PER_S / 1e12:.2f} TB/s); kernel {ms:.4f} ms, "
+            f"bound / kernel = {100 * sh:.1f}%, "
+            f"{work['cells'] / ms / 1e6:.0f} GCUPS over these cells | {card}")
+
+
+TIE_SHAPES = [(112, 128, 3 * BATCH), (128, 128, 6 * BATCH),
+              (160, 256, 6 * BATCH)]
+
+
+def check_ties(mat, go: int, ge: int, card: str):
+    """Phase 3, tie-heavy windows: the tracked sw_full's first-argmax
+    rule against sw_score_ref where the maximum is reached many times."""
+    import torch
+    from smalt_tpu_torch.ops import bounds, sw
+    rng = np.random.default_rng(SEED + 7)
+    for Q, S, B in TIE_SHAPES:
+        q, s, sl = (torch.from_numpy(x).cuda()
+                    for x in sw.tie_windows(rng, B, Q, S))
+        got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
+        got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
+        want = sw.sw_score_ref(q, s, sl, mat, go, ge, track=True)
+        torch.cuda.synchronize()
+        errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+        err0 = int((got0 - want[0]).abs().max())
+        if max(errs + [err0]) != 0:
+            bad = ((got[1] != want[1]) | (got[2] != want[2]) |
+                   (got[0] != want[0])).nonzero().flatten()[:8].tolist()
+            fail(f"sw_full differs from sw_score_ref on tie-heavy windows "
+                 f"at Q={Q} S={S}: max |diff| best/ti/tj {errs}, score-only "
+                 f"{err0}; windows {bad}")
+        zero = int((want[0] == 0).sum())
+        if zero < B // 16 or zero > B // 4:
+            fail(f"degenerate tie windows at Q={Q} S={S}: {zero} score 0")
+        k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                               track=True), 20)
+        print(f"# sw_full Q={Q} S={S} B={B}, tie-heavy windows: equal to "
+              f"sw_score_ref (best, ti, tj and score-only; {zero} windows "
+              f"score 0); track {k_ms:.4f} ms | {card}", flush=True)
+        print(bound_line(f"sw_full_track Q={Q} S={S} B={B} ties",
+                         bounds.sw_full_work(Q, S, sl, True), k_ms, card),
+              flush=True)
+
+
 def check_kernel(rng, card: str):
     """Phase 3: the kernel against its plain version, on the card.
-    Returns (max_abs_err, track ms, plain track ms) at the fast path's
-    shape (the first) and (score-only ms, plain score-only ms) at the
-    device-exact pool's (POOL_SHAPE)."""
+    Returns (max_abs_err, tracked, score-only): for the tracked instance
+    at the fast path's shape (the first) and the score-only one at the
+    device-exact pool's (POOL_SHAPE), a dict of ms, plain_ms, bound_ms
+    and bound_by."""
     import torch
-    from smalt_tpu.align import core as ali
-    from smalt_tpu_torch.ops import sw
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
     dev = torch.device("cuda")
-    mat = torch.from_numpy(m).to(dev)
+    mat = sw.device_matrix(m, dev)
     worst = 0
     main = None
     for Q, S, B in KERNEL_SHAPES:
@@ -387,12 +455,27 @@ def check_kernel(rng, card: str):
               f"{k0_ms:.4f} ms ({cells / k0_ms / 1e6:.1f} GCUPS), plain "
               f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} GCUPS) | {card}",
               flush=True)
+        wt, w0 = (bounds.sw_full_work(Q, S, sl, t) for t in (True, False))
+        print(bound_line(f"sw_full_track Q={Q} S={S} B={B}", wt, k_ms, card))
+        print(bound_line(f"sw_full Q={Q} S={S} B={B}", w0, k0_ms, card),
+              flush=True)
+        if (Q, S) in ((112, 128), (160, 256)):
+            # as the mapping paths give it: every window at full length
+            full = torch.full_like(sl, S)
+            f_ms = time_ms(lambda: sw.sw_full_cuda(q, s, full, mat, go, ge,
+                                                   track=True), 20)
+            print(bound_line(f"sw_full_track Q={Q} S={S} B={B}, all {S} rows",
+                             bounds.sw_full_work(Q, S, full, True), f_ms,
+                             card), flush=True)
         if main is None:
-            main = (k_ms, p_ms)
+            main = dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                        bound_by=wt["bound_by"])
         if (Q, S, B) == POOL_SHAPE:
-            pool = (k0_ms, time_ms(lambda: sw.sw_score_ref(q, s, sl, mat, go,
-                                                           ge), 3))
-    return (worst,) + main + pool
+            pool = dict(ms=k0_ms, plain_ms=time_ms(
+                lambda: sw.sw_score_ref(q, s, sl, mat, go, ge), 3),
+                bound_ms=w0["bound_ms"], bound_by=w0["bound_by"])
+    check_ties(mat, go, ge, card)
+    return worst, main, pool
 
 
 def check_swq_pair(qa, sj, par, mat, go: int, ge: int, what: str):
@@ -416,10 +499,11 @@ def check_swq_pair(qa, sj, par, mat, go: int, ge: int, what: str):
 
 def check_swq_kernel(rng, card: str):
     """Phase 3c: swq against its plain version on SWQ_SHAPES.  Returns
-    (max_abs_err, kernel ms, plain ms) at the main-path shape (the
-    first)."""
+    (max_abs_err, dict of ms, plain_ms, bound_ms, bound_by at the
+    main-path shape, the first)."""
     import torch
-    from smalt_tpu.align import core as ali
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds
     from smalt_tpu_torch.parallel import exact_pass2 as p2
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
@@ -447,20 +531,24 @@ def check_swq_kernel(rng, card: str):
               f"{n0} with best 0, {walked} with a record); kernel {k_ms:.4f} ms ({cells / k_ms / 1e6:.1f} "
               f"GCUPS over the full frame), plain {p_ms:.3f} ms | {card}",
               flush=True)
+        work = bounds.swq_work(Qp, Sp, par)
+        print(bound_line(f"swq Qp={Qp} Sp={Sp} W={W} (in-band cells of the "
+                         f"valid windows)", work, k_ms, card), flush=True)
         if main is None:
-            main = (k_ms, p_ms)
+            main = dict(ms=k_ms, plain_ms=p_ms, bound_ms=work["bound_ms"],
+                        bound_by=work["bound_by"])
         del qa, sj, par, want
-    return (worst,) + main
+    return worst, main
 
 
 def check_band_kernel(rng, card: str):
     """Phase 3b: sw_band (tracked and score-only) against its plain
     version sw_band_score_ref, on the card.  Returns (max_abs_err,
-    track ms, plain ms, score-only ms, plain score-only ms) at the
-    main-path shape Q = BAND_MAIN_Q."""
+    tracked, score-only): dicts of ms, plain_ms, bound_ms and bound_by
+    at the main-path shape Q = BAND_MAIN_Q."""
     import torch
-    from smalt_tpu.align import core as ali
-    from smalt_tpu_torch.ops import sw
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
     dev = torch.device("cuda")
@@ -488,9 +576,12 @@ def check_band_kernel(rng, card: str):
                                                track=True), reps)
         k0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad,
                                                 W, track=False), reps)
-        # the plain version takes seconds a call at the wide shapes
+        # the plain version takes seconds a call at the wide shapes: one
+        # call there (it ran once already, for `want`)
+        wide = S > 4000
         p_ms = time_ms(lambda: sw.sw_band_score_ref(
-            q, s, sl, mat, go, ge, pad, W, track=True), 2, warm=1)
+            q, s, sl, mat, go, ge, pad, W, track=True), 1 if wide else 2,
+            warm=0 if wide else 1)
         cells = B * W * S
         print(f"# sw_band Q={Q} W={W} S={S} B={B}: equal to "
               f"sw_band_score_ref (best, ti, tj and score-only); track "
@@ -498,9 +589,19 @@ def check_band_kernel(rng, card: str):
               f"{k0_ms:.4f} ms ({cells / k0_ms / 1e6:.1f} GCUPS), plain "
               f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} GCUPS) | {card}",
               flush=True)
+        wt, w0 = (bounds.sw_band_work(Q, S, W, pad, sl, t)
+                  for t in (True, False))
+        print(bound_line(f"sw_band_track Q={Q} W={W} S={S} B={B} (band cells "
+                         f"inside the query)", wt, k_ms, card))
+        print(bound_line(f"sw_band Q={Q} W={W} S={S} B={B}", w0, k0_ms, card),
+              flush=True)
         if Q == BAND_MAIN_Q:
-            main = (k_ms, p_ms, k0_ms, time_ms(lambda: sw.sw_band_score_ref(
-                q, s, sl, mat, go, ge, pad, W), 2, warm=1))
+            main = (dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                         bound_by=wt["bound_by"]),
+                    dict(ms=k0_ms, plain_ms=time_ms(
+                        lambda: sw.sw_band_score_ref(q, s, sl, mat, go, ge,
+                                                     pad, W), 2, warm=1),
+                         bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
         del q, s, sl, got, got0, want
     return (worst,) + main
 
@@ -510,12 +611,13 @@ def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
     """Phase 4: `map --fast` through the CLI on `device`, checked.
     Returns the kernel launch counts of the main-path run."""
     import torch
-    from smalt_tpu.index.table import KmerIndex
-    from smalt_tpu.map.fastmode import RawBatch, encode_batch, iter_fastq_hybrid
-    from smalt_tpu.seq.refset import RefSet
     from smalt_tpu_torch import cli
-    from smalt_tpu_torch.map.fastmode import get_device_step
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.fastmode import (RawBatch, encode_batch,
+                                              get_device_step,
+                                              iter_fastq_hybrid)
     from smalt_tpu_torch.ops import sw
+    from smalt_tpu_torch.seq.refset import RefSet
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -649,13 +751,13 @@ def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
     With check_cpu, the packed step output must also equal the CPU
     step's on the same batch."""
     import torch
-    from smalt_tpu.index.table import KmerIndex
-    from smalt_tpu.map.fastmode import (RawBatch, _tail_init, _tail_render,
-                                        encode_batch)
-    from smalt_tpu.seq.refset import RefSet
-    from smalt_tpu_torch.map.fastmode import get_device_step
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.fastmode import (RawBatch, _tail_init,
+                                              _tail_render, encode_batch,
+                                              get_device_step)
     from smalt_tpu_torch.parallel.mesh import (OUT_KEYS, window_len,
                                                window_pad)
+    from smalt_tpu_torch.seq.refset import RefSet
     refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
     raw = isinstance(item, RawBatch)
     n = item.n if raw else len(item[0])
@@ -688,7 +790,7 @@ def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
 
 def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
     """Phase 5: kilobase reads on the phase-4 genome and index."""
-    from smalt_tpu.map.fastmode import iter_fastq_hybrid
+    from smalt_tpu_torch.map.fastmode import iter_fastq_hybrid
     idx_name = os.path.join(d, "idx")
     rng = np.random.default_rng(SEED + 1)
     t0 = time.perf_counter()
@@ -733,7 +835,7 @@ def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
 
 def run_pairs(d: str, genome, card: str, device: str = "cuda"):
     """Phase 6: paired reads on the phase-4 genome and index."""
-    from smalt_tpu.map.fastmode import iter_fastq_batches
+    from smalt_tpu_torch.map.fastmode import iter_fastq_batches
     idx_name = os.path.join(d, "idx")
     rng = np.random.default_rng(SEED + 2)
     t0 = time.perf_counter()
@@ -786,12 +888,13 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     version on that batch's pass-2 windows.  Returns (max_abs_err,
     collate ms, pass-2 ms)."""
     import torch
-    from smalt_tpu.index.table import KmerIndex
-    from smalt_tpu.map.engine import MapEngine, MapParams
-    from smalt_tpu.map.fastmode import iter_fastq_batches
-    from smalt_tpu.seq.refset import RefSet
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.engine import MapEngine, MapParams
     from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.map.fastmode import iter_fastq_batches
+    from smalt_tpu_torch.ops import bounds
     from smalt_tpu_torch.parallel import exact_pass2 as p2
+    from smalt_tpu_torch.seq.refset import RefSet
     refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
     eng = MapEngine(refset, idx, MapParams())
     dev = DeviceExact.make(eng, "sam", True, False, False, False,
@@ -820,6 +923,14 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     p2_step = dev._pass2_step()
     p2_ms = time_ms(lambda: p2_step(dev._di.ref_alpha, host[10], host[11], wd,
                                     Sp), 10)
+    # how long the host takes to enqueue the step's ops, the device idle
+    # at the start: where this is the step's time, the host bounds it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp)
+    p2_enq_ms = (time.perf_counter() - t0) * 100
+    torch.cuda.synchronize()
     # and the whole pass-2 step (gather, strands, dummies, packing)
     t0 = time.perf_counter()
     p2_got = p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp).cpu()
@@ -835,9 +946,15 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     err, want = check_swq_pair(qa, sj, par, mat, -eng.gapopen, -eng.gapext,
                                "the first pass-2 batch of phase 7")
     W, Qp = qa.shape
+    q_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, -eng.gapopen,
+                                       -eng.gapext), 20)
+    print(bound_line(f"swq Qp={Qp} Sp={Sp} W={W}, the {nw} pass-2 windows of "
+                     f"a real batch and {W - nw} dummies",
+                     bounds.swq_work(Qp, Sp, par), q_ms, card), flush=True)
     print(f"# device-exact, one batch of {dev.batch} reads: collate step "
           f"{col_ms:.3f} ms (CUDA events, 3 calls; H={dev._cfg.H}, pool "
-          f"{dev._cfg.pool}), pass-2 step {p2_ms:.3f} ms (10 calls; {nw} "
+          f"{dev._cfg.pool}), pass-2 step {p2_ms:.3f} ms (10 calls, "
+          f"enqueued by the host in {p2_enq_ms:.3f} ms each; {nw} "
           f"windows padded to W={W}, Qp={Qp}, Sp={Sp}); swq equal to "
           f"swq_fill_walk_ref on them ({int((want[0][:nw] > 0).sum())} with "
           f"best > 0); collate outputs (pool, counts2, scores, fallback: "
@@ -961,15 +1078,15 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    err, k_ms, p_ms, k0_ms, p0_ms = check_kernel(rng, card)
+    err, k_full_t, k_full = check_kernel(rng, card)
     print(f"# phase 3 (sw_full against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
-    berr, bk_ms, bp_ms, bk0_ms, bp0_ms = check_band_kernel(rng, card)
+    berr, k_band_t, k_band = check_band_kernel(rng, card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
-    qerr, qk_ms, qp_ms = check_swq_kernel(rng, card)
+    qerr, k_swq = check_swq_kernel(rng, card)
     print(f"# phase 3c (swq against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -999,9 +1116,19 @@ def main() -> int:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
         fail("the main path never launched the sw_full kernel")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    alien = sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "jaxlib", "smalt_tpu"))
+    if alien:
+        fail(f"imported from outside the port: {alien[:5]}")
 
+    paths = (("single-end --fast", se, N_READS), ("long reads --fast", lr,
+             N_LONG), ("pairs --fast", pe, 2 * N_PAIRS),
+             ("--device-exact", dx0, N_EXACT),
+             ("--device-exact SMALT_DX_P2=1", dx, N_EXACT))
+    for k in sw.launches:
+        print(f"# launches {k}: " + "; ".join(
+            f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
+            for what, n, reads in paths), flush=True)
     launches = {k: se[k] + lr[k] + pe[k] + dx[k] + dx0[k]
                 for k in sw.launches}
     full = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
@@ -1010,17 +1137,17 @@ def main() -> int:
             "replaces": "smalt_tpu/ops/sw.py:269"}
     swq = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/swq.cu",
            "replaces": "smalt_tpu/parallel/exact_pass2.py:179"}
+    # no single PyTorch call computes a Smith-Waterman score (a scan over
+    # rows with a prefix max inside): there is no library time to take
     print(json.dumps({"kernels": [
-        dict(name="sw_full_track", **full, launches=launches["sw_full_track"],
-             max_abs_err=err, ms=k_ms, plain_ms=p_ms),
-        dict(name="sw_full", **full, launches=launches["sw_full"],
-             max_abs_err=err, ms=k0_ms, plain_ms=p0_ms),
-        dict(name="sw_band_track", **band, launches=launches["sw_band_track"],
-             max_abs_err=berr, ms=bk_ms, plain_ms=bp_ms),
-        dict(name="sw_band", **band, launches=launches["sw_band"],
-             max_abs_err=berr, ms=bk0_ms, plain_ms=bp0_ms),
-        dict(name="swq", **swq, launches=launches["swq"],
-             max_abs_err=qerr, ms=qk_ms, plain_ms=qp_ms)]}))
+        dict(name=name, **src, launches=launches[name], max_abs_err=e,
+             library_ms=None, **k)
+        for name, src, e, k in (
+            ("sw_full_track", full, err, k_full_t),
+            ("sw_full", full, err, k_full),
+            ("sw_band_track", band, berr, k_band_t),
+            ("sw_band", band, berr, k_band),
+            ("swq", swq, qerr, k_swq))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,34 @@
-"""`map --device-exact` on one torch device (single-end FASTQ).
+"""Python side of the C fast-lane (native/fastlane.c) and the
+device-exact lane on one torch device.
 
-Counterpart of smalt_tpu.map.fastlane.DeviceExact (fastlane.py:796), and
-a subclass of it: the host halves are the reference's own, unchanged —
-the C pre block (hit info, rank masks, hit-key expansion), the C post
-block (checksums, depth sort, pass-2 state), the pass-2 window prep and
-fl_pass2_block (pass 1 replay, pass 2, report, SAM).  This class
-replaces the methods that touch jax: the collate step
-(parallel/exact_collate.py), the pass-2 step (parallel/exact_pass2.py)
-and the batch loop that feeds them.
+Counterpart of smalt_tpu/map/fastlane.py.  `FastLane` and `PairLane` are
+the reference's own, line for line: the fast-lane maps a whole block of
+reads to final SAM text in one native call, replicating the exact
+Python path (rmap_single -> add_single_to_report -> _write_sam)
+byte-for-byte.  `FastLane.make` gates on the modes the lane covers;
+`render_block` returns None on any native-side error, in which case the
+caller reruns the block through the Python engine with the untouched
+RNG state (the lane commits the drand48 state only on success).
 
-Output is the SAM of the host C lane, byte for byte, by the reference's
-protocol: a read the device cannot serve exactly is re-staged on the
-host (`n_restaged`), a pass-2 candidate whose walk record the host
-decoder doubts is redone by the host DP (`p2_fb`), and a batch the lane
-does not take at all (reads over QMAX, missing qualities, a C block that
-refuses) is rendered by the host lane (`host_batches`).  A device,
-build or launch error raises: nothing turns it into host output.
+`DevicePass1` keeps the reference's host halves (fl_pass1_block, the
+padded read batch, fl_pass2_block); its device leg is not ported and
+raises.  `DeviceExact` is `map --device-exact` for single-end FASTQ
+(fastlane.py:796 there): the host halves are the reference's — the C pre
+block (hit info, rank masks, hit-key expansion), the C post block
+(checksums, depth sort, pass-2 state), the pass-2 window prep and
+fl_pass2_block (pass 1 replay, pass 2, report, SAM) — and the device
+steps are the port's: the collate step (parallel/exact_collate.py), the
+pass-2 step (parallel/exact_pass2.py) and the batch loop that feeds
+them.
+
+Output of `DeviceExact` is the SAM of the host C lane, byte for byte, by
+the reference's protocol: a read the device cannot serve exactly is
+re-staged on the host (`n_restaged`), a pass-2 candidate whose walk
+record the host decoder doubts is redone by the host DP (`p2_fb`), and a
+batch the lane does not take at all (reads over QMAX, missing qualities,
+a C block that refuses) is rendered by the host lane (`host_batches`).
+A device, build or launch error raises: nothing turns it into host
+output.
 
 Per batch: host pre -> upload the padded reads once -> collate step on a
 worker thread -> host post -> (SMALT_DX_P2=1) pass-2 step on the worker
@@ -30,38 +43,699 @@ import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
 
-from smalt_tpu.map import fastlane as ref_fastlane
-from smalt_tpu.map.fastmode import iter_fastq_batches
-
+from .. import rand
+from ..align import core as ali_mod
+from ..native import get_lib
 from ..parallel.exact_collate import CollateCfg, build_exact_collate
 from ..parallel.exact_pass2 import build_pass2_step, unpack_pass2
 from ..parallel.mesh import DeviceIndex
+from ..results import pairs as pairs_mod
+from ..seq import codec
+from . import engine as eng_mod
+from .fastmode import iter_fastq_batches
 
 
-class DeviceExact(ref_fastlane.DeviceExact):
-    """The device-exact lane with its device steps on `device`."""
+class FastLane:
+    def __init__(self, engine, soft_clip: bool, x_mismatch: bool,
+                 out_fmt: int = 0, ali_out: bool = False):
+        lib = get_lib()
+        p = engine.params
+        refset = engine.refset
+        idx = engine.index
+        self.lib = lib
+        self.engine = engine
+        self.soft_clip = soft_clip
+        self.x_mismatch = x_mismatch
+        self.out_fmt = out_fmt       # 0 SAM, 1 cigar, 2 ssaha, 3 gff
+        self.ali_out = ali_out       # -a explicit alignment display
+        # pinned argument buffers
+        self._matrix = np.ascontiguousarray(engine.matrix, dtype=np.int32)
+        self._ivals = np.ascontiguousarray(engine._seq_ivals, dtype=np.int64)
+        snames = []
+        offs = [0]
+        for s in range(refset.nseq):
+            snames.append(refset.sam_name(s).encode())
+            offs.append(offs[-1] + len(snames[-1]))
+        self._snames = np.frombuffer(b"".join(snames) or b"\0",
+                                     dtype=np.uint8).copy()
+        self._sname_offs = np.asarray(offs, dtype=np.int64)
+        self._offsets = np.ascontiguousarray(refset.offsets, np.int64)
+        self._refcodes = np.ascontiguousarray(refset.codes, np.uint8)
+        ma, mm = ali_mod.avg_penalties(engine.matrix)
+        self._avgs = (ma, mm)
+        wa, sa, pa, ta = idx.addrs
+        self._idx_addrs = (wa, sa, idx.nwords, ta, pa)
+        self._rng_io = np.zeros(1, dtype=np.uint64)
 
-    def __init__(self, lane, batch: int = 0, device="cuda"):
-        super().__init__(lane, batch=batch)
+    @classmethod
+    def make(cls, engine, fmt: str, soft_clip: bool, x_mismatch: bool,
+             ali_out: bool, fix_primary: bool) -> Optional["FastLane"]:
+        """Return a lane when the run's modes are covered, else None."""
+        lib = get_lib()
+        if lib is None or not hasattr(lib, "fl_map_block"):
+            return None
+        if fmt not in ("sam", "cigar", "ssaha", "gff"):
+            return None
+        # -a (explicit alignment display) emits via tx_align_display
+        # fix_primary (set for -d runs on sam/bam) replays
+        # reportFixMultiplePrimary, which only clears the PRIMARY
+        # status bit — no writer consumes it (SAM NOTPRIMARY derives
+        # from PARTIAL), so the lane's output is unaffected; goldens
+        # golden_se_r1_d5/dm1 pin this.
+        p = engine.params
+        # -d (scorediff) clears RMAPFLG_BEST / RESULTFLG_SINGLE: the C
+        # report stage replicates the non-BEST multi-report walk and
+        # BELOWRELSW filtering (fl_add_single_to_report, rs_filter).
+        # Both reference regimes run natively: seq-by-seq (< 512
+        # sequences) and whole-genome cutoff collection with post-pass
+        # sequence assignment (>= 512; boundary-spanning alignments
+        # fall back per block/pair for splitMultiSpan).
+        return cls(engine, soft_clip, x_mismatch,
+                   out_fmt={"sam": 0, "cigar": 1, "ssaha": 2,
+                            "gff": 3}[fmt],
+                   ali_out=ali_out)
+
+    def render_block(self, block) -> Optional[str]:
+        """One native call for a block of Read objects."""
+        n = len(block)
+        read_offs = np.zeros(n + 1, dtype=np.int64)
+        name_offs = np.zeros(n + 1, dtype=np.int64)
+        has_qual = np.zeros(n, dtype=np.uint8)
+        codes_parts = []
+        qual_parts = []
+        name_parts = []
+        qmax = 1
+        for i, read in enumerate(block):
+            seq = read.seq
+            if seq.dtype != np.uint8 or not seq.flags.c_contiguous:
+                seq = np.ascontiguousarray(seq, dtype=np.uint8)
+            codes_parts.append(seq)
+            ql = len(seq)
+            qmax = max(qmax, ql)
+            if read.qual is not None:
+                if len(read.qual) != ql:
+                    return None
+                qual_parts.append(read.qual)
+                has_qual[i] = 1
+            else:
+                qual_parts.append(b"\x00" * ql)
+            nm = read.name.encode()     # raw: the C side applies the
+            name_parts.append(nm)       # format's own name cut
+            read_offs[i + 1] = read_offs[i] + ql
+            name_offs[i + 1] = name_offs[i] + len(nm)
+        codes = np.concatenate(codes_parts) if codes_parts else \
+            np.zeros(1, np.uint8)
+        quals = np.frombuffer(b"".join(qual_parts) or b"\0", np.uint8)
+        names = np.frombuffer(b"".join(name_parts) or b"\0", np.uint8)
+        return self._call(n, qmax, codes, read_offs, quals, has_qual,
+                          names, name_offs, ascii_codes=False,
+                          names_raw=True)
+
+    def render_raw_block(self, names, seqs, quals) -> Optional[str]:
+        """One native call for raw bulk-reader output (bytes lists):
+        encode + name-strip happen in C."""
+        n = len(names)
+        read_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in seqs], out=read_offs[1:])
+        name_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in names], out=name_offs[1:])
+        qmax = int((read_offs[1:] - read_offs[:-1]).max()) if n else 1
+        has_qual = np.empty(n, dtype=np.uint8)
+        qual_parts = []
+        for i, q in enumerate(quals):
+            if q is not None:
+                if len(q) != len(seqs[i]):
+                    return None     # malformed record: exact reader decides
+                has_qual[i] = 1
+                qual_parts.append(q)
+            else:
+                has_qual[i] = 0
+                qual_parts.append(b"\x00" * len(seqs[i]))
+        codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+        qarr = np.frombuffer(b"".join(qual_parts) or b"\0", np.uint8)
+        narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+        return self._call(n, max(qmax, 1), codes, read_offs, qarr, has_qual,
+                          narr, name_offs, ascii_codes=True, names_raw=True)
+
+    def _call(self, n, qmax, codes, read_offs, quals, has_qual,
+              names, name_offs, ascii_codes: bool,
+              names_raw: bool) -> Optional[str]:
+        p = self.engine.params
+        filt = self.engine.filter
+        wa, sa, nwords, ta, pa = self._idx_addrs
+        idx = self.engine.index
+        cap = int(name_offs[-1]) + n * (2 * qmax + 192)
+        self._rng_io[0] = rand._global._x
+        for _ in range(3):
+            out = np.empty(cap, dtype=np.uint8)
+            rc = self.lib.fl_map_block(
+                wa, sa, nwords, ta, pa, idx.wordlen, idx.nskip,
+                self._refcodes.ctypes.data, self._offsets.ctypes.data,
+                self.engine.refset.nseq, self._ivals.ctypes.data,
+                self._snames.ctypes.data, self._sname_offs.ctypes.data,
+                self._matrix.ctypes.data,
+                -self.engine.gapopen, -self.engine.gapext,
+                self._avgs[0], self._avgs[1],
+                p.ktuple_maxhit, eng_mod.HASH_MAXNHITS,
+                p.min_cover_frac, p.min_swatscor,
+                p.min_swatscor_below_max, p.min_basq,
+                p.target_depth, p.max_depth,
+                p.rmapflg & ~eng_mod.RMAPFLG_ALLPAIR, p.rsltouflg,
+                filt.min_swscor, filt.min_swscor_below_max,
+                filt.min_identity,
+                1 if self.soft_clip else 0, 1 if self.x_mismatch else 0,
+                self.out_fmt, 1 if self.ali_out else 0,
+                1 if ascii_codes else 0, 1 if names_raw else 0,
+                n, codes.ctypes.data, read_offs.ctypes.data,
+                quals.ctypes.data, has_qual.ctypes.data,
+                names.ctypes.data, name_offs.ctypes.data,
+                self._rng_io.ctypes.data, out.ctypes.data, cap,
+                float(self.engine.lam))
+            if rc == -3:          # text buffer too small: grow and retry
+                cap *= 4
+                continue
+            if rc < 0:
+                self.last_rc = rc          # debugging/observability
+                return None
+            rand._global._x = int(self._rng_io[0])
+            return out[:rc].tobytes().decode("ascii")
+        return None
+
+
+class PairLane:
+    """Exact paired-end C lane: a whole block of read pairs maps and
+    renders in ONE native call (fl_map_pair_block — the rmapPair
+    common flow, rmap.c:1744-2112, plus the full pair layer,
+    resultpairs.c:753-1311).  A pair hitting an uncovered branch
+    (remap/rescue/fine-rehash, caps) stops the native call cleanly
+    with nothing consumed for that pair; the caller replays exactly
+    that pair through the Python oracle and resumes, so output is
+    byte-identical to the pure-Python path for any mix."""
+
+    def __init__(self, lane: FastLane, insert_min: int, insert_max: int,
+                 pairtyp: int, ihist=None):
+        self.lane = lane
+        self.insert_min = insert_min
+        self.insert_max = insert_max
+        self.pairtyp = pairtyp
+        # -g: precompute the inclusive cumulative bin counts the C
+        # probability model looks up (insGetHistoCountCumulative,
+        # insert.py:81-86); smooth counts when smoothing ran
+        if ihist is not None:
+            arr = ihist.smooth if ihist.smoothed else ihist.counts
+            self._ih_cum = np.cumsum(np.asarray(arr, dtype=np.int64))
+            self._ih_desc = (int(ihist.span), int(ihist.insizlo),
+                             int(ihist.insizhi), int(ihist.scalfac),
+                             int(ihist.num))
+        else:
+            self._ih_cum = None
+            self._ih_desc = (0, 0, 0, 1, 0)
+
+    @classmethod
+    def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
+             fix_primary, ihist) -> Optional["PairLane"]:
+        lane = FastLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
+                             fix_primary)
+        if lane is None:
+            return None
+        # paired -d: the reference supports only -d 0 for pairs
+        # (map -H), i.e. RESULTFLG_BEST with SINGLE/RANDSEL cleared —
+        # the pair report walk handles it (test_pair_lane d0 case);
+        # anything without BEST keeps the Python oracle
+        if not (engine.params.rsltouflg & pairs_mod.RESULTFLG_BEST):
+            return None
+        # paired split-read mode (-p): fl_map_pair runs the
+        # mapSecondary pass on both mates and the report adds the
+        # per-segment PARTIAL chain (flrep_add_2ndary), reference-
+        # diffed in tests/test_ref_differential.py (pe -p)
+        if not hasattr(lane.lib, "fl_map_pair_block"):
+            return None
+        p = engine.params
+        return cls(lane, p.insert_min, p.insert_max, p.pairtyp, ihist)
+
+    def _arrays(self, reads):
+        n = len(reads)
+        offs = np.zeros(n + 1, dtype=np.int64)
+        name_offs = np.zeros(n + 1, dtype=np.int64)
+        has_qual = np.zeros(n, dtype=np.uint8)
+        codes_parts, qual_parts, name_parts = [], [], []
+        for i, rd in enumerate(reads):
+            seq = rd.seq
+            if seq.dtype != np.uint8 or not seq.flags.c_contiguous:
+                seq = np.ascontiguousarray(seq, dtype=np.uint8)
+            codes_parts.append(seq)
+            ql = len(seq)
+            if rd.qual is not None:
+                if len(rd.qual) != ql:
+                    return None
+                qual_parts.append(rd.qual)
+                has_qual[i] = 1
+            else:
+                qual_parts.append(b"\x00" * ql)
+            if self.lane.out_fmt == 0:
+                nm = rd.sam_name.encode()           # SAM: /1 /2 stripped
+            else:
+                # cigar/ssaha qname keeps /1 /2 (report.py _qname)
+                nm = (rd.name.split()[0] if rd.name else "").encode()
+            name_parts.append(nm)
+            offs[i + 1] = offs[i] + ql
+            name_offs[i + 1] = name_offs[i] + len(nm)
+        codes = np.concatenate(codes_parts) if codes_parts else \
+            np.zeros(1, np.uint8)
+        quals = np.frombuffer(b"".join(qual_parts) or b"\0", np.uint8)
+        names = np.frombuffer(b"".join(name_parts) or b"\0", np.uint8)
+        return codes, offs, quals, has_qual, names, name_offs
+
+    @staticmethod
+    def _raw_arrays(names, seqs, quals):
+        """Concat arrays straight from bulk-reader bytes (no Read
+        objects); encode + name cutting happen in C."""
+        n = len(names)
+        offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in seqs], out=offs[1:])
+        name_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in names], out=name_offs[1:])
+        has_qual = np.empty(n, dtype=np.uint8)
+        qual_parts = []
+        for i, q in enumerate(quals):
+            if q is not None:
+                if len(q) != len(seqs[i]):
+                    return None    # malformed record: exact reader decides
+                has_qual[i] = 1
+                qual_parts.append(q)
+            else:
+                has_qual[i] = 0
+                qual_parts.append(b"\x00" * len(seqs[i]))
+        codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+        qarr = np.frombuffer(b"".join(qual_parts) or b"\0", np.uint8)
+        narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+        return codes, offs, qarr, has_qual, narr, name_offs
+
+    def _call(self, readsA, readsB):
+        """(text, n_done) for the leading pairs the C lane covered, or
+        None on a hard error (caller renders the block in Python)."""
+        arrA = self._arrays(readsA)
+        arrB = self._arrays(readsB)
+        if arrA is None or arrB is None:
+            return None
+        return self._call_arrays(len(readsA), arrA, arrB,
+                                 ascii_codes=False, names_raw=False)
+
+    def _call_raw(self, namesA, seqsA, qualsA, namesB, seqsB, qualsB):
+        arrA = self._raw_arrays(namesA, seqsA, qualsA)
+        arrB = self._raw_arrays(namesB, seqsB, qualsB)
+        if arrA is None or arrB is None:
+            return None
+        return self._call_arrays(len(namesA), arrA, arrB,
+                                 ascii_codes=True, names_raw=True)
+
+    def _call_arrays(self, n, arrA, arrB, ascii_codes, names_raw,
+                     dev=None):
+        """dev (optional): (state, offs_A, offs_B, scores64) — the
+        device-exact front half's per-mate state; the C block then
+        consumes it for the pair flow's unrestricted mapping calls
+        (fl_pair_map_single_dev) and keeps everything else on host."""
+        lane = self.lane
+        eng = lane.engine
+        p = eng.params
+        filt = eng.filter
+        wa, sa, nwords, ta, pa = lane._idx_addrs
+        idx = eng.index
+        cA, oA, qA, hA, nA, noA = arrA
+        cB, oB, qB, hB, nB, noB = arrB
+        if n < 1:
+            return "", 0
+        if dev is not None:
+            dstate, doffA, doffB, dscores = dev
+            dev_args = (dstate.ctypes.data, doffA.ctypes.data,
+                        doffB.ctypes.data, dscores.ctypes.data,
+                        len(dscores))
+        else:
+            dev_args = (None, None, None, None, 0)
+        qmax = int(max((oA[1:] - oA[:-1]).max(),
+                       (oB[1:] - oB[:-1]).max(), 1))
+        cap = int(noA[-1] + noB[-1]) + 2 * n * (2 * qmax + 224)
+        done = np.zeros(1, dtype=np.int64)
+        lane._rng_io[0] = rand._global._x
+        for _ in range(3):
+            out = np.empty(cap, dtype=np.uint8)
+            rc = lane.lib.fl_map_pair_block(
+                wa, sa, nwords, ta, pa, idx.wordlen, idx.nskip,
+                lane._refcodes.ctypes.data, lane._offsets.ctypes.data,
+                eng.refset.nseq, lane._ivals.ctypes.data,
+                lane._snames.ctypes.data, lane._sname_offs.ctypes.data,
+                lane._matrix.ctypes.data,
+                -eng.gapopen, -eng.gapext,
+                lane._avgs[0], lane._avgs[1],
+                p.ktuple_maxhit, eng_mod.HASH_MAXNHITS,
+                p.min_cover_frac, p.min_swatscor,
+                p.min_swatscor_below_max, p.min_basq,
+                p.target_depth, p.max_depth,
+                p.rmapflg, p.rsltouflg,
+                filt.min_swscor, filt.min_swscor_below_max,
+                filt.min_identity,
+                1 if lane.soft_clip else 0, 1 if lane.x_mismatch else 0,
+                lane.out_fmt, 1 if lane.ali_out else 0,
+                self.insert_min, self.insert_max, self.pairtyp,
+                self._ih_cum.ctypes.data if self._ih_cum is not None
+                else None, *self._ih_desc,
+                1 if ascii_codes else 0, 1 if names_raw else 0,
+                n, cA.ctypes.data, oA.ctypes.data,
+                qA.ctypes.data, hA.ctypes.data,
+                nA.ctypes.data, noA.ctypes.data,
+                cB.ctypes.data, oB.ctypes.data,
+                qB.ctypes.data, hB.ctypes.data,
+                nB.ctypes.data, noB.ctypes.data,
+                lane._rng_io.ctypes.data, out.ctypes.data, cap,
+                done.ctypes.data, float(eng.lam), *dev_args)
+            if rc == -3:                   # text buffer too small
+                cap *= 4
+                continue
+            if rc < 0:
+                return None
+            rand._global._x = int(lane._rng_io[0])
+            return out[:rc].tobytes().decode("ascii"), int(done[0])
+        return None
+
+    def render_block(self, block, oracle_one) -> Optional[str]:
+        """SAM text for a block of (read, mate) tuples.  `oracle_one`
+        renders a single pair through the Python engine (consuming its
+        own RNG) — called only for pairs the C flow does not cover."""
+        parts = []
+        start = 0
+        n = len(block)
+        while start < n:
+            readsA = [it[0] for it in block[start:]]
+            readsB = [it[1] for it in block[start:]]
+            res = self._call(readsA, readsB)
+            if res is None:
+                if start == 0:
+                    return None        # whole block to the Python path
+                # render the remainder in Python (RNG stream continuous)
+                for it in block[start:]:
+                    parts.append(oracle_one(it))
+                return "".join(parts)
+            text, ndone = res
+            parts.append(text)
+            start += ndone
+            if start < n:
+                parts.append(oracle_one(block[start]))
+                start += 1
+        return "".join(parts)
+
+    def render_raw_pairs(self, namesA, seqsA, qualsA,
+                         namesB, seqsB, qualsB,
+                         oracle_one_raw) -> Optional[str]:
+        """Same per-pair resume protocol as render_block, but fed
+        straight from bulk-reader bytes (encode + name cutting in C);
+        `oracle_one_raw(i)` renders pair i through the Python engine."""
+        parts = []
+        start = 0
+        n = len(namesA)
+        while start < n:
+            res = self._call_raw(namesA[start:], seqsA[start:],
+                                 qualsA[start:], namesB[start:],
+                                 seqsB[start:], qualsB[start:])
+            if res is None:
+                if start == 0:
+                    return None       # whole batch to the Python path
+                for i in range(start, n):
+                    parts.append(oracle_one_raw(i))
+                return "".join(parts)
+            text, ndone = res
+            parts.append(text)
+            start += ndone
+            if start < n:
+                parts.append(oracle_one_raw(start))
+                start += 1
+        return "".join(parts)
+
+
+class DevicePass1:
+    """Host halves of the device-assisted exact lanes: phase A
+    (fl_pass1_block: seeding, collation and the pass-1 window list), the
+    fixed-shape padded read batch, and phase B (fl_pass2_block: pass-1
+    replay on a score stream, pass 2, report, SAM).  The `--device-pass1`
+    device leg itself (window scoring on the device and its batch loop,
+    fastlane.py:555-613,690-793 of the reference) is not ported:
+    `run_raw_fastq` raises NotImplementedError."""
+
+    def __init__(self, lane: FastLane, batch: int = 0):
+        self.lane = lane
+        self.batch = batch or int(os.environ.get("SMALT_DP1_BATCH", 8192))
+        eng = lane.engine
+        if -eng.gapopen < -eng.gapext:
+            raise ValueError("device kernel needs gapopen >= gapext")
+        # sticky shape cap: every device call is padded to (batch, qcap)
+        self._qcap = 128
+
+    @classmethod
+    def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out, fix_primary,
+             batch: int = 0) -> Optional["DevicePass1"]:
+        lane = FastLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
+                             fix_primary)
+        if lane is None:
+            return None
+        if engine.params.rmapflg & (eng_mod.RMAPFLG_SPLIT |
+                                    eng_mod.RMAPFLG_NOSHRTINFO):
+            # the two-phase block drivers (fl_pass1/2_block) have no
+            # mapSecondary pass; -p runs through the one-phase C lane
+            return None
+        if not (engine.params.rmapflg & eng_mod.RMAPFLG_SEQBYSEQ):
+            # fl_pass1/2_block drive seq-by-seq collection only; the
+            # >= 512-sequence regime runs the one-phase C lane
+            return None
+        if -engine.gapopen < -engine.gapext:
+            return None
+        return cls(lane, batch=batch)
+
+    # ---------------- phase A ----------------
+
+    def _pass1(self, n, qmax, codes, read_offs, quals, has_qual,
+               ascii_codes: bool):
+        lane = self.lane
+        p = lane.engine.params
+        wa, sa, nwords, ta, pa = lane._idx_addrs
+        idx = lane.engine.index
+        state_cap = n * (8 + 64 * 12) + 4096
+        win_cap = n * 8 + 64
+        for _ in range(4):
+            state = np.empty(state_cap, dtype=np.int64)
+            state_offs = np.empty(n + 1, dtype=np.int64)
+            win_desc = np.empty(win_cap * 4, dtype=np.int64)
+            rc = lane.lib.fl_pass1_block(
+                wa, sa, nwords, ta, pa, idx.wordlen, idx.nskip,
+                lane._refcodes.ctypes.data, lane._offsets.ctypes.data,
+                lane.engine.refset.nseq, lane._ivals.ctypes.data,
+                lane._matrix.ctypes.data,
+                -lane.engine.gapopen, -lane.engine.gapext,
+                lane._avgs[0], lane._avgs[1],
+                p.ktuple_maxhit, eng_mod.HASH_MAXNHITS,
+                p.min_cover_frac, p.min_swatscor,
+                p.min_swatscor_below_max, p.min_basq,
+                p.target_depth, p.max_depth,
+                p.rmapflg & ~eng_mod.RMAPFLG_ALLPAIR,
+                1 if ascii_codes else 0,
+                n, codes.ctypes.data, read_offs.ctypes.data,
+                quals.ctypes.data, has_qual.ctypes.data,
+                state.ctypes.data, state_cap, state_offs.ctypes.data,
+                win_desc.ctypes.data, win_cap)
+            if rc == -1:           # capacity: grow and retry
+                state_cap *= 4
+                win_cap *= 4
+                continue
+            if rc < 0:
+                return None
+            return state, state_offs, win_desc[: int(rc) * 4].reshape(-1, 4)
+        return None
+
+    # ---------------- device scoring ----------------
+
+    def _padded_reads(self, codes, read_offs, n, qmax):
+        """([batch, qcap] 3-bit codes padded with 7, [batch] int32
+        lengths) — always the sticky fixed shape (trailing partial
+        batches included)."""
+        while self._qcap < qmax:
+            self._qcap *= 2
+        fwd = np.full((self.batch, self._qcap), 7, np.uint8)
+        al = codes & 7
+        qlens = np.zeros(self.batch, np.int32)
+        qlens[:n] = (read_offs[1:] - read_offs[:-1]).astype(np.int32)
+        if n and qlens[0] and (qlens[:n] == qlens[0]).all():
+            L = int(qlens[0])
+            fwd[:n, :L] = al[: n * L].reshape(n, L)
+        else:
+            for i in range(n):
+                o, e = int(read_offs[i]), int(read_offs[i + 1])
+                fwd[i, : e - o] = al[o:e]
+        return fwd, qlens
+
+    # ---------------- phase B ----------------
+
+    def _pass2(self, n, qmax, codes, read_offs, quals, has_qual,
+               names, name_offs, state, state_offs, scores,
+               ascii_codes: bool, names_raw: bool,
+               dev=None) -> Optional[str]:
+        """dev: (pres, phdr, best, mi, mj, rec16, valid, sp, nwin)
+        from the device pass-2 dispatch (exact_pass2.py), or None for
+        the host pass-2."""
+        lane = self.lane
+        p = lane.engine.params
+        filt = lane.engine.filter
+        wa, sa, nwords, ta, pa = lane._idx_addrs
+        idx = lane.engine.index
+        scores64 = np.ascontiguousarray(scores, dtype=np.int64)
+        cap = int(name_offs[-1]) + n * (2 * qmax + 192)
+        lane._rng_io[0] = rand._global._x
+        if dev is not None:
+            pres, phdr, dbest, dmi, dmj, drec, dvalid, dsp, dnwin = dev
+            self._dev_stats = np.zeros(3, np.int64)
+            if os.environ.get("SMALT_DX_P2") == "prep":
+                # bisect mode: prep-replay consume only, host decode
+                dev_args = (pres.ctypes.data, phdr.ctypes.data,
+                            None, None, None, None, None, 0, 0,
+                            self._dev_stats.ctypes.data)
+            else:
+                dev_args = (pres.ctypes.data, phdr.ctypes.data,
+                            dbest.ctypes.data, dmi.ctypes.data,
+                            dmj.ctypes.data, drec.ctypes.data,
+                            dvalid.ctypes.data, int(dsp), int(dnwin),
+                            self._dev_stats.ctypes.data)
+        else:
+            dev_args = (None,) * 2 + (None,) * 5 + (0, 0, None)
+        for _ in range(3):
+            out = np.empty(cap, dtype=np.uint8)
+            rc = lane.lib.fl_pass2_block(
+                wa, sa, nwords, ta, pa, idx.wordlen, idx.nskip,
+                lane._refcodes.ctypes.data, lane._offsets.ctypes.data,
+                lane.engine.refset.nseq, lane._ivals.ctypes.data,
+                lane._snames.ctypes.data, lane._sname_offs.ctypes.data,
+                lane._matrix.ctypes.data,
+                -lane.engine.gapopen, -lane.engine.gapext,
+                lane._avgs[0], lane._avgs[1],
+                p.ktuple_maxhit, eng_mod.HASH_MAXNHITS,
+                p.min_cover_frac, p.min_swatscor,
+                p.min_swatscor_below_max, p.min_basq,
+                p.target_depth, p.max_depth,
+                p.rmapflg & ~eng_mod.RMAPFLG_ALLPAIR, p.rsltouflg,
+                filt.min_swscor, filt.min_swscor_below_max,
+                filt.min_identity,
+                1 if lane.soft_clip else 0, 1 if lane.x_mismatch else 0,
+                lane.out_fmt, 1 if lane.ali_out else 0,
+                1 if ascii_codes else 0, 1 if names_raw else 0,
+                n, codes.ctypes.data, read_offs.ctypes.data,
+                quals.ctypes.data, has_qual.ctypes.data,
+                names.ctypes.data, name_offs.ctypes.data,
+                state.ctypes.data, state_offs.ctypes.data,
+                scores64.ctypes.data, len(scores64),
+                lane._rng_io.ctypes.data, out.ctypes.data, cap,
+                float(lane.engine.lam), *dev_args)
+            if os.environ.get("SMALT_DX_DEBUG"):
+                print(f"# fl_pass2_block rc={rc} n={n} dev={dev is not None}",
+                      file=sys.stderr, flush=True)
+            if rc == -3:
+                cap *= 4
+                continue
+            if rc < 0:
+                return None
+            rand._global._x = int(lane._rng_io[0])
+            return out[:rc].tobytes().decode("ascii")
+        return None
+
+    def run_raw_fastq(self, path: str, out, fallback) -> None:
+        raise NotImplementedError(
+            "--device-pass1 (pass-1 window scoring on the device) is not "
+            "ported yet (ROADMAP.md Queue 1 #5)")
+
+
+class DeviceExact(DevicePass1):
+    """Device-exact mapping: the device carries the exact engine's FRONT
+    HALF — hit collection, shift-sort, segment/candidate collation AND
+    pass-1 window scoring — in one dispatch per block
+    (parallel/exact_collate.py), while the host keeps hit-info rank
+    selection, hit-key expansion, the NR depth sort, pass 2 and
+    rendering.  Output stays byte-identical to the pure-C lane: any read
+    the device cannot serve exactly (capacity overflow, checksum or
+    geometry mismatch) is re-staged fully on host by fl_pass2_block."""
+
+    QMAX = 255          # packed row fields gate (cover/qs/qe <= 255)
+
+    def __init__(self, lane: FastLane, batch: int = 0, device="cuda"):
+        super().__init__(lane, batch=batch or
+                         int(os.environ.get("SMALT_DX_BATCH", 4096)))
         self.device = torch.device(device)
+        self._collate = None
+        self._di = None
+        # device pass 2 (exact_pass2.py) is opt-in with SMALT_DX_P2=1, as
+        # in the reference; sticky caps keep one window shape per run
+        self._p2_on = os.environ.get("SMALT_DX_P2", "0") == "1"
+        self._p2_wcap = 512
+        self._p2_sp = 2 * self._qcap
+        self._p2_fn = None
+        self.p2_used = 0
+        self.p2_fb = 0
+        self.p2_hit = 0
         self.n_restaged = 0
         self.host_batches = 0
 
     @classmethod
-    def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out, fix_primary,
-             batch: int = 0, device="cuda"):
-        """The lane for `engine`, or None where the reference's make
-        refuses (the same gates: its lane then runs the host)."""
-        ref = ref_fastlane.DeviceExact.make(engine, fmt, soft_clip,
-                                            x_mismatch, ali_out, fix_primary,
-                                            batch=batch)
-        if ref is None:
+    def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
+             fix_primary, batch: int = 0,
+             device="cuda") -> Optional["DeviceExact"]:
+        """The lane for `engine`, or None where the engine is outside
+        the lane's gates (the reference then runs its host lane)."""
+        base = DevicePass1.make(engine, fmt, soft_clip, x_mismatch,
+                                ali_out, fix_primary, batch=batch)
+        if base is None:
             return None
-        return cls(ref.lane, batch=batch, device=device)
+        lane = base.lane
+        lib = lane.lib
+        if not hasattr(lib, "fl_exact_pre_block"):
+            return None
+        idx = engine.index
+        if engine.refset.total_len >= (1 << 31):
+            return None                 # int32 serial/base coords gate
+        if not cls._host_hits_ok(engine):
+            # device-side hit expansion: direct-address table + the
+            # static interval loop (the pre-host_hits regime)
+            if 2 * idx.wordlen > 28:
+                return None
+            if engine.refset.nseq > 8:
+                return None
+        return cls(lane, batch=batch, device=device)
+
+    @staticmethod
+    def _host_hits_ok(eng):
+        """True when hit expansion can run on host (fl_exact_pre_block
+        writes padded key arrays, so the device makes no random pos[]
+        gathers).  Needs the seq-by-seq
+        full-cover interval regime (contiguous intervals spanning the
+        whole concatenated reference, one per sequence — the engine's
+        SEQBYSEQ mode, nseq < 512): the union of in-range slices is
+        then the seed's full position run, and the per-hit sequence
+        ids the C pre-block ships let the device scan per interval.
+        This regime has no k <= 14 gate (the device never touches the
+        k-mer table) and no nseq <= 8 gate (no static V loop)."""
+        if not (eng.params.rmapflg & eng_mod.RMAPFLG_SEQBYSEQ):
+            return False                # whole-genome cutoff regime
+        if eng.refset.nseq > 511:       # 9-bit seqidx field in w5
+            return False
+        idx = eng.index
+        if idx.nskip > idx.wordlen:
+            return False
+        iv = eng._seq_ivals
+        return (int(iv[0, 0]) == 0 and
+                int(iv[-1, 1]) >= eng.refset.total_len and
+                bool((iv[1:, 0] == iv[:-1, 1]).all()))
+
+    @property
+    def _host_hits(self):
+        return self._host_hits_ok(self.lane.engine)
 
     # ---------------- device steps ----------------
 
@@ -159,6 +833,119 @@ class DeviceExact(ref_fastlane.DeviceExact):
                   file=sys.stderr, flush=True)
         return best64, mi64, mj64, rec16, valid, Sp, nw
 
+    # ---------------- host halves ----------------
+
+    def _pre(self, n, codes, read_offs, quals, has_qual, Qcap,
+             hits_B=0, hits_H=0):
+        """hits_B > 0: also host-expand the packed hit keys into
+        B-padded [B, 2, H] arrays (host_hits mode)."""
+        lane = self.lane
+        p = lane.engine.params
+        wa, sa, nwords, ta, pa = lane._idx_addrs
+        idx = lane.engine.index
+        pre = np.zeros((n, 12), np.int64)
+        selmask = np.zeros((n, 2, Qcap), np.uint8)
+        nseq = lane.engine.refset.nseq
+        ks = None
+        if hits_B:
+            k1 = np.zeros((hits_B, 2, hits_H), np.int32)
+            k2 = np.zeros((hits_B, 2, hits_H), np.uint8)
+            tot = np.zeros((hits_B, 2), np.int32)
+            if nseq > 1:        # per-hit sequence index (interval id)
+                ks = np.zeros((hits_B, 2, hits_H), np.int32)
+            args = (pa, hits_H, k1.ctypes.data, k2.ctypes.data,
+                    tot.ctypes.data, lane._offsets.ctypes.data, nseq,
+                    ks.ctypes.data if ks is not None else None)
+        else:
+            k1 = k2 = tot = None
+            args = (None, 0, None, None, None, None, 0, None)
+        rc = lane.lib.fl_exact_pre_block(
+            wa, sa, nwords, ta, idx.wordlen, idx.nskip,
+            p.ktuple_maxhit, eng_mod.HASH_MAXNHITS, p.min_basq,
+            p.min_cover_frac, 1,
+            n, codes.ctypes.data, read_offs.ctypes.data,
+            quals.ctypes.data, has_qual.ctypes.data,
+            Qcap, pre.ctypes.data, selmask.ctypes.data, *args)
+        if rc != 0:
+            return None
+        return pre, selmask, k1, k2, tot, ks
+
+    def _post(self, n, read_offs, pre, pool, counts2, scores, cksum,
+              fallback, pair=False):
+        """pair=True: replay the depth sort under the PAIR flow's
+        parameter mods (fl_pair_map_single: MINSCOR_BELOW_MAX_BEST=0,
+        rmapflg|PAIRED&~ALLPAIR) so the state equals what the pair
+        flow's unrestricted stage 1 would produce."""
+        lane = self.lane
+        eng = lane.engine
+        p = eng.params
+        belowmax = 0 if pair else p.min_swatscor_below_max
+        rflg = ((p.rmapflg | eng_mod.RMAPFLG_PAIRED)
+                if pair else p.rmapflg) & ~eng_mod.RMAPFLG_ALLPAIR
+        state_cap = n * 8 + int(counts2.sum()) * 12 + 64
+        pool_c = np.ascontiguousarray(pool, np.int32)
+        counts2_c = np.ascontiguousarray(counts2, np.int32)
+        scores_c = np.ascontiguousarray(scores, np.int32)
+        cksum_c = np.ascontiguousarray(cksum, np.int32)
+        fb_c = np.ascontiguousarray(fallback, np.uint8)
+        nrest = np.zeros(1, np.int64)
+        state = np.empty(state_cap, np.int64)
+        state_offs = np.empty(n + 1, np.int64)
+        rc = lane.lib.fl_exact_post_block(
+            eng.index.wordlen, eng.index.nskip,
+            lane._offsets.ctypes.data, eng.refset.nseq,
+            belowmax,
+            lane._avgs[0], lane._avgs[1],
+            p.target_depth, p.max_depth,
+            rflg,
+            n, read_offs.ctypes.data, pre.ctypes.data,
+            pool_c.ctypes.data, counts2_c.ctypes.data,
+            scores_c.ctypes.data, len(scores_c),
+            fb_c.ctypes.data, cksum_c.ctypes.data,
+            state.ctypes.data, state_cap, state_offs.ctypes.data,
+            nrest.ctypes.data)
+        if rc != 0:
+            return None
+        return state, state_offs, int(nrest[0])
+
+
+    # ---------------- device pass 2: host window prep ----------------
+
+    def _prep_windows(self, n, codes, read_offs, state, state_offs,
+                      scores64):
+        """fl_pass2_prep_block: replayed per-candidate scores + the
+        pass-2 window descriptors.  Returns (pres, phdr, win[nw,12])
+        or None (legacy host pass 2)."""
+        lane = self.lane
+        eng = lane.engine
+        p = eng.params
+        idx = eng.index
+        n_rows = int((int(state_offs[n]) - 8 * n) // 12)
+        pres = np.zeros(max(n_rows, 1), np.int64)
+        phdr = np.zeros(max(n * 4, 4), np.int64)
+        win_cap = max(n_rows, 64)
+        for _ in range(3):
+            win = np.empty(win_cap * 12, np.int64)
+            rc = lane.lib.fl_pass2_prep_block(
+                lane._matrix.ctypes.data, -eng.gapopen, -eng.gapext,
+                lane._avgs[0], lane._avgs[1],
+                lane._refcodes.ctypes.data, lane._offsets.ctypes.data,
+                eng.refset.nseq, idx.wordlen, idx.nskip,
+                p.min_swatscor, p.min_swatscor_below_max,
+                p.rmapflg & ~eng_mod.RMAPFLG_ALLPAIR, 1,
+                n, codes.ctypes.data, read_offs.ctypes.data,
+                state.ctypes.data, state_offs.ctypes.data,
+                scores64.ctypes.data, len(scores64),
+                pres.ctypes.data, phdr.ctypes.data,
+                win.ctypes.data, win_cap)
+            if rc == -1:              # window capacity: grow and retry
+                win_cap *= 4
+                continue
+            if rc < 0:
+                return None
+            return pres, phdr, win[: int(rc) * 12].reshape(-1, 12)
+        return None
+
     # ---------------- one batch ----------------
 
     def _prepare(self, names, seqs, quals):
@@ -195,7 +982,7 @@ class DeviceExact(ref_fastlane.DeviceExact):
             return None
         pre, _, k1, k2, tot, ks = st
         codes_pad = np.zeros((B, Qcap), np.uint8)
-        enc = np.frombuffer(ref_fastlane.codec_encode_bulk(codes), np.uint8)
+        enc = np.frombuffer(codec_encode_bulk(codes), np.uint8)
         for i in range(n):
             o, e = int(read_offs[i]), int(read_offs[i + 1])
             codes_pad[i, : e - o] = enc[o:e]
@@ -358,3 +1145,14 @@ class DeviceExact(ref_fastlane.DeviceExact):
             f"n_restaged={self.n_restaged} p2_used={self.p2_used} "
             f"p2_fb={self.p2_fb} p2_hit={self.p2_hit} "
             f"host_batches={self.host_batches}")
+
+    def run_raw_pairs(self, plane, pathA: str, pathB: str, out,
+                      oracle_one_pair, mk_pair) -> None:
+        raise NotImplementedError(
+            "--device-exact on read pairs is not ported yet "
+            "(ROADMAP.md Queue 1 #6a)")
+
+
+def codec_encode_bulk(ascii_codes: np.ndarray) -> bytes:
+    """ASCII read letters -> mangled codes (vectorized CODTAB gather)."""
+    return codec.CODTAB[ascii_codes].tobytes()

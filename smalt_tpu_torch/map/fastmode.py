@@ -1,13 +1,19 @@
 """`map --fast` on one torch device: device pass + host traceback tail.
 
-Counterpart of the single-device pipeline in smalt_tpu/map/fastmode.py
-(`run_fast_pipeline`, fastmode.py:1137), single-end and paired.  The
-host layers are the reference's own and are imported, not copied: the
-FASTQ readers (`iter_fastq_hybrid`, `iter_fastq_batches`), the batch
-encoders, and the traceback + SAM tail (`_tail_init` / `_tail_render`,
-FastTail, with its native C renderers for single reads and for pairs).
-The device step is the port's (parallel/mesh.py).  Paired runs put both
+Counterpart of smalt_tpu/map/fastmode.py.  The host half is the
+reference's own, line for line: the bulk FASTQ readers
+(`iter_fastq_batches`, `iter_fastq_hybrid`, `RawBatch`), the batch
+encoder, the mapq formula, and the traceback + SAM tail (`FastTail`,
+`_tail_init` / `_tail_render`, with its native C renderers for single
+reads and for pairs, and the exact-lane fallbacks).  The batch loop
+(`run_fast_pipeline`, fastmode.py:1137 there) is the port's: its device
+step is parallel/mesh.py, single-end and paired.  Paired runs put both
 mates of a batch through one step of 2 x batch reads.
+
+Fast mode trades the exhaustive candidate search of the exact lane for
+the device heuristic: output is reference-STYLE SAM (same fields, flags,
+CIGAR/NM/AS conventions, mapq formula shape) but NOT bit-identical to
+`map` — use the default exact mode for that.
 
 Per batch: encode to uint8 [B, Q] on the host, copy to the device, run
 the step on the current stream, and start a non-blocking copy of the
@@ -18,24 +24,1125 @@ synchronously (the tests' path).
 """
 from __future__ import annotations
 
+import io
 import os
 import sys
 import time
 from collections import deque
-from typing import Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from smalt_tpu.align import core as ali_mod
-from smalt_tpu.index.table import KmerIndex
-from smalt_tpu.map.fastmode import (RawBatch, _tail_init, _tail_render,
-                                    encode_batch, iter_fastq_batches,
-                                    iter_fastq_hybrid)
-from smalt_tpu.seq.refset import RefSet
+from ..seq import codec
+from ..seq.io import Read, open_maybe_gzip
+from ..seq.refset import RefSet
+from ..index.table import KmerIndex
 
-from ..parallel.mesh import (OUT_KEYS, DeviceIndex, make_device_step,
-                             window_len, window_pad)
+from ..align import core as ali_mod
+from ..parallel.mesh import (LONG_READ_Q, OUT_KEYS, DeviceIndex,
+                             make_device_step, window_len, window_pad)
+from ..report.report import ReportWriter, RepAli, REPMATEFLG
+
+# LONG_READ_Q is the kernel-selection boundary: reads padded above it use
+# the banded device kernel and the banded/anchored host tail.  It MUST
+# match the literal 512 in native/fastlane.c (fl_fast_tail_block /
+# ft_map_one).
+
+MAPQ_MAX = 60           # results.c:70 MAPSCOR_MAX
+MAPSCOR_MAX_RANDOM = 3  # results.c:57
+
+
+# ------------------------------------------------------------------
+# bulk FASTQ input
+# ------------------------------------------------------------------
+
+def iter_fastq_batches(path: str, batch: int) -> Iterator[
+        Tuple[List[bytes], List[bytes], List[Optional[bytes]]]]:
+    """Yield (names, seqs, quals) in batches of `batch` reads.
+    C-speed parsing: chunked read + bytes.split, no per-line Python."""
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    quals: List[Optional[bytes]] = []
+    tail = b""
+    with open_maybe_gzip(path) as f:
+        while True:
+            chunk = f.read(8 << 20)
+            data = tail + chunk
+            if not data:
+                break
+            lines = data.split(b"\n")
+            if chunk:
+                tail = lines.pop()           # partial last line
+            else:
+                tail = b""
+                if lines and lines[-1] == b"":
+                    lines.pop()
+            nrec = len(lines) // 4
+            for r in range(nrec):
+                name = lines[4 * r]
+                seq = lines[4 * r + 1]
+                qual = lines[4 * r + 3]
+                names.append(name[1:].split(b" ", 1)[0].split(b"\t", 1)[0])
+                seqs.append(seq)
+                quals.append(qual if qual else None)
+                if len(names) == batch:
+                    yield names, seqs, quals
+                    names, seqs, quals = [], [], []
+            rest = lines[4 * nrec:]
+            tail = b"\n".join(rest + [tail]) if rest else tail
+            if not chunk:
+                break
+    if names:
+        yield names, seqs, quals
+
+
+class RawBatch:
+    """Zero-copy FASTQ batch: per-record extents into one raw chunk
+    (fl_fastq_scan).  The C tail renders straight from `buf`; the
+    list accessors materialize bytes only for the rare fallback
+    paths (Python oracle, exact remap)."""
+
+    def __init__(self, buf, n, name_off, name_len, seq_off, seq_len,
+                 qual_off):
+        self.buf = buf                  # np.uint8 array
+        self.n = n
+        self.name_off = name_off        # int64[n], absolute into buf
+        self.name_len = name_len
+        self.seq_off = seq_off
+        self.seq_len = seq_len
+        self.qual_off = qual_off
+
+    def __len__(self):
+        return self.n
+
+    def name(self, i) -> bytes:
+        o = int(self.name_off[i])
+        return self.buf[o : o + int(self.name_len[i])].tobytes()
+
+    def seq(self, i) -> bytes:
+        o = int(self.seq_off[i])
+        return self.buf[o : o + int(self.seq_len[i])].tobytes()
+
+    def qual(self, i) -> bytes:
+        o = int(self.qual_off[i])
+        return self.buf[o : o + int(self.seq_len[i])].tobytes()
+
+    def as_lists(self):
+        idx = range(self.n)
+        return ([self.name(i) for i in idx], [self.seq(i) for i in idx],
+                [self.qual(i) for i in idx])
+
+    def encode(self, Q: int) -> np.ndarray:
+        """[n, Q] padded 3-bit alpha codes via the C encoder."""
+        from ..native import get_lib
+        enc = np.empty((self.n, Q), np.uint8)
+        get_lib().fl_fastq_encode(self.buf.ctypes.data, self.n,
+                                  self.seq_off.ctypes.data,
+                                  self.seq_len.ctypes.data, Q,
+                                  enc.ctypes.data)
+        return enc
+
+
+class _BytesThenStream:
+    """Reads from a leading bytes buffer, then an open stream (the
+    fallback arm of iter_fastq_hybrid resumes mid-file)."""
+
+    def __init__(self, head: bytes, f):
+        self._head = head
+        self._f = f
+
+    def read(self, sz):
+        if self._head:
+            r, self._head = self._head[:sz], self._head[sz:]
+            return r
+        return self._f.read(sz)
+
+
+def iter_fastq_hybrid(path: str, batch: int) -> Iterator:
+    """Yield RawBatch objects via the C scanner when the file is
+    strict 4-line FASTQ, transparently degrading to the Python list
+    parser ((names, seqs, quals) triples) on any shape the scanner
+    rejects.  Consumers must accept both batch kinds."""
+    from ..native import get_lib
+    lib = get_lib()
+    if lib is None or os.environ.get("SMALT_TPU_NO_FASTLANE"):
+        yield from iter_fastq_batches(path, batch)
+        return
+    carry = b""
+    with open_maybe_gzip(path) as f:
+        eof = False
+        while not eof:
+            chunk = f.read(8 << 20)
+            eof = not chunk
+            data = carry + chunk if carry else chunk
+            if not data:
+                return
+            buf = np.frombuffer(data, np.uint8)
+            pos = 0
+            while True:
+                name_off = np.empty(batch, np.int64)
+                name_len = np.empty(batch, np.int64)
+                seq_off = np.empty(batch, np.int64)
+                seq_len = np.empty(batch, np.int64)
+                qual_off = np.empty(batch, np.int64)
+                consumed = np.zeros(1, np.int64)
+                n = int(lib.fl_fastq_scan(
+                    buf.ctypes.data + pos, len(data) - pos, batch,
+                    name_off.ctypes.data, name_len.ctypes.data,
+                    seq_off.ctypes.data, seq_len.ctypes.data,
+                    qual_off.ctypes.data, consumed.ctypes.data))
+                if n < 0:
+                    # unsupported shape: list-parse the rest of the file
+                    yield from _parse_fastq_stream(
+                        _BytesThenStream(data[pos:], f), batch)
+                    return
+                if n == batch or (eof and n > 0):
+                    for a in (name_off, name_len, seq_off, seq_len,
+                              qual_off):
+                        a.resize(n, refcheck=False)
+                    name_off += pos
+                    seq_off += pos
+                    qual_off += pos
+                    yield RawBatch(buf, n, name_off, name_len,
+                                   seq_off, seq_len, qual_off)
+                    pos += int(consumed[0])
+                    continue
+                break       # mid-stream partial: carry into next chunk
+            carry = data[pos:]
+
+
+def _parse_fastq_stream(f, batch):
+    """Python list parser over an open byte stream (fallback arm of
+    iter_fastq_hybrid) — same record handling as iter_fastq_batches."""
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    quals: List[Optional[bytes]] = []
+    tail = b""
+    while True:
+        chunk = f.read(8 << 20)
+        data = tail + chunk
+        if not data:
+            break
+        lines = data.split(b"\n")
+        if chunk:
+            tail = lines.pop()
+        else:
+            tail = b""
+            if lines and lines[-1] == b"":
+                lines.pop()
+        nrec = len(lines) // 4
+        for r in range(nrec):
+            name = lines[4 * r]
+            seq = lines[4 * r + 1]
+            qual = lines[4 * r + 3]
+            names.append(name[1:].split(b" ", 1)[0].split(b"\t", 1)[0])
+            seqs.append(seq)
+            quals.append(qual if qual else None)
+            if len(names) == batch:
+                yield names, seqs, quals
+                names, seqs, quals = [], [], []
+        rest = lines[4 * nrec:]
+        tail = b"\n".join(rest + [tail]) if rest else tail
+        if not chunk:
+            break
+    if names:
+        yield names, seqs, quals
+
+
+def encode_batch(seqs: List[bytes], Q: int) -> np.ndarray:
+    """[B, Q] uint8 alpha codes, padded with 7 (TERM: invalid words,
+    zero scores).  uint8 keeps the host->device transfer small (the
+    device step casts to int32 on chip)."""
+    B = len(seqs)
+    arr = np.full((B, Q), 7, np.uint8)
+    flat = codec.alpha(codec.encode(b"".join(s[:Q] for s in seqs)))
+    o = 0
+    for i, s in enumerate(seqs):
+        n = min(len(s), Q)
+        arr[i, :n] = flat[o : o + n]
+        o += n
+    return arr
+
+
+# ------------------------------------------------------------------
+# lean host tail: one traceback + one SAM line per mapped read
+# ------------------------------------------------------------------
+
+_LOG10 = 2.302585092994046    # results.c:104 QUALSCOR_LOGBASE
+
+
+def _batch_extents(names, seqs, quals):
+    """Per-read (offset, length) extents for the C tails: zero-copy
+    from a RawBatch, one concat from a list triple.  None when any
+    qual is missing or length-mismatched (caller falls back)."""
+    if isinstance(names, RawBatch):
+        rb = names
+        return (rb.n, rb.buf, rb.seq_off, rb.seq_len, rb.buf,
+                rb.qual_off, np.ones(rb.n, np.uint8), rb.buf,
+                rb.name_off, rb.name_len)
+    n = len(names)
+    seq_len = np.asarray([len(s) for s in seqs], np.int64)
+    seq_off = np.zeros(n, np.int64)
+    np.cumsum(seq_len[:-1], out=seq_off[1:])
+    has_qual = np.empty(n, np.uint8)
+    qp = []
+    for i, q in enumerate(quals):
+        if q is None or len(q) != seq_len[i]:
+            return None
+        has_qual[i] = 1
+        qp.append(q)
+    name_len = np.asarray([len(x) for x in names], np.int64)
+    name_off = np.zeros(n, np.int64)
+    np.cumsum(name_len[:-1], out=name_off[1:])
+    seqs_buf = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+    quals_buf = np.frombuffer(b"".join(qp) or b"\0", np.uint8)
+    names_buf = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+    return (n, seqs_buf, seq_off, seq_len, quals_buf, seq_off,
+            has_qual, names_buf, name_off, name_len)
+
+
+def fast_mapq(sw1: int, sw2: int, qlen: int, hits_used: int = 0,
+              hits_tot: int = 0, n2nd: int = 1,
+              ambig: bool = False) -> int:
+    """The reference mapq core (results.c:1310-1334) fed by the device
+    pass's own bookkeeping:
+
+      base = 250*sw1/qlen*(sw1-sw2)/qlen - qn   (+4 when >= 0)
+      qn   = 10*log10(n2nd)          runner-up multiplicity penalty
+      cap  = 60 + 10*log10(used/(tot+3))        (results.c:1193-1197)
+
+    `used`/`tot` are the seed placements the MAXC expansion kept vs all
+    indexed placements of the selected seed words, so a read whose
+    search was truncated (repeats) cannot report full confidence even
+    when its runner-up window was never scored.  `ambig` marks a read
+    with multiple equally-voted far diagonal clusters (unscored repeat
+    copies): confidence is then at best a random pick among copies, so
+    mapq caps at MAPSCOR_MAX_RANDOM (results.c:220-224).  Ties -> 0."""
+    import math
+    if sw2 >= sw1:
+        return 0
+    qn = int(10.0 * math.log(n2nd) / _LOG10) if n2nd > 1 else 0
+    m = 250.0 * sw1 / qlen * (sw1 - sw2) / qlen - qn
+    if m >= 0:
+        m += 4.0               # MAPSCOR_MIN_UNIQ, results.c:58
+    cap = MAPQ_MAX
+    if hits_tot > 0:
+        fs = hits_used / (hits_tot + 3.0)      # MAPSCOR_DUMMY_COUNT
+        if fs <= 1e-7:                         # MINLOGARG
+            cap = 0
+        else:
+            deficit = -10.0 * math.log(fs) / _LOG10
+            cap = MAPQ_MAX - int(deficit) if deficit < MAPQ_MAX else 0
+    if ambig and cap > 3:
+        cap = 3                    # MAPSCOR_MAX_RANDOM
+    if m > cap:
+        m = cap
+    if m > MAPQ_MAX:
+        return MAPQ_MAX
+    return int(m) if m > 0 else 0
+
+
+class FastTail:
+    """Per-worker traceback + SAM renderer."""
+
+    def __init__(self, refset: RefSet, penalties=(1, -2, -4, -3),
+                 minscor: int = 18):
+        self.refset = refset
+        self.minscor = minscor
+        m, go, ge = ali_mod.make_score_matrix(*penalties)
+        self.matrix, self.gapopen, self.gapext = m, go, ge
+        self.lam = ali_mod.matrix_lambda(m)
+        self.avgs = ali_mod.avg_penalties(m)
+        self.ref_codes = refset.codes
+        import numpy as _np
+        self._mat32 = _np.ascontiguousarray(m, dtype=_np.int32)
+        self._scr = None
+
+    def _traceback(self, qcodes, is_rev, win_codes, l_edge, r_edge):
+        """Best local alignment of the window band: revcomp + profile
+        build + recursive driver fused into one native crossing; the
+        pre-order first result is the whole-interval optimum."""
+        from ..native import get_lib, GrowBuf
+        import numpy as np
+        lib = get_lib()
+        qlen = len(qcodes)
+        slen = len(win_codes)
+        if slen < 1 or qlen < ali_mod.ALILEN_MIN:
+            return None
+        scr = self._scr
+        if scr is None:
+            scr = self._scr = {
+                "W": GrowBuf(np.int32), "H": GrowBuf(np.int32),
+                "E": GrowBuf(np.int32), "dirm": GrowBuf(np.uint8, 4096),
+                "back": GrowBuf(np.uint8), "pool": GrowBuf(np.uint8),
+                "res": GrowBuf(np.int64),
+            }
+        scr["W"].ensure(8 * qlen)
+        scr["H"].ensure(qlen + 1)
+        scr["E"].ensure(qlen + 1)
+        ndir_cap = (qlen + slen + 2) * (slen + 1)
+        scr["dirm"].ensure(ndir_cap)
+        back_cap = 2 * (qlen + slen) + 8
+        scr["back"].ensure(back_cap)
+        diff_cap = 4 * (qlen + slen) + 1024
+        scr["pool"].ensure(diff_cap)
+        res_cap = slen // ali_mod.ALILEN_MIN + 4
+        scr["res"].ensure(res_cap * 7)
+        q = np.ascontiguousarray(qcodes, dtype=np.uint8)
+        w = np.ascontiguousarray(win_codes, dtype=np.uint8)
+        minscore = max(self.minscor, 1)
+        minscorlen = ali_mod.ALILEN_MIN
+        if minscorlen * self.avgs[0] < minscore:
+            minscorlen = minscore // self.avgs[0]
+        n = lib.mc_fast_align(
+            q.ctypes.data, qlen, 1 if is_rev else 0,
+            self._mat32.ctypes.data, w.ctypes.data, slen,
+            l_edge, r_edge, minscore, minscorlen,
+            -self.gapopen, -self.gapext,
+            scr["W"].addr, scr["H"].addr, scr["E"].addr,
+            scr["dirm"].addr, ndir_cap,
+            scr["back"].addr, back_cap,
+            scr["pool"].addr, diff_cap,
+            scr["res"].addr, res_cap)
+        if n <= 0:
+            return None
+        r = scr["res"].arr
+        off, dn = int(r[5]), int(r[6])
+        diff = scr["pool"].arr[off : off + dn].tolist()
+        return (int(r[0]), int(r[1]), int(r[2]), int(r[3]), int(r[4]),
+                diff)
+
+    def _dev_align(self, qcodes, is_rev, win_codes, ti, tj, sc_hint):
+        """Device-canonical tail (mc_dev_align): gapless shortcut from
+        the device argmax (ti, tj in the clamped-window / raw-read
+        frames; -1 = unknown), else the same standard-affine DP the
+        device kernel runs, host-side.  Same result tuple as
+        _traceback."""
+        from ..native import get_lib, GrowBuf
+        import numpy as np
+        lib = get_lib()
+        qlen = len(qcodes)
+        slen = len(win_codes)
+        if slen < 1 or qlen < ali_mod.ALILEN_MIN:
+            return None
+        scr = self._scr
+        if scr is None:
+            scr = self._scr = {
+                "W": GrowBuf(np.int32), "H": GrowBuf(np.int32),
+                "E": GrowBuf(np.int32), "dirm": GrowBuf(np.uint8, 4096),
+                "back": GrowBuf(np.uint8), "pool": GrowBuf(np.uint8),
+                "res": GrowBuf(np.int64),
+            }
+        scr["W"].ensure(8 * qlen)
+        scr["H"].ensure(qlen + 1)
+        scr["E"].ensure(qlen + 1)
+        ndir_cap = qlen * slen + 1
+        scr["dirm"].ensure(ndir_cap)
+        back_cap = 2 * (qlen + slen) + 8
+        scr["back"].ensure(back_cap)
+        diff_cap = 4 * (qlen + slen) + 1024
+        scr["pool"].ensure(diff_cap)
+        scr["res"].ensure(7)
+        q = np.ascontiguousarray(qcodes, dtype=np.uint8)
+        w = np.ascontiguousarray(win_codes, dtype=np.uint8)
+        n = lib.mc_dev_align(
+            q.ctypes.data, qlen, 1 if is_rev else 0,
+            self._mat32.ctypes.data, w.ctypes.data, slen,
+            ti, tj, sc_hint, max(self.minscor, 1),
+            -self.gapopen, -self.gapext,
+            scr["W"].addr, scr["H"].addr, scr["E"].addr,
+            scr["dirm"].addr, ndir_cap,
+            scr["back"].addr, back_cap,
+            scr["pool"].addr, diff_cap,
+            scr["res"].addr)
+        if n <= 0:
+            return None
+        r = scr["res"].arr
+        off, dn = int(r[5]), int(r[6])
+        diff = scr["pool"].arr[off : off + dn].tolist()
+        return (int(r[0]), int(r[1]), int(r[2]), int(r[3]), int(r[4]),
+                diff)
+
+    def _finish(self, win_start, tb, is_rev, mapq, qlen) -> RepAli:
+        sw, ps, pe, ss, se, diff = tb
+        refset = self.refset
+        g = win_start + ss
+        sidx = int(refset.find_seqidx(np.asarray([g]))[0])
+        local = g - int(refset.offsets[sidx]) + 1
+        rp = RepAli()
+        rp.status = REPMATEFLG.MAPPED | (REPMATEFLG.REVERSE if is_rev else 0)
+        rp.swatscor = sw
+        rp.mapscor = mapq
+        if is_rev:
+            # ps/pe are in the reverse-complemented query frame (the
+            # profile mc_fast_align aligned); the writer expects
+            # FORWARD-frame coordinates (result.py add_from_ali does the
+            # same conversion) — without it the clip sides swap on
+            # partially-aligned reverse reads
+            rp.q_start = qlen - pe
+            rp.q_end = qlen - ps
+        else:
+            rp.q_start = ps + 1
+            rp.q_end = pe + 1
+        rp.s_start = local
+        rp.s_end = local + (se - ss)
+        rp.s_idx = sidx
+        rp.diff = diff
+        return rp
+
+    def map_one(self, read: Read, sc1: int, sc2: int, ws: int, is_rev: bool,
+                win_len: int, pad: int, q_padded: int,
+                hits_used: int = 0, hits_tot: int = 0,
+                n2nd: int = 1, ambig: bool = False,
+                tb_i: int = -1, tb_j: int = -1) -> Optional[RepAli]:
+        """SE mapping tail for one read given its device-pass winner."""
+        qlen = len(read.seq)
+        if sc1 < self.minscor or qlen < 5:
+            return None
+        refset = self.refset
+        # clamp the window to the contig containing the seed diagonal:
+        # an unclamped window near a contig end lets the alignment run
+        # into the next contig (POS+CIGAR past LN / straddling records)
+        shift = (q_padded - qlen) if is_rev else 0
+        anchor_g = min(max(ws + pad + shift + qlen // 2, 0),
+                       refset.total_len - 1)
+        sidx = int(refset.find_seqidx(np.asarray([anchor_g]))[0])
+        c_lo = int(refset.offsets[sidx])
+        c_hi = int(refset.offsets[sidx + 1])
+        w0 = max(ws, c_lo)
+        w1 = min(ws + win_len, c_hi)
+        if w1 - w0 < 1:
+            return None
+        win = self.ref_codes[w0:w1]
+        if tb_i >= 0 and q_padded <= LONG_READ_Q:
+            # device-canonical tail (short-read batch): the kernel's
+            # argmax anchors a gapless shortcut; gapped/clamped reads
+            # replay the device DP host-side (mc_dev_align)
+            ti_l = tb_i - (w0 - ws)
+            tj_l = tb_j - shift
+            if not (0 <= ti_l < (w1 - w0) and 0 <= tj_l < qlen):
+                ti_l = tj_l = -1
+            tb = self._dev_align(read.seq, is_rev, win, ti_l, tj_l, sc1)
+            if tb is None:
+                return None
+            return self._finish(w0, tb, is_rev,
+                                fast_mapq(sc1, sc2, qlen, hits_used,
+                                          hits_tot, n2nd, ambig), qlen)
+        # long-read path.  With a banded-kernel argmax anchor, a NARROW
+        # band centred on the end diagonal tj - ti suffices (the path's
+        # diagonal wander is bounded by its indels, not by the seed
+        # placement slack); a result below the device score falls back
+        # to the wide band.  Contract note: the anchored band accepts
+        # the first alignment scoring >= the device score (the
+        # device-canonical placement) — in the rare case the wide
+        # band's extra +-24/48 margin holds a strictly better
+        # alignment, the two paths may differ (fast mode is heuristic;
+        # the score never drops below the device score).  Without an
+        # anchor the host band must cover the DEVICE band (diag
+        # offsets center +- W/2); short reads (legacy no-anchor
+        # callers) keep the +-24/48 band.
+        center = -(pad + shift) + (w0 - ws)
+        drift = 0
+        tb = None
+        if q_padded > LONG_READ_Q:
+            from ..ops.sw import band_width_for
+            drift = band_width_for(q_padded, pad) // 2
+            if tb_i >= 0:
+                ti_l = tb_i - (w0 - ws)
+                tj_l = tb_j - shift
+                if 0 <= ti_l < (w1 - w0) and 0 <= tj_l < qlen:
+                    d_end = tj_l - ti_l
+                    margin = max(32, qlen // 48) + 16
+                    tb = self._traceback(read.seq, is_rev, win,
+                                         d_end - margin, d_end + margin)
+                    if tb is not None and tb[0] < sc1:
+                        tb = None
+        if tb is None:
+            tb = self._traceback(read.seq, is_rev, win,
+                                 center - 24 - drift,
+                                 center + 48 + drift)
+            if tb is None or tb[0] < sc1:
+                full = self._traceback(read.seq, is_rev, win,
+                                       -(len(win) - 1), qlen - 1)
+                if full is not None and (tb is None or full[0] > tb[0]):
+                    tb = full
+        if tb is None:
+            return None
+        return self._finish(w0, tb, is_rev,
+                            fast_mapq(sc1, sc2, qlen, hits_used,
+                                      hits_tot, n2nd, ambig), qlen)
+
+    def rescue_mate(self, read: Read, anchor: RepAli,
+                    insert_min: int, insert_max: int) -> Optional[RepAli]:
+        """Mate rescue (the fast-mode analogue of rmap.c:1934-2060):
+        full-band SW of the unmapped mate against the insert window on
+        the proper-pair strand implied by the anchor.  The rescued
+        mapq follows the reference's dependent-mapping rule
+        (scorePairsSimple (ii), resultpairs.c:871-876): P_b cannot
+        exceed P_a, so mapq_b = min(own-score mapq, anchor mapq)."""
+        qlen = len(read.seq)
+        if qlen < 5:
+            return None
+        refset = self.refset
+        a_glob = int(refset.offsets[anchor.s_idx]) + anchor.s_start - 1
+        anchor_rev = bool(anchor.status & REPMATEFLG.REVERSE)
+        if anchor_rev:
+            lo = a_glob + (anchor.s_end - anchor.s_start) - insert_max
+            hi = a_glob + (anchor.s_end - anchor.s_start)
+        else:
+            lo = a_glob
+            hi = a_glob + insert_max
+        # rescue stays inside the anchor's contig (no straddling records)
+        c_lo = int(refset.offsets[anchor.s_idx])
+        c_hi = int(refset.offsets[anchor.s_idx + 1])
+        lo = max(c_lo, lo - qlen)
+        hi = min(c_hi, hi + qlen)
+        if hi - lo < qlen:
+            return None
+        is_rev = not anchor_rev
+        win = self.ref_codes[lo:hi]
+        tb = self._traceback(read.seq, is_rev, win, -(len(win) - 1),
+                             qlen - 1)
+        if tb is None:
+            return None
+        rp = self._finish(lo, tb, is_rev, 0, qlen)
+        rp.mapscor = min(fast_mapq(rp.swatscor, 0, qlen),
+                         int(anchor.mapscor))
+        return rp
+
+    def render(self, names, seqs, quals, outs, win_len: int, pad: int,
+               q_padded: int, writer: ReportWriter,
+               exact_fallback=None, raw_out=None,
+               base_idx: int = 0) -> None:
+        score = outs["score"]
+        score2 = outs["score2"]
+        start = outs["start"]
+        strand = outs["strand"]
+        used = outs.get("hits_used")
+        tot = outs.get("hits_tot")
+        n2 = outs.get("n2nd")
+        amb = outs.get("ambig")
+        tbi = outs.get("tb_i")
+        tbj = outs.get("tb_j")
+        for i, name in enumerate(names):
+            hu = int(used[i]) if used is not None else 0
+            ht = int(tot[i]) if tot is not None else 0
+            if exact_fallback is not None and ht > hu:
+                # the MAXC expansion truncated this read's search: remap
+                # it through the exact engine (the reference's exhaustive
+                # candidate handling) instead of trusting the heuristic
+                text = exact_fallback(names[i], seqs[i], quals[i],
+                                      base_idx + i)
+                if text is not None:
+                    raw_out.write(text)
+                    continue
+            read = Read(name=name.decode(), seq=codec.encode(seqs[i]),
+                        qual=quals[i])
+            rp = self.map_one(read, int(score[i]), int(score2[i]),
+                              int(start[i]), bool(strand[i]),
+                              win_len, pad, q_padded, hu, ht,
+                              int(n2[i]) if n2 is not None else 1,
+                              bool(amb[i]) if amb is not None else False,
+                              int(tbi[i]) if tbi is not None else -1,
+                              int(tbj[i]) if tbj is not None else -1)
+            if rp is None:
+                rp = RepAli()   # unmapped record
+            writer._write_one(rp, read, None, 0, 0)
+
+    def render_native(self, names, seqs, quals, outs, win_len: int,
+                      pad: int, q_padded: int, soft: bool, xmm: bool,
+                      buf, exact_fallback=None,
+                      base_idx: int = 0) -> bool:
+        """One C call (fl_fast_tail_block) renders the whole SE batch:
+        byte-identical to the Python render() path.  Returns False when
+        the native lane is unavailable or errors (caller then runs the
+        Python loop — the oracle)."""
+        import os
+        from ..native import get_lib
+        if os.environ.get("SMALT_TPU_NO_FASTLANE"):
+            return False
+        lib = get_lib()
+        if lib is None or not hasattr(lib, "fl_fast_tail_block"):
+            return False
+        refset = self.refset
+        cache = getattr(self, "_nat", None)
+        if cache is None:
+            snames, offs = [], [0]
+            for s in range(refset.nseq):
+                snames.append(refset.sam_name(s).encode())
+                offs.append(offs[-1] + len(snames[-1]))
+            cache = self._nat = {
+                "snames": np.frombuffer(b"".join(snames) or b"\0",
+                                        np.uint8).copy(),
+                "sname_offs": np.asarray(offs, np.int64),
+                "offsets": np.ascontiguousarray(refset.offsets, np.int64),
+                "refcodes": np.ascontiguousarray(refset.codes, np.uint8),
+            }
+        ext = _batch_extents(names, seqs, quals)
+        if ext is None:
+            return False
+        (n, seqs_buf, seq_off, seq_len, quals_buf, qual_off, has_qual,
+         names_buf, name_off, name_len) = ext
+
+        def a32(k):
+            return np.ascontiguousarray(outs[k], np.int32)
+
+        sc, sc2 = a32("score"), a32("score2")
+        st, sd = a32("start"), a32("strand")
+        hu, ht = a32("hits_used"), a32("hits_tot")
+        n2, am = a32("n2nd"), a32("ambig")
+        assert len(sc) == n, (len(sc), n)   # the C tail reads n entries
+        if "tb_i" in outs:
+            tbi, tbj = a32("tb_i"), a32("tb_j")
+        else:
+            tbi = np.full(n, -1, np.int32)
+            tbj = np.full(n, -1, np.int32)
+        skip = None
+        if exact_fallback is not None:
+            skip = (ht > hu).astype(np.uint8)
+        qmax = int(seq_len.max()) if n else 1
+        cap = int(name_len.sum()) + n * (2 * qmax + 160)
+        out_offs = np.zeros(n + 1, np.int64)
+        ma, _ = self.avgs
+        for _ in range(3):
+            out = np.empty(cap, np.uint8)
+            rc = lib.fl_fast_tail_block(
+                cache["refcodes"].ctypes.data,
+                cache["offsets"].ctypes.data, refset.nseq,
+                cache["snames"].ctypes.data,
+                cache["sname_offs"].ctypes.data,
+                self._mat32.ctypes.data, -self.gapopen, -self.gapext,
+                ma, self.minscor,
+                1 if soft else 0, 1 if xmm else 0,
+                win_len, pad, q_padded,
+                n, seqs_buf.ctypes.data, seq_off.ctypes.data,
+                seq_len.ctypes.data,
+                quals_buf.ctypes.data, qual_off.ctypes.data,
+                has_qual.ctypes.data,
+                names_buf.ctypes.data, name_off.ctypes.data,
+                name_len.ctypes.data,
+                sc.ctypes.data, sc2.ctypes.data, st.ctypes.data,
+                sd.ctypes.data, hu.ctypes.data, ht.ctypes.data,
+                n2.ctypes.data, am.ctypes.data,
+                tbi.ctypes.data, tbj.ctypes.data,
+                skip.ctypes.data if skip is not None else None,
+                out.ctypes.data, cap, out_offs.ctypes.data)
+            if rc == -3:
+                cap *= 4
+                continue
+            if rc < 0:
+                return False
+            text = out[:rc].tobytes().decode("ascii")
+            if skip is None or not skip.any():
+                buf.write(text)
+                return True
+            raw = isinstance(names, RawBatch)
+            for i in range(n):
+                if skip[i]:
+                    if raw:
+                        ft = exact_fallback(names.name(i), names.seq(i),
+                                            names.qual(i), base_idx + i)
+                    else:
+                        ft = exact_fallback(names[i], seqs[i], quals[i],
+                                            base_idx + i)
+                    if ft is None:
+                        return False
+                    buf.write(ft)
+                else:
+                    buf.write(text[out_offs[i] : out_offs[i + 1]])
+            return True
+        return False
+
+    def render_pairs_native(self, names, seqs, quals, outs, win_len: int,
+                            pad: int, q_padded: int, insert_min: int,
+                            insert_max: int, soft: bool, xmm: bool,
+                            buf, libcode=None, ihist=None,
+                            exact_fallback=None, base_idx: int = 0) -> bool:
+        """One C call (fl_fast_tail_pairs) renders the whole PE batch,
+        byte-identical to render_pairs — including the -g histogram
+        weighting (cumulative bins passed through) and the exact-pair
+        fallback for MAXC-truncated searches.  Returns False when the
+        lane is unavailable (Python oracle runs)."""
+        import os
+        from ..native import get_lib
+        from ..results.pairs import LIB_PAIREDEND
+        if os.environ.get("SMALT_TPU_NO_FASTLANE"):
+            return False
+        lib = get_lib()
+        if lib is None or not hasattr(lib, "fl_fast_tail_pairs"):
+            return False
+        refset = self.refset
+        cache = getattr(self, "_nat", None)
+        if cache is None:
+            snames, offs = [], [0]
+            for s in range(refset.nseq):
+                snames.append(refset.sam_name(s).encode())
+                offs.append(offs[-1] + len(snames[-1]))
+            cache = self._nat = {
+                "snames": np.frombuffer(b"".join(snames) or b"\0",
+                                        np.uint8).copy(),
+                "sname_offs": np.asarray(offs, np.int64),
+                "offsets": np.ascontiguousarray(refset.offsets, np.int64),
+                "refcodes": np.ascontiguousarray(refset.codes, np.uint8),
+            }
+        ext = _batch_extents(names, seqs, quals)
+        if ext is None:
+            return False
+        (n, seqs_buf, seq_off, seq_len, quals_buf, qual_off, has_qual,
+         names_buf, name_off, name_len) = ext
+
+        def a32(k):
+            return np.ascontiguousarray(outs[k], np.int32)
+
+        sc, sc2 = a32("score"), a32("score2")
+        st, sd = a32("start"), a32("strand")
+        hu, ht = a32("hits_used"), a32("hits_tot")
+        n2, am = a32("n2nd"), a32("ambig")
+        assert len(sc) == n, (len(sc), n)   # the C tail reads n entries
+        if "tb_i" in outs:
+            tbi, tbj = a32("tb_i"), a32("tb_j")
+        else:
+            tbi = np.full(n, -1, np.int32)
+            tbj = np.full(n, -1, np.int32)
+        qmax = int(seq_len.max()) if n else 1
+        cap = int(name_len.sum()) + n * (2 * qmax + 192)
+        ma, _ = self.avgs
+        lc = LIB_PAIREDEND if libcode is None else libcode
+        if ihist is not None:
+            harr = ihist.smooth if ihist.smoothed else ihist.counts
+            hist_cum = np.cumsum(np.asarray(harr, np.int64))
+            hist_args = (hist_cum.ctypes.data, ihist.span, ihist.insizlo,
+                         ihist.insizhi, ihist.scalfac, ihist.num)
+        else:
+            hist_args = (None, 0, 0, 0, 0, 0)
+        B = n // 2
+        skip = None
+        pair_offs = np.zeros(B + 1, np.int64)
+        if exact_fallback is not None:
+            trunc = ht > hu
+            skip = (trunc[:B] | trunc[B:]).astype(np.uint8)
+        for _ in range(3):
+            out = np.empty(cap, np.uint8)
+            rc = lib.fl_fast_tail_pairs(
+                cache["refcodes"].ctypes.data,
+                cache["offsets"].ctypes.data, refset.nseq,
+                cache["snames"].ctypes.data,
+                cache["sname_offs"].ctypes.data,
+                self._mat32.ctypes.data, -self.gapopen, -self.gapext,
+                ma, self.minscor,
+                1 if soft else 0, 1 if xmm else 0,
+                win_len, pad, q_padded,
+                insert_min, insert_max, lc,
+                n, seqs_buf.ctypes.data, seq_off.ctypes.data,
+                seq_len.ctypes.data,
+                quals_buf.ctypes.data, qual_off.ctypes.data,
+                has_qual.ctypes.data,
+                names_buf.ctypes.data, name_off.ctypes.data,
+                name_len.ctypes.data,
+                sc.ctypes.data, sc2.ctypes.data, st.ctypes.data,
+                sd.ctypes.data, hu.ctypes.data, ht.ctypes.data,
+                n2.ctypes.data, am.ctypes.data,
+                tbi.ctypes.data, tbj.ctypes.data,
+                *hist_args,
+                skip.ctypes.data if skip is not None else None,
+                pair_offs.ctypes.data,
+                out.ctypes.data, cap)
+            if rc == -3:
+                cap *= 4
+                continue
+            if rc < 0:
+                return False
+            text = out[:rc].tobytes().decode("ascii")
+            if skip is None or not skip.any():
+                buf.write(text)
+                return True
+            raw = isinstance(names, RawBatch)
+            for i in range(B):
+                if skip[i]:
+                    if raw:
+                        args = (names.name(i), names.seq(i),
+                                names.qual(i), names.name(B + i),
+                                names.seq(B + i), names.qual(B + i))
+                    else:
+                        args = (names[i], seqs[i], quals[i],
+                                names[B + i], seqs[B + i], quals[B + i])
+                    ft = exact_fallback(*args, base_idx + i)
+                    if ft is None:
+                        return False
+                    buf.write(ft)
+                else:
+                    buf.write(text[pair_offs[i] : pair_offs[i + 1]])
+            return True
+        return False
+
+    # ---------------- paired-end ----------------
+
+    def _glob(self, rp: RepAli) -> int:
+        return int(self.refset.offsets[rp.s_idx]) + rp.s_start - 1
+
+    def _pair_geometry(self, rpA, rpB, insert_min, insert_max,
+                       libcode=None):
+        """(pairflg, isizeA): the reference's proper-pair test
+        (testProperPair, resultpairs.c:135-186 — shared with the exact
+        path via results/pairs.py) for ANY library type (pe/mp/pp/all)
+        and the SAM-spec TLEN for mate A."""
+        from ..report.report import REPPAIR
+        from ..results.pairs import (LIB_PAIREDEND, MAPFLG_PROPER,
+                                     MAPFLG_WITHIN, PMF_LEFTMOST2nd,
+                                     PMF_REVERSE_1st, PMF_REVERSE_2nd,
+                                     test_proper_pair)
+        if libcode is None:
+            libcode = LIB_PAIREDEND
+        pairflg = REPPAIR.MAPPED
+        if rpA.s_idx != rpB.s_idx:
+            return pairflg, 0
+        pairflg |= REPPAIR.CONTIG
+        iflag = 0
+        if rpA.status & REPMATEFLG.REVERSE:
+            iflag |= PMF_REVERSE_1st
+        if rpB.status & REPMATEFLG.REVERSE:
+            iflag |= PMF_REVERSE_2nd
+        if rpB.s_start < rpA.s_start:
+            iflag |= PMF_LEFTMOST2nd
+        rA = min(rpA.s_start, rpB.s_start)
+        rB = max(rpA.s_end, rpB.s_end)
+        isiz = rB - rA + 1
+        if iflag & PMF_LEFTMOST2nd:
+            isiz = -isiz
+        mapflg = test_proper_pair(isiz, iflag, insert_min, insert_max,
+                                  libcode)
+        if mapflg & MAPFLG_PROPER:
+            pairflg |= REPPAIR.PROPER
+        if mapflg & MAPFLG_WITHIN:
+            pairflg |= REPPAIR.WITHIN
+        return pairflg, isiz
+
+    def _pair_elevate(self, rp, other, n2, ihist, isiz):
+        """Marginal-probability elevation of a score-tied mate inside a
+        proper pair (the fast-mode shape of assignProbabilityToPairs +
+        marginal mapq, resultpairs.c:753-952): the mate's other
+        (tie) placements would pair improperly, so its pair-marginal
+        probability is p_in/(p_in + (N-1)*p_allout) with N tie
+        placements; its mapq rises to that marginal, never above the
+        anchor's."""
+        import math
+        from ..results.pairs import (CUMULPROB_IMPROPER,
+                                     CUMULPROB_PROPER_OUTSIDE)
+        if rp.mapscor > MAPSCOR_MAX_RANDOM or \
+                other.mapscor <= MAPSCOR_MAX_RANDOM:
+            return
+        p_prop = 1.0 - CUMULPROB_IMPROPER
+        p_in = p_prop * (1.0 - CUMULPROB_PROPER_OUTSIDE)
+        if ihist is not None:
+            count, totnum = ihist.count_cumulative(abs(isiz), True)
+            if totnum > 0:
+                p = count / totnum
+                iab = p_prop
+                if p >= 0.5:
+                    iab = 0.5 - p / 2
+                p_in = iab * (p * (1.0 - CUMULPROB_PROPER_OUTSIDE) +
+                              CUMULPROB_PROPER_OUTSIDE)
+        p_allout = CUMULPROB_IMPROPER + p_prop * CUMULPROB_PROPER_OUTSIDE
+        n_other = max(int(n2), 1)
+        marg = p_in / (p_in + n_other * p_allout)
+        if marg >= 1.0:
+            elev = MAPQ_MAX
+        else:
+            elev = int(-10.0 * math.log(1.0 - marg) / _LOG10)
+        rp.mapscor = max(rp.mapscor,
+                         min(elev, int(other.mapscor), MAPQ_MAX))
+
+    def render_pairs(self, names, seqs, quals, outs, win_len: int,
+                     pad: int, q_padded: int, insert_min: int,
+                     insert_max: int, writer: ReportWriter,
+                     libcode=None, ihist=None,
+                     exact_fallback=None, raw_out=None,
+                     base_idx: int = 0) -> None:
+        from ..report.report import REPPAIR
+        score = outs["score"]
+        score2 = outs["score2"]
+        start = outs["start"]
+        strand = outs["strand"]
+        used = outs.get("hits_used")
+        tot = outs.get("hits_tot")
+        n2 = outs.get("n2nd")
+        amb = outs.get("ambig")
+        tbi = outs.get("tb_i")
+        tbj = outs.get("tb_j")
+
+        def stats(j):
+            if used is None:
+                return 0, 0, 1, False
+            return int(used[j]), int(tot[j]), int(n2[j]), bool(amb[j])
+
+        B = len(names) // 2
+        for i in range(B):
+            ia, ib = i, B + i
+            if exact_fallback is not None and used is not None and \
+                    (int(tot[ia]) > int(used[ia]) or
+                     int(tot[ib]) > int(used[ib])):
+                # MAXC-truncated search on either mate: the whole pair
+                # remaps through the exact engine
+                ft = exact_fallback(names[ia], seqs[ia], quals[ia],
+                                    names[ib], seqs[ib], quals[ib],
+                                    base_idx + i)
+                if ft is not None:
+                    raw_out.write(ft)
+                    continue
+            readA = Read(name=names[ia].decode(),
+                         seq=codec.encode(seqs[ia]), qual=quals[ia])
+            readB = Read(name=names[ib].decode(),
+                         seq=codec.encode(seqs[ib]), qual=quals[ib])
+            rpA = self.map_one(readA, int(score[ia]), int(score2[ia]),
+                               int(start[ia]), bool(strand[ia]),
+                               win_len, pad, q_padded, *stats(ia),
+                               tb_i=int(tbi[ia]) if tbi is not None else -1,
+                               tb_j=int(tbj[ia]) if tbi is not None else -1)
+            rpB = self.map_one(readB, int(score[ib]), int(score2[ib]),
+                               int(start[ib]), bool(strand[ib]),
+                               win_len, pad, q_padded, *stats(ib),
+                               tb_i=int(tbi[ib]) if tbi is not None else -1,
+                               tb_j=int(tbj[ib]) if tbi is not None else -1)
+            if rpA is None and rpB is not None:
+                rpA = self.rescue_mate(readA, rpB, insert_min, insert_max)
+            elif rpB is None and rpA is not None:
+                rpB = self.rescue_mate(readB, rpA, insert_min, insert_max)
+            pairflg = 0
+            isizeA = 0
+            if rpA is not None and rpB is not None:
+                pairflg, isizeA = self._pair_geometry(
+                    rpA, rpB, insert_min, insert_max, libcode)
+                if (pairflg & REPPAIR.PROPER) and \
+                        (pairflg & REPPAIR.WITHIN):
+                    # a score-tied mate inside a unique proper pair is
+                    # pinned by its partner: raise it to the pair
+                    # marginal (resultpairs.c prob model)
+                    self._pair_elevate(rpA, rpB, stats(ia)[2], ihist,
+                                       isizeA)
+                    self._pair_elevate(rpB, rpA, stats(ib)[2], ihist,
+                                       isizeA)
+            if rpA is None:
+                rpA = RepAli()
+            if rpB is None:
+                rpB = RepAli()
+            rpA.status |= REPMATEFLG.PAIRED
+            rpB.status |= REPMATEFLG.PAIRED | REPMATEFLG.MATE2
+            writer._write_one(rpA, readA, rpB, isizeA, pairflg)
+            writer._write_one(rpB, readB, rpA, isizeA, pairflg)
+
+
+# ------------------------------------------------------------------
+# driver
+# ------------------------------------------------------------------
+
+_g = {}
+
+
+def _tail_init(refset, penalties, minscor, writer_args, inserts=(0, 500),
+               exact_engine=None, seed: int = 1, libcode=None, ihist=None):
+    _g["tail"] = FastTail(refset, penalties, minscor)
+    _g["writer_args"] = writer_args
+    _g["inserts"] = inserts
+    _g["exact_engine"] = exact_engine
+    _g["seed"] = seed
+    _g["libcode"] = libcode
+    _g["pair_ihist"] = ihist
+    _g.pop("exact_lane", None)
+
+
+def _exact_fallback(name, seq, qual, serial) -> Optional[str]:
+    """Remap one truncated-search read through the exact C lane.
+    The drand48 stream is reseeded per read serial so output does not
+    depend on worker count or batch size."""
+    engine = _g.get("exact_engine")
+    if engine is None:
+        return None
+    lane = _g.get("exact_lane")
+    if lane is None:
+        from .fastlane import FastLane
+        soft, xmm = _g["writer_args"]
+        lane = FastLane.make(engine, "sam", soft, xmm, False, False)
+        _g["exact_lane"] = lane if lane is not None else False
+    if not lane:
+        return None
+    from .. import rand
+    rand.ranseed((_g.get("seed") or 1) + serial * 7919)
+    return lane.render_raw_block([name], [seq], [qual])
+
+
+def _exact_fallback_pair(nameA, seqA, qualA, nameB, seqB, qualB,
+                         serial) -> Optional[str]:
+    """Remap one truncated-search PAIR through the exact engine (the
+    fast-mode analogue of the SE exact fallback).  Reseeded per pair
+    serial so output is independent of worker count / batch size."""
+    engine = _g.get("exact_engine")
+    if engine is None:
+        return None
+    from .. import rand
+    from ..report.report import Report
+    from ..results.pairs import add_pair_to_report
+    soft, xmm = _g["writer_args"]
+    rand.ranseed((_g.get("seed") or 1) + serial * 7919)
+    readA = Read(name=nameA.decode(), seq=codec.encode(seqA), qual=qualA)
+    readB = Read(name=nameB.decode(), seq=codec.encode(seqB), qual=qualB)
+    buf = io.StringIO()
+    writer = ReportWriter(buf, _g["tail"].refset, fmt="sam",
+                          soft_clip=soft, x_mismatch=xmm, header=False)
+    rep = Report()
+    rsr, rsm, rpairs, pairflg = engine.rmap_pair(readA, readB)
+    add_pair_to_report(rep, _g.get("pair_ihist"), rpairs, pairflg,
+                       engine.params.rsltouflg, rsr, rsm)
+    writer.write(rep, readA, readB)
+    return buf.getvalue()
+
+
+def _tail_render(args):
+    paired, item, outs, win_len, pad, q_padded, base_idx = args
+    if isinstance(item, RawBatch):
+        names, seqs, quals = item, None, None
+    else:
+        names, seqs, quals = item
+    tail = _g["tail"]
+    soft, xmm = _g["writer_args"]
+    buf = io.StringIO()
+    writer = ReportWriter(buf, tail.refset, fmt="sam", soft_clip=soft,
+                          x_mismatch=xmm, header=False)
+    if paired:
+        imin, imax = _g["inserts"]
+        fbp = (_exact_fallback_pair
+               if _g.get("exact_engine") is not None else None)
+        if not tail.render_pairs_native(names, seqs, quals, outs,
+                                        win_len, pad, q_padded,
+                                        imin, imax, soft, xmm, buf,
+                                        libcode=_g.get("libcode"),
+                                        ihist=_g.get("pair_ihist"),
+                                        exact_fallback=fbp,
+                                        base_idx=base_idx):
+            if isinstance(names, RawBatch):
+                names, seqs, quals = names.as_lists()
+            tail.render_pairs(names, seqs, quals, outs, win_len, pad,
+                              q_padded, imin, imax, writer,
+                              libcode=_g.get("libcode"),
+                              ihist=_g.get("pair_ihist"),
+                              exact_fallback=fbp, raw_out=buf,
+                              base_idx=base_idx)
+    else:
+        fb = _exact_fallback if _g.get("exact_engine") is not None else None
+        if not tail.render_native(names, seqs, quals, outs, win_len, pad,
+                                  q_padded, soft, xmm, buf,
+                                  exact_fallback=fb, base_idx=base_idx):
+            if isinstance(names, RawBatch):
+                names, seqs, quals = names.as_lists()
+            tail.render(names, seqs, quals, outs, win_len, pad, q_padded,
+                        writer, exact_fallback=fb, raw_out=buf,
+                        base_idx=base_idx)
+    return buf.getvalue()
+
+
+# ------------------------------------------------------------------
+# the device pass (the port's own)
+# ------------------------------------------------------------------
 
 PREFETCH = 4   # batches in flight on the device
 

@@ -47,15 +47,18 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`."""
+def load(name: str, src: str = "") -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`, or, for a script that
+    times an earlier version of a kernel beside the shipped one, another
+    source file `src` with the same C interface."""
+    ident = f"{name} {src}" if src else name     # key in _libs, build_info
+    src = src or os.path.join(CSRC, name + ".cu")
     with _locks_guard:
-        lock = _locks.setdefault(name, threading.Lock())
+        lock = _locks.setdefault(ident, threading.Lock())
     with lock:
-        lib = _libs.get(name)
+        lib = _libs.get(ident)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, name + ".cu")
         with open(src, "rb") as f:
             key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
         so = os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
@@ -70,8 +73,8 @@ def load(name: str) -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
             os.replace(tmp, so)
-        build_info[name] = {"path": so, "log": log,
-                            "seconds": time.perf_counter() - t0}
-        lib = _libs[name] = ctypes.CDLL(so)
+        build_info[ident] = {"path": so, "log": log,
+                             "seconds": time.perf_counter() - t0}
+        lib = _libs[ident] = ctypes.CDLL(so)
         return lib
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 NEG = -(1 << 28)
@@ -36,6 +37,20 @@ _libs: dict = {}
 
 def _as_i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
+
+
+def device_matrix(matrix, device) -> torch.Tensor:
+    """The [8, 8] score matrix (a host array) as a contiguous int32
+    tensor on `device`.  Checked here, on the host and before the upload:
+    csrc/sw_full.cu keeps its score profile in int8, so an entry outside
+    -128..127 raises ValueError, on every device alike."""
+    m = np.ascontiguousarray(matrix, dtype=np.int32)
+    if m.shape != (8, 8):
+        raise ValueError(f"score matrix must be [8, 8], got {m.shape}")
+    if m.min() < -128 or m.max() > 127:
+        raise ValueError("score matrix entries must lie in -128..127, got "
+                         f"{int(m.min())}..{int(m.max())}")
+    return torch.from_numpy(m.copy()).to(device)
 
 
 def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
@@ -82,6 +97,37 @@ def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
     return vmax
 
 
+def tie_windows(rng, B: int, Q: int, S: int):
+    """B windows full of tied maxima, for holding a tracked kernel's
+    first-argmax rule against sw_score_ref: each query is a repeat unit
+    of 1 to 4 bases tiled to its length (pad code 7 behind it) and its
+    subject the same unit tiled from a random phase, so the maximum of T
+    is reached again every unit along a diagonal, on many diagonals, in
+    several rows and in distant columns of one row.  One window in eight
+    scores nothing (its subject avoids the query's bases: best 0 and
+    cell (0, 0)), one in eight has a 1% sprinkling of N (5), and subject
+    lengths vary.  Returns int32 numpy (q [B, Q], subj [B, S], slens
+    [B])."""
+    unit = rng.integers(1, 5, B)
+    k = np.arange(max(Q, S), dtype=np.int64)[None, :]
+    base = rng.integers(0, 4, (B, 4))
+    q = np.take_along_axis(base, k[:, :Q] % unit[:, None], 1)
+    phase = rng.integers(0, 4, B)[:, None]
+    s = np.take_along_axis(base, (k[:, :S] + phase) % unit[:, None], 1)
+    kind = np.arange(B) % 8
+    # no base in common: the query holds one base, the subject the next
+    q[kind == 3] = base[kind == 3, :1]
+    s[kind == 3] = (base[kind == 3, :1] + 1) % 4
+    noisy = (kind == 5)[:, None]
+    q = np.where(noisy & (rng.random((B, Q)) < 0.01), 5, q)
+    s = np.where(noisy & (rng.random((B, S)) < 0.01), 5, s)
+    qlen = np.where(rng.random(B) < 0.5, Q, rng.integers(Q // 2, Q + 1, B))
+    q[k[:, :Q] >= qlen[:, None]] = 7
+    slens = np.where(rng.random(B) < 0.5, S, rng.integers(S // 2, S + 1, B))
+    s[k[:, :S] >= slens[:, None]] = 7
+    return q.astype(np.int32), s.astype(np.int32), slens.astype(np.int32)
+
+
 # ctypes signatures of the kernels' plain C entry points (p pointer, i int)
 _SIGS = {"sw_full": "ppppiiiiiipppp", "sw_band": "ppppiiiiiiiipppp",
          "swq": "ppppiiiiipppppp"}
@@ -124,7 +170,7 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, track: bool = False):
     """Launch csrc/sw_full.cu on the current stream.  Same arguments
     and results as sw_score_ref; every tensor contiguous int32 on one
-    CUDA device."""
+    CUDA device, the matrix made by device_matrix (entries in int8)."""
     _check_args("sw_full", qcodes, subj, slens, matrix)
     dev = qcodes.device
     B, Q = qcodes.shape
@@ -156,14 +202,18 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     qcodes: [B, Q] query codes 0..7 (Q <= 512 on CUDA)
     subj:   [B, S] subject codes; rows at or past slens are ignored
     slens:  [B]    valid subject lengths
-    matrix: [8, 8] score matrix (code 7 must score 0: it pads)
+    matrix: [8, 8] score matrix (code 7 must score 0: it pads): a host
+            array, or the tensor device_matrix made of one for `device`
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
     row-major-first argmax cell of each window's DP (subject row ti,
     query lane tj), the anchor of the host traceback."""
     assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
     device = torch.device(device)
-    args = [_as_i32(x, device) for x in (qcodes, subj, slens, matrix)]
+    args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
+    on_device = isinstance(matrix, torch.Tensor) and matrix.device == device
+    args.append(_as_i32(matrix, device) if on_device
+                else device_matrix(matrix, device))
     if device.type == "cpu":
         return sw_score_ref(*args, gapopen_pos, gapext_pos, track=track)
     if device.type == "cuda":

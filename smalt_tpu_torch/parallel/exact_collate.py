@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.sw import sw_score_batch
+from ..ops.sw import device_matrix, sw_score_batch
 
 # Re-declared from smalt_tpu/parallel/exact_collate.py (whose package
 # imports jax); a test holds them equal.
@@ -327,8 +327,7 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
                     for v in range(len(iv_lo) - 1))):
         raise ValueError("host_hits needs contiguous full-cover "
                          "intervals (seq-by-seq regime)")
-    matrix = torch.from_numpy(np.ascontiguousarray(matrix_np, np.int32)
-                              ).to(dev)
+    matrix = device_matrix(matrix_np, dev)
     nseq_s = int(ivals_np[:, 2].max()) + 1
     offs_np = np.zeros(nseq_s + 1, np.int64)
     for lo_, hi_, sq_ in ivals_np:

@@ -7,7 +7,7 @@ densest-diagonal vote per strand -> three reference windows per read ->
 tracked Smith-Waterman (the Hopper kernels in ops/sw.py: full-matrix for
 reads padded to at most LONG_READ_Q, banded above) -> best and runner-up
 window per read.  The host then runs the traceback tail and writes SAM
-(smalt_tpu.map.fastmode.FastTail).
+(map/fastmode.py FastTail).
 
 Everything here is plain torch on int32 tensors, held to the JAX step
 value for value.  Places where torch would otherwise drift from JAX:
@@ -31,11 +31,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from smalt_tpu.index.table import KmerIndex
-from smalt_tpu.seq import codec
-from smalt_tpu.seq.refset import RefSet
-
-from ..ops.sw import band_width_for, sw_band_score_batch, sw_score_batch
+from ..index.table import KmerIndex
+from ..ops.sw import (band_width_for, device_matrix, sw_band_score_batch,
+                      sw_score_batch)
+from ..seq import codec
+from ..seq.refset import RefSet
 
 # Re-declared from smalt_tpu/parallel/mesh.py (which imports jax); a
 # test holds them equal.
@@ -440,7 +440,7 @@ def make_device_step(di: DeviceIndex, matrix, gapopen_pos: int,
     """The mapping step bound to `di` (mesh.py:1084): reads -> the
     output dict, or with pack=True the packed [len(OUT_KEYS), B]
     tensor.  The score matrix moves to di's device once."""
-    mat = torch.as_tensor(np.asarray(matrix, np.int32)).to(di.device)
+    mat = device_matrix(matrix, di.device)
 
     def step(reads):
         out = device_map_step(di, reads, mat, gapopen_pos, gapext_pos)

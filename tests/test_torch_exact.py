@@ -2,7 +2,9 @@
 smalt_tpu on the CPU, with exact integer equality and equal dtypes: the
 pass-2 fill + walk and its step, the host-hits collate step and its
 sorts, the lane end to end (SAM byte-identical to the host C lane and
-to the JAX lane, with equal counters) and the CLI."""
+to the JAX lane, with equal counters) and the CLI.  Each package works
+on an engine of its own over the same index arrays, and seeds its own
+drand48 state before a run."""
 import io
 
 import jax
@@ -22,11 +24,14 @@ from smalt_tpu.native import get_lib
 from smalt_tpu.parallel import exact_collate as jcol
 from smalt_tpu.parallel import exact_pass2 as jp2
 from smalt_tpu.seq.refset import RefSet
+from smalt_tpu_torch import rand as trand
+from smalt_tpu_torch.map import engine as teng
 from smalt_tpu_torch.map.fastlane import DeviceExact
 from smalt_tpu_torch.map.pipeline import run_device_exact_fastq
 from smalt_tpu_torch.parallel import exact_collate as tcol
 from smalt_tpu_torch.parallel import exact_pass2 as tp2
 from test_device_pass2 import default_matrix, gen_case
+from test_torch_standalone import port_index, port_refset, run_port_cli
 
 GI, GE = 4, 3
 QLEN = 100
@@ -232,6 +237,13 @@ def _corpus(tmp_path, kind):
     return refset, idx, str(fq)
 
 
+def _port_engine(refset, idx):
+    """The port's MapEngine on its own RefSet / KmerIndex over the arrays
+    of the reference package's."""
+    prs = port_refset(refset)
+    return teng.MapEngine(prs, port_index(idx), teng.MapParams()), prs
+
+
 def _raw_batch(fq, n):
     from smalt_tpu.map.fastmode import iter_fastq_batches
     return next(iter(iter_fastq_batches(fq, n)))
@@ -246,8 +258,8 @@ def test_collate_matches_jax(tmp_path, kind):
         pytest.skip("native lib required")
     refset, idx, fq = _corpus(tmp_path, kind)
     eng = MapEngine(refset, idx, MapParams())
-    port = DeviceExact.make(eng, "sam", True, False, False, False,
-                            batch=256, device="cpu")
+    port = DeviceExact.make(_port_engine(refset, idx)[0], "sam", True, False,
+                            False, False, batch=256, device="cpu")
     assert port is not None and port._host_hits
     host, dargs = port._prepare(*_raw_batch(fq, 256))
     assert (len(dargs) == 7) == (kind == "contigs")
@@ -269,7 +281,7 @@ def test_non_host_hits_raises(tmp_path):
     rng = np.random.default_rng(3)
     fa.write_text(">c\n" + "".join(rng.choice(list("ACGT"), 5000)) + "\n")
     refset = RefSet.from_fasta(str(fa))
-    eng = MapEngine(refset, build_index(refset, 11, 12), MapParams())
+    eng, _ = _port_engine(refset, build_index(refset, 11, 12))
     dev = DeviceExact.make(eng, "sam", True, False, False, False, batch=8,
                            device="cpu")
     assert dev is not None and not dev._host_hits
@@ -292,6 +304,7 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
     outs, counters = [], []
     for which in ("host", "jax", "port"):
         rand.ranseed(1)
+        trand.ranseed(1)
         eng = MapEngine(refset, idx, MapParams())
         buf = io.StringIO()
         if which == "host":
@@ -303,7 +316,8 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
             dev.run_raw_fastq(fq, buf, lambda a, b, c:
                               lane.render_raw_block(a, b, c))
         else:
-            dev = run_device_exact_fastq(eng, fq, buf, refset, batch=64,
+            peng, prs = _port_engine(refset, idx)
+            dev = run_device_exact_fastq(peng, fq, buf, prs, batch=64,
                                          device="cpu")
             assert dev.host_batches == 0
         if which != "host":
@@ -341,12 +355,14 @@ def test_host_rendered_batch_keeps_input_order(tmp_path, monkeypatch, p2):
     outs = []
     for which in ("host", "port"):
         rand.ranseed(1)
-        eng = MapEngine(refset, idx, MapParams())
+        trand.ranseed(1)
         buf = io.StringIO()
         if which == "host":
+            eng = MapEngine(refset, idx, MapParams())
             assert run_pipeline_raw_fastq(eng, fq, buf, refset)
         else:
-            dev = run_device_exact_fastq(eng, fq, buf, refset, batch=64,
+            peng, prs = _port_engine(refset, idx)
+            dev = run_device_exact_fastq(peng, fq, buf, prs, batch=64,
                                          device="cpu")
             assert dev.host_batches == 1 and dev.n_restaged > 0
         outs.append(buf.getvalue())
@@ -358,7 +374,6 @@ def test_host_rendered_batch_keeps_input_order(tmp_path, monkeypatch, p2):
 @pytest.mark.parametrize("p2", [None, "1"])
 def test_cli_matches_jax_cli(tmp_path, monkeypatch, p2):
     from smalt_tpu import cli as jcli
-    from smalt_tpu_torch import cli as tcli
     if get_lib() is None:
         pytest.skip("native lib required")
     if p2 is None:
@@ -370,8 +385,10 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, p2):
     refset.save(name)
     idx.save(name)
     got, want = str(tmp_path / "got.sam"), str(tmp_path / "want.sam")
-    assert tcli.main(["map", "--device-exact", "--device", "cpu", "-r", "1", "-o", got,
-                      name, fq]) == 0
+    # the port's CLI in a process where smalt_tpu and jax cannot be imported
+    r = run_port_cli(["map", "--device-exact", "--device", "cpu", "-r", "1",
+                      "-o", got, name, fq])
+    assert r.returncode == 0, r.stderr
     assert jcli.main(["map", "-r", "1", "-o", want, name, fq]) == 0
     body = [open(p).read().splitlines() for p in (got, want)]
     assert body[0][0].startswith("@HD")

@@ -1,8 +1,10 @@
 """`map --fast` through the port (smalt_tpu_torch) against smalt_tpu on the
 CPU: byte-identical SAM from run_fast_pipeline and from the two CLIs,
 for short single-end reads, kilobase reads (the banded kernel) and
-pairs; unported options refused with their ROADMAP item, and no jax in
-a process that imports and runs the port."""
+pairs; unported options refused with their ROADMAP item, and neither
+smalt_tpu nor jax in a process that runs the port.  Each package works
+on objects of its own over the same arrays; every run of the port's CLI
+is made in a process where smalt_tpu and jax cannot be imported."""
 import io
 import os
 import subprocess
@@ -17,6 +19,8 @@ from smalt_tpu.seq import codec
 from smalt_tpu.seq.refset import RefSet
 from smalt_tpu_torch.map import fastmode as tfast
 from test_torch_mesh import jax_band_oracle  # noqa: F401  (fixture)
+from test_torch_standalone import (port_index, port_refset, run_port_cli,
+                                   run_port_code)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,13 +49,29 @@ def simulated(tmp_path_factory, indexed):
     return refset, idx, fq, d
 
 
-def _both(refset, idx, fq, batch, **kw):
+def _port_run(refset, idx, fq, out, **kw):
+    """The port's pipeline on its own RefSet / KmerIndex over the arrays
+    of the reference package's (cached on `idx`, as the step is)."""
+    own = idx.__dict__.setdefault(
+        "_port_objects", (port_refset(refset), port_index(idx)))
+    tfast.run_fast_pipeline(*own, fq, out, device="cpu", **kw)
+
+
+def _both(refset, idx, fq, batch, exact=False, **kw):
+    """SAM of the JAX pipeline and of the port's; `exact`: each with an
+    exact engine of its own package for --fallback-exact."""
     want = io.StringIO()
+    jkw, tkw = dict(kw), dict(kw)
+    if exact:
+        from smalt_tpu.map.engine import MapEngine, MapParams
+        from smalt_tpu_torch.map import engine as teng
+        jkw["exact_engine"] = MapEngine(refset, idx, MapParams())
+        tkw["exact_engine"] = teng.MapEngine(
+            port_refset(refset), port_index(idx), teng.MapParams())
     jfast.run_fast_pipeline(refset, idx, fq, want, nthreads=1, batch=batch,
-                            interpret=True, **kw)
+                            interpret=True, **jkw)
     got = io.StringIO()
-    tfast.run_fast_pipeline(refset, idx, fq, got, nthreads=1, batch=batch,
-                            device="cpu", **kw)
+    _port_run(refset, idx, fq, got, nthreads=1, batch=batch, **tkw)
     return want.getvalue(), got.getvalue()
 
 
@@ -64,10 +84,8 @@ def test_pipeline_sam_identical(simulated):
 
 def test_pipeline_fallback_exact_identical(simulated):
     """--fallback-exact is host-only: it passes straight to the tail."""
-    from smalt_tpu.map.engine import MapEngine, MapParams
     refset, idx, fq, _ = simulated
-    eng = MapEngine(refset, idx, MapParams())
-    want, got = _both(refset, idx, fq, 64, exact_engine=eng)
+    want, got = _both(refset, idx, fq, 64, exact=True)
     assert got == want
 
 
@@ -114,8 +132,7 @@ def test_contig_boundary_identical(tmp_path):
 def test_pipeline_unported_options_raise(simulated, kw, item):
     refset, idx, fq, _ = simulated
     with pytest.raises(NotImplementedError, match=item):
-        tfast.run_fast_pipeline(refset, idx, fq, io.StringIO(),
-                                device="cpu", **kw)
+        _port_run(refset, idx, fq, io.StringIO(), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -221,8 +238,7 @@ def test_pairs_batch_split_identical(tmp_path):
     outs = []
     for batch in (8, 32):
         buf = io.StringIO()
-        tfast.run_fast_pipeline(refset, idx, fq1, buf, batch=batch,
-                                device="cpu", mates_path=fq2)
+        _port_run(refset, idx, fq1, buf, batch=batch, mates_path=fq2)
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] and len(outs[0].splitlines()) == 40
 
@@ -232,8 +248,8 @@ def test_pairs_unequal_mate_files_raise(tmp_path):
     short = tmp_path / "short.fq"
     short.write_text("".join(open(fq2).readlines()[:-8]))
     with pytest.raises(ValueError, match="mate files differ"):
-        tfast.run_fast_pipeline(refset, idx, fq1, io.StringIO(), batch=32,
-                                device="cpu", mates_path=str(short))
+        _port_run(refset, idx, fq1, io.StringIO(), batch=32,
+                  mates_path=str(short))
 
 
 def _run(args, env_extra=None, **kw):
@@ -258,8 +274,8 @@ def _body(sam):
 
 def test_cli_matches_jax_cli(saved_index):
     name, fq = saved_index
-    got = _run(["-m", "smalt_tpu_torch.cli", "map", "--fast", "--device",
-                "cpu", name, fq])
+    got = run_port_cli(["map", "--fast", "--device", "cpu", name, fq],
+                       {"SMALT_FAST_BATCH": "64"})
     assert got.returncode == 0, got.stderr
     want = _run(["-m", "smalt_tpu.cli", "map", "--fast", name, fq])
     assert want.returncode == 0, want.stderr
@@ -281,8 +297,8 @@ def saved_pairs(tmp_path_factory):
 
 def test_cli_pairs_match_jax_cli(saved_pairs):
     name, fq1, fq2 = saved_pairs
-    got = _run(["-m", "smalt_tpu_torch.cli", "map", "--fast", "--device",
-                "cpu", name, fq1, fq2])
+    got = run_port_cli(["map", "--fast", "--device", "cpu", name, fq1, fq2],
+                       {"SMALT_FAST_BATCH": "64"})
     assert got.returncode == 0, got.stderr
     want = _run(["-m", "smalt_tpu.cli", "map", "--fast", name, fq1, fq2])
     assert want.returncode == 0, want.stderr
@@ -310,26 +326,49 @@ def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys):
 def test_cli_cuda_without_gpu_fails(saved_index):
     """--device cuda (the default) never falls back to the CPU."""
     name, fq = saved_index
-    r = _run(["-m", "smalt_tpu_torch.cli", "map", "--fast", name, fq],
-             env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    r = run_port_cli(["map", "--fast", name, fq],
+                     {"SMALT_FAST_BATCH": "64", "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert not [ln for ln in r.stdout.splitlines()
                 if ln and not ln.startswith("@")]
 
 
-@pytest.mark.parametrize("what", ["single", "long", "pairs", "exact"])
-def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
-    """A run of the port imports no jax: short single-end reads, kilobase
+@pytest.mark.parametrize("what", ["single", "long", "pairs", "exact",
+                                  "host"])
+def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what,
+                                tmp_path):
+    """A run of the port imports only the port — no module named
+    smalt_tpu or jax, or under them, is in sys.modules afterwards, and
+    importing one would have raised: short single-end reads, kilobase
     reads (the banded path and the long-read host tail), pairs (the
-    pair tail) and the device-exact lane with device pass 2."""
+    pair tail), the device-exact lane with device pass 2, and `index` +
+    host `map` through the CLI against the SMALT 0.7.6 golden."""
+    if what == "host":
+        data = os.path.join(REPO, "tests", "data")
+        name, out = str(tmp_path / "idx"), str(tmp_path / "se.sam")
+        r = run_port_cli(["index", "-k", "13", "-s", "4", name,
+                          os.path.join(data, "genome.fa")])
+        assert r.returncode == 0, r.stderr
+        r = run_port_cli(["map", "-f", "sam", "-r", "1", "-o", out, name,
+                          os.path.join(data, "reads_se.fq.gz")])
+        assert r.returncode == 0, r.stderr
+        import gzip
+        with gzip.open(os.path.join(data, "golden_se_r1.sam.gz"), "rt") as f:
+            want = [ln for ln in f.read().splitlines()
+                    if not ln.startswith("@")]
+        with open(out) as f:
+            got = [ln for ln in f.read().splitlines()
+                   if not ln.startswith("@")]
+        assert len(got) == 2000 and got == want
+        return
     if what == "exact":
         name, fq = saved_index
         code = (
-            "import io, os, sys\n"
+            "import io, os\n"
             "os.environ['SMALT_DX_P2'] = '1'\n"
-            "from smalt_tpu.seq.refset import RefSet\n"
-            "from smalt_tpu.index.table import KmerIndex\n"
-            "from smalt_tpu.map.engine import MapEngine, MapParams\n"
+            "from smalt_tpu_torch.seq.refset import RefSet\n"
+            "from smalt_tpu_torch.index.table import KmerIndex\n"
+            "from smalt_tpu_torch.map.engine import MapEngine, MapParams\n"
             "from smalt_tpu_torch.map.pipeline import run_device_exact_fastq\n"
             f"rs, ix = RefSet.load({name!r}), KmerIndex.load({name!r})\n"
             "buf = io.StringIO()\n"
@@ -337,9 +376,8 @@ def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
             f"{fq!r}, buf, rs, batch=64, device='cpu')\n"
             "assert len(buf.getvalue().splitlines()) == 200\n"
             "assert dev.p2_used > 0 and dev.host_batches == 0\n"
-            "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "print('ok')\n")
-        r = _run(["-c", code])
+        r = run_port_code(code)
         assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
         return
     if what == "single":
@@ -355,9 +393,9 @@ def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
         name, fq1, fq2 = saved_pairs
         reads, n = f"{fq1!r}, mates_path={fq2!r}", 80
     code = (
-        "import io, sys\n"
-        "from smalt_tpu.seq.refset import RefSet\n"
-        "from smalt_tpu.index.table import KmerIndex\n"
+        "import io\n"
+        "from smalt_tpu_torch.seq.refset import RefSet\n"
+        "from smalt_tpu_torch.index.table import KmerIndex\n"
         "import smalt_tpu_torch.cli, smalt_tpu_torch.ops.build\n"
         "from smalt_tpu_torch.map.fastmode import run_fast_pipeline\n"
         f"rs, ix = RefSet.load({name!r}), KmerIndex.load({name!r})\n"
@@ -365,7 +403,6 @@ def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what):
         f"run_fast_pipeline(rs, ix, {reads}, out=buf, batch=16, "
         "device='cpu')\n"
         f"assert len(buf.getvalue().splitlines()) == {n}\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
-    r = _run(["-c", code])
+    r = run_port_code(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

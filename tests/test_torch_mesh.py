@@ -1,7 +1,8 @@
 """The port's fast mapping step (smalt_tpu_torch/parallel/mesh.py) against
 smalt_tpu.parallel.mesh on the same seeded inputs, on the CPU: exact
 int32 equality of every stage and of all 12 OUT_KEYS.  The JAX step
-scores its windows with the Pallas kernel in interpret mode."""
+scores its windows with the Pallas kernel in interpret mode.  Each side
+works on objects of its own package over the same arrays."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,9 @@ from smalt_tpu.index.table import build_index
 from smalt_tpu.ops import sw as jsw
 from smalt_tpu.parallel import mesh as jm
 from smalt_tpu.seq import codec
+from smalt_tpu_torch.align import core as tali
 from smalt_tpu_torch.parallel import mesh as tm
+from test_torch_standalone import port_index, port_refset
 
 
 def _fields(jdi):
@@ -31,7 +34,7 @@ def k13(indexed):
     """k13 s4 on the bundled genome: direct table on both sides."""
     refset, idx = indexed
     jdi = jm.DeviceIndex.build(refset, idx)
-    tdi = tm.DeviceIndex.build(refset, idx, "cpu")
+    tdi = tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
     return refset, idx, jdi, tdi
 
 
@@ -42,7 +45,7 @@ def k15(indexed):
     idx = build_index(refset, 15, 3)
     jdi = jm.DeviceIndex.build(refset, idx)
     assert jdi.table is None
-    return refset, idx, jdi, tm.DeviceIndex.build(refset, idx, "cpu")
+    return refset, idx, jdi, tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
 
 
 def _reads(refset, seed, B, Q, qlen=None, mut=0.02, n_pad_rows=2):
@@ -93,7 +96,7 @@ def test_hilo_index_not_ported(indexed):
     refset, _ = indexed
     idx = build_index(refset, 16, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.DeviceIndex.build(refset, idx, "cpu")
+        tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
 
 
 @pytest.mark.parametrize("k", [11, 13, 15])
@@ -188,7 +191,7 @@ def repeat_genome(tmp_path_factory):
     refset = RefSet.from_fasta(str(fa))
     idx = build_index(refset, 13, 2)
     return (refset, jm.DeviceIndex.build(refset, idx),
-            tm.DeviceIndex.build(refset, idx, "cpu"))
+            tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu"))
 
 
 def test_seed_votes_on_repeats(repeat_genome):
@@ -207,7 +210,8 @@ def _step_equal(jdi, tdi, reads):
     m, go, ge = ali.make_score_matrix()
     want = jm.device_map_step(jdi, jnp.asarray(reads), m, -go, -ge,
                               interpret=True)
-    step = tm.make_device_step(tdi, m, -go, -ge, pack=True)
+    tmat, tgo, tge = tali.make_score_matrix()
+    step = tm.make_device_step(tdi, tmat, -tgo, -tge, pack=True)
     got = step(torch.from_numpy(reads.astype(np.uint8)))
     assert got.dtype == torch.int32 and got.shape == (12, reads.shape[0])
     for i, key in enumerate(tm.OUT_KEYS):
@@ -249,7 +253,7 @@ def long_genome():
         refset = RefSet.from_fasta(fa)
     idx = build_index(refset, 13, 4)
     return (refset, jm.DeviceIndex.build(refset, idx),
-            tm.DeviceIndex.build(refset, idx, "cpu"))
+            tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu"))
 
 
 def _long_reads(refset, seed, B, Q):

@@ -5,6 +5,8 @@ the same seeded inputs, including N (5) and pad (7) codes and varied
 subject lengths; full-matrix and banded.  The CUDA kernels themselves
 run only on a card (chip_smoke.py holds them against the plain versions
 there)."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,10 @@ import torch
 from smalt_tpu.align import core as ali
 from smalt_tpu.ops import sw as jsw
 from smalt_tpu.seq import codec
+from smalt_tpu_torch.align import core as tali
+from smalt_tpu_torch.ops import bounds
 from smalt_tpu_torch.ops import sw as tsw
+from smalt_tpu_torch.seq import codec as tcodec
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +95,23 @@ def _rand_seqs(rng, n, qlen, slen, mut):
     return cases
 
 
+@pytest.mark.parametrize("qlen,slen", [(80, 128), (128, 256)])
+def test_sw_matches_ports_own_host_c(qlen, slen):
+    """... and the port's own copy of that host C kernel."""
+    m, go, ge = tali.make_score_matrix()
+    lam = tali.matrix_lambda(m)
+    rng = np.random.default_rng(qlen + slen)
+    cases = _rand_seqs(rng, 10, qlen, slen, mut=0.08)
+    qc = np.stack([tcodec.alpha(tcodec.encode(q)) for q, _ in cases])
+    sc = np.stack([tcodec.alpha(tcodec.encode(s)) for _, s in cases])
+    slens = np.full(len(cases), sc.shape[1], np.int32)
+    got = tsw.sw_score_batch(qc, sc, slens, m, -go, -ge, device="cpu")
+    want = [tali.sw_full_score(
+        tali.ScoreProfile.from_read(tcodec.encode(q), m, go, ge, lam),
+        tcodec.encode(s)) for q, s in cases]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("qlen,slen", [(80, 128), (100, 160), (128, 256)])
 def test_sw_matches_host_c(qlen, slen):
     """Scores equal the exact host C kernel (swsimd semantics)."""
@@ -107,11 +129,206 @@ def test_sw_matches_host_c(qlen, slen):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _tie_cases(Q, S):
+    """Hand-made windows whose maximum of T is reached more than once,
+    with the cell the reference's rule names (a row wins only if
+    strictly greater, then its lowest column).  Base 0 against base 0
+    scores +1, against base 1 it scores -2; 7 pads.
+      0: the query longer than the subject: T = slen all along row
+         slen - 1, from column slen - 1 to the query's end, in several
+         lanes of any layout -> the lowest column;
+      1: the subject longer than the query: T = qlen in column qlen - 1
+         of every row from qlen - 1 on -> the first row;
+      2: nothing in common: no T above 0 -> (0, 0, 0);
+      3: an empty subject -> (0, 0, 0);
+      4: two copies of a 12-base word in the subject, 40 rows apart,
+         against a query that holds the word once: the same score in two
+         rows, two columns -> the first copy."""
+    slen0, qlen1 = min(Q, S) // 2 - 3, Q // 2 + 5
+    q = np.zeros((5, Q), np.int32)
+    s = np.zeros((5, S), np.int32)
+    slens = np.full(5, S, np.int32)
+    s[0, slen0:] = 7
+    slens[0] = slen0
+    q[1, qlen1:] = 7
+    s[2] = 1
+    slens[3] = 0
+    s[3] = 7
+    word = np.array([0, 1, 2, 3, 3, 2, 1, 0, 0, 2, 1, 3], np.int32)
+    q[4] = 5                     # N: scores 0 against everything
+    q[4, 30:42] = word
+    s[4] = 5
+    s[4, 10:22] = word
+    s[4, 50:62] = word
+    want = np.array([[slen0, slen0 - 1, slen0 - 1],
+                     [qlen1, qlen1 - 1, qlen1 - 1],
+                     [0, 0, 0], [0, 0, 0], [12, 21, 41]], np.int32)
+    return q, s, slens, want
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("Q", [112, 128, 160])
+def test_track_ties_first_cell(scoring, Q, S):
+    """Tied maxima in two lanes of one row, in two rows, and a maximum
+    of 0: the plain version names the reference's cell, as the jnp
+    oracle and the Pallas kernel (interpret mode) do.  Q = 112, 128, 160
+    are the widths the Hopper kernel runs at 14 and 16 columns a lane on
+    8 lanes a window and 10 columns on 16 lanes (chip_smoke.py holds it
+    against this plain version on such input)."""
+    m, go, ge = scoring
+    q, s, slens, want = _tie_cases(Q, S)
+    got = tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu",
+                             track=True)
+    got = np.stack([g.numpy() for g in got], axis=1)
+    np.testing.assert_array_equal(got, want)
+    for ref in (jsw.sw_score_ref(q, s, slens, m, go, ge, track=True),
+                jsw.sw_score_batch(q, s, slens, m, go, ge, interpret=True,
+                                   track=True)):
+        np.testing.assert_array_equal(
+            got, np.stack([np.asarray(r) for r in ref], axis=1))
+    np.testing.assert_array_equal(
+        tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu").numpy(),
+        want[:, 0])
+
+
+@pytest.mark.parametrize("Q,S", [(112, 128), (128, 128), (160, 256)])
+def test_tie_windows_match_pallas_interpret(scoring, Q, S):
+    """The tie-heavy generator chip_smoke.py feeds the tracked kernel:
+    its windows do tie (the maximum of T is reached in more than one
+    cell of most windows), some score nothing, and the plain version
+    equals the jnp oracle and the Pallas kernel on them."""
+    m, go, ge = scoring
+    q, s, slens = tsw.tie_windows(np.random.default_rng(Q + S), 32, Q, S)
+    got = tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu",
+                             track=True)
+    got = np.stack([g.numpy() for g in got], axis=1)
+    for ref in (jsw.sw_score_ref(q, s, slens, m, go, ge, track=True),
+                jsw.sw_score_batch(q, s, slens, m, go, ge, interpret=True,
+                                   track=True)):
+        np.testing.assert_array_equal(
+            got, np.stack([np.asarray(r) for r in ref], axis=1))
+    assert (got[:, 0] == 0).sum() >= 3 and (got[got[:, 0] == 0] == 0).all()
+
+
+def _t_matrix(q, s, slen, m, go, ge):
+    """T of one window by the textbook Gotoh recurrences, cell by cell
+    (E: gap in the query, from the row above; F: from the left)."""
+    Q = len(q)
+    H = np.zeros((slen + 1, Q + 1), np.int64)
+    E = np.zeros((slen + 1, Q + 1), np.int64)
+    T = np.zeros((slen, Q), np.int64)
+    for i in range(1, slen + 1):
+        F = -(1 << 28)
+        for j in range(1, Q + 1):
+            T[i - 1, j - 1] = H[i - 1, j - 1] + m[s[i - 1], q[j - 1]]
+            h = max(T[i - 1, j - 1], E[i - 1, j], F, 0)
+            H[i, j] = h
+            E[i, j] = max(E[i - 1, j] - ge, h - go)
+            F = max(F - ge, h - go)
+    return T
+
+
+def test_tie_windows_do_tie(scoring):
+    """In most windows of the generator the maximum of T is reached in
+    several cells, in more than one row and in more than one column, and
+    the plain version names the first of them in row-major order."""
+    m, go, ge = scoring
+    Q, S = 40, 48
+    q, s, slens = tsw.tie_windows(np.random.default_rng(11), 24, Q, S)
+    got = tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu",
+                             track=True)
+    got = np.stack([g.numpy() for g in got], axis=1)
+    tied = rows = cols = 0
+    for b in range(len(q)):
+        T = _t_matrix(q[b], s[b], int(slens[b]), m, go, ge)
+        M = int(T.max()) if T.size else 0
+        if M <= 0:
+            assert tuple(got[b]) == (0, 0, 0)
+            continue
+        ii, jj = np.nonzero(T == M)          # row-major order
+        assert tuple(got[b]) == (M, ii[0], jj[0])
+        tied += len(ii) > 1
+        rows += len(set(ii)) > 1
+        cols += len(set(jj)) > 1
+    assert tied >= 12 and rows >= 6 and cols >= 6
+
+
+def test_bounds_hand_counted():
+    """Cells, bytes and bounds on shapes small enough to count by hand."""
+    per_s = 132 * 64 * 1.98e9
+    assert bounds.INT_OPS_PER_S == per_s and bounds.OPS_PER_CELL == 5
+    # full matrix: rows below slen, clamped to S; every query column
+    w = bounds.sw_full_work(112, 128, np.array([128, 0, 64, 200]), True)
+    assert w["cells"] == 112 * (128 + 0 + 64 + 128)
+    assert w["bytes"] == 4 * (4 * 112 + 320 + 4 + 64) + 4 * 4 * 3
+    assert w["ops_ms"] == pytest.approx(w["cells"] * 5 / per_s * 1e3)
+    assert w["bound_by"] == "operations" and w["bound_ms"] == w["ops_ms"]
+    assert bounds.sw_full_work(112, 128, np.array([128]), False)["bytes"] == \
+        4 * (112 + 128 + 1 + 64) + 4
+    # the main-path shape, every window at full length
+    full = bounds.sw_full_work(112, 128, np.full(12288, 128), True)
+    assert full["cells"] == 176_160_768
+    assert full["bound_ms"] == pytest.approx(0.05266, rel=1e-3)
+    assert bounds.share(full["bound_ms"], 0.2437) == pytest.approx(0.216,
+                                                                   rel=1e-2)
+    # band: Q = 4, W = 3 lanes, prepad 1: row i holds columns i-1..i+1,
+    # of which 2, 3, 3, 2, 1, 0 lie in the query
+    assert bounds.band_cells(4, 6, 3, 1, np.array([6])) == 11
+    assert bounds.band_cells(4, 6, 3, 1, np.array([3, 0, 9])) == 8 + 0 + 11
+    b = bounds.sw_band_work(4, 6, 2, 0, np.array([6, 3]), False)   # prepad 1
+    assert b["cells"] == bounds.band_cells(4, 6, 2, 1, np.array([6, 3])) == \
+        (1 + 2 + 2 + 2 + 1 + 0) + (1 + 2 + 2)
+    assert b["bound_by"] == "bytes"       # a few cells, 400 bytes
+    # pass 2: l_edge -1, r_edge 1, q_left 0, q_len 5, rows 1..3 of a
+    # valid window: columns [0,2) [0,3) [1,4); a dummy window adds none
+    par = np.array([[-1, 1, 0, 5, 4, 1, 1, 0], [-1, 1, 0, 5, -1, 0, 0, 0]])
+    w = bounds.swq_work(8, 6, par)
+    assert w["cells"] == 2 + 3 + 3
+    assert w["bytes"] == 4 * (1 * 8 + 3 + 8 * 2 + 64) + 12 * 2 + 2 * 2 * 6
+    assert bounds.swq_work(8, 6, par[1:])["cells"] == 0
+
+
+def test_bounds_take_tensors():
+    sl = torch.full((16,), 128, dtype=torch.int32)
+    assert bounds.sw_full_work(112, 128, sl, True) == \
+        bounds.sw_full_work(112, 128, sl.numpy(), True)
+
+
 def test_sw_gap_order_asserted(scoring):
     m, go, ge = scoring
     q, s, slens = _windows(1, 2, 32, 128)
     with pytest.raises(AssertionError):
         tsw.sw_score_batch(q, s, slens, m, 2, 3, device="cpu")
+
+
+@pytest.mark.parametrize("entry", [-129, 128, 1 << 20])
+def test_matrix_outside_int8_raises(scoring, entry):
+    """sw_full.cu keeps its score profile in int8: a matrix entry outside
+    -128..127 is refused on the host, before any upload, on every device
+    and at every place a matrix is taken (the -128 and 127 ends pass)."""
+    from smalt_tpu_torch.parallel.mesh import make_device_step
+    m, go, ge = scoring
+    q, s, slens = _windows(5, 2, 32, 64)
+    bad = m.copy()
+    bad[2, 3] = entry
+    with pytest.raises(ValueError, match="-128..127"):
+        tsw.device_matrix(bad, "cpu")
+    with pytest.raises(ValueError, match="-128..127"):
+        tsw.sw_score_batch(q, s, slens, bad, go, ge, device="cpu")
+    with pytest.raises(ValueError, match="-128..127"):
+        make_device_step(SimpleNamespace(device=torch.device("cpu")), bad,
+                         go, ge)
+    edge = m.copy()
+    edge[0, 1], edge[1, 0] = -128, 127
+    got = tsw.device_matrix(edge, "cpu")
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), edge)
+    edge[0, 0] = 99                      # the tensor does not alias its source
+    assert int(got[0, 0]) == int(m[0, 0])
+    want = tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu")
+    assert torch.equal(
+        tsw.sw_score_batch(q, s, slens, tsw.device_matrix(m, "cpu"), go, ge,
+                           device="cpu"), want)
 
 
 def test_sw_cpu_path_launches_no_kernel(scoring):
