@@ -25,7 +25,14 @@
    path), 4096 (W = 768, two warps a window) on 12,288 windows each,
    and Q = 16,384 (W = 3,072, the kernel's widest band); times both
    (the plain version over 2 calls after one warm-up, one call at the
-   two widest shapes) and prints GCUPS over the band's cells.
+   two widest shapes) and prints GCUPS over the band's cells.  Then
+   tie-heavy band windows (a short unit repeated along the query and
+   the subject: the maximum is reached in many band lanes and rows, and
+   some windows score nothing) at Q = 640 and 1504, and the band widths
+   W = 200 and 330 at Q = 640 on 1,024 windows of both kinds (no
+   multiple of 32: threads hold padding lanes past W), and 8 windows
+   with a subject of 26,000 rows at W = 256 (no room for the one-warp
+   kernel's shared-memory profile).
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -109,6 +116,10 @@ POOL_SHAPE = (128, 128, 6 * BATCH)    # the score-only main-path shape
 BAND_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH), (4096, 3 * BATCH),
                (16384, 64)]
 BAND_MAIN_Q = 1504
+BAND_TIE_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH)]
+# band widths that are no multiple of 32, at Q = 640 on 1,024 windows
+ODD_BAND_Q, ODD_BAND_B, ODD_BAND_WIDTHS = 640, 1024, (200, 330)
+LONG_SUBJ_S, LONG_SUBJ_B = 26_000, 8   # 8 * (S + W) bytes > 200 KB
 LONG_READLEN, N_LONG, LONG_HEAD = 1500, 8192, 256
 LONG_TOL, MIN_LONG = 150, 0.85    # tests/test_longread_concordance.py:110
 PAIR_READLEN, N_PAIRS, PAIR_HEAD = 150, 50_000, 4096
@@ -302,41 +313,6 @@ def kernel_windows(rng, B: int, Q: int, S: int):
                      rng.integers(S // 2, S + 1, B)).astype(np.int32)
     s[np.arange(S)[None, :] >= slens[:, None]] = 7
     return q, s, slens
-
-
-def band_windows(rng, B: int, Q: int):
-    """Long-read windows as the main path builds them (S = window_len,
-    pad = window_pad, W and the band centre as the wrapper fixes them):
-    each query follows its window from column pad + a shift (within W/8
-    for most, up to W either way for a tenth: partly or wholly outside
-    the band) with an indel random walk, 2% substitutions and N codes;
-    one in twenty is unrelated noise, half are shorter than Q (pad code
-    7), and subject lengths vary.  Returns (q, s, slens, pad, W, S)."""
-    from smalt_tpu_torch.ops.sw import clamp_band_width
-    from smalt_tpu_torch.parallel.mesh import window_len, window_pad
-    S, pad = window_len(Q), window_pad(Q)
-    W = clamp_band_width(Q, pad)
-    s = rng.integers(0, 4, (B, S), dtype=np.int32)
-    off = rng.integers(-(W // 8), W // 8 + 1, B)
-    far = rng.random(B) < 0.1
-    off[far] = rng.integers(-W, W + 1, int(far.sum()))
-    step = (rng.random((B, Q)) < 0.0075).astype(np.int32) - \
-        (rng.random((B, Q)) < 0.0075)
-    idx = pad + off[:, None] + np.arange(Q, dtype=np.int32) + \
-        np.cumsum(step, axis=1, dtype=np.int32)
-    q = np.take_along_axis(s, np.clip(idx, 0, S - 1), 1)
-    noise = ((idx < 0) | (idx >= S) | (rng.random((B, Q)) < 0.02) |
-             (rng.random(B) < 0.05)[:, None])
-    q = np.where(noise, rng.integers(0, 4, (B, Q), dtype=np.int32), q)
-    del idx, noise, step
-    q[rng.random((B, Q)) < 0.005] = 5
-    qlen = np.where(rng.random(B) < 0.5, Q, rng.integers(Q * 3 // 4, Q + 1, B))
-    q[np.arange(Q)[None, :] >= qlen[:, None]] = 7
-    s[rng.random((B, S)) < 0.003] = 5
-    slens = np.where(rng.random(B) < 0.7, S,
-                     rng.integers(S // 2, S + 1, B)).astype(np.int32)
-    s[np.arange(S)[None, :] >= slens[:, None]] = 7
-    return q, s, slens, pad, W, S
 
 
 def time_ms(fn, reps: int, warm: int = 3) -> float:
@@ -541,6 +517,101 @@ def check_swq_kernel(rng, card: str):
     return worst, main
 
 
+def band_equal(q, s, sl, mat, go: int, ge: int, pad: int, W: int,
+               what: str):
+    """sw_band_cuda, tracked and score-only, against sw_band_score_ref on
+    the same windows, exactly.  Returns (the max |difference| over best,
+    ti, tj and the score-only best (0), the plain version's result)."""
+    import torch
+    from smalt_tpu_torch.ops import sw
+    got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=True)
+    got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=False)
+    want = sw.sw_band_score_ref(q, s, sl, mat, go, ge, pad, W, track=True)
+    torch.cuda.synchronize()
+    errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+    err0 = int((got0 - want[0]).abs().max())
+    if max(errs + [err0]) != 0:
+        bad = ((got[0] != want[0]) | (got[1] != want[1]) |
+               (got[2] != want[2]) | (got0 != want[0])).nonzero().flatten()
+        fail(f"sw_band differs from sw_band_score_ref at {what}: max |diff| "
+             f"best/ti/tj {errs}, score-only {err0}; windows "
+             f"{bad[:8].tolist()}")
+    return max(errs + [err0]), want
+
+
+def check_band_ties(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, tie-heavy band windows: the tracked sw_band's
+    first-argmax rule against sw_band_score_ref where the maximum is
+    reached in many band lanes and rows."""
+    import torch
+    from smalt_tpu_torch.ops import bounds, sw
+    for Q, B in BAND_TIE_SHAPES:
+        q, s, sl, pad, W, S = sw.band_tie_windows(rng, B, Q)
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                               f"Q={Q} W={W} S={S}, tie-heavy windows")
+        zero = int((want[0] == 0).sum())
+        if zero < B // 16 or zero > B // 4:
+            fail(f"degenerate band tie windows at Q={Q}: {zero} score 0")
+        if not bool(((want[2] == -(pad + W // 2)) | (want[0] > 0)).all()):
+            fail(f"a band tie window at Q={Q} scores 0 off (0, -prepad)")
+        k_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                               track=True), 20)
+        print(f"# sw_band Q={Q} W={W} S={S} B={B}, tie-heavy windows: equal "
+              f"to sw_band_score_ref (best, ti, tj and score-only; {zero} "
+              f"windows score 0); track {k_ms:.4f} ms | {card}", flush=True)
+        print(bound_line(f"sw_band_track Q={Q} W={W} S={S} B={B} ties",
+                         bounds.sw_band_work(Q, S, W, pad, sl, True), k_ms,
+                         card), flush=True)
+    return err
+
+
+def check_band_odd_widths(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, band widths that are no multiple of 32 (through
+    sw_band_cuda directly: the wrapper above it only makes multiples of
+    128), where threads hold padding lanes past W."""
+    import torch
+    from smalt_tpu_torch.ops import sw
+    Q, B = ODD_BAND_Q, ODD_BAND_B
+    for kind, gen in (("planted", sw.band_windows),
+                      ("tie-heavy", sw.band_tie_windows)):
+        q, s, sl, pad, _, S = gen(rng, B, Q)
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        for W in ODD_BAND_WIDTHS:
+            err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                                   f"Q={Q} W={W} S={S}, {kind} windows")
+            if int(want[0].max()) <= Q // 4:
+                fail(f"degenerate {kind} windows at Q={Q} W={W}")
+            print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows: equal "
+                  f"to sw_band_score_ref (best, ti, tj and score-only) | "
+                  f"{card}", flush=True)
+    return err
+
+
+def check_band_long_subject(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, a subject too long for the one-warp kernel's
+    shared-memory profile (8 * (S + W) bytes a window): sw_band_launch
+    hands such windows to the several-warps kernel on two warps."""
+    import torch
+    from smalt_tpu_torch.ops import sw
+    Q = ODD_BAND_Q
+    q, s, sl, pad, W, S = sw.band_windows(rng, LONG_SUBJ_B, Q)
+    tail = rng.integers(0, 4, (LONG_SUBJ_B, LONG_SUBJ_S - S), dtype=np.int32)
+    s = np.concatenate([np.where(s == 7, 0, s), tail], axis=1)
+    sl = np.full(LONG_SUBJ_B, LONG_SUBJ_S, np.int32)
+    sl[0] = LONG_SUBJ_S // 2
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                           f"Q={Q} W={W} S={LONG_SUBJ_S}")
+    if int(want[0].max()) <= Q // 4:
+        fail(f"degenerate windows at Q={Q} S={LONG_SUBJ_S}")
+    print(f"# sw_band Q={Q} W={W} S={LONG_SUBJ_S} B={LONG_SUBJ_B} (no room "
+          f"for the profile: two warps of the several-warps kernel): equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only) | {card}",
+          flush=True)
+    return err
+
+
 def check_band_kernel(rng, card: str):
     """Phase 3b: sw_band (tracked and score-only) against its plain
     version sw_band_score_ref, on the card.  Returns (max_abs_err,
@@ -556,19 +627,11 @@ def check_band_kernel(rng, card: str):
     worst = 0
     main = None
     for Q, B in BAND_SHAPES:
-        q, s, sl, pad, W, S = band_windows(rng, B, Q)
+        q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
         q, s, sl = (torch.from_numpy(x).to(dev) for x in (q, s, sl))
-        got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=True)
-        got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=False)
-        want = sw.sw_band_score_ref(q, s, sl, mat, go, ge, pad, W,
-                                    track=True)
-        torch.cuda.synchronize()
-        errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
-        err0 = int((got0 - want[0]).abs().max())
-        worst = max(worst, *errs, err0)
-        if max(errs + [err0]) != 0:
-            fail(f"sw_band differs from sw_band_score_ref at Q={Q} W={W} "
-                 f"S={S}: max |diff| best/ti/tj {errs}, score-only {err0}")
+        err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                               f"Q={Q} W={W} S={S}")
+        worst = max(worst, err)
         if int(want[0].max()) <= 0:
             fail(f"degenerate band windows at Q={Q}")
         reps = 5 if B * W * S > 2e10 else 20
@@ -602,7 +665,10 @@ def check_band_kernel(rng, card: str):
                         lambda: sw.sw_band_score_ref(q, s, sl, mat, go, ge,
                                                      pad, W), 2, warm=1),
                          bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
-        del q, s, sl, got, got0, want
+        del q, s, sl, want
+    worst = max(worst, check_band_ties(rng, mat, go, ge, card),
+                check_band_odd_widths(rng, mat, go, ge, card),
+                check_band_long_subject(rng, mat, go, ge, card))
     return (worst,) + main
 
 
@@ -705,9 +771,10 @@ def ptxas_summary(log: str) -> str:
     spill bytes over all instances."""
     regs, spills, cur = [], 0, "?"
     for ln in log.splitlines():
-        m = re.search(r"kernelI(\w+?)EEv", ln)
+        m = re.search(r"\d([a-z_]+)_kernelI(\w+?)EEv", ln)
         if "Compiling entry function" in ln and m:
-            cur = ",".join(re.findall(r"L[ib](\d+)", m.group(1)))
+            cur = m.group(1) + " " + ",".join(
+                re.findall(r"L[ib](\d+)", m.group(2)))
         elif "registers" in ln:
             regs.append(f"<{cur}>:{re.search(r'Used (\d+) reg', ln).group(1)}")
         elif "spill" in ln:

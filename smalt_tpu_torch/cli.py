@@ -488,6 +488,22 @@ def _no_gpu(device: str) -> bool:
     return False
 
 
+def _matrix_refused(spec: Optional[str]) -> bool:
+    """The device modes keep their score profiles in int8
+    (ops/sw.py device_matrix): say so and refuse, before anything is
+    loaded, when -S gives the matrix an entry outside -128..127."""
+    from .align.core import make_score_matrix
+    m = make_score_matrix(*_parse_penalties(spec))[0]
+    if -128 <= int(m.min()) and int(m.max()) <= 127:
+        return False
+    print(f"smalt_tpu_torch: -S {spec}: score matrix entries must lie in "
+          f"-128..127 on the device paths, got {int(m.min())}.."
+          f"{int(m.max())} (ROADMAP.md Queue 3: score matrices outside "
+          f"int8); `map` without a device flag takes any matrix",
+          file=sys.stderr)
+    return True
+
+
 def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
     """map --device-exact: serial single-end FASTQ to SAM through the
     port's device-exact lane (smalt_tpu/cli.py:311-430 for that case)."""
@@ -504,6 +520,8 @@ def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
             (sam_in, "--device-exact on SAM/BAM input", "Queue 1 #6e")):
         if bad:
             return _unported(what, item)
+    if _matrix_refused(a.scorspec):
+        return 2
     if _no_gpu(device):
         return 1
     engine, refset, _ = _build_engine(a, argv)
@@ -540,6 +558,8 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
             (a.resume, "--resume with --fast", "Queue 1 #13")):
         if bad:
             return _unported(what, item)
+    if _matrix_refused(a.scorspec):
+        return 2
     if _no_gpu(device):
         return 1
     refset = RefSet.load(a.index_name)

@@ -23,80 +23,364 @@
 // also returns the row-major-first argmax cell: a row updates the running
 // best (which starts at 0) only when its row max is strictly greater, and
 // then names its lowest lane; the cell is returned in query coordinates,
-// (ti, tj) = (i, i + lane - prepad).
+// (ti, tj) = (i, i + lane - prepad), and a window in which no T is
+// positive returns row 0, band lane 0: (best, ti, tj) = (0, 0, -prepad).
 //
-// What bounds it on an H100: integer ALU and warp shuffles, not memory.
-// The main path (1,500 bp reads, Q = 1504) scores 12,288 windows of
-// W = 384 band lanes over S = 1,792 subject rows a step, 8.5 G cells,
-// from ~100 MB of int32 codes read once.  Each cell costs one
-// shared-memory matrix lookup and ~15 integer operations; each row adds
-// two 5-step shuffle chains (F and, with TRACK, the row max).
+// What bounds it on an H100: the rate at which a scheduler starts integer
+// instructions, not memory.  The main path (1,500 bp reads, Q = 1504)
+// scores 12,288 windows of W = 384 band lanes over S = 1,792 subject rows
+// a step, 8.5 G band cells (6.6 G of them inside the query, which is what
+// ops/bounds.py counts), from ~100 MB of int32 codes read once.  An SM
+// starts 64 int32 lane-instructions a clock, so a warp's integer
+// instruction holds its scheduler for two clocks, and the multiply-add
+// pipe gives no second lane beside the ALU: moving the recurrence's adds
+// there (a multiply-add by a register holding 1) made the kernel slower,
+// and the measured time of every version of this kernel is its integer
+// instructions a row times two clocks, within 10%.  The design therefore
+// counts instructions.  The recurrence needs 5 max operations a cell (H0,
+// the running prefix max, its merge with the lanes to the left, H and E);
+// sw_band_warp_kernel spends 6.5 integer instructions a cell (those five,
+// the add of T and half a 3-input max for the row's maximum; tracking adds
+// one multiply-add for the key), one shared-memory load, and ~25
+// instructions and 8 shuffles a thread and row that do not grow with C.
 //
-// Design.  A thread holds C consecutive band lanes [t0, t0 + C) of H, E
-// and the query codes in registers.  Bands up to 512 lanes run one warp
-// per window and four windows a block, with C = W/32 rounded up to an
-// instantiated width.  Wider bands (MULTI) run one window per block on
-// NW = ceil(W/512) warps with C = 12 or 16, up to W = 3,072 (6 warps;
-// sw_band_launch refuses wider bands).  Lanes at or past W are padding:
-// their E is held at NEG and their T is left out of the max, so they
-// never reach a real lane (E flows from the right, only through NEG).
-//   - Query sliding: from one row to the next each lane's query column
-//     moves one to the right, so a thread shifts its codes down one
-//     register, takes the next thread's first code by __shfl_down_sync,
-//     and the warp's last thread takes the one new code, which the warp
-//     loads 32 rows at a time (one per lane) and broadcasts.  Subject
-//     codes arrive the same way.  The 8x8 matrix sits in shared memory.
-//   - E from lane t + 1: an in-register shift and one __shfl_down_sync,
-//     the mirror image of sw_full.cu's __shfl_up_sync of H.
-//   - F: a per-thread running max over its C lanes, then a log-step
-//     inclusive __shfl_up_sync scan of the thread totals.
-//   - MULTI, one __syncthreads a row.  Each warp publishes its scan total
-//     and its row max in shared memory before the barrier and reads the
-//     other warps' after it.  A warp's last lane needs E from the next
-//     warp's first lane: that is the next warp's state from the previous
-//     row, published at the end of that row, so it is read after this
-//     row's barrier.  Until then the last lane's H0 is max(T, 0); it
-//     feeds no F inside its warp, and a reader corrects the published
-//     total of warp w' as max(total, Ein_last + L*ge), which is the same
-//     max.  The shared buffers alternate with the row's parity, so one
-//     barrier a row orders every write before its reads and every read
-//     before the next write to the same buffer.
+// Two kernels.  Bands up to 512 lanes (every band the mapping path makes
+// for reads up to ~2.8 kb) run sw_band_warp_kernel: one warp a window, up
+// to four windows a block.  Wider bands, up to W = 3,072, run
+// sw_band_multi_kernel: one window a block on NW = ceil(W/512) warps.  In
+// both a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
+// registers; lanes at or past W are padding that never reaches a real
+// lane (E flows from the right, only through NEG, and F only to the
+// right).
+//
+// sw_band_warp_kernel, and what each part is for.
+//   - Hopper's 3-input integer instructions carry the recurrence, each
+//     exact in int32: H0 = max(Ein, T, 0) is one __viaddmax_s32_relu, the
+//     running prefix max, H = max(H0, F) and E are one __viaddmax_s32
+//     each.  To make E a single instruction the kernel keeps
+//     Eh = E + (i+1)*ge instead of E (i the row that wrote it):
+//     E' = max(Ein - ge, H - go) becomes Eh' = max(Ehin, H + ((i+1)*ge - go))
+//     and the row's -i*ge is folded into the H0 instruction.  Ein comes
+//     from lane t + 1 of the row above, the same row offset in every lane,
+//     so the trick holds in the band frame as it does in sw_full.cu.  E
+//     starts at NEG here (not 0), and lane W - 1 takes NEG every row: the
+//     stand-in NEG - i*ge stays far below 0 and above INT_MIN because
+//     sw_band_launch admits only (S + 1) * ge < 2^28, so H0, H and E come
+//     out as with NEG itself (H >= 0 > NEG + go).  -i*ge and (i+1)*ge - go
+//     are carried from row to row by one add each: written as products of
+//     the row number, the compiler splits H0 into a multiply-add and a max.
+//   - The prefix max runs in thread-local coordinates (lane c of the
+//     thread, not t0 + c), so its constants c*ge and -(go + (c-1)*ge) are
+//     the same in every thread; the thread's offset t0*ge is added to its
+//     total before the shuffle scan and taken off the scan's result, twice
+//     a row instead of twice a cell.  The constants arrive as a kernel
+//     argument (LaneConsts) and are read from the constant bank as
+//     operands: held in registers, or rebuilt every row as the compiler
+//     chose to, they cost an instruction a cell.
+//   - The score lookup costs no integer instruction: at its start a
+//     window writes its query profile, prof[s][x] = matrix[s][q[x - prepad]]
+//     as int8 (code 7 outside the query), to shared memory, 8 rows of
+//     PW = S + 32*C bytes.  Band lane t of row i is column x = i + t, so a
+//     thread's C scores are C consecutive bytes that start one byte further
+//     each row: C sign-extending byte loads at (row of the subject code) +
+//     a constant, from an offset that takes one add a row.  No query code
+//     is held in registers or shuffled.  With C = 12 the threads of a warp
+//     read 3 words apart, 32 different banks; with C = 8 and 16 two and
+//     four threads share a bank, which the load pipe absorbs while the
+//     integer rate is the limit.  The profile is what bounds occupancy at
+//     the main shape (17 KB a window, 12 warps a SM) and what sets the
+//     kernel's limit on S: a window whose profile passes 200 KB runs
+//     sw_band_multi_kernel on two warps instead.  Matrix entries must fit
+//     in int8: ops/sw.py checks a matrix on the host where it is uploaded
+//     (device_matrix).
+//   - Tracking without a warp reduction in the row loop.  Each thread
+//     keeps its own first-best cell over its own band lanes:
+//     key = T*256 + 255 - c orders a row's cells by T and then by lowest
+//     lane, the thread takes the row's max key (3-input max), and updates
+//     when that key's T is strictly greater than the thread's best so far
+//     (which starts at T = 0).  The 256 arrives in a register, so that the
+//     key is one multiply-add and not a shift and an add.  One
+//     reduction after the loop picks the highest T, then the lowest row,
+//     then the lowest band lane t0 + c, and tj = ti + lane - prepad.
+//     This equals the reference's rule.  Proof: let M be the maximum of T
+//     over the window's band cells.  If M <= 0 no row is ever strictly
+//     greater than the running best 0, the reference returns row 0 and
+//     band lane 0, i.e. (0, 0, -prepad), and so does the reduction (no
+//     thread ever updates).  If M > 0 the reference's best becomes M at
+//     the first row i* whose row max is M (later rows are not strictly
+//     greater) and names that row's lowest lane with T = M: the
+//     lexicographic minimum (i, t) over the cells with T = M.  A thread's
+//     record, under the same strict test on its own lanes, is the
+//     lexicographic minimum over ITS cells with T equal to its own
+//     maximum; the threads whose maximum is M hold between them every cell
+//     with T = M, so the minimum of their records by (i, t) is the global
+//     one.  Scores are below 2^23 (sw.py admits int8 matrix entries and
+//     windows whose shorter side is below 65,536) and C < 256, so the key
+//     fits and c is recovered from its low byte.
+//   - Padding lanes (band lanes at or past W, where 32 * C > W; the PAD
+//     instances, so that the widths the mapping path makes, multiples of
+//     128, carry none of this) are kept out of the max through H, not T:
+//     after every row their H is set to HPAD = -2^22 and their E to NEG,
+//     so their next T = HPAD + score has a key near -2^30, below every
+//     real cell's (a real T is at least the lowest matrix entry, since
+//     H >= 0) and far from overflow, which NEG * 256 would not be.
+//   - The warp's first and last lane take NEG in place of a neighbour's
+//     value by a min with a per-lane bound (NEG or INT_MAX), not by a
+//     select on a predicate that would be kept live through the loop.
+//   - Subject codes arrive 32 rows at a time, one per lane, and are
+//     broadcast with __shfl_sync.  E from lane t + 1 is a neighbouring
+//     register and one __shfl_down_sync, the mirror image of sw_full.cu's
+//     __shfl_up_sync of H.  No global memory is touched inside a row.
+//
+// sw_band_multi_kernel (W > 512): C = 12 or 16, 2-input max and add, one
+// lookup in the 8x8 int32 matrix a cell, the query codes in registers and
+// shifted down one register a row (a thread takes the next thread's first
+// code by __shfl_down_sync, the warp's last thread the one new code), and
+// a warp reduction of the row max on every row.  One __syncthreads a row.
+// Each warp publishes its scan total and its row max in shared memory
+// before the barrier and reads the other warps' after it.  A warp's last
+// lane needs E from the next warp's first lane: that is the next warp's
+// state from the previous row, published at the end of that row, so it is
+// read after this row's barrier.  Until then the last lane's H0 is
+// max(T, 0); it feeds no F inside its warp, and a reader corrects the
+// published total of warp w' as max(total, Ein_last + L*ge), which is the
+// same max.  The shared buffers alternate with the row's parity, so one
+// barrier a row orders every write before its reads and every read before
+// the next write to the same buffer.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NEG = -(1 << 28);
+constexpr int HPAD = -(1 << 22);       // H of a padding lane (one warp)
 constexpr int WARPS = 4;               // windows (warps) per block, W <= 512
 constexpr int MAX_NW = 6;              // warps per window, W <= 3072
 constexpr int MAX_W = 32 * 16 * MAX_NW;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int C, bool TRACK, bool MULTI>
-__global__ void __launch_bounds__(MULTI ? MAX_NW * 32 : WARPS * 32)
-sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
-               const int* __restrict__ slens,
-               const int* __restrict__ matrix, int B, int Q, int S, int W,
-               int prepad, int go, int ge, int* __restrict__ best_out,
-               int* __restrict__ ti_out, int* __restrict__ tj_out) {
+__device__ __forceinline__ int addmax(int a, int b, int c) {
+  return __viaddmax_s32(a, b, c);                  // max(a + b, c)
+}
+__device__ __forceinline__ int addmax_relu(int a, int b, int c) {
+  return __viaddmax_s32_relu(a, b, c);             // max(a + b, c, 0)
+}
+__device__ __forceinline__ int max3(int a, int b, int c) {
+  return __vimax3_s32(a, b, c);
+}
+
+// The max over c of key(c) = T[c] * kmul + 255 - c, kmul = 256.
+template <int C>
+__device__ __forceinline__ int row_key(const int (&T)[C], int kmul) {
+  int m = T[0] * kmul + 255;
+#pragma unroll
+  for (int c = 1; c + 1 < C; c += 2)
+    m = max3(m, T[c] * kmul + (255 - c), T[c + 1] * kmul + (254 - c));
+  if (C % 2 == 0) m = max(m, T[C - 1] * kmul + (256 - C));
+  return m;
+}
+
+template <int C>
+__device__ __forceinline__ int row_max(const int (&T)[C]) {
+  int m = T[0];
+#pragma unroll
+  for (int c = 1; c + 1 < C; c += 2) m = max3(m, T[c], T[c + 1]);
+  if (C % 2 == 0) m = max(m, T[C - 1]);
+  return m;
+}
+
+// The gap constants of a thread's lanes: lane c adds c*ge to its H0 in the
+// prefix max and takes -(go + (c-1)*ge) off the merged prefix for its F.
+// A kernel argument, so that each is an operand from the constant bank
+// and holds no register.
+struct LaneConsts {
+  int cge[16], fk[16];
+};
+
+// One warp a window, W <= 32 * C <= 512 (PAD: W < 32 * C); dynamic shared
+// memory holds the block's query profiles, 8 * PW bytes a window,
+// PW = S + 32 * C rounded up to a multiple of 4.  (The instances take 40
+// to 96 registers; the minimum of three blocks a SM changes the
+// compiler's schedule, not that: 2-4% on the score-only instances.)
+template <int C, bool TRACK, bool PAD>
+__global__ void __launch_bounds__(WARPS * 32, 3)
+sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
+                    const int* __restrict__ slens,
+                    const int* __restrict__ matrix, int B, int Q, int S,
+                    int W, int prepad, int go, int ge, int kmul, int PW,
+                    const LaneConsts lc,
+                    int* __restrict__ best_out, int* __restrict__ ti_out,
+                    int* __restrict__ tj_out) {
+  static_assert(C >= 1 && C < 256, "the key keeps the band lane in a byte");
   __shared__ int smat[64];
-  // MULTI exchange, by row parity: scan totals, row maxima, and E of
-  // each warp's first lane (the state after the previous row)
+  extern __shared__ __align__(16) signed char prof[];
+  if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;                  // warp-uniform
+
+  const int t0 = lane * C;             // first band lane of this thread
+  const int t0ge = t0 * ge;
+  // PAD: W < 32 * C, so some threads hold padding lanes
+  const int nreal = PAD ? min(max(W - t0, 0), C) : C;   // lanes below W
+  const bool partial = PAD && nreal < C;
+  // NEG where this lane takes no value from its neighbour, else no bound
+  const int last_neg = lane == 31 ? NEG : INT_MAX;
+  const int first_neg = lane == 0 ? NEG : INT_MAX;
+  const int* qrow = q + (size_t)b * Q;
+  const int* srow = subj + (size_t)b * S;
+  const int slen = min(slens[b], S);
+
+  // The window's query profile, int8: entry (s, x) = matrix[s][q[x - prepad]]
+  // (code 7 outside the query), x = i + t for band lane t of row i.
+  signed char* wprof = prof + (size_t)(threadIdx.x >> 5) * 8 * PW;
+  for (int x = 4 * lane; x < PW; x += 128) {
+    int qc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = x + k - prepad;
+      qc[k] = (j >= 0 && j < Q) ? qrow[j] & 7 : 7;
+    }
+#pragma unroll
+    for (int sc = 0; sc < 8; ++sc)
+      *reinterpret_cast<unsigned*>(wprof + sc * PW + x) =
+          (smat[8 * sc + qc[0]] & 0xff) | (smat[8 * sc + qc[1]] & 0xff) << 8 |
+          (smat[8 * sc + qc[2]] & 0xff) << 16 |
+          (unsigned)smat[8 * sc + qc[3]] << 24;
+  }
+  __syncwarp();                        // a warp reads its own window's words
+
+  int H[C], Eh[C];                     // Eh = E + (row + 1) * ge
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    H[c] = c < nreal ? 0 : HPAD;
+    Eh[c] = NEG;
+  }
+
+  int lthr = 255, lkey = 255, li = 0;  // TRACK: this thread's best, T = 0
+  int acc = 0;                         // !TRACK: this thread's max of T
+  int scode = 7;
+  int nige = 0;                        // -i * ge:        Ein = Ehin + nige
+  int ci = ge - go;                    // (i+1)*ge - go:  Eh' = max(Ehin, H + ci)
+  // the profile entry of this thread's first lane in row i of subject code
+  // 0; opaque to the compiler, which otherwise recomputes it every row
+  int poff = (threadIdx.x >> 5) * 8 * PW + t0;
+  asm volatile("" : "+r"(poff));
+  for (int i = 0; i < slen; ++i) {
+    if ((i & 31) == 0) {
+      const int r = i + lane;
+      scode = r < S ? srow[r] & 7 : 7;
+    }
+    // the profile's row of this subject code, at this thread's first lane
+    const signed char* prow =
+        prof + (__shfl_sync(FULL, scode, i & 31) * PW + poff);
+
+    // (Eh never falls below NEG, so the min leaves it or makes it NEG)
+    const int enext = min(__shfl_down_sync(FULL, Eh[0], 1), last_neg);
+    int T[C], H0[C], run[C];
+    int r = NEG;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      T[c] = H[c] + prow[c];
+      H0[c] = addmax_relu(c < C - 1 ? Eh[c + 1] : enext, nige, T[c]);
+      r = addmax(H0[c], lc.cge[c], r); // prefix max within the thread
+      run[c] = r;
+    }
+    // inclusive prefix max of the thread totals over the warp, in band
+    // coordinates; a lane below the shift gets its own value back
+    int incl = r + t0ge;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1)
+      incl = max(incl, __shfl_up_sync(FULL, incl, d));
+    const int excl = min(__shfl_up_sync(FULL, incl, 1) - t0ge, first_neg);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int cm = c == 0 ? excl : max(excl, run[c - 1]);
+      const int hn = addmax(cm, lc.fk[c], H0[c]);      // max(F, H0)
+      // Eh[c + 1] still holds the row above
+      Eh[c] = addmax(hn, ci, c < C - 1 ? Eh[c + 1] : enext);
+      H[c] = hn;
+    }
+    if (partial) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (c >= nreal) {
+          Eh[c] = NEG;
+          H[c] = HPAD;
+        }
+    }
+    nige -= ge;
+    ci += ge;
+    ++poff;
+
+    if (TRACK) {
+      const int m = row_key<C>(T, kmul);
+      if (m > lthr) {                  // T strictly above the thread's best
+        lkey = m;
+        li = i;
+        lthr = m | 255;
+      }
+    } else {
+      acc = max(acc, row_max<C>(T));
+    }
+  }
+
+  if (TRACK) {
+    // highest T, then lowest row, then lowest band lane, over the warp
+    int bt = lkey >> 8, bi = li, bl = t0 + 255 - (lkey & 255);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const int ot = __shfl_xor_sync(FULL, bt, d);
+      const int oi = __shfl_xor_sync(FULL, bi, d);
+      const int ol = __shfl_xor_sync(FULL, bl, d);
+      if (ot > bt || (ot == bt && (oi < bi || (oi == bi && ol < bl)))) {
+        bt = ot;
+        bi = oi;
+        bl = ol;
+      }
+    }
+    if (lane == 0) {
+      const bool hit = bt > 0;         // else no row beat the initial 0
+      best_out[b] = hit ? bt : 0;
+      ti_out[b] = hit ? bi : 0;
+      tj_out[b] = hit ? bi + bl - prepad : -prepad;
+    }
+  } else {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      acc = max(acc, __shfl_xor_sync(FULL, acc, d));
+    if (lane == 0) best_out[b] = acc;  // >= 0: acc starts at 0
+  }
+}
+
+// One window a block on NW = blockDim.x / 32 warps, 512 < W <= 32 * C * NW.
+template <int C, bool TRACK>
+__global__ void __launch_bounds__(MAX_NW * 32)
+sw_band_multi_kernel(const int* __restrict__ q, const int* __restrict__ subj,
+                     const int* __restrict__ slens,
+                     const int* __restrict__ matrix, int B, int Q, int S,
+                     int W, int prepad, int go, int ge,
+                     int* __restrict__ best_out, int* __restrict__ ti_out,
+                     int* __restrict__ tj_out) {
+  __shared__ int smat[64];
+  // the exchange, by row parity: scan totals, row maxima, and E of each
+  // warp's first lane (the state after the previous row)
   __shared__ int wtot[2][MAX_NW], wmax[2][MAX_NW], eb[2][MAX_NW + 1];
   __shared__ int wacc[MAX_NW], blane;
   if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
 
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int NW = MULTI ? blockDim.x >> 5 : 1;
-  const int w = MULTI ? warp : 0;      // this warp's place in its window
-  const int b = MULTI ? blockIdx.x : blockIdx.x * WARPS + warp;
-  if (MULTI) {
-    if (threadIdx.x < MAX_NW + 1) eb[0][threadIdx.x] = NEG;
-    if (threadIdx.x == 0) blane = 0;
-  }
+  const int w = threadIdx.x >> 5;      // this warp's place in its window
+  const int NW = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  if (threadIdx.x < MAX_NW + 1) eb[0][threadIdx.x] = NEG;
+  if (threadIdx.x == 0) blane = 0;
   __syncthreads();
-  if (b >= B) return;                  // warp-uniform (block-uniform if MULTI)
+  if (b >= B) return;                  // block-uniform
 
   const int t0 = (w * 32 + lane) * C;  // first band lane of this thread
   const int tlast = (w * 32 + 31) * C + C - 1;   // the warp's last lane
@@ -114,7 +398,7 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
     E[c] = NEG;
   }
 
-  int best = 0, bi = 0, bl = 0;        // TRACK: window-uniform running best
+  int best = 0, bi = 0;                // TRACK: window-uniform running best
   int acc = 0;                         // !TRACK: this thread's max of T
   int scode = 7, qin = 7;
   for (int i = 0; i < slen; ++i) {
@@ -128,7 +412,7 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
     const int* mrow = smat + 8 * __shfl_sync(FULL, scode, i & 31);
 
     // phase A: T, H0 and the in-warp F scan.  The warp's last lane takes
-    // Ein = NEG for now (its true value, in MULTI, arrives in phase B).
+    // Ein = NEG for now (its true value arrives in phase B).
     int enext = __shfl_down_sync(FULL, E[0], 1);
     if (lane == 31) enext = NEG;
     int T[C], H0[C], run[C];
@@ -167,24 +451,22 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
       for (int c = 0; c < C; ++c) acc = max(acc, T[c]);
     }
 
-    if (MULTI) {
-      if (lane == 31) wtot[p][w] = incl;
-      if (TRACK && lane == 0) wmax[p][w] = m;
-      __syncthreads();
-      // phase B: the other warps' totals, corrected by the E their last
-      // lanes take from the next warp's first lane
-      int pre = NEG;
-      for (int v = 0; v < w; ++v)
-        pre = max(pre, max(wtot[p][v],
-                           eb[p][v + 1] + ((v + 1) * 32 * C - 1) * ge));
-      excl = max(excl, pre);
-      if (lane == 31) {
-        enext = w + 1 < NW ? eb[p][w + 1] : NEG;
-        H0[C - 1] = max(H0[C - 1], enext);
-      }
-      if (TRACK) {
-        for (int v = 0; v < NW; ++v) m = max(m, wmax[p][v]);
-      }
+    if (lane == 31) wtot[p][w] = incl;
+    if (TRACK && lane == 0) wmax[p][w] = m;
+    __syncthreads();
+    // phase B: the other warps' totals, corrected by the E their last
+    // lanes take from the next warp's first lane
+    int pre = NEG;
+    for (int v = 0; v < w; ++v)
+      pre = max(pre, max(wtot[p][v],
+                         eb[p][v + 1] + ((v + 1) * 32 * C - 1) * ge));
+    excl = max(excl, pre);
+    if (lane == 31) {
+      enext = w + 1 < NW ? eb[p][w + 1] : NEG;
+      H0[C - 1] = max(H0[C - 1], enext);
+    }
+    if (TRACK) {
+      for (int v = 0; v < NW; ++v) m = max(m, wmax[p][v]);
     }
 
 #pragma unroll
@@ -201,16 +483,12 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
       for (int c = 0; c < C; ++c)
         if (t0 + c >= W) E[c] = NEG;
     }
-    if (MULTI && lane == 0) eb[p ^ 1][w] = E[0];
+    if (lane == 0) eb[p ^ 1][w] = E[0];
 
     if (TRACK && m > best) {           // uniform over the window's warps
-      bool mine = true;
-      if (MULTI) {                     // the first warp reaching m owns it
-        int v = 0;
-        while (v < NW - 1 && wmax[p][v] != m) ++v;
-        mine = v == w;
-      }
-      if (mine) {
+      int v = 0;                       // the first warp reaching m owns it
+      while (v < NW - 1 && wmax[p][v] != m) ++v;
+      if (v == w) {
         int first = 1 << 28;
 #pragma unroll
         for (int c = C - 1; c >= 0; --c)
@@ -218,8 +496,7 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 #pragma unroll
         for (int d = 16; d > 0; d >>= 1)
           first = min(first, __shfl_xor_sync(FULL, first, d));
-        bl = first;
-        if (MULTI && lane == 0) blane = first;
+        if (lane == 0) blane = first;
       }
       best = m;
       bi = i;
@@ -236,39 +513,69 @@ sw_band_kernel(const int* __restrict__ q, const int* __restrict__ subj,
   if (!TRACK) {
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) acc = max(acc, __shfl_xor_sync(FULL, acc, d));
+    if (lane == 0) wacc[w] = acc;
   }
-  if (MULTI) {
-    if (!TRACK && lane == 0) wacc[w] = acc;
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    if (TRACK) {
-      bl = blane;
-    } else {
-      for (int v = 1; v < NW; ++v) acc = max(acc, wacc[v]);
-    }
-  } else if (lane != 0) {
-    return;
-  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
   if (TRACK) {
     best_out[b] = best;                // >= 0: the running best starts at 0
     ti_out[b] = bi;
-    tj_out[b] = bi + bl - prepad;
+    tj_out[b] = bi + blane - prepad;
   } else {
+    for (int v = 1; v < NW; ++v) acc = max(acc, wacc[v]);
     best_out[b] = acc;                 // >= 0: acc starts at 0
   }
 }
 
-template <int C, bool MULTI>
-void launch(bool track, dim3 grid, dim3 block, const int* q,
-            const int* subj, const int* slens, const int* matrix, int B,
-            int Q, int S, int W, int prepad, int go, int ge, int* best,
-            int* ti, int* tj, cudaStream_t stream) {
+struct Args {
+  const int *q, *subj, *slens, *matrix;
+  int B, Q, S, W, prepad, go, ge;
+  int *best, *ti, *tj;
+  cudaStream_t stream;
+};
+
+// Dynamic shared memory a block may ask for (of the SM's 227 KB), and the
+// room a profile needs: a window whose profile does not fit runs
+// sw_band_multi_kernel on two warps.
+constexpr int MAX_SMEM = 200 * 1024;
+
+inline int profile_pitch(int S, int C) { return (S + 32 * C + 3) / 4 * 4; }
+
+template <int C>
+cudaError_t launch_warp(bool track, const Args& a) {
+  const int PW = profile_pitch(a.S, C);
+  const int warps = min(WARPS, MAX_SMEM / (8 * PW));   // windows a block
+  const int smem = warps * 8 * PW;
+  const bool pad = a.W < 32 * C;
+  auto kernel = track ? (pad ? sw_band_warp_kernel<C, true, true>
+                             : sw_band_warp_kernel<C, true, false>)
+                      : (pad ? sw_band_warp_kernel<C, false, true>
+                             : sw_band_warp_kernel<C, false, false>);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  LaneConsts lc;
+  for (int c = 0; c < 16; ++c) {
+    lc.cge[c] = c * a.ge;
+    lc.fk[c] = -(a.go + (c - 1) * a.ge);
+  }
+  kernel<<<(a.B + warps - 1) / warps, warps * 32, smem, a.stream>>>(
+      a.q, a.subj, a.slens, a.matrix, a.B, a.Q, a.S, a.W, a.prepad, a.go,
+      a.ge, 256, PW, lc, a.best, a.ti, a.tj);
+  return cudaGetLastError();
+}
+
+template <int C>
+void launch_multi(bool track, int nw, const Args& a) {
+  const dim3 grid(a.B), block(nw * 32);
   if (track)
-    sw_band_kernel<C, true, MULTI><<<grid, block, 0, stream>>>(
-        q, subj, slens, matrix, B, Q, S, W, prepad, go, ge, best, ti, tj);
+    sw_band_multi_kernel<C, true><<<grid, block, 0, a.stream>>>(
+        a.q, a.subj, a.slens, a.matrix, a.B, a.Q, a.S, a.W, a.prepad, a.go,
+        a.ge, a.best, a.ti, a.tj);
   else
-    sw_band_kernel<C, false, MULTI><<<grid, block, 0, stream>>>(
-        q, subj, slens, matrix, B, Q, S, W, prepad, go, ge, best, ti, tj);
+    sw_band_multi_kernel<C, false><<<grid, block, 0, a.stream>>>(
+        a.q, a.subj, a.slens, a.matrix, a.B, a.Q, a.S, a.W, a.prepad, a.go,
+        a.ge, a.best, a.ti, a.tj);
 }
 
 }  // namespace
@@ -276,9 +583,11 @@ void launch(bool track, dim3 grid, dim3 block, const int* q,
 // Scores B windows on `stream`.  q [B,Q], subj [B,S], slens [B] and
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  The band has W lanes and
-// sits prepad columns left of the window start.  Returns the CUDA error
-// of the launch (0 on success), or -1 when an argument is out of range
-// (W outside 1..3072 included).
+// sits prepad columns left of the window start.  Matrix entries must lie
+// in -128..127 and min(Q, S) below 65,536 (sw.py checks both on the
+// host).  Returns the CUDA error of the launch (0 on success), or -1
+// when an argument is out of range (W outside 1..3072 included, and for
+// W <= 512 a gap extension with (S + 1) * ge >= 2^28).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
@@ -286,36 +595,30 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
                               void* tj, void* stream) {
   if (Q < 1 || S < 0 || B < 0 || W < 1 || W > MAX_W) return -1;
   if (B == 0) return 0;
-  auto* qp = static_cast<const int*>(q);
-  auto* sp = static_cast<const int*>(subj);
-  auto* lp = static_cast<const int*>(slens);
-  auto* mp = static_cast<const int*>(matrix);
-  auto* bp = static_cast<int*>(best);
-  auto* ip = static_cast<int*>(ti);
-  auto* jp = static_cast<int*>(tj);
-  auto st = static_cast<cudaStream_t>(stream);
+  const Args a = {static_cast<const int*>(q), static_cast<const int*>(subj),
+                  static_cast<const int*>(slens),
+                  static_cast<const int*>(matrix), B, Q, S, W, prepad, go, ge,
+                  static_cast<int*>(best), static_cast<int*>(ti),
+                  static_cast<int*>(tj), static_cast<cudaStream_t>(stream)};
   const bool tr = track != 0;
-  const int nw = (W + 511) / 512;
+  const int need = (W + 31) / 32;      // band lanes a thread on one warp
+  const int C1 = need <= 4 ? 4 : need <= 6 ? 6 : need <= 8 ? 8
+                 : need <= 12 ? 12 : 16;
+  int nw = (W + 511) / 512;
+  // no room for the profile: two warps of the several-warps kernel (its
+  // block loads the matrix with 64 threads)
+  if (nw == 1 && 8 * profile_pitch(S, C1) > MAX_SMEM) nw = 2;
   if (nw > 1) {
-    const dim3 grid(B), block(nw * 32);
-    if ((W + 32 * nw - 1) / (32 * nw) <= 12)
-      launch<12, true>(tr, grid, block, qp, sp, lp, mp, B, Q, S, W, prepad, go, ge, bp, ip, jp, st);
-    else
-      launch<16, true>(tr, grid, block, qp, sp, lp, mp, B, Q, S, W, prepad, go, ge, bp, ip, jp, st);
+    if ((W + 32 * nw - 1) / (32 * nw) <= 12) launch_multi<12>(tr, nw, a);
+    else launch_multi<16>(tr, nw, a);
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
-  const int need = (W + 31) / 32;
-#define SWB_LAUNCH(CC) \
-  launch<CC, false>(tr, grid, block, qp, sp, lp, mp, B, Q, S, W, prepad, go, ge, bp, ip, jp, st)
-  if (need <= 1) SWB_LAUNCH(1);
-  else if (need <= 2) SWB_LAUNCH(2);
-  else if (need <= 3) SWB_LAUNCH(3);
-  else if (need <= 4) SWB_LAUNCH(4);
-  else if (need <= 6) SWB_LAUNCH(6);
-  else if (need <= 8) SWB_LAUNCH(8);
-  else if (need <= 12) SWB_LAUNCH(12);
-  else SWB_LAUNCH(16);
-#undef SWB_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (ge < 0 || (long long)(S + 1) * ge >= (1 << 28)) return -1;
+  switch (C1) {
+    case 4: return static_cast<int>(launch_warp<4>(tr, a));
+    case 6: return static_cast<int>(launch_warp<6>(tr, a));
+    case 8: return static_cast<int>(launch_warp<8>(tr, a));
+    case 12: return static_cast<int>(launch_warp<12>(tr, a));
+    default: return static_cast<int>(launch_warp<16>(tr, a));
+  }
 }

@@ -26,6 +26,7 @@ import torch
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
+MAX_BAND_CELLS = (1 << 23) // 128  # min(Q, S) below this: scores < 2^23
 
 # launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these)
@@ -42,8 +43,9 @@ def _as_i32(x, device) -> torch.Tensor:
 def device_matrix(matrix, device) -> torch.Tensor:
     """The [8, 8] score matrix (a host array) as a contiguous int32
     tensor on `device`.  Checked here, on the host and before the upload:
-    csrc/sw_full.cu keeps its score profile in int8, so an entry outside
-    -128..127 raises ValueError, on every device alike."""
+    csrc/sw_full.cu and csrc/sw_band.cu keep their score profiles in int8,
+    so an entry outside -128..127 raises ValueError, on every device
+    alike."""
     m = np.ascontiguousarray(matrix, dtype=np.int32)
     if m.shape != (8, 8):
         raise ValueError(f"score matrix must be [8, 8], got {m.shape}")
@@ -51,6 +53,14 @@ def device_matrix(matrix, device) -> torch.Tensor:
         raise ValueError("score matrix entries must lie in -128..127, got "
                          f"{int(m.min())}..{int(m.max())}")
     return torch.from_numpy(m.copy()).to(device)
+
+
+def _matrix_on(matrix, device) -> torch.Tensor:
+    """A host score matrix through device_matrix; the tensor device_matrix
+    made of one for `device` as it is."""
+    if isinstance(matrix, torch.Tensor) and matrix.device == device:
+        return _as_i32(matrix, device)
+    return device_matrix(matrix, device)
 
 
 def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
@@ -126,6 +136,58 @@ def tie_windows(rng, B: int, Q: int, S: int):
     slens = np.where(rng.random(B) < 0.5, S, rng.integers(S // 2, S + 1, B))
     s[k[:, :S] >= slens[:, None]] = 7
     return q.astype(np.int32), s.astype(np.int32), slens.astype(np.int32)
+
+
+def band_geometry(Q: int):
+    """(S, pad, W) of the long-read windows the mapping step builds for
+    reads padded to Q: S = window_len, pad = window_pad, W as the wrapper
+    clamps it."""
+    from ..parallel.mesh import window_len, window_pad
+    S, pad = window_len(Q), window_pad(Q)
+    return S, pad, clamp_band_width(Q, pad)
+
+
+def band_windows(rng, B: int, Q: int):
+    """Long-read windows as the main path builds them (band_geometry):
+    each query follows its window from column pad + a shift (within W/8
+    for most, up to W either way for a tenth: partly or wholly outside
+    the band) with an indel random walk, 2% substitutions and N codes;
+    one in twenty is unrelated noise, half are shorter than Q (pad code
+    7), and subject lengths vary.  Returns (q, s, slens, pad, W, S)."""
+    S, pad, W = band_geometry(Q)
+    s = rng.integers(0, 4, (B, S), dtype=np.int32)
+    off = rng.integers(-(W // 8), W // 8 + 1, B)
+    far = rng.random(B) < 0.1
+    off[far] = rng.integers(-W, W + 1, int(far.sum()))
+    step = (rng.random((B, Q)) < 0.0075).astype(np.int32) - \
+        (rng.random((B, Q)) < 0.0075)
+    idx = pad + off[:, None] + np.arange(Q, dtype=np.int32) + \
+        np.cumsum(step, axis=1, dtype=np.int32)
+    q = np.take_along_axis(s, np.clip(idx, 0, S - 1), 1)
+    noise = ((idx < 0) | (idx >= S) | (rng.random((B, Q)) < 0.02) |
+             (rng.random(B) < 0.05)[:, None])
+    q = np.where(noise, rng.integers(0, 4, (B, Q), dtype=np.int32), q)
+    del idx, noise, step
+    q[rng.random((B, Q)) < 0.005] = 5
+    qlen = np.where(rng.random(B) < 0.5, Q, rng.integers(Q * 3 // 4, Q + 1, B))
+    q[np.arange(Q)[None, :] >= qlen[:, None]] = 7
+    s[rng.random((B, S)) < 0.003] = 5
+    slens = np.where(rng.random(B) < 0.7, S,
+                     rng.integers(S // 2, S + 1, B)).astype(np.int32)
+    s[np.arange(S)[None, :] >= slens[:, None]] = 7
+    return q, s, slens, pad, W, S
+
+
+def band_tie_windows(rng, B: int, Q: int):
+    """tie_windows at the long-read geometry (band_geometry), for holding
+    the tracked banded kernel's first-argmax rule against
+    sw_band_score_ref: a unit of 1 to 4 bases repeats along the query and
+    the subject, so every band diagonal whose offset is a multiple of the
+    unit matches end to end, and the maximum of T is reached in many band
+    lanes of one row and again in later rows.  Returns (q, s, slens, pad,
+    W, S)."""
+    S, pad, W = band_geometry(Q)
+    return tie_windows(rng, B, Q, S) + (pad, W, S)
 
 
 # ctypes signatures of the kernels' plain C entry points (p pointer, i int)
@@ -211,9 +273,7 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
     device = torch.device(device)
     args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
-    on_device = isinstance(matrix, torch.Tensor) and matrix.device == device
-    args.append(_as_i32(matrix, device) if on_device
-                else device_matrix(matrix, device))
+    args.append(_matrix_on(matrix, device))
     if device.type == "cpu":
         return sw_score_ref(*args, gapopen_pos, gapext_pos, track=track)
     if device.type == "cuda":
@@ -292,16 +352,23 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, pad: int, W: int, track: bool = False):
     """Launch csrc/sw_band.cu on the current stream.  Same arguments
     and results as sw_band_score_ref (W as given, 1..MAX_BAND_W); every
-    tensor contiguous int32 on one CUDA device."""
+    tensor contiguous int32 on one CUDA device, the matrix made by
+    device_matrix (entries in int8: the kernel keeps an int8 score
+    profile, and its tracking packs a score and a band lane into one
+    int32 key, which holds scores below 2^23)."""
     if not 1 <= W <= MAX_BAND_W:
         raise ValueError(f"sw_band: band width {W} outside 1..{MAX_BAND_W} "
                          f"(the kernel's limit: reads up to ~16 kb)")
+    B, Q = qcodes.shape
+    S = subj.shape[1]
+    if min(Q, S) >= MAX_BAND_CELLS:
+        raise ValueError(f"sw_band: a window of {Q} x {S} could score 2^23 "
+                         f"or more (limit {MAX_BAND_CELLS} on the shorter "
+                         f"side)")
     _check_args("sw_band", qcodes, subj, slens, matrix)
     dev = qcodes.device
-    B, Q = qcodes.shape
     if Q < 1:
         raise ValueError("sw_band: empty query")
-    S = subj.shape[1]
     lib = _kernel_lib("sw_band")
     best = torch.empty(B, dtype=torch.int32, device=dev)
     ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
@@ -328,13 +395,16 @@ def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     [i - pad - W/2, i - pad + W/2): `pad` is the window's left backoff,
     so the seed diagonal sits mid-band.  W defaults to band_width_for
     and is clamped as the Pallas wrapper clamps it (clamp_band_width).
+    The matrix is a host array (checked by device_matrix: entries in
+    -128..127) or the tensor device_matrix made of one for `device`.
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
     row-major-first argmax cell in (subject row, query column)."""
     assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
     device = torch.device(device)
     W = clamp_band_width(int(qcodes.shape[1]), pad, W)
-    args = [_as_i32(x, device) for x in (qcodes, subj, slens, matrix)]
+    args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
+    args.append(_matrix_on(matrix, device))
     if device.type == "cpu":
         return sw_band_score_ref(*args, gapopen_pos, gapext_pos, pad, W,
                                  track=track)

@@ -1,0 +1,262 @@
+"""Time ops/csrc/sw_full.cu or sw_band.cu on one GPU, beside earlier
+versions of the source.
+
+    python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band]
+        [--baseline old.cu]... [--rounds 5] [--reps 20]
+        [--out build/time_sw.json]
+
+Builds the kernel as shipped and, for each --baseline, another version of
+the source (same C interface; labelled by its file name) side by side.
+Each must equal the kernel's plain version (sw_score_ref,
+sw_band_score_ref) exactly on a head of every input, and every baseline
+must equal the shipped kernel on all of it, before anything is timed.
+The versions are then timed in turns (CUDA events over --reps launches,
+--rounds rounds, each round in the opposite order of the last), at the
+shapes the mapping paths use, on random windows and on tie-heavy ones.
+Prints one line a version and shape with the median and the minimum over
+the rounds, the share of the roofline bound (ops/bounds.py) and the
+card's name and power limit; writes the same as JSON.  Fails without a
+GPU, and on the first difference.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..align import core as ali
+from . import bounds, build, sw
+
+# sw_full, (Q, S, B): single-end and paired `map --fast`; the pass-1
+# pools of `map --device-exact` for 100 bp and 150 bp reads; the widest
+# query.  Every shape runs tracked and score-only.
+FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
+               (256, 384, 24576), (512, 640, 1024)]
+# sw_band, (Q, B); S, pad and W follow from Q (sw.band_geometry):
+# 1,500 bp reads (the long-read path of `map --fast`) and 640 bp reads
+# (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
+BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
+HEAD = {"sw_full": 512, "sw_band": 128}   # windows also held against plain
+
+
+def random_windows(rng, B: int, Q: int, S: int):
+    """Windows with planted similarity: each subject holds three quarters
+    of its query at a random offset with 4% substitutions; N (5) and pad
+    (7) codes; half of the subject lengths below S."""
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    q[rng.random((B, Q)) < 0.02] = 5
+    qlen = rng.integers(Q * 3 // 4, Q + 1, B)
+    q[np.arange(Q)[None, :] >= qlen[:, None]] = 7
+    s = rng.integers(0, 4, (B, S)).astype(np.int32)
+    n = np.minimum(qlen, S) * 3 // 4
+    off = rng.integers(0, S - n + 1)
+    col = np.arange(S)[None, :] - off[:, None]
+    planted = (col >= 0) & (col < n[:, None])
+    s = np.where(planted, np.take_along_axis(q, col.clip(0, Q - 1), 1), s)
+    mut = rng.random((B, S)) < 0.04
+    s[mut] = rng.integers(0, 4, int(mut.sum()))
+    slens = np.where(rng.random(B) < 0.5, S,
+                     rng.integers(S // 2, S + 1, B)).astype(np.int32)
+    s[np.arange(S)[None, :] >= slens[:, None]] = 7
+    return q, s.astype(np.int32), slens
+
+
+def load(kernel: str, src: str = ""):
+    """The shipped csrc/<kernel>.cu, or the source `src`, built and bound."""
+    lib = build.load(kernel, src)
+    fn = getattr(lib, kernel + "_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                   for c in sw._SIGS[kernel]]
+    return lib
+
+
+def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
+             band=()):
+    """fn() launches `lib`'s kernel on these tensors into outputs made
+    once, and returns them: (best, ti, tj), or (best,) without track.
+    band = (W, prepad) for sw_band."""
+    B, Q = q.shape
+    out = [torch.empty(B, dtype=torch.int32, device=q.device)
+           for _ in range(3 if track else 1)]
+    ptrs = [o.data_ptr() for o in out] + [None] * (3 - len(out))
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = getattr(lib, kernel + "_launch")
+
+    def fn():
+        rc = launch(q.data_ptr(), s.data_ptr(), sl.data_ptr(),
+                    mat.data_ptr(), B, Q, s.shape[1], *band, go, ge,
+                    int(track), *ptrs, stream)
+        if rc != 0:
+            raise RuntimeError(f"{kernel} launch failed (code {rc})")
+        return out
+    return fn
+
+
+def event_ms(fn, reps: int) -> float:
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def must_equal(got, want, label: str, what: str, where: str, sl):
+    for name, g, w in zip(("best", "ti", "tj"), got, want):
+        bad = (g != w).nonzero().flatten()
+        if len(bad):
+            i = int(bad[0])
+            sys.exit(f"time_sw: FAIL: {label} differs from {what} at "
+                     f"{where}: {name} of {len(bad)} windows, first {i}: "
+                     f"{int(g[i])} vs {int(w[i])} (slen {int(sl[i])})")
+
+
+class Case(NamedTuple):
+    """One input of a kernel: its label, the windows on the card, what the
+    launch adds for a band (W, prepad), the plain version on a head of n
+    windows, the roofline work, and whether it is timed or only checked."""
+    shape: str
+    kind: str
+    tensors: tuple
+    band: tuple
+    plain: Callable
+    work: Callable
+    timed: bool
+
+
+def cases(kernel: str, rng, dev, mat, go: int, ge: int):
+    """Every Case of `kernel`, random and tie-heavy windows a shape (made
+    once a shape, so the tracked and the score-only run see the same)."""
+    def cuda(*xs):
+        return tuple(torch.from_numpy(x).to(dev) for x in xs)
+
+    if kernel == "sw_full":
+        for Q, S, B in FULL_SHAPES:
+            for kind, gen in (("random", random_windows),
+                              ("ties", sw.tie_windows)):
+                t = cuda(*gen(rng, B, Q, S))
+                yield Case(
+                    f"Q={Q} S={S} B={B}", kind, t, (),
+                    lambda n, t=t: sw.sw_score_ref(
+                        *(x[:n] for x in t), mat, go, ge, track=True),
+                    lambda track, a=(Q, S, t[2]): bounds.sw_full_work(
+                        *a, track),
+                    kind == "random" or Q <= 160)
+        return
+    for Q, B in BAND_SHAPES:
+        for kind, gen in (("random", sw.band_windows),
+                          ("ties", sw.band_tie_windows)):
+            q, s, sl, pad, W, S = gen(rng, B, Q)
+            t = cuda(q, s, sl)
+            yield Case(
+                f"Q={Q} W={W} S={S} B={B}", kind, t, (W, pad + W // 2),
+                lambda n, t=t, g=(pad, W): sw.sw_band_score_ref(
+                    *(x[:n] for x in t), mat, go, ge, *g, track=True),
+                lambda track, a=(Q, S, W, pad, t[2]): bounds.sw_band_work(
+                    *a, track),
+                kind == "random" or Q <= 1504)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="time_sw")
+    ap.add_argument("--kernel", choices=("sw_full", "sw_band"),
+                    default="sw_full")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="another version of the kernel's source to time "
+                         "beside the shipped one (may be repeated)")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default="build/time_sw.json")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("time_sw: no CUDA device visible", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    srcs = {"shipped": ""}
+    for path in a.baseline:
+        srcs[os.path.splitext(os.path.basename(path))[0]] = path
+    with ThreadPoolExecutor(len(srcs)) as pool:         # one nvcc each
+        libs = dict(zip(srcs, pool.map(lambda p: load(a.kernel, p),
+                                       srcs.values())))
+    for ident, info in build.build_info.items():
+        worst = max((int(x) for x in re.findall(r"Used (\d+) registers",
+                                                info["log"])), default=0)
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                info["log"]))
+        stack = max((int(x) for x in re.findall(r"(\d+) bytes stack frame",
+                                                info["log"])), default=0)
+        print(f"# build [{ident}]: {info['seconds']:.1f} s, most registers "
+              f"{worst}, spill bytes {spills}, largest stack frame {stack}",
+              flush=True)
+
+    m, go, ge = ali.make_score_matrix()
+    go, ge = -go, -ge
+    dev = torch.device("cuda")
+    mat = sw.device_matrix(m, dev)
+    rng = np.random.default_rng(20240601)
+    head = HEAD[a.kernel]
+    results = []
+    for case, track in ((c, t) for c in cases(a.kernel, rng, dev, mat, go, ge)
+                        for t in (True, False)):
+        q, s, sl = case.tensors
+        where = f"{case.shape} track={track} ({case.kind})"
+        want = case.plain(head)
+        fns = {label: launcher(a.kernel, lib, q, s, sl, mat, go, ge, track,
+                               case.band) for label, lib in libs.items()}
+        ship = [o.clone() for o in fns["shipped"]()]
+        for label, fn in fns.items():
+            got = fn()
+            must_equal([g[:head] for g in got], want, label,
+                       "the plain version", where, sl)
+            must_equal(got, ship, label, "the shipped kernel", where, sl)
+        if not case.timed:
+            continue                  # checked; timed on random only
+        work = case.work(track)
+        times = {label: [] for label in fns}
+        order = list(fns)
+        for r in range(a.rounds):
+            for label in (order if r % 2 == 0 else order[::-1]):
+                fns[label]()
+                times[label].append(event_ms(fns[label], a.reps))
+        for label in fns:
+            med = statistics.median(times[label])
+            row = {"kernel": a.kernel, "version": label, "shape": case.shape,
+                   "track": track, "windows": case.kind, "median_ms": med,
+                   "min_ms": min(times[label]), "rounds": times[label],
+                   "bound_ms": work["bound_ms"],
+                   "bound_by": work["bound_by"], "cells": work["cells"],
+                   "share_of_bound": bounds.share(work["bound_ms"], med),
+                   "card": card}
+            results.append(row)
+            print(f"# {a.kernel} {case.shape} "
+                  f"{'track' if track else 'score'} {case.kind:6s} "
+                  f"{label:11s} median {med:.4f} ms, min "
+                  f"{row['min_ms']:.4f} ms, {work['cells'] / med / 1e6:.0f} "
+                  f"GCUPS, bound {work['bound_ms']:.4f} ms "
+                  f"({work['bound_by']}), share "
+                  f"{100 * row['share_of_bound']:.1f}% | {card}",
+                  flush=True)
+    os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+    with open(a.out, "w") as f:
+        json.dump(results, f, indent=1)
+    print(f"# wrote {a.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

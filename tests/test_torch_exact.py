@@ -424,3 +424,21 @@ def test_cli_unported_exact_cases_exit_2(tmp_path, capsys, extra, item):
                     str(tmp_path / "o.sam")] + extra + [name, fq])
     assert rc == 2
     assert f"ROADMAP.md {item})" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("spec,rng", [("match=128", "-130..128"),
+                                      ("subst=-200", "-201..1")])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_matrix_outside_int8_exits_2(tmp_path, capsys, device, spec, rng):
+    """The collate step's pool scoring keeps its score profile in int8,
+    which smalt_tpu does not: --device-exact exits 2 naming the range, on
+    every device and before the index is opened (none exists here)."""
+    from smalt_tpu_torch import cli as tcli
+    rc = tcli.main(["map", "--device-exact", "--device", device, "-S", spec,
+                    "-o", str(tmp_path / "o.sam"), str(tmp_path / "no_index"),
+                    str(tmp_path / "no_reads.fq")])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert err.count("\n") == 1 and "-128..127" in err and rng in err
+    assert "ROADMAP.md Queue 3" in err
+    assert not (tmp_path / "o.sam").exists()

@@ -323,6 +323,34 @@ def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys):
     assert f"ROADMAP.md {item})" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("spec,rng", [("match=200", "-202..200"),
+                                      ("subst=-129", "-130..1"),
+                                      ("match=100,subst=-29", "-129..100")])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_matrix_outside_int8_exits_2(tmp_path, capsys, device, spec, rng):
+    """The device step keeps its score profile in int8, which smalt_tpu
+    does not: a -S that gives the matrix an entry outside -128..127 exits
+    2 with one line naming the range, on every device and before the
+    index is opened (none exists here)."""
+    from smalt_tpu_torch import cli
+    rc = cli.main(["map", "--fast", "--device", device, "-S", spec,
+                   str(tmp_path / "no_index"), str(tmp_path / "no_reads.fq")])
+    err = capsys.readouterr().err
+    assert rc == 2
+    assert err.count("\n") == 1 and "-128..127" in err and rng in err
+    assert "ROADMAP.md Queue 3" in err
+
+
+def test_cli_matrix_at_int8_ends_maps(saved_index):
+    """-128 and 127 themselves pass (match 127, subst -1: X scores -128)."""
+    name, fq = saved_index
+    r = run_port_cli(["map", "--fast", "--device", "cpu", "-S",
+                      "match=127,subst=-1", name, fq])
+    assert r.returncode == 0, r.stderr
+    assert len([ln for ln in r.stdout.splitlines()
+                if not ln.startswith("@")]) > 0
+
+
 def test_cli_cuda_without_gpu_fails(saved_index):
     """--device cuda (the default) never falls back to the CPU."""
     name, fq = saved_index

@@ -318,6 +318,8 @@ def test_matrix_outside_int8_raises(scoring, entry):
     with pytest.raises(ValueError, match="-128..127"):
         make_device_step(SimpleNamespace(device=torch.device("cpu")), bad,
                          go, ge)
+    with pytest.raises(ValueError, match="-128..127"):
+        tsw.sw_band_score_batch(q, s, slens, bad, go, ge, 8, device="cpu")
     edge = m.copy()
     edge[0, 1], edge[1, 0] = -128, 127
     got = tsw.device_matrix(edge, "cpu")
@@ -509,3 +511,143 @@ def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
         tsw.sw_band_cuda(*args, go, ge, 16, 128, track=True)
     with pytest.raises(ValueError, match=str(tsw.MAX_BAND_W)):
         tsw.sw_band_cuda(*args, go, ge, 16, tsw.MAX_BAND_W + 128)
+    # the tracked kernel's key holds scores below 2^23: int8 entries on
+    # windows whose shorter side is below MAX_BAND_CELLS
+    n = tsw.MAX_BAND_CELLS
+    assert 127 * (n - 1) < 1 << 23 <= 128 * n
+    big = torch.zeros((1, n), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^23"):
+        tsw.sw_band_cuda(big, big, args[2][:1], args[3], go, ge, 16, 128)
+
+
+def _band_t_matrix(q, s, slen, m, go, ge, pad, W):
+    """T of one window in the band frame by the textbook Gotoh
+    recurrences, cell by cell: band lane t of row i is query column
+    i - (pad + W//2) + t (code 7 outside the query); the diagonal stays
+    in its lane, E comes from lane t + 1 of the row above, F from the
+    left."""
+    prepad, neg = pad + W // 2, -(1 << 28)
+    H, E = np.zeros(W, np.int64), np.full(W, neg, np.int64)
+    T = np.zeros((slen, W), np.int64)
+    for i in range(slen):
+        F, hleft = neg, neg
+        Hn, En = H.copy(), E.copy()
+        for t in range(W):
+            j = i - prepad + t
+            T[i, t] = H[t] + m[s[i], q[j] if 0 <= j < len(q) else 7]
+            ein = E[t + 1] if t + 1 < W else neg
+            F = max(F - ge, hleft - go)
+            h = max(T[i, t], ein, F, 0)
+            Hn[t], En[t], hleft = h, max(ein - ge, h - go), h
+        H, E = Hn, En
+    return T
+
+
+def test_band_tie_windows_do_tie(scoring):
+    """In most windows of the band tie generator the maximum of T is
+    reached in several cells of the band, in more than one row and more
+    than one band lane, and the plain version names the first of them in
+    row-major order, in query coordinates; a window that scores nothing
+    gives (0, 0, -prepad)."""
+    m, go, ge = scoring
+    Q, S, pad, W = 48, 64, 4, 24
+    q, s, slens = tsw.tie_windows(np.random.default_rng(12), 24, Q, S)
+    got = tsw.sw_band_score_batch(q, s, slens, m, go, ge, pad, W,
+                                  device="cpu", track=True)
+    got = np.stack([g.numpy() for g in got], axis=1)
+    prepad = pad + W // 2
+    tied = rows = lanes = zero = 0
+    for b in range(len(q)):
+        T = _band_t_matrix(q[b], s[b], int(slens[b]), m, go, ge, pad, W)
+        M = int(T.max()) if T.size else 0
+        if M <= 0:
+            assert tuple(got[b]) == (0, 0, -prepad)
+            zero += 1
+            continue
+        ii, tt = np.nonzero(T == M)          # row-major order
+        assert tuple(got[b]) == (M, ii[0], ii[0] + tt[0] - prepad)
+        tied += len(ii) > 1
+        rows += len(set(ii)) > 1
+        lanes += len(set(tt)) > 1
+    assert tied >= 12 and rows >= 6 and lanes >= 6 and zero >= 3
+
+
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("Q,B", [(256, 8), (640, 6)])
+def test_band_tie_windows_match_pallas_interpret(scoring, Q, B, track):
+    """The tie-heavy band windows chip_smoke.py feeds the banded kernel
+    (the long-read geometry: S = window_len, pad = window_pad, W as
+    clamped): the plain version equals the jnp oracle and the Pallas
+    kernel in interpret mode on them, and some windows score nothing."""
+    m, go, ge = scoring
+    q, s, slens, pad, W, S = tsw.band_tie_windows(
+        np.random.default_rng(Q + 1), B, Q)
+    assert (S, pad, W) == tsw.band_geometry(Q) and s.shape == (B, S)
+    got = tsw.sw_band_score_batch(q, s, slens, m, go, ge, pad, W,
+                                  device="cpu", track=track)
+    _assert_equal(got, jsw.sw_band_score_ref(q, s, slens, m, go, ge, pad, W,
+                                             track=track), track)
+    _assert_equal(got, jsw.sw_band_score_batch(q, s, slens, m, go, ge, pad,
+                                               W, interpret=True,
+                                               track=track), track)
+    best = got[0] if track else got
+    assert (best == 0).sum() >= 1 and (best > Q // 4).sum() >= B // 2
+    if track:
+        none = best == 0
+        assert (got[1][none] == 0).all()
+        assert (got[2][none] == -(pad + W // 2)).all()
+
+
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("W", [200, 330])
+def test_band_odd_widths_match_jax_ref(scoring, W, track):
+    """Band widths that are no multiple of 32 (the Hopper kernel then
+    holds padding lanes past W; chip_smoke.py runs these widths on the
+    card): the plain version against the jnp oracle at Q = 640, on
+    planted alignments and on tie-heavy windows."""
+    m, go, ge = scoring
+    Q = 640
+    S, pad, _ = tsw.band_geometry(Q)
+    for q, s, slens in (_band_windows(W, 4, Q, S, pad, W),
+                        tsw.tie_windows(np.random.default_rng(W), 4, Q, S)):
+        args = [torch.from_numpy(x) for x in (q, s, slens, m)]
+        got = tsw.sw_band_score_ref(*args, go, ge, pad, W, track=track)
+        _assert_equal(got, jsw.sw_band_score_ref(q, s, slens, m, go, ge, pad,
+                                                 W, track=track), track)
+        assert int((got[0] if track else got).max()) > Q // 4
+
+
+@pytest.mark.parametrize("kernel,shapes", [("sw_full", [(48, 64, 6)]),
+                                           ("sw_band", [(640, 3)])])
+def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
+    """The timing script's inputs (ops/time_sw.py; it needs a card to
+    run): every case carries windows of its shape, a plain version that
+    runs on a head of them, the band's launch arguments and a roofline
+    bound; tie-heavy windows of the widest shapes are checked, not timed.
+    Without a card the script exits 1."""
+    from smalt_tpu_torch.ops import time_sw
+    m, go, ge = scoring
+    monkeypatch.setattr(time_sw, "FULL_SHAPES" if kernel == "sw_full"
+                        else "BAND_SHAPES", shapes)
+    mat = tsw.device_matrix(m, "cpu")
+    got = list(time_sw.cases(kernel, np.random.default_rng(3), "cpu", mat,
+                             go, ge))
+    assert [c.kind for c in got] == ["random", "ties"]
+    for c in got:
+        q, s, sl = c.tensors
+        assert q.shape[0] == s.shape[0] == sl.shape[0] == shapes[0][-1]
+        best, ti, tj = c.plain(2)
+        assert best.shape == (2,) and best.dtype == torch.int32
+        work = c.work(True)
+        assert work["cells"] > 0 and work["bound_ms"] > 0
+        if kernel == "sw_band":
+            S, pad, W = tsw.band_geometry(640)
+            assert c.band == (W, pad + W // 2) and s.shape[1] == S
+            want = tsw.sw_band_score_ref(q[:2], s[:2], sl[:2], mat, go, ge,
+                                         pad, W, track=True)
+            assert all(torch.equal(a, b) for a, b in zip((best, ti, tj), want))
+        else:
+            assert c.band == ()
+        assert c.timed
+    if not torch.cuda.is_available():
+        assert time_sw.main(["--kernel", kernel]) == 1
