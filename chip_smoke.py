@@ -15,7 +15,10 @@
    Q=128 / S=128 and Q=256 / S=384 on 6 x 4,096 windows; times both.
    Then the same on tie-heavy windows (a low-complexity query against
    a repeat of itself: the maximum is reached in many rows and lanes)
-   at the single-end, the pool and the paired shape.
+   at the single-end, the pool and the paired shape.  Then the WIDE
+   instances (a score matrix outside int8: match 200, mismatch -200, X
+   -400), tracked and score-only, at Q=112 / S=128 and Q=160 / S=256 on
+   planted and tie-heavy windows.
    Phases 3, 3b and 3c print each kernel's roofline bound at each shape
    (smalt_tpu_torch/ops/bounds.py: the cells and bytes these inputs
    need), which of operations and bytes bounds it, and the share of the
@@ -32,13 +35,16 @@
    W = 200 and 330 at Q = 640 on 1,024 windows of both kinds (no
    multiple of 32: threads hold padding lanes past W), and 8 windows
    with a subject of 26,000 rows at W = 256 (no room for the one-warp
-   kernel's shared-memory profile).
+   kernel's shared-memory profile).  Then Q = 1504 / W = 384 on 4,096
+   windows with the matrix outside int8 of phase 3, which runs the
+   several-warps kernel.
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
    path) and Qp=256 / Sp=512 with lead-pinned, s_left > 0, dummy and
-   best-0 windows; times both.  Phase 7 adds the windows of its first
-   pass-2 batch.
+   best-0 windows, then 2,048 windows at Qp=256 / Sp=320 with bands of
+   70-250 columns (up to 8 tiles of 32 a row); times both.  Phase 7 adds
+   the windows of its first pass-2 batch.
 4. Drives `map --fast` through the port's CLI at E. coli scale (4.6 Mb
    genome with ~5% planted repeats, 100,000 reads of 100 bp, k13 s2):
    one SAM record per read, >= 95% placed within 8 bp on the right
@@ -68,14 +74,23 @@
    output must equal the port's CPU steps on the same batch (the SAM
    alone cannot show a wrong device step: the lane re-stages what it
    flags), and its pass-2 windows go through the swq check of phase 3c.
-8. Prints each kernel's launches by path (and per 4,096 reads), the
+7b. The pass-2 band widths of the same lane on 4,096 reads of 150 bp,
+   of 250 bp with indels, and of 250 bp with indels under the phase-8
+   matrix (first batch each, outside the CLI): widths by 32-column tile,
+   swq held against its plain version on those windows and timed.
+8. `-S match=200,subst=-2` (a matrix outside int8) on the same genome
+   and index: `map --fast` on 4,096 reads, SAM equal to `--device cpu`,
+   through the WIDE tracked sw_full; `map --device-exact` with
+   SMALT_DX_P2=1 on 4,096 reads, SAM equal to the host C lane, through
+   the WIDE score-only sw_full and swq, p2_hit > 0.
+9. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6, and 7's two device runs) and read just after it; the comparisons
+6, 7's two device runs and 8's two) and read just after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
@@ -124,9 +139,19 @@ LONG_READLEN, N_LONG, LONG_HEAD = 1500, 8192, 256
 LONG_TOL, MIN_LONG = 150, 0.85    # tests/test_longread_concordance.py:110
 PAIR_READLEN, N_PAIRS, PAIR_HEAD = 150, 50_000, 4096
 INSERT_MEAN, INSERT_SD = 300, 30
-# device pass 2: (Qp, Sp, windows); the first is the 100 bp lane's shape
+# device pass 2: (Qp, Sp, windows); the first is the 100 bp lane's shape;
+# then Qp256 with bands of 70-250 columns (3 to 8 tiles of 32 a row)
 SWQ_SHAPES = [(128, 256, 8192), (256, 512, 8192)]
+SWQ_WIDE = (256, 320, 2048)
+# score matrices outside int8: phase 3 and 3b hold the WIDE sw_full
+# instances and sw_band's several-warps route with entries of +-200 (X
+# -400), phase 8 maps with -S WIDE_SPEC
+WIDE_PEN = (200, -200)
+WIDE_FULL_SHAPES = [(112, 128, 3 * BATCH), (160, 256, 6 * BATCH)]
+WIDE_SPEC = "match=200,subst=-2"
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
+# phase 7b: (read length, indels, -S) of the lane's band-width cases
+LANE_BANDS = [(150, False, None), (250, True, None), (250, True, WIDE_SPEC)]
 
 
 def fail(msg: str):
@@ -365,7 +390,7 @@ def check_ties(mat, go: int, ge: int, card: str):
                     for x in sw.tie_windows(rng, B, Q, S))
         got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
         got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
-        want = sw.sw_score_ref(q, s, sl, mat, go, ge, track=True)
+        want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
         torch.cuda.synchronize()
         errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
         err0 = int((got0 - want[0]).abs().max())
@@ -408,7 +433,7 @@ def check_kernel(rng, card: str):
                     for x in kernel_windows(rng, B, Q, S))
         got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
         got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
-        want = sw.sw_score_ref(q, s, sl, mat, go, ge, track=True)
+        want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
         torch.cuda.synchronize()
         errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
         err0 = int((got0 - want[0]).abs().max())
@@ -422,7 +447,7 @@ def check_kernel(rng, card: str):
                                                track=True), 20)
         k0_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
                                                 track=False), 20)
-        p_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat, go, ge,
+        p_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge,
                                                track=True), 3)
         cells = B * Q * S
         print(f"# sw_full Q={Q} S={S} B={B}: equal to sw_score_ref "
@@ -448,19 +473,121 @@ def check_kernel(rng, card: str):
                         bound_by=wt["bound_by"])
         if (Q, S, B) == POOL_SHAPE:
             pool = dict(ms=k0_ms, plain_ms=time_ms(
-                lambda: sw.sw_score_ref(q, s, sl, mat, go, ge), 3),
+                lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge), 3),
                 bound_ms=w0["bound_ms"], bound_by=w0["bound_by"])
     check_ties(mat, go, ge, card)
     return worst, main, pool
 
 
-def check_swq_pair(qa, sj, par, mat, go: int, ge: int, what: str):
+def check_wide_full(rng, card: str):
+    """Phase 3, a matrix outside int8 (WIDE_PEN): the WIDE sw_full
+    instances, tracked and score-only, against sw_score_ref, exactly, at
+    WIDE_FULL_SHAPES on planted and tie-heavy windows.  Returns
+    (max_abs_err, tracked, score-only) at the first shape, as
+    check_kernel does."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    m, go, ge = ali.make_score_matrix(*WIDE_PEN)
+    go, ge = -go, -ge
+    mat = sw.device_matrix(m, "cuda")
+    if not mat.wide:
+        fail(f"the matrix of {WIDE_PEN} fits int8")
+    worst, main = 0, None
+    for Q, S, B in WIDE_FULL_SHAPES:
+        for kind, gen in (("planted", kernel_windows),
+                          ("tie-heavy", sw.tie_windows)):
+            q, s, sl = (torch.from_numpy(x).cuda() for x in gen(rng, B, Q, S))
+            got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
+            got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
+            want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
+            torch.cuda.synchronize()
+            errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+            err0 = int((got0 - want[0]).abs().max())
+            worst = max(worst, *errs, err0)
+            if max(errs + [err0]) != 0:
+                fail(f"WIDE sw_full differs from sw_score_ref at Q={Q} S={S} "
+                     f"({kind}): max |diff| best/ti/tj {errs}, score-only "
+                     f"{err0}")
+            if int(want[0].max()) <= 127:
+                fail(f"degenerate wide-matrix windows at Q={Q} S={S}")
+            k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                                   track=True), 20)
+            k0_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                                    track=False), 20)
+            print(f"# sw_full WIDE Q={Q} S={S} B={B}, {kind} windows, "
+                  f"entries {int(m.min())}..{int(m.max())}: equal to "
+                  f"sw_score_ref (best, ti, tj and score-only; best up to "
+                  f"{int(want[0].max())}); track {k_ms:.4f} ms, score-only "
+                  f"{k0_ms:.4f} ms | {card}", flush=True)
+            if main is None:
+                wt, w0 = (bounds.sw_full_work(Q, S, sl, t)
+                          for t in (True, False))
+                print(bound_line(f"sw_full_track_wide Q={Q} S={S} B={B}", wt,
+                                 k_ms, card))
+                print(bound_line(f"sw_full_wide Q={Q} S={S} B={B}", w0,
+                                 k0_ms, card), flush=True)
+                main = (dict(ms=k_ms, plain_ms=time_ms(
+                    lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge,
+                                            track=True), 3),
+                    bound_ms=wt["bound_ms"], bound_by=wt["bound_by"]),
+                    dict(ms=k0_ms, plain_ms=time_ms(
+                        lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge), 3),
+                        bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
+    return (worst,) + main
+
+
+def check_wide_band(rng, card: str):
+    """Phase 3b, a matrix outside int8 (WIDE_PEN): sw_band at the main
+    path's Q = BAND_MAIN_Q, which sends such a matrix to the several-warps
+    kernel (int32 lookups) at any band width, against sw_band_score_ref,
+    exactly.  Returns (max_abs_err, tracked, score-only)."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    m, go, ge = ali.make_score_matrix(*WIDE_PEN)
+    go, ge = -go, -ge
+    mat = sw.device_matrix(m, "cuda")
+    Q, B = BAND_MAIN_Q, BATCH
+    q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                           f"Q={Q} W={W} S={S}, entries {int(m.min())}.."
+                           f"{int(m.max())}")
+    if int(want[0].max()) <= 127:
+        fail(f"degenerate wide-matrix band windows at Q={Q}")
+    k_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                           track=True), 5)
+    k0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                            track=False), 5)
+    p_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad,
+                                                W, track=True), 1, warm=0)
+    p0_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad,
+                                                 W), 1, warm=0)
+    print(f"# sw_band Q={Q} W={W} S={S} B={B}, entries {int(m.min())}.."
+          f"{int(m.max())} (the several-warps kernel): equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only); track "
+          f"{k_ms:.4f} ms, score-only {k0_ms:.4f} ms, plain {p_ms:.3f} ms | "
+          f"{card}", flush=True)
+    wt, w0 = (bounds.sw_band_work(Q, S, W, pad, sl, t) for t in (True, False))
+    print(bound_line(f"sw_band_track_wide Q={Q} W={W} S={S} B={B}", wt, k_ms,
+                     card))
+    print(bound_line(f"sw_band_wide Q={Q} W={W} S={S} B={B}", w0, k0_ms,
+                     card), flush=True)
+    return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                      bound_by=wt["bound_by"]),
+            dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
+                 bound_by=w0["bound_by"]))
+
+
+def check_swq_pair(qa, sj, par, mat, go: int, ge: int, what: str,
+                   tiles: int):
     """swq_cuda against swq_fill_walk_ref on the same windows, exactly.
     Returns the max |difference| over best, mi, mj and rec (0)."""
     import torch
     from smalt_tpu_torch.parallel import exact_pass2 as p2
-    got = p2.swq_cuda(qa, sj, par, mat, go, ge)
-    want = p2.swq_fill_walk_ref(qa, sj, par, mat, go, ge)
+    got = p2.swq_cuda(qa, sj, par, mat, go, ge, tiles)
+    want = p2.swq_fill_walk_ref(qa, sj, par, mat.t, go, ge)
     torch.cuda.synchronize()
     errs = [int((g.to(torch.int32) - w).abs().max()) for g, w in
             zip(got, want)]
@@ -479,18 +606,22 @@ def check_swq_kernel(rng, card: str):
     main-path shape, the first)."""
     import torch
     from smalt_tpu_torch.align import core as ali
-    from smalt_tpu_torch.ops import bounds
+    from smalt_tpu_torch.ops import bounds, sw
     from smalt_tpu_torch.parallel import exact_pass2 as p2
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
     dev = torch.device("cuda")
-    mat = torch.from_numpy(m).to(dev)
+    mat = sw.device_matrix(m, dev)
     worst, main = 0, None
-    for Qp, Sp, W in SWQ_SHAPES:
-        qa, sj, par = (torch.from_numpy(x).to(dev)
-                       for x in p2.synth_windows(rng, W, Qp, Sp))
+    for Qp, Sp, W in SWQ_SHAPES + [SWQ_WIDE]:
+        qa, sj, par = p2.synth_windows(rng, W, Qp, Sp)
+        if (Qp, Sp, W) == SWQ_WIDE:
+            par[:, 1] = par[:, 0] + rng.integers(70, 251, W)
+        tiles = p2.band_tiles(*(par[:, k] for k in (0, 1, 2, 3, 5)), Qp)
+        qa, sj, par = (torch.from_numpy(x).to(dev) for x in (qa, sj, par))
         err, want = check_swq_pair(qa, sj, par, mat, go, ge,
-                                   f"Qp={Qp} Sp={Sp}")
+                                   f"Qp={Qp} Sp={Sp} ({tiles} band tiles)",
+                                   tiles)
         worst = max(worst, err)
         best = want[0]
         nz, n0 = int((best > 0).sum()), int((best == 0).sum())
@@ -498,15 +629,17 @@ def check_swq_kernel(rng, card: str):
         if nz < W // 2 or n0 < W // 16:
             fail(f"degenerate swq windows at Qp={Qp} Sp={Sp}: {nz} with "
                  f"best > 0, {n0} with best 0")
-        k_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, go, ge), 20)
-        p_ms = time_ms(lambda: p2.swq_fill_walk_ref(qa, sj, par, mat, go, ge),
-                       2, warm=1)
+        k_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, go, ge, tiles),
+                       20)
+        p_ms = time_ms(lambda: p2.swq_fill_walk_ref(qa, sj, par, mat.t, go,
+                                                    ge), 2, warm=1)
         cells = W * Qp * Sp
-        print(f"# swq Qp={Qp} Sp={Sp} W={W}: equal to swq_fill_walk_ref "
+        print(f"# swq Qp={Qp} Sp={Sp} W={W}, bands up to {32 * tiles} "
+              f"columns ({tiles} tiles): equal to swq_fill_walk_ref "
               f"(best, mi, mj, every rec row; {nz} windows with best > 0, "
-              f"{n0} with best 0, {walked} with a record); kernel {k_ms:.4f} ms ({cells / k_ms / 1e6:.1f} "
-              f"GCUPS over the full frame), plain {p_ms:.3f} ms | {card}",
-              flush=True)
+              f"{n0} with best 0, {walked} with a record); kernel "
+              f"{k_ms:.4f} ms ({cells / k_ms / 1e6:.1f} GCUPS over the full "
+              f"frame), plain {p_ms:.3f} ms | {card}", flush=True)
         work = bounds.swq_work(Qp, Sp, par)
         print(bound_line(f"swq Qp={Qp} Sp={Sp} W={W} (in-band cells of the "
                          f"valid windows)", work, k_ms, card), flush=True)
@@ -526,7 +659,7 @@ def band_equal(q, s, sl, mat, go: int, ge: int, pad: int, W: int,
     from smalt_tpu_torch.ops import sw
     got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=True)
     got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=False)
-    want = sw.sw_band_score_ref(q, s, sl, mat, go, ge, pad, W, track=True)
+    want = sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad, W, track=True)
     torch.cuda.synchronize()
     errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
     err0 = int((got0 - want[0]).abs().max())
@@ -623,7 +756,7 @@ def check_band_kernel(rng, card: str):
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
     dev = torch.device("cuda")
-    mat = torch.from_numpy(m).to(dev)
+    mat = sw.device_matrix(m, dev)
     worst = 0
     main = None
     for Q, B in BAND_SHAPES:
@@ -643,7 +776,7 @@ def check_band_kernel(rng, card: str):
         # call there (it ran once already, for `want`)
         wide = S > 4000
         p_ms = time_ms(lambda: sw.sw_band_score_ref(
-            q, s, sl, mat, go, ge, pad, W, track=True), 1 if wide else 2,
+            q, s, sl, mat.t, go, ge, pad, W, track=True), 1 if wide else 2,
             warm=0 if wide else 1)
         cells = B * W * S
         print(f"# sw_band Q={Q} W={W} S={S} B={B}: equal to "
@@ -662,7 +795,7 @@ def check_band_kernel(rng, card: str):
             main = (dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
                          bound_by=wt["bound_by"]),
                     dict(ms=k0_ms, plain_ms=time_ms(
-                        lambda: sw.sw_band_score_ref(q, s, sl, mat, go, ge,
+                        lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge,
                                                      pad, W), 2, warm=1),
                          bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
         del q, s, sl, want
@@ -782,10 +915,12 @@ def ptxas_summary(log: str) -> str:
     return f"registers {' '.join(regs)}; spill bytes {spills}"
 
 
-def map_cli(device: str, idx_name: str, sam: str, reads, batch: int):
+def map_cli(device: str, idx_name: str, sam: str, reads, batch: int,
+            extra=()):
     """`map --fast` through the port's CLI with the launch counts set to
-    0 just before and read just after.  reads: [fq] or [fq, mates].
-    Returns (launches, wall seconds, the SMALT_TIMING match)."""
+    0 just before and read just after.  reads: [fq] or [fq, mates];
+    extra: more options (-S).  Returns (launches, wall seconds, the
+    SMALT_TIMING match)."""
     from smalt_tpu_torch import cli
     from smalt_tpu_torch.ops import sw
     os.environ["SMALT_TIMING"] = "1"
@@ -797,7 +932,8 @@ def map_cli(device: str, idx_name: str, sam: str, reads, batch: int):
     try:
         with contextlib.redirect_stderr(err):
             rc = cli.main(["map", "--fast", "-f", "sam", "-o", sam,
-                           "--device", device, idx_name] + list(reads))
+                           "--device", device] + list(extra) +
+                          [idx_name] + list(reads))
     finally:
         os.environ.pop("SMALT_FAST_BATCH")
     wall = time.perf_counter() - t0
@@ -947,6 +1083,16 @@ def run_pairs(d: str, genome, card: str, device: str = "cuda"):
     return launches
 
 
+def lane_pass2_batch(dev, raw):
+    """One batch `raw` through a DeviceExact lane with pass 2 on, up to
+    its pass-2 step: (host, dargs, collate outputs, wd, Sp, nw, tiles)."""
+    host, dargs = dev._prepare(*raw)
+    outs = dev._collate_outputs(dargs)
+    item, _ = dev._post_batch(host, outs)
+    wd, _, Sp, nw, tiles = dev._p2_args(item[-1][2])
+    return host, dargs, outs, wd, Sp, nw, tiles
+
+
 def exact_batch_split(idx_name: str, fq: str, card: str):
     """Phase 7, one batch outside the CLI runs (so its launches are not
     counted there): the collate step and the pass-2 step of the first
@@ -959,7 +1105,7 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     from smalt_tpu_torch.map.engine import MapEngine, MapParams
     from smalt_tpu_torch.map.fastlane import DeviceExact
     from smalt_tpu_torch.map.fastmode import iter_fastq_batches
-    from smalt_tpu_torch.ops import bounds
+    from smalt_tpu_torch.ops import bounds, sw
     from smalt_tpu_torch.parallel import exact_pass2 as p2
     from smalt_tpu_torch.seq.refset import RefSet
     refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
@@ -970,10 +1116,9 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
                            device="cpu")
     dev._p2_on = True
     raw = next(iter(iter_fastq_batches(fq, dev.batch)))
-    host, dargs = dev._prepare(*raw)
+    host, dargs, outs, wd, Sp, nw, tiles = lane_pass2_batch(dev, raw)
     step = dev._collate_fn()
     col_ms = time_ms(lambda: step(*dargs), 3, warm=1)
-    outs = dev._collate_outputs(dargs)
     # the exactness protocol re-stages what a wrong device step flags, so
     # the SAM alone cannot show a collate fault: hold the CUDA step
     # against the port's CPU step on the same batch
@@ -985,36 +1130,35 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
             fail(f"the CUDA collate step's {name} differs from the CPU "
                  f"step's on the first batch of phase 7")
     cpu_col_s = time.perf_counter() - t0
-    item, _ = dev._post_batch(host, outs)
-    wd, _, Sp, nw = dev._p2_args(item[-1][2])
     p2_step = dev._pass2_step()
     p2_ms = time_ms(lambda: p2_step(dev._di.ref_alpha, host[10], host[11], wd,
-                                    Sp), 10)
+                                    Sp, tiles), 10)
     # how long the host takes to enqueue the step's ops, the device idle
     # at the start: where this is the step's time, the host bounds it
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
-        p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp)
+        p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp, tiles)
     p2_enq_ms = (time.perf_counter() - t0) * 100
     torch.cuda.synchronize()
     # and the whole pass-2 step (gather, strands, dummies, packing)
     t0 = time.perf_counter()
-    p2_got = p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp).cpu()
+    p2_got = p2_step(dev._di.ref_alpha, host[10], host[11], wd, Sp,
+                     tiles).cpu()
     p2_cpu = cpu._pass2_step()(cpu._di.ref_alpha, chost[10], chost[11],
-                               wd.cpu(), Sp)
+                               wd.cpu(), Sp, tiles)
     if not torch.equal(p2_got, p2_cpu):
         fail("the CUDA pass-2 step differs from the CPU step on the first "
              "batch of phase 7")
     cpu_p2_s = time.perf_counter() - t0
     qa, sj, par = p2.pass2_inputs(dev._di.ref_alpha, host[10], host[11], wd,
                                   Sp)
-    mat = torch.from_numpy(np.asarray(eng.matrix, np.int32)).cuda()
+    mat = sw.device_matrix(np.asarray(eng.matrix, np.int32), "cuda")
     err, want = check_swq_pair(qa, sj, par, mat, -eng.gapopen, -eng.gapext,
-                               "the first pass-2 batch of phase 7")
+                               "the first pass-2 batch of phase 7", tiles)
     W, Qp = qa.shape
     q_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, -eng.gapopen,
-                                       -eng.gapext), 20)
+                                       -eng.gapext, tiles), 20)
     print(bound_line(f"swq Qp={Qp} Sp={Sp} W={W}, the {nw} pass-2 windows of "
                      f"a real batch and {W - nw} dummies",
                      bounds.swq_work(Qp, Sp, par), q_ms, card), flush=True)
@@ -1022,7 +1166,8 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
           f"{col_ms:.3f} ms (CUDA events, 3 calls; H={dev._cfg.H}, pool "
           f"{dev._cfg.pool}), pass-2 step {p2_ms:.3f} ms (10 calls, "
           f"enqueued by the host in {p2_enq_ms:.3f} ms each; {nw} "
-          f"windows padded to W={W}, Qp={Qp}, Sp={Sp}); swq equal to "
+          f"windows padded to W={W}, Qp={Qp}, Sp={Sp}, band tiles "
+          f"{tiles}); swq {q_ms:.4f} ms, equal to "
           f"swq_fill_walk_ref on them ({int((want[0][:nw] > 0).sum())} with "
           f"best > 0); collate outputs (pool, counts2, scores, fallback: "
           f"{int(outs[3][:len(raw[0])].sum())} reads flagged) and the packed "
@@ -1117,6 +1262,145 @@ def run_exact(d: str, genome, card: str):
             launches["--device-exact"], err)
 
 
+def check_lane_bands(d: str, genome, card: str):
+    """Phase 7b: the band widths the `--device-exact` lane gives its pass-2
+    windows on reads past 128 bp (the Qp256 frame, up to 8 tiles a row)
+    and with the phase-8 matrix, outside the CLI: for each LANE_BANDS
+    case, the first batch of BATCH reads through the CUDA lane up to its
+    pass-2 step, the widths printed, swq held against its plain version
+    on those windows and timed.  Returns the max |difference| (0)."""
+    import torch
+    from smalt_tpu_torch.cli import _parse_penalties
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.engine import MapEngine, MapParams
+    from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.map.fastmode import iter_fastq_batches
+    from smalt_tpu_torch.ops import bounds, sw
+    from smalt_tpu_torch.parallel import exact_pass2 as p2
+    from smalt_tpu_torch.seq.refset import RefSet
+    idx_name = os.path.join(d, "idx")
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    rng = np.random.default_rng(SEED + 5)
+    worst = 0
+    for rl, indels, spec in LANE_BANDS:
+        make = make_long_reads if indels else make_reads
+        reads = make(rng, genome, BATCH, rl)[0]
+        fq, _ = write_fastq(os.path.join(d, f"bands_{rl}.fq"), reads, b"b")
+        eng = MapEngine(refset, idx, MapParams(),
+                        penalties=_parse_penalties(spec))
+        dev = DeviceExact.make(eng, "sam", True, False, False, False,
+                               device="cuda")
+        dev._p2_on = True
+        raw = next(iter(iter_fastq_batches(fq, dev.batch)))
+        host, _, _, wd, Sp, nw, tiles = lane_pass2_batch(dev, raw)
+        qa, sj, par = p2.pass2_inputs(dev._di.ref_alpha, host[10], host[11],
+                                      wd, Sp)
+        W, Qp = qa.shape
+        pc = par.cpu().numpy()
+        width = p2.band_widths(*(pc[:, k] for k in (0, 1, 2, 3, 5)), Qp)
+        width = width[pc[:, 5] != 0]
+        mat = sw.device_matrix(np.asarray(eng.matrix, np.int32), "cuda")
+        errs = "1% subs, 1.5% indels" if indels else "1% subs"
+        what = f"{rl} bp reads ({errs}, -S {spec or 'default'})"
+        err, want = check_swq_pair(qa, sj, par, mat, -eng.gapopen,
+                                   -eng.gapext, f"the lane's windows of {what}",
+                                   tiles)
+        worst = max(worst, err)
+        q_ms = time_ms(lambda: p2.swq_cuda(qa, sj, par, mat, -eng.gapopen,
+                                           -eng.gapext, tiles), 20)
+        hist = np.bincount(-(-width // 32), minlength=Qp // 32 + 1)[1:]
+        print(f"# lane pass-2 bands, {what}: {len(width)} windows at "
+              f"Qp={Qp} Sp={Sp} W={W}, band width max "
+              f"{int(width.max()) if len(width) else 0}, 99th percentile "
+              f"{int(np.percentile(width, 99)) if len(width) else 0}, "
+              f"windows by tiles 1..{Qp // 32}: {hist.tolist()}, launch "
+              f"tiles {tiles}; swq {q_ms:.4f} ms, equal to swq_fill_walk_ref "
+              f"({int((want[0] > 0).sum())} with best > 0) | {card}",
+              flush=True)
+        print(bound_line(f"swq Qp={Qp} Sp={Sp} W={W}, the lane's windows of "
+                         f"{what}", bounds.swq_work(Qp, Sp, par), q_ms, card),
+              flush=True)
+        del qa, sj, par, want, dev
+        torch.cuda.empty_cache()
+    return worst
+
+
+def run_wide_matrix(d: str, genome, card: str):
+    """Phase 8: -S WIDE_SPEC (a match of 200: entries outside int8) on the
+    phase-4 genome and index.  `map --fast` on BATCH single-end reads,
+    SAM equal to the --device cpu run's, through sw_full's WIDE tracked
+    instance; `map --device-exact` with SMALT_DX_P2=1 on BATCH reads, SAM
+    equal to the host C lane's (the @PG line aside), through the WIDE
+    score-only instance and swq, p2_hit > 0.  Returns the launches of the
+    two runs."""
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.ops import sw
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 4)
+    reads, truth, rev = make_reads(rng, genome, BATCH, READLEN)
+    fq, _ = write_fastq(os.path.join(d, "wide.fq"), reads, b"w")
+    spec = ["-S", WIDE_SPEC]
+    sam = os.path.join(d, "wide_cuda.sam")
+    fast, wall, _ = map_cli("cuda", idx_name, sam, [fq], BATCH, spec)
+    body = sam_body(sam)
+    placed = placement(body, truth, rev)
+    # (no placement limit: against a match of 200, gaps cost next to
+    # nothing, and alignment starts move)
+    if len(body) != BATCH:
+        fail(f"-S {WIDE_SPEC}: {len(body)} SAM records for {BATCH} reads")
+    if fast["sw_full_track_wide"] < 1 or fast["sw_full_track"] != 0:
+        fail(f"-S {WIDE_SPEC}: --fast launched {fast}")
+    sam_cpu = os.path.join(d, "wide_cpu.sam")
+    t0 = time.perf_counter()
+    map_cli("cpu", idx_name, sam_cpu, [fq], BATCH, spec)
+    if sam_body(sam_cpu) != body:
+        fail(f"-S {WIDE_SPEC}: --fast SAM differs from --device cpu")
+    print(f"# map --fast -S {WIDE_SPEC} on cuda: {BATCH} reads in {wall:.3f} "
+          f"s, placed {placed}/{BATCH} within {PLACE_TOL} bp; SAM "
+          f"byte-identical to --device cpu "
+          f"({time.perf_counter() - t0:.1f} s on the CPU); launches {fast} | "
+          f"{card}", flush=True)
+    bodies = {}
+    for label, flags in (("host C lane", []),
+                         ("--device-exact SMALT_DX_P2=1", ["--device-exact"])):
+        os.environ["SMALT_DP1_TIMING"] = "1"
+        os.environ["SMALT_DX_P2"] = "1"
+        out = os.path.join(d, f"wide_exact_{len(bodies)}.sam")
+        err = io.StringIO()
+        for k in sw.launches:
+            sw.launches[k] = 0
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["map", "-r", "1", "-f", "sam", "-o", out] +
+                              spec + flags + [idx_name, fq])
+        finally:
+            os.environ.pop("SMALT_DX_P2", None)
+            os.environ.pop("SMALT_DP1_TIMING", None)
+        exact = dict(sw.launches)
+        if rc != 0:
+            sys.stderr.write(err.getvalue())
+            fail(f"map -S {WIDE_SPEC} {' '.join(flags)} exited {rc}")
+        with open(out) as f:
+            bodies[label] = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("@PG")]
+    m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
+                  r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)",
+                  err.getvalue())
+    if bodies["--device-exact SMALT_DX_P2=1"] != bodies["host C lane"]:
+        fail(f"-S {WIDE_SPEC}: --device-exact SAM differs from the host C "
+             f"lane")
+    if m is None or int(m.group(5)) < 1 or int(m.group(6)) != 0:
+        fail(f"-S {WIDE_SPEC}: --device-exact counters "
+             f"{m.groups() if m else None}")
+    if exact["sw_full_wide"] < 1 or exact["swq"] < 1 or exact["sw_full"]:
+        fail(f"-S {WIDE_SPEC}: --device-exact launched {exact}")
+    print(f"# map --device-exact -S {WIDE_SPEC} SMALT_DX_P2=1: SAM "
+          f"byte-identical to the host C lane on {BATCH} reads; n_restaged "
+          f"{m.group(2)}, p2_used {m.group(3)}, p2_fb {m.group(4)}, p2_hit "
+          f"{m.group(5)}; launches {exact} | {card}", flush=True)
+    return fast, exact
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1146,10 +1430,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     err, k_full_t, k_full = check_kernel(rng, card)
+    werr, k_wfull_t, k_wfull = check_wide_full(rng, card)
     print(f"# phase 3 (sw_full against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     berr, k_band_t, k_band = check_band_kernel(rng, card)
+    wberr, k_wband_t, k_wband = check_wide_band(rng, card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -1179,6 +1465,14 @@ def main() -> int:
         qerr = max(qerr, qerr7)
         print(f"# phase 7 (device-exact): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        qerr = max(qerr, check_lane_bands(d, genome, card))
+        print(f"# phase 7b (lane band widths): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        wf, wx = run_wide_matrix(d, genome, card)
+        print(f"# phase 8 (-S {WIDE_SPEC}): {time.perf_counter() - t0:.2f} s",
+              flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -1191,13 +1485,14 @@ def main() -> int:
     paths = (("single-end --fast", se, N_READS), ("long reads --fast", lr,
              N_LONG), ("pairs --fast", pe, 2 * N_PAIRS),
              ("--device-exact", dx0, N_EXACT),
-             ("--device-exact SMALT_DX_P2=1", dx, N_EXACT))
+             ("--device-exact SMALT_DX_P2=1", dx, N_EXACT),
+             (f"--fast -S {WIDE_SPEC}", wf, BATCH),
+             (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH))
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
             for what, n, reads in paths), flush=True)
-    launches = {k: se[k] + lr[k] + pe[k] + dx[k] + dx0[k]
-                for k in sw.launches}
+    launches = {k: sum(n[k] for _, n, _ in paths) for k in sw.launches}
     full = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
             "replaces": "smalt_tpu/ops/sw.py:60"}
     band = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_band.cu",
@@ -1212,8 +1507,12 @@ def main() -> int:
         for name, src, e, k in (
             ("sw_full_track", full, err, k_full_t),
             ("sw_full", full, err, k_full),
+            ("sw_full_track_wide", full, werr, k_wfull_t),
+            ("sw_full_wide", full, werr, k_wfull),
             ("sw_band_track", band, berr, k_band_t),
             ("sw_band", band, berr, k_band),
+            ("sw_band_track_wide", band, wberr, k_wband_t),
+            ("sw_band_wide", band, wberr, k_wband),
             ("swq", swq, qerr, k_swq))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -488,20 +488,22 @@ def _no_gpu(device: str) -> bool:
     return False
 
 
-def _matrix_refused(spec: Optional[str]) -> bool:
-    """The device modes keep their score profiles in int8
-    (ops/sw.py device_matrix): say so and refuse, before anything is
-    loaded, when -S gives the matrix an entry outside -128..127."""
+def _score_cap_refused(spec: Optional[str], qmin: int) -> bool:
+    """The device kernels take windows with max|entry| * query columns
+    below 2^23 (ops/sw.py check_score_cap).  Queries pad to at least
+    `qmin` columns (--fast 32, --device-exact 128), so a matrix that
+    fails there can score no read: say so and refuse before anything is
+    loaded."""
     from .align.core import make_score_matrix
-    m = make_score_matrix(*_parse_penalties(spec))[0]
-    if -128 <= int(m.min()) and int(m.max()) <= 127:
-        return False
-    print(f"smalt_tpu_torch: -S {spec}: score matrix entries must lie in "
-          f"-128..127 on the device paths, got {int(m.min())}.."
-          f"{int(m.max())} (ROADMAP.md Queue 3: score matrices outside "
-          f"int8); `map` without a device flag takes any matrix",
-          file=sys.stderr)
-    return True
+    from .ops.sw import check_score_cap, device_matrix
+    try:
+        check_score_cap(f"-S {spec}", device_matrix(
+            make_score_matrix(*_parse_penalties(spec))[0], "cpu"), qmin)
+    except ValueError as e:
+        print(f"smalt_tpu_torch: {e}; `map` without a device flag takes any "
+              f"matrix", file=sys.stderr)
+        return True
+    return False
 
 
 def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
@@ -520,7 +522,7 @@ def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
             (sam_in, "--device-exact on SAM/BAM input", "Queue 1 #6e")):
         if bad:
             return _unported(what, item)
-    if _matrix_refused(a.scorspec):
+    if _score_cap_refused(a.scorspec, 128):
         return 2
     if _no_gpu(device):
         return 1
@@ -558,7 +560,7 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
             (a.resume, "--resume with --fast", "Queue 1 #13")):
         if bad:
             return _unported(what, item)
-    if _matrix_refused(a.scorspec):
+    if _score_cap_refused(a.scorspec, 32):
         return 2
     if _no_gpu(device):
         return 1

@@ -52,7 +52,8 @@ from .. import rand
 from ..align import core as ali_mod
 from ..native import get_lib
 from ..parallel.exact_collate import CollateCfg, build_exact_collate
-from ..parallel.exact_pass2 import build_pass2_step, unpack_pass2
+from ..parallel.exact_pass2 import (band_tiles, build_pass2_step,
+                                   unpack_pass2)
 from ..parallel.mesh import DeviceIndex
 from ..results import pairs as pairs_mod
 from ..seq import codec
@@ -793,7 +794,8 @@ class DeviceExact(DevicePass1):
         """The pass-2 step's window descriptors for the prep windows
         `win` (fastlane.py:1087-1112), padded to the sticky window cap:
         (wd [wcap, 12] int32 tensor on the device, valid [nw] uint8,
-        Sp, nw)."""
+        Sp, nw, the band tiles of the widest window, from this host
+        copy)."""
         nw = len(win)
         self._p2_sp = max(self._p2_sp, 2 * self._qcap)
         Sp = self._p2_sp
@@ -813,17 +815,19 @@ class DeviceExact(DevicePass1):
             wd[:nw, 7] = win[:, 6]            # q_len
             wd[:nw, 8] = win[:, 8]            # b_s_left
             wd[:nw, 9] = np.where(valid[:nw] != 0, win[:, 9], 0)
-        return torch.from_numpy(wd).to(self.device), valid, Sp, nw
+        tiles = band_tiles(*(wd[:, k] for k in (4, 5, 6, 7)), wd[:, 9] > 0,
+                           self._qcap)
+        return torch.from_numpy(wd).to(self.device), valid, Sp, nw, tiles
 
     def _dispatch_pass2(self, win, codes_pad, qlens):
         """One pass-2 step over the prep windows; codes_pad and qlens
         are the batch's tensors already on the device.  Returns (best64,
         mi64, mj64, rec16, valid, Sp, nw) on the host."""
-        wd, valid, Sp, nw = self._p2_args(win)
+        wd, valid, Sp, nw, tiles = self._p2_args(win)
         # the collate step's resident reference codes (refcodes & 7, the
         # array the reference uploads a second time for pass 2)
         flat = self._pass2_step()(self._di.ref_alpha, codes_pad, qlens, wd,
-                                  Sp)
+                                  Sp, tiles)
         best64, mi64, mj64, rec16 = unpack_pass2(flat.cpu().numpy(), nw, Sp)
         if os.environ.get("SMALT_DX_DEBUG"):
             v = valid[:nw] != 0

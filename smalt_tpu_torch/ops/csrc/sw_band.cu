@@ -90,9 +90,11 @@
 //     integer rate is the limit.  The profile is what bounds occupancy at
 //     the main shape (17 KB a window, 12 warps a SM) and what sets the
 //     kernel's limit on S: a window whose profile passes 200 KB runs
-//     sw_band_multi_kernel on two warps instead.  Matrix entries must fit
-//     in int8: ops/sw.py checks a matrix on the host where it is uploaded
-//     (device_matrix).
+//     sw_band_multi_kernel on two warps instead.  The profile needs
+//     matrix entries in int8: a matrix outside int8 (`wide`, decided by
+//     ops/sw.py on the host from the range device_matrix recorded) runs
+//     sw_band_multi_kernel on two warps or more, whatever W, since that
+//     kernel looks its scores up in the int32 matrix.
 //   - Tracking without a warp reduction in the row loop.  Each thread
 //     keeps its own first-best cell over its own band lanes:
 //     key = T*256 + 255 - c orders a row's cells by T and then by lowest
@@ -114,8 +116,8 @@
 //     lexicographic minimum over ITS cells with T equal to its own
 //     maximum; the threads whose maximum is M hold between them every cell
 //     with T = M, so the minimum of their records by (i, t) is the global
-//     one.  Scores are below 2^23 (sw.py admits int8 matrix entries and
-//     windows whose shorter side is below 65,536) and C < 256, so the key
+//     one.  Scores are below 2^23 (sw.py admits only max|entry| *
+//     min(Q, S) < 2^23; here the entries are int8) and C < 256, so the key
 //     fits and c is recovered from its low byte.
 //   - Padding lanes (band lanes at or past W, where 32 * C > W; the PAD
 //     instances, so that the widths the mapping path makes, multiples of
@@ -123,7 +125,8 @@
 //     after every row their H is set to HPAD = -2^22 and their E to NEG,
 //     so their next T = HPAD + score has a key near -2^30, below every
 //     real cell's (a real T is at least the lowest matrix entry, since
-//     H >= 0) and far from overflow, which NEG * 256 would not be.
+//     H >= 0, and that is at least -128 here) and far from overflow,
+//     which NEG * 256 would not be.
 //   - The warp's first and last lane take NEG in place of a neighbour's
 //     value by a min with a per-lane bound (NEG or INT_MAX), not by a
 //     select on a predicate that would be kept live through the loop.
@@ -132,7 +135,8 @@
 //     register and one __shfl_down_sync, the mirror image of sw_full.cu's
 //     __shfl_up_sync of H.  No global memory is touched inside a row.
 //
-// sw_band_multi_kernel (W > 512): C = 12 or 16, 2-input max and add, one
+// sw_band_multi_kernel (W > 512, a profile too large for shared memory, or
+// a matrix outside int8): C = 12 or 16, 2-input max and add, one
 // lookup in the 8x8 int32 matrix a cell, the query codes in registers and
 // shifted down one register a row (a thread takes the next thread's first
 // code by __shfl_down_sync, the warp's last thread the one new code), and
@@ -583,16 +587,17 @@ void launch_multi(bool track, int nw, const Args& a) {
 // Scores B windows on `stream`.  q [B,Q], subj [B,S], slens [B] and
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  The band has W lanes and
-// sits prepad columns left of the window start.  Matrix entries must lie
-// in -128..127 and min(Q, S) below 65,536 (sw.py checks both on the
-// host).  Returns the CUDA error of the launch (0 on success), or -1
-// when an argument is out of range (W outside 1..3072 included, and for
-// W <= 512 a gap extension with (S + 1) * ge >= 2^28).
+// sits prepad columns left of the window start.  wide != 0 (a matrix
+// entry outside -128..127) runs the several-warps kernel; sw.py admits
+// only max|entry| * min(Q, S) < 2^23.  Returns the CUDA error of the
+// launch (0 on success), or -1 when an argument is out of range (W
+// outside 1..3072 included, and for the one-warp kernel a gap extension
+// with (S + 1) * ge >= 2^28).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
                               int ge, int track, void* best, void* ti,
-                              void* tj, void* stream) {
+                              void* tj, void* stream, int wide) {
   if (Q < 1 || S < 0 || B < 0 || W < 1 || W > MAX_W) return -1;
   if (B == 0) return 0;
   const Args a = {static_cast<const int*>(q), static_cast<const int*>(subj),
@@ -608,6 +613,7 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
   // no room for the profile: two warps of the several-warps kernel (its
   // block loads the matrix with 64 threads)
   if (nw == 1 && 8 * profile_pitch(S, C1) > MAX_SMEM) nw = 2;
+  if (wide) nw = max(nw, 2);           // no int8 profile: int32 lookups
   if (nw > 1) {
     if ((W + 32 * nw - 1) / (32 * nw) <= 12) launch_multi<12>(tr, nw, a);
     else launch_multi<16>(tr, nw, a);

@@ -61,8 +61,12 @@
 //     to shared memory, and a cell's score is then one sign-extending
 //     byte load at (row s of the profile) + a constant.  The profile is
 //     laid out so that the lanes of a warp read 32 different banks
-//     (below).  Matrix entries must fit in int8: ops/sw.py checks a
-//     matrix on the host where it is uploaded (device_matrix).
+//     (below).  That needs matrix entries in int8.  A matrix outside
+//     int8 runs the WIDE instances, which build no profile and read a
+//     cell's score from the 8x8 int32 matrix in shared memory,
+//     smat[8 * s + q[j]], with the query codes in registers: one address
+//     computation a cell more on the ALU (ops/sw.py decides on the host,
+//     from the range device_matrix recorded, and passes `wide`).
 //   - Tracking without a warp reduction in the row loop.  Each lane keeps
 //     its own first-best cell over its own columns: key = T*256 + 255 - c
 //     orders a row's cells by T and then by lowest column, the lane takes
@@ -82,8 +86,9 @@
 //     lexicographic minimum over ITS cells with T equal to its own
 //     maximum; the lanes whose maximum is M hold between them every cell
 //     with T = M, so the minimum of their records by (i, j) is the global
-//     one.  (Scores are below 2^23 and C < 256, so the key fits and c is
-//     recovered from its low byte.)
+//     one.  (ops/sw.py admits a window only when max|entry| * min(Q, S)
+//     < 2^23, so |T| < 2^23 for every cell, padding included, and with
+//     C < 256 the key fits and c is recovered from its low byte.)
 //   - Query columns past Q are padded with code 7, which scores 0 against
 //     every subject code.  Padded columns lie to the right of every real
 //     column, so they never feed a real cell, and their T = H[i-1,j-1] is
@@ -133,8 +138,9 @@ __device__ __forceinline__ int row_max(const int (&T)[C]) {
 }
 
 // The second launch bound (one block a SM at least) lets ptxas take the
-// registers it asks for: without it the build spilled 8 bytes.
-template <int C, int L, bool TRACK>
+// registers it asks for: without it the build spilled 8 bytes.  WIDE:
+// scores from smat (int32) a cell, no int8 profile.
+template <int C, int L, bool TRACK, bool WIDE>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
                const int* __restrict__ slens,
@@ -169,15 +175,16 @@ sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
   constexpr int CP = (C + 3) / 4 * 4;
   constexpr int PITCH = (L * CP + 127) / 128 * 128;
   constexpr int WSTRIDE = 8 * PITCH + 128;         // room for the shift
-  __shared__ __align__(16) signed char prof[WARPS * G * WSTRIDE];
-  signed char* pbase = prof + wib * WSTRIDE + (lane / L) * (L * 4) + sub * 4;
-  {
-    int qc[CP];
+  __shared__ __align__(16) signed char prof[WIDE ? 16 : WARPS * G * WSTRIDE];
+  signed char* pbase = prof + (WIDE ? 0 : wib * WSTRIDE + (lane / L) * (L * 4)
+                                          + sub * 4);
+  int qc[CP];
 #pragma unroll
-    for (int c = 0; c < CP; ++c) {
-      const int j = j0 + c;
-      qc[c] = c < C && j < Q ? q[(size_t)b * Q + j] & 7 : 7;
-    }
+  for (int c = 0; c < CP; ++c) {
+    const int j = j0 + c;
+    qc[c] = c < C && j < Q ? q[(size_t)b * Q + j] & 7 : 7;
+  }
+  if (!WIDE) {
 #pragma unroll
     for (int s = 0; s < 8; ++s)
 #pragma unroll
@@ -212,6 +219,7 @@ sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
     }
     const int sc = __shfl_sync(FULL, scode, i & (L - 1), L);
     const signed char* prow = pbase + sc * PITCH;
+    const int* mrow = smat + 8 * sc;   // WIDE
     const int nige = -i * ge;          // E = Eh + nige
     const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
 
@@ -221,7 +229,7 @@ sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
     int r = NEG;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int w = prow[(c / 4) * (L * 4) + c % 4];
+      const int w = WIDE ? mrow[qc[c]] : prow[(c / 4) * (L * 4) + c % 4];
       T[c] = (c == 0 ? hleft : H[c - 1]) + w;
       H0[c] = addmax_relu(Eh[c], nige, T[c]);
       r = addmax(H0[c], c * ge, r);    // prefix max within the lane
@@ -286,17 +294,17 @@ sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 }
 
 template <int C, int L>
-int launch(bool track, const int* q, const int* subj, const int* slens,
-           const int* matrix, int B, int Q, int S, int go, int ge,
-           int* best, int* ti, int* tj, cudaStream_t stream) {
+int launch(bool track, bool wide, const int* q, const int* subj,
+           const int* slens, const int* matrix, int B, int Q, int S, int go,
+           int ge, int* best, int* ti, int* tj, cudaStream_t stream) {
   constexpr int PER_BLOCK = WARPS * (32 / L);      // windows a block
   const dim3 grid((B + PER_BLOCK - 1) / PER_BLOCK), block(WARPS * 32);
-  if (track)
-    sw_full_kernel<C, L, true><<<grid, block, 0, stream>>>(
-        q, subj, slens, matrix, B, Q, S, go, ge, 256, best, ti, tj);
-  else
-    sw_full_kernel<C, L, false><<<grid, block, 0, stream>>>(
-        q, subj, slens, matrix, B, Q, S, go, ge, 256, best, ti, tj);
+  auto kernel = track ? (wide ? sw_full_kernel<C, L, true, true>
+                              : sw_full_kernel<C, L, true, false>)
+                      : (wide ? sw_full_kernel<C, L, false, true>
+                              : sw_full_kernel<C, L, false, false>);
+  kernel<<<grid, block, 0, stream>>>(q, subj, slens, matrix, B, Q, S, go, ge,
+                                     256, best, ti, tj);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,13 +314,14 @@ int launch(bool track, const int* q, const int* subj, const int* slens,
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  A query of length Q runs
 // the first instantiated (C, L) below with L * C >= Q (Q <= 512).
-// Matrix entries must lie in -128..127 (sw.device_matrix checks them on
-// the host before the upload).  Returns the CUDA error of the launch (0
-// on success), or -1 when Q is out of range.
+// wide != 0 (a matrix entry outside -128..127) runs the WIDE instance;
+// ops/sw.py admits only max|entry| * min(Q, S) < 2^23.  Returns the CUDA
+// error of the launch (0 on success), or -1 when Q is out of range.
 extern "C" int sw_full_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int go, int ge, int track,
-                              void* best, void* ti, void* tj, void* stream) {
+                              void* best, void* ti, void* tj, void* stream,
+                              int wide) {
   if (Q < 1 || Q > 32 * 16 || S < 0 || B < 0) return -1;
   if (B == 0) return 0;
   auto* qp = static_cast<const int*>(q);
@@ -323,10 +332,11 @@ extern "C" int sw_full_launch(const void* q, const void* subj,
   auto* ip = static_cast<int*>(ti);
   auto* jp = static_cast<int*>(tj);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool tr = track != 0;
+  const bool tr = track != 0, wd = wide != 0;
 #define SWF_TRY(C, L)                                                     \
   if (Q <= (C) * (L))                                                     \
-    return launch<C, L>(tr, qp, sp, lp, mp, B, Q, S, go, ge, bp, ip, jp, st)
+    return launch<C, L>(tr, wd, qp, sp, lp, mp, B, Q, S, go, ge, bp, ip, jp, \
+                        st)
   // 8 lanes a window to Q = 128, 16 to 192, 32 above
   SWF_TRY(4, 8); SWF_TRY(8, 8); SWF_TRY(12, 8); SWF_TRY(14, 8);
   SWF_TRY(16, 8); SWF_TRY(10, 16); SWF_TRY(12, 16);

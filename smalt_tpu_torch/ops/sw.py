@@ -19,6 +19,7 @@ row-major-first argmax cell (ti, tj).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,12 +27,23 @@ import torch
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
-MAX_BAND_CELLS = (1 << 23) // 128  # min(Q, S) below this: scores < 2^23
+# Every score a kernel handles lies below SCORE_CAP in magnitude when
+# max|entry| * (query columns or subject rows, the fewer) is below it:
+# sw_full.cu and sw_band.cu pack a score and a column into the int32 key
+# T * 256 + 255 - c, which holds |T| < 2^23.  The sentinels sit far from
+# that range: NEG = -2^28 (and NEG less a row's gap penalties), the
+# column sentinel 1 << 28, and sw_band.cu's padding-lane H of -2^22,
+# which only the int8 kernel uses (|entry| <= 128: its key stays above
+# -2^31).  NEG * 256 is never formed.
+SCORE_CAP = 1 << 23
 
 # launches of the CUDA kernels by instance; each wrapper adds one per
-# launch and nowhere else (callers reset and read these)
+# launch and nowhere else (callers reset and read these).  "_wide": a
+# matrix outside int8 (sw_full's WIDE instances; sw_band's several-warps
+# kernel at any width)
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
-            "sw_band": 0, "swq": 0}
+            "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
+            "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0}
 
 _libs: dict = {}
 
@@ -40,26 +52,56 @@ def _as_i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
 
 
-def device_matrix(matrix, device) -> torch.Tensor:
+class DeviceMatrix(NamedTuple):
+    """An [8, 8] int32 score matrix on a device, with its (min, max)
+    entry taken on the host before the upload: the kernel wrappers read
+    the range here and never read the matrix back from the card."""
+    t: torch.Tensor
+    lo: int
+    hi: int
+
+    @property
+    def wide(self) -> bool:
+        """An entry outside int8: sw_full.cu then runs its WIDE instance (a
+        lookup a cell, no int8 profile) and sw_band.cu its several-warps
+        kernel (int32 lookups)."""
+        return self.lo < -128 or self.hi > 127
+
+    @property
+    def amax(self) -> int:
+        return max(-self.lo, self.hi)
+
+
+def device_matrix(matrix, device) -> DeviceMatrix:
     """The [8, 8] score matrix (a host array) as a contiguous int32
-    tensor on `device`.  Checked here, on the host and before the upload:
-    csrc/sw_full.cu and csrc/sw_band.cu keep their score profiles in int8,
-    so an entry outside -128..127 raises ValueError, on every device
-    alike."""
+    tensor on `device`, in its DeviceMatrix record.  Any int32 entries
+    are taken."""
     m = np.ascontiguousarray(matrix, dtype=np.int32)
     if m.shape != (8, 8):
         raise ValueError(f"score matrix must be [8, 8], got {m.shape}")
-    if m.min() < -128 or m.max() > 127:
-        raise ValueError("score matrix entries must lie in -128..127, got "
-                         f"{int(m.min())}..{int(m.max())}")
-    return torch.from_numpy(m.copy()).to(device)
+    return DeviceMatrix(torch.from_numpy(m.copy()).to(device), int(m.min()),
+                        int(m.max()))
 
 
-def _matrix_on(matrix, device) -> torch.Tensor:
-    """A host score matrix through device_matrix; the tensor device_matrix
-    made of one for `device` as it is."""
-    if isinstance(matrix, torch.Tensor) and matrix.device == device:
-        return _as_i32(matrix, device)
+def check_score_cap(kname: str, matrix: DeviceMatrix, n: int) -> None:
+    """Raise ValueError unless max|entry| * n < SCORE_CAP, n the fewer of
+    a window's query columns and subject rows (swq: its query columns)."""
+    if not isinstance(matrix, DeviceMatrix):
+        raise TypeError(f"{kname}: the score matrix must be the DeviceMatrix "
+                        f"device_matrix makes, got {type(matrix).__name__}")
+    if matrix.amax * n >= SCORE_CAP:
+        raise ValueError(f"{kname}: max |score matrix entry| {matrix.amax} "
+                         f"times {n} columns reaches 2^23, the kernels' "
+                         f"score limit (max|entry| * min(Q, S) < 2^23)")
+
+
+def _matrix_on(matrix, device) -> DeviceMatrix:
+    """A host score matrix through device_matrix; a DeviceMatrix on
+    `device` as it is."""
+    if isinstance(matrix, DeviceMatrix):
+        if matrix.t.device == device:
+            return matrix
+        matrix = matrix.t.cpu()
     return device_matrix(matrix, device)
 
 
@@ -190,9 +232,11 @@ def band_tie_windows(rng, B: int, Q: int):
     return tie_windows(rng, B, Q, S) + (pad, W, S)
 
 
-# ctypes signatures of the kernels' plain C entry points (p pointer, i int)
-_SIGS = {"sw_full": "ppppiiiiiipppp", "sw_band": "ppppiiiiiiiipppp",
-         "swq": "ppppiiiiipppppp"}
+# ctypes signatures of the kernels' plain C entry points (p pointer, i int);
+# sw_full's and sw_band's `wide` comes last, so that earlier versions of
+# those sources (which take none) can be timed beside them (ops/time_sw.py)
+_SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
+         "swq": "ppppiiiiiippppp"}
 
 
 def _kernel_lib(name: str):
@@ -232,13 +276,16 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, track: bool = False):
     """Launch csrc/sw_full.cu on the current stream.  Same arguments
     and results as sw_score_ref; every tensor contiguous int32 on one
-    CUDA device, the matrix made by device_matrix (entries in int8)."""
-    _check_args("sw_full", qcodes, subj, slens, matrix)
-    dev = qcodes.device
+    CUDA device, the matrix a DeviceMatrix (one outside int8 runs the
+    WIDE instances)."""
     B, Q = qcodes.shape
     if not 1 <= Q <= MAX_Q:
         raise ValueError(f"sw_full: query length {Q} outside 1..{MAX_Q}")
     S = subj.shape[1]
+    check_score_cap("sw_full", matrix, min(Q, S))
+    _check_args("sw_full", qcodes, subj, slens, matrix.t)
+    dev = qcodes.device
+    wide = matrix.wide
     lib = _kernel_lib("sw_full")
     best = torch.empty(B, dtype=torch.int32, device=dev)
     ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
@@ -247,13 +294,14 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sw_full_launch(
             qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
-            matrix.data_ptr(), B, Q, S, int(gapopen_pos), int(gapext_pos),
+            matrix.t.data_ptr(), B, Q, S, int(gapopen_pos), int(gapext_pos),
             1 if track else 0, best.data_ptr(),
             ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream)
+            tj.data_ptr() if track else None, stream, int(wide))
     if rc != 0:
         raise RuntimeError(f"sw_full launch failed (code {rc})")
-    launches["sw_full_track" if track else "sw_full"] += 1
+    launches[("sw_full_track" if track else "sw_full") +
+             ("_wide" if wide else "")] += 1
     return (best, ti, tj) if track else best
 
 
@@ -265,7 +313,9 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     subj:   [B, S] subject codes; rows at or past slens are ignored
     slens:  [B]    valid subject lengths
     matrix: [8, 8] score matrix (code 7 must score 0: it pads): a host
-            array, or the tensor device_matrix made of one for `device`
+            array, or the DeviceMatrix device_matrix made of one;
+            any int32 entries with max|entry| * min(Q, S) < 2^23
+            (check_score_cap, on every device)
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
     row-major-first argmax cell of each window's DP (subject row ti,
@@ -273,11 +323,13 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     assert gapopen_pos >= gapext_pos, "prefix-scan F requires go >= ge"
     device = torch.device(device)
     args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
-    args.append(_matrix_on(matrix, device))
+    mat = _matrix_on(matrix, device)
+    check_score_cap("sw_full", mat, min(args[0].shape[1], args[1].shape[1]))
     if device.type == "cpu":
-        return sw_score_ref(*args, gapopen_pos, gapext_pos, track=track)
+        return sw_score_ref(*args, mat.t, gapopen_pos, gapext_pos,
+                            track=track)
     if device.type == "cuda":
-        return sw_full_cuda(*args, gapopen_pos, gapext_pos, track=track)
+        return sw_full_cuda(*args, mat, gapopen_pos, gapext_pos, track=track)
     raise ValueError(f"sw_score_batch: no kernel for device {device}")
 
 
@@ -352,20 +404,17 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, pad: int, W: int, track: bool = False):
     """Launch csrc/sw_band.cu on the current stream.  Same arguments
     and results as sw_band_score_ref (W as given, 1..MAX_BAND_W); every
-    tensor contiguous int32 on one CUDA device, the matrix made by
-    device_matrix (entries in int8: the kernel keeps an int8 score
-    profile, and its tracking packs a score and a band lane into one
-    int32 key, which holds scores below 2^23)."""
+    tensor contiguous int32 on one CUDA device, the matrix a DeviceMatrix
+    (one outside int8 runs the several-warps kernel, which looks its
+    scores up in int32)."""
     if not 1 <= W <= MAX_BAND_W:
         raise ValueError(f"sw_band: band width {W} outside 1..{MAX_BAND_W} "
                          f"(the kernel's limit: reads up to ~16 kb)")
     B, Q = qcodes.shape
     S = subj.shape[1]
-    if min(Q, S) >= MAX_BAND_CELLS:
-        raise ValueError(f"sw_band: a window of {Q} x {S} could score 2^23 "
-                         f"or more (limit {MAX_BAND_CELLS} on the shorter "
-                         f"side)")
-    _check_args("sw_band", qcodes, subj, slens, matrix)
+    check_score_cap("sw_band", matrix, min(Q, S))
+    _check_args("sw_band", qcodes, subj, slens, matrix.t)
+    wide = matrix.wide
     dev = qcodes.device
     if Q < 1:
         raise ValueError("sw_band: empty query")
@@ -377,13 +426,14 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sw_band_launch(
             qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
-            matrix.data_ptr(), B, Q, S, W, pad + W // 2, int(gapopen_pos),
+            matrix.t.data_ptr(), B, Q, S, W, pad + W // 2, int(gapopen_pos),
             int(gapext_pos), 1 if track else 0, best.data_ptr(),
             ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream)
+            tj.data_ptr() if track else None, stream, int(wide))
     if rc != 0:
         raise RuntimeError(f"sw_band launch failed (code {rc})")
-    launches["sw_band_track" if track else "sw_band"] += 1
+    launches[("sw_band_track" if track else "sw_band") +
+             ("_wide" if wide else "")] += 1
     return (best, ti, tj) if track else best
 
 
@@ -395,8 +445,8 @@ def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     [i - pad - W/2, i - pad + W/2): `pad` is the window's left backoff,
     so the seed diagonal sits mid-band.  W defaults to band_width_for
     and is clamped as the Pallas wrapper clamps it (clamp_band_width).
-    The matrix is a host array (checked by device_matrix: entries in
-    -128..127) or the tensor device_matrix made of one for `device`.
+    The matrix is a host array or the DeviceMatrix device_matrix made of
+    one, with max|entry| * min(Q, S) < 2^23 (check_score_cap).
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
     row-major-first argmax cell in (subject row, query column)."""
@@ -404,11 +454,12 @@ def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     device = torch.device(device)
     W = clamp_band_width(int(qcodes.shape[1]), pad, W)
     args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
-    args.append(_matrix_on(matrix, device))
+    mat = _matrix_on(matrix, device)
+    check_score_cap("sw_band", mat, min(args[0].shape[1], args[1].shape[1]))
     if device.type == "cpu":
-        return sw_band_score_ref(*args, gapopen_pos, gapext_pos, pad, W,
-                                 track=track)
+        return sw_band_score_ref(*args, mat.t, gapopen_pos, gapext_pos, pad,
+                                 W, track=track)
     if device.type == "cuda":
-        return sw_band_cuda(*args, gapopen_pos, gapext_pos, pad, W,
+        return sw_band_cuda(*args, mat, gapopen_pos, gapext_pos, pad, W,
                             track=track)
     raise ValueError(f"sw_band_score_batch: no kernel for device {device}")

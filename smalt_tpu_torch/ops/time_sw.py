@@ -1,18 +1,22 @@
-"""Time ops/csrc/sw_full.cu or sw_band.cu on one GPU, beside earlier
-versions of the source.
+"""Time ops/csrc/sw_full.cu, sw_band.cu or swq.cu on one GPU, beside
+earlier versions of the source.
 
-    python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band]
+    python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band|swq]
         [--baseline old.cu]... [--rounds 5] [--reps 20]
         [--out build/time_sw.json]
 
 Builds the kernel as shipped and, for each --baseline, another version of
-the source (same C interface; labelled by its file name) side by side.
-Each must equal the kernel's plain version (sw_score_ref,
-sw_band_score_ref) exactly on a head of every input, and every baseline
-must equal the shipped kernel on all of it, before anything is timed.
+the source (same C interface, or for swq the earlier full-frame one,
+which takes a (W, Sp, 32) int16 scratch; labelled by its file name) side
+by side.  Each must equal the kernel's plain version (sw_score_ref,
+sw_band_score_ref, swq_fill_walk_ref) exactly on a head of every input
+(all of it for swq), and every baseline must equal the shipped kernel on
+all of it, before anything is timed.
 The versions are then timed in turns (CUDA events over --reps launches,
 --rounds rounds, each round in the opposite order of the last), at the
-shapes the mapping paths use, on random windows and on tie-heavy ones.
+shapes the mapping paths use, on random windows and on tie-heavy ones
+(swq: chip_smoke.py phase 3c's windows; the lane's own pass-2 windows
+are timed by chip_smoke.py phase 7).
 Prints one line a version and shape with the median and the minimum over
 the rounds, the share of the roofline bound (ops/bounds.py) and the
 card's name and power limit; writes the same as JSON.  Fails without a
@@ -46,7 +50,14 @@ FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
 # 1,500 bp reads (the long-read path of `map --fast`) and 640 bp reads
 # (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
 BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
-HEAD = {"sw_full": 512, "sw_band": 128}   # windows also held against plain
+# swq, (Qp, Sp, W): chip_smoke.py phase 3c's synth_windows (bands 8-64
+# columns wide) at the 100 bp lane's shape and at Qp256; then bands of
+# 70-250 columns (3-8 tiles a row)
+SWQ_SHAPES = [(128, 256, 8192), (256, 512, 8192)]
+SWQ_WIDE = (256, 320, 2048)
+HEAD = {"sw_full": 512, "sw_band": 128, "swq": None}  # held against plain
+OUTS = {"sw_full": ("best", "ti", "tj"), "sw_band": ("best", "ti", "tj"),
+        "swq": ("best", "mi", "mj", "rec")}
 
 
 def random_windows(rng, B: int, Q: int, S: int):
@@ -72,13 +83,43 @@ def random_windows(rng, B: int, Q: int, S: int):
 
 
 def load(kernel: str, src: str = ""):
-    """The shipped csrc/<kernel>.cu, or the source `src`, built and bound."""
+    """The shipped csrc/<kernel>.cu, or the source `src`, built and bound.
+    A swq source without swq_window_bytes is the earlier full-frame
+    kernel: its launch takes the codes scratch and no band tiles."""
     lib = build.load(kernel, src)
     fn = getattr(lib, kernel + "_launch")
     fn.restype = ctypes.c_int
+    sig = sw._SIGS[kernel]
+    if kernel == "swq" and not hasattr(lib, "swq_window_bytes"):
+        sig = "ppppiiiiipppppp"
     fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                   for c in sw._SIGS[kernel]]
+                   for c in sig]
     return lib
+
+
+def swq_launcher(lib, qa, sj, par, mat, go: int, ge: int, tiles: int):
+    """fn() launches `lib`'s swq on these windows into outputs made once
+    and returns (best, mi, mj, rec)."""
+    W, Qp = qa.shape
+    Sp = sj.shape[1]
+    out = [torch.empty(W, dtype=torch.int32, device=qa.device)
+           for _ in range(3)]
+    out.append(torch.empty((W, Sp), dtype=torch.int16, device=qa.device))
+    ptrs = [o.data_ptr() for o in out]
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "swq_window_bytes"):
+        head, tail = (W, Qp, Sp, go, ge, tiles), ()
+    else:
+        codes = torch.empty((W, Sp, 32), dtype=torch.int16, device=qa.device)
+        head, tail = (W, Qp, Sp, go, ge), (codes.data_ptr(),)
+
+    def fn():
+        rc = lib.swq_launch(qa.data_ptr(), sj.data_ptr(), par.data_ptr(),
+                            mat.t.data_ptr(), *head, *ptrs, *tail, stream)
+        if rc != 0:
+            raise RuntimeError(f"swq launch failed (code {rc})")
+        return out
+    return fn
 
 
 def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
@@ -86,17 +127,20 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     """fn() launches `lib`'s kernel on these tensors into outputs made
     once, and returns them: (best, ti, tj), or (best,) without track.
     band = (W, prepad) for sw_band."""
+    if kernel == "swq":
+        return swq_launcher(lib, q, s, sl, mat, go, ge, *band)
     B, Q = q.shape
     out = [torch.empty(B, dtype=torch.int32, device=q.device)
            for _ in range(3 if track else 1)]
     ptrs = [o.data_ptr() for o in out] + [None] * (3 - len(out))
     stream = torch.cuda.current_stream().cuda_stream
     launch = getattr(lib, kernel + "_launch")
+    wide = int(mat.wide)
 
     def fn():
         rc = launch(q.data_ptr(), s.data_ptr(), sl.data_ptr(),
-                    mat.data_ptr(), B, Q, s.shape[1], *band, go, ge,
-                    int(track), *ptrs, stream)
+                    mat.t.data_ptr(), B, Q, s.shape[1], *band, go, ge,
+                    int(track), *ptrs, stream, wide)
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed (code {rc})")
         return out
@@ -114,14 +158,17 @@ def event_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def must_equal(got, want, label: str, what: str, where: str, sl):
-    for name, g, w in zip(("best", "ti", "tj"), got, want):
-        bad = (g != w).nonzero().flatten()
+def must_equal(got, want, label: str, what: str, where: str, sl,
+               names=OUTS["sw_full"]):
+    for name, g, w in zip(names, got, want):
+        ne = g.to(torch.int32) != w.to(torch.int32)
+        bad = (ne.any(dim=1) if ne.dim() == 2 else ne).nonzero().flatten()
         if len(bad):
             i = int(bad[0])
             sys.exit(f"time_sw: FAIL: {label} differs from {what} at "
                      f"{where}: {name} of {len(bad)} windows, first {i}: "
-                     f"{int(g[i])} vs {int(w[i])} (slen {int(sl[i])})")
+                     f"{g[i].tolist()} vs {w[i].tolist()} "
+                     f"({sl[i].tolist()})")
 
 
 class Case(NamedTuple):
@@ -143,6 +190,21 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
     def cuda(*xs):
         return tuple(torch.from_numpy(x).to(dev) for x in xs)
 
+    if kernel == "swq":
+        from ..parallel import exact_pass2 as p2
+        for Qp, Sp, W in SWQ_SHAPES + [SWQ_WIDE]:
+            qa, sj, par = p2.synth_windows(rng, W, Qp, Sp)
+            kind = "synth"
+            if (Qp, Sp, W) == SWQ_WIDE:
+                par[:, 1] = par[:, 0] + rng.integers(70, 251, W)
+                kind = "wide"
+            t = cuda(qa, sj, par)
+            tiles = p2.band_tiles(*(par[:, k] for k in (0, 1, 2, 3, 5)), Qp)
+            yield Case(
+                f"Qp={Qp} Sp={Sp} W={W} tiles={tiles}", kind, t, (tiles,),
+                lambda n, t=t: p2.swq_fill_walk_ref(*t, mat.t, go, ge),
+                lambda track, a=(Qp, Sp, t[2]): bounds.swq_work(*a), True)
+        return
     if kernel == "sw_full":
         for Q, S, B in FULL_SHAPES:
             for kind, gen in (("random", random_windows),
@@ -151,7 +213,7 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
                 yield Case(
                     f"Q={Q} S={S} B={B}", kind, t, (),
                     lambda n, t=t: sw.sw_score_ref(
-                        *(x[:n] for x in t), mat, go, ge, track=True),
+                        *(x[:n] for x in t), mat.t, go, ge, track=True),
                     lambda track, a=(Q, S, t[2]): bounds.sw_full_work(
                         *a, track),
                     kind == "random" or Q <= 160)
@@ -164,7 +226,7 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
             yield Case(
                 f"Q={Q} W={W} S={S} B={B}", kind, t, (W, pad + W // 2),
                 lambda n, t=t, g=(pad, W): sw.sw_band_score_ref(
-                    *(x[:n] for x in t), mat, go, ge, *g, track=True),
+                    *(x[:n] for x in t), mat.t, go, ge, *g, track=True),
                 lambda track, a=(Q, S, W, pad, t[2]): bounds.sw_band_work(
                     *a, track),
                 kind == "random" or Q <= 1504)
@@ -172,7 +234,7 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="time_sw")
-    ap.add_argument("--kernel", choices=("sw_full", "sw_band"),
+    ap.add_argument("--kernel", choices=("sw_full", "sw_band", "swq"),
                     default="sw_full")
     ap.add_argument("--baseline", action="append", default=[],
                     help="another version of the kernel's source to time "
@@ -211,8 +273,10 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(20240601)
     head = HEAD[a.kernel]
     results = []
+    names = OUTS[a.kernel]
+    tracks = (True,) if a.kernel == "swq" else (True, False)
     for case, track in ((c, t) for c in cases(a.kernel, rng, dev, mat, go, ge)
-                        for t in (True, False)):
+                        for t in tracks):
         q, s, sl = case.tensors
         where = f"{case.shape} track={track} ({case.kind})"
         want = case.plain(head)
@@ -222,8 +286,9 @@ def main(argv=None) -> int:
         for label, fn in fns.items():
             got = fn()
             must_equal([g[:head] for g in got], want, label,
-                       "the plain version", where, sl)
-            must_equal(got, ship, label, "the shipped kernel", where, sl)
+                       "the plain version", where, sl, names)
+            must_equal(got, ship, label, "the shipped kernel", where, sl,
+                       names)
         if not case.timed:
             continue                  # checked; timed on random only
         work = case.work(track)

@@ -12,12 +12,13 @@ full-query frame, exactly as that module's docstring sets it out:
     (row-major first);
     direction code 3 on strict wins, else (e >= f ? 1 : 2) when cell > 0.
 
-Out-of-band cells keep their H and E from the rows above, and those
-stale values feed the next row's diagonal: both versions here keep the
-whole query frame, so they reproduce them.  The walk then runs from the
-best cell (mi, mj) up the subject rows and writes one int16 per row,
-(nins << 2) | typ with typ 3 DIA, 1 COL, 2 clean stop, 0 SUSPECT, and 0
-on every row where it is not active.
+Out-of-band cells keep their H and E from the rows above: the plain
+version keeps the whole query frame and reproduces them; the kernel
+computes only the band (csrc/swq.cu says why no stale value outside it
+is ever read).  The walk then runs from the best cell (mi, mj) up the
+subject rows and writes one int16 per row, (nins << 2) | typ with typ 3
+DIA, 1 COL, 2 clean stop, 0 SUSPECT, and 0 on every row where it is not
+active.
 
 `swq_fill_walk_ref` is the plain torch version; `swq_cuda` launches the
 hand-written kernel (csrc/swq.cu); `build_pass2_step` is the step of the
@@ -31,7 +32,7 @@ import torch
 from ..ops import sw as sw_ops
 
 NEG = -(1 << 28)
-MAX_QP = 256       # widest query swq.cu keeps in registers (8 columns a lane)
+MAX_QP = 256       # widest query frame swq.cu takes (8 tiles of 32 columns)
 
 _I32 = torch.int32
 
@@ -122,14 +123,35 @@ def swq_fill_walk_ref(qalpha, subj, par, matrix, go: int, ge: int):
     return torch.clamp_min(best, 0), bi, bj, rec
 
 
-def swq_cuda(qalpha, subj, par, matrix, go: int, ge: int):
+def band_widths(le, re_, ql, qn, valid, Qp: int) -> np.ndarray:
+    """The widest band of each window in columns (0 for a dummy): a band
+    is at most r_edge + 1 - l_edge columns wide, and lies in
+    [max(q_left, l_edge), min(q_len, Qp)).  Host arrays."""
+    le, re_, ql, qn, valid = (np.asarray(x, np.int64)
+                              for x in (le, re_, ql, qn, valid))
+    width = np.minimum(re_ + 1 - le, np.minimum(qn, Qp) - np.maximum(ql, le))
+    return np.where(valid != 0, width, 0)
+
+
+def band_tiles(le, re_, ql, qn, valid, Qp: int) -> int:
+    """The 32-column tiles the widest band of these windows takes, at
+    least 1 (band_widths)."""
+    width = band_widths(le, re_, ql, qn, valid, Qp)
+    widest = int(width.max()) if len(width) else 0
+    return min(max(1, -(-widest // 32)), Qp // 32)
+
+
+def swq_cuda(qalpha, subj, par, matrix, go: int, ge: int, tiles: int):
     """Launch csrc/swq.cu on the current stream.  Same arguments as
     swq_fill_walk_ref, every tensor contiguous int32 on one CUDA device,
-    Qp a multiple of 32 up to MAX_QP and Sp even.  Returns int32 best,
-    mi, mj [W] and int16 rec [W, Sp]."""
+    Qp a multiple of 32 up to MAX_QP, Sp even, the matrix a DeviceMatrix
+    (ops/sw.py) with max|entry| * Qp < 2^23.  `tiles` bounds every band
+    of the launch (band_tiles, from the host's copy of the windows).
+    Returns int32 best, mi, mj [W] and int16 rec [W, Sp]."""
+    sw_ops.check_score_cap("swq", matrix, qalpha.shape[1])
     dev = qalpha.device
     for name, t in (("qalpha", qalpha), ("subj", subj), ("par", par),
-                    ("matrix", matrix)):
+                    ("matrix", matrix.t)):
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"swq: {name} must be on {dev} (cuda), got "
                              f"{t.device}")
@@ -137,26 +159,26 @@ def swq_cuda(qalpha, subj, par, matrix, go: int, ge: int):
             raise ValueError(f"swq: {name} must be contiguous int32")
     W, Qp = qalpha.shape
     Sp = subj.shape[1]
-    if subj.shape[0] != W or par.shape != (W, 8) or matrix.shape != (8, 8):
+    if subj.shape[0] != W or par.shape != (W, 8):
         raise ValueError(f"swq: shapes qalpha {tuple(qalpha.shape)} subj "
-                         f"{tuple(subj.shape)} par {tuple(par.shape)} "
-                         f"matrix {tuple(matrix.shape)}")
+                         f"{tuple(subj.shape)} par {tuple(par.shape)}")
     if Qp % 32 or not 32 <= Qp <= MAX_QP or Sp < 2 or Sp % 2:
         raise ValueError(f"swq: Qp {Qp} must be a multiple of 32 in "
                          f"32..{MAX_QP} and Sp {Sp} even")
     lib = sw_ops._kernel_lib("swq")
+    if lib.swq_window_bytes(Qp, Sp, tiles) < 0:
+        raise ValueError(f"swq: {Sp} rows of {tiles} band tiles pass the "
+                         f"kernel's 200 KB of shared memory a window")
     best = torch.empty(W, dtype=_I32, device=dev)
     mi = torch.empty(W, dtype=_I32, device=dev)
     mj = torch.empty(W, dtype=_I32, device=dev)
     rec = torch.empty((W, Sp), dtype=torch.int16, device=dev)
-    # 2-bit direction codes of each lane's columns, one uint16 a row
-    codes = torch.empty((W, Sp, 32), dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.swq_launch(qalpha.data_ptr(), subj.data_ptr(),
-                            par.data_ptr(), matrix.data_ptr(), W, Qp, Sp,
-                            int(go), int(ge), best.data_ptr(), mi.data_ptr(),
-                            mj.data_ptr(), rec.data_ptr(), codes.data_ptr(),
+                            par.data_ptr(), matrix.t.data_ptr(), W, Qp, Sp,
+                            int(go), int(ge), int(tiles), best.data_ptr(),
+                            mi.data_ptr(), mj.data_ptr(), rec.data_ptr(),
                             stream)
     if rc != 0:
         raise RuntimeError(f"swq launch failed (code {rc})")
@@ -254,9 +276,11 @@ _steps: dict = {}
 
 
 def build_pass2_step(matrix, go: int, ge: int, device):
-    """step(ref_alpha, reads, qlens, wd, Sp) -> int32 [W, 3 + Sp/2], the
-    pass-2 step of exact_pass2.py:404 on `device`: pass2_inputs, then
-    swq_cuda on CUDA or swq_fill_walk_ref on the CPU, then the packing.
+    """step(ref_alpha, reads, qlens, wd, Sp, tiles) -> int32
+    [W, 3 + Sp/2], the pass-2 step of exact_pass2.py:404 on `device`:
+    pass2_inputs, then swq_cuda on CUDA or swq_fill_walk_ref on the CPU,
+    then the packing.  max|entry| * Qp < 2^23 on every device
+    (check_score_cap); `tiles` as swq_cuda takes it (the CPU needs none).
 
     ref_alpha: [L] resident reference alpha codes; reads: [B, Qp] uint8
     mangled codes; qlens: [B] int32; wd: [W, 12] int32 {gstart, slen,
@@ -269,14 +293,16 @@ def build_pass2_step(matrix, go: int, ge: int, device):
     step = _steps.get(key)
     if step is not None:
         return step
-    mat = torch.from_numpy(mat_np.copy()).to(device)
-    kernel = {"cpu": swq_fill_walk_ref, "cuda": swq_cuda}.get(device.type)
-    if kernel is None:
+    mat = sw_ops.device_matrix(mat_np, device)
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"build_pass2_step: no kernel for device {device}")
 
-    def step(ref_alpha, reads, qlens, wd, Sp: int):
-        return _pack(*kernel(*pass2_inputs(ref_alpha, reads, qlens, wd, Sp),
-                             mat, go, ge))
+    def step(ref_alpha, reads, qlens, wd, Sp: int, tiles: int):
+        sw_ops.check_score_cap("swq", mat, reads.shape[1])
+        args = pass2_inputs(ref_alpha, reads, qlens, wd, Sp)
+        if device.type == "cpu":
+            return _pack(*swq_fill_walk_ref(*args, mat.t, go, ge))
+        return _pack(*swq_cuda(*args, mat, go, ge, tiles))
 
     _steps[key] = step
     return step

@@ -28,6 +28,7 @@ from smalt_tpu_torch import rand as trand
 from smalt_tpu_torch.map import engine as teng
 from smalt_tpu_torch.map.fastlane import DeviceExact
 from smalt_tpu_torch.map.pipeline import run_device_exact_fastq
+from smalt_tpu_torch.ops import sw as tsw
 from smalt_tpu_torch.parallel import exact_collate as tcol
 from smalt_tpu_torch.parallel import exact_pass2 as tp2
 from test_device_pass2 import default_matrix, gen_case
@@ -144,7 +145,7 @@ def test_pass2_step_matches_jax():
         jnp.asarray(wd), Sp))
     got = tp2.build_pass2_step(m, GI, GE, "cpu")(
         torch.from_numpy(ref_alpha), torch.from_numpy(reads),
-        torch.from_numpy(qlens), torch.from_numpy(wd), Sp)
+        torch.from_numpy(qlens), torch.from_numpy(wd), Sp, 1)
     _assert_same(got, want, "packed [W, 3 + Sp/2]")
     best = want[:, 0]
     assert (best > 0).sum() >= 60 and (best[wd[:, 9] == 0] == 0).all()
@@ -404,8 +405,8 @@ def test_swq_cuda_refuses_cpu_tensors():
     qa, sj, par = _windows(np.random.default_rng(5), 4, 128, 64)
     m = default_matrix()
     with pytest.raises(ValueError, match="cuda"):
-        tp2.swq_cuda(*(torch.from_numpy(x) for x in (qa, sj, par, m)),
-                     GI, GE)
+        tp2.swq_cuda(*(torch.from_numpy(x) for x in (qa, sj, par)),
+                     tsw.device_matrix(m, "cpu"), GI, GE, 1)
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -426,19 +427,73 @@ def test_cli_unported_exact_cases_exit_2(tmp_path, capsys, extra, item):
     assert f"ROADMAP.md {item})" in capsys.readouterr().err
 
 
+@pytest.fixture(scope="module")
+def one_seq_index(tmp_path_factory):
+    """The one-sequence corpus, saved: (index name, reads path)."""
+    d = tmp_path_factory.mktemp("one_seq")
+    refset, idx, fq = _corpus(d, "one_seq")
+    name = str(d / "idx")
+    refset.save(name)
+    idx.save(name)
+    return name, fq
+
+
 @pytest.mark.parametrize("spec,rng", [("match=128", "-130..128"),
                                       ("subst=-200", "-201..1")])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_cli_matrix_outside_int8_exits_2(tmp_path, capsys, device, spec, rng):
-    """The collate step's pool scoring keeps its score profile in int8,
-    which smalt_tpu does not: --device-exact exits 2 naming the range, on
-    every device and before the index is opened (none exists here)."""
+def test_cli_matrix_outside_int8_exits_2(one_seq_index, tmp_path, capsys,
+                                         monkeypatch, device, spec, rng):
+    """A -S that gives the matrix an entry outside -128..127 maps under
+    --device-exact as the host C lane maps it: byte-identical SAM (the
+    @PG line aside), device pass 2 off and on, no batch rendered on the
+    host.  With no card visible the cuda case gets past every host check
+    and stops at the device check (exit 1), as an int8 matrix does."""
     from smalt_tpu_torch import cli as tcli
-    rc = tcli.main(["map", "--device-exact", "--device", device, "-S", spec,
-                    "-o", str(tmp_path / "o.sam"), str(tmp_path / "no_index"),
+    from smalt_tpu_torch.align.core import make_score_matrix
+    m = make_score_matrix(*tcli._parse_penalties(spec))[0]
+    assert f"{int(m.min())}..{int(m.max())}" == rng
+    name, fq = one_seq_index
+    want = str(tmp_path / "host.sam")
+    if device == "cuda" and not torch.cuda.is_available():
+        rc = tcli.main(["map", "--device-exact", "--device", device, "-S",
+                        spec, "-r", "1", "-o", want, name, fq])
+        assert rc == 1 and "no GPU is visible" in capsys.readouterr().err
+        assert not (tmp_path / "host.sam").exists()
+        return
+    assert tcli.main(["map", "-S", spec, "-r", "1", "-o", want, name,
+                      fq]) == 0
+    body = [ln for ln in open(want).read().splitlines()
+            if not ln.startswith("@PG")]
+    assert len([ln for ln in body if ln[:1] != "@"]) == 204
+    threads = torch.get_num_threads()   # other workers run CPU lanes too
+    torch.set_num_threads(1)
+    try:
+        for p2 in (None, "1"):
+            if p2 is None:
+                monkeypatch.delenv("SMALT_DX_P2", raising=False)
+            else:
+                monkeypatch.setenv("SMALT_DX_P2", p2)
+            got = str(tmp_path / f"dx{p2}.sam")
+            assert tcli.main(["map", "--device-exact", "--device", device,
+                              "-S", spec, "-r", "1", "-o", got, name,
+                              fq]) == 0
+            assert [ln for ln in open(got).read().splitlines()
+                    if not ln.startswith("@PG")] == body, p2
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_matrix_past_score_cap_exits_2(tmp_path, capsys, device):
+    """What stays refused: a matrix that lets even the shortest padded
+    query (128 columns) reach 2^23 exits 2 naming the limit, on every
+    device and before the index is opened (none exists here)."""
+    from smalt_tpu_torch import cli as tcli
+    rc = tcli.main(["map", "--device-exact", "--device", device, "-S",
+                    "subst=-65536", "-o", str(tmp_path / "o.sam"),
+                    str(tmp_path / "no_index"),
                     str(tmp_path / "no_reads.fq")])
     err = capsys.readouterr().err
     assert rc == 2
-    assert err.count("\n") == 1 and "-128..127" in err and rng in err
-    assert "ROADMAP.md Queue 3" in err
+    assert err.count("\n") == 1 and "2^23" in err and "65537" in err
     assert not (tmp_path / "o.sam").exists()

@@ -327,18 +327,64 @@ def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys):
                                       ("subst=-129", "-130..1"),
                                       ("match=100,subst=-29", "-129..100")])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_cli_matrix_outside_int8_exits_2(tmp_path, capsys, device, spec, rng):
-    """The device step keeps its score profile in int8, which smalt_tpu
-    does not: a -S that gives the matrix an entry outside -128..127 exits
-    2 with one line naming the range, on every device and before the
-    index is opened (none exists here)."""
+def test_cli_matrix_outside_int8_exits_2(simulated, saved_index, tmp_path,
+                                         capsys, device, spec, rng):
+    """A -S that gives the matrix an entry outside -128..127 maps as
+    smalt_tpu maps it: on the CPU the port's CLI writes the SAM body of
+    smalt_tpu's pipeline with the same penalties, byte for byte; on a
+    card it writes the CPU run's SAM.  With no card visible the cuda
+    case gets past every host check and stops at the device check
+    (exit 1), as an int8 matrix does."""
     from smalt_tpu_torch import cli
-    rc = cli.main(["map", "--fast", "--device", device, "-S", spec,
-                   str(tmp_path / "no_index"), str(tmp_path / "no_reads.fq")])
+    from smalt_tpu_torch.align.core import make_score_matrix
+    refset, idx, reads, _ = simulated
+    name, _ = saved_index
+    fq = str(tmp_path / "head.fq")       # the corpus's first 64 reads
+    with open(reads) as f, open(fq, "w") as g:
+        g.writelines(f.readlines()[:4 * 64])
+    pen = cli._parse_penalties(spec)
+    m = make_score_matrix(*pen)[0]
+    assert f"{int(m.min())}..{int(m.max())}" == rng
+    os.environ["SMALT_FAST_BATCH"] = "64"
+    try:
+        out = str(tmp_path / f"{device}.sam")
+        rc = cli.main(["map", "--fast", "--device", device, "-S", spec,
+                       "-o", out, name, fq])
+        if device == "cuda":
+            import torch
+            if not torch.cuda.is_available():
+                assert rc == 1
+                assert "no GPU is visible" in capsys.readouterr().err
+                return
+            want = str(tmp_path / "cpu.sam")
+            assert cli.main(["map", "--fast", "--device", "cpu", "-S", spec,
+                             "-o", want, name, fq]) == 0
+            assert rc == 0 and _body(open(out).read()) == \
+                _body(open(want).read())
+            return
+    finally:
+        os.environ.pop("SMALT_FAST_BATCH")
+    assert rc == 0
+    buf = io.StringIO()
+    jfast.run_fast_pipeline(refset, idx, fq, buf, penalties=pen, nthreads=1,
+                            batch=64, interpret=True)
+    got = [ln for ln in open(out).read().splitlines() if ln[:1] != "@"]
+    assert len(got) == 64 and got == buf.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_matrix_past_score_cap_exits_2(tmp_path, capsys, device):
+    """What stays refused: a matrix that lets even the shortest padded
+    query (32 columns) reach 2^23 exits 2 with one line naming the
+    limit, on every device and before the index is opened (none exists
+    here)."""
+    from smalt_tpu_torch import cli
+    rc = cli.main(["map", "--fast", "--device", device, "-S",
+                   "match=262144", str(tmp_path / "no_index"),
+                   str(tmp_path / "no_reads.fq")])
     err = capsys.readouterr().err
     assert rc == 2
-    assert err.count("\n") == 1 and "-128..127" in err and rng in err
-    assert "ROADMAP.md Queue 3" in err
+    assert err.count("\n") == 1 and "2^23" in err and "262144" in err
 
 
 def test_cli_matrix_at_int8_ends_maps(saved_index):

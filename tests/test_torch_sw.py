@@ -303,34 +303,71 @@ def test_sw_gap_order_asserted(scoring):
 
 @pytest.mark.parametrize("entry", [-129, 128, 1 << 20])
 def test_matrix_outside_int8_raises(scoring, entry):
-    """sw_full.cu keeps its score profile in int8: a matrix entry outside
-    -128..127 is refused on the host, before any upload, on every device
-    and at every place a matrix is taken (the -128 and 127 ends pass)."""
+    """A matrix entry outside -128..127 is taken at every place a matrix
+    is (device_matrix records its range beside the tensor): the
+    full-matrix and the banded scores equal the JAX package's oracles.
+    What stays refused, on every device, is a window that could score
+    2^23 or more (max|entry| * min(Q, S)): entry 1 << 20 on 32 columns."""
     from smalt_tpu_torch.parallel.mesh import make_device_step
     m, go, ge = scoring
-    q, s, slens = _windows(5, 2, 32, 64)
-    bad = m.copy()
-    bad[2, 3] = entry
-    with pytest.raises(ValueError, match="-128..127"):
-        tsw.device_matrix(bad, "cpu")
-    with pytest.raises(ValueError, match="-128..127"):
-        tsw.sw_score_batch(q, s, slens, bad, go, ge, device="cpu")
-    with pytest.raises(ValueError, match="-128..127"):
-        make_device_step(SimpleNamespace(device=torch.device("cpu")), bad,
-                         go, ge)
-    with pytest.raises(ValueError, match="-128..127"):
-        tsw.sw_band_score_batch(q, s, slens, bad, go, ge, 8, device="cpu")
+    q, s, slens = _windows(5, 6, 32, 64)
+    wide = m.copy()
+    wide[2, 3] = wide[3, 2] = entry
+    got = tsw.device_matrix(wide, "cpu")
+    assert (got.lo, got.hi) == (int(wide.min()), int(wide.max()))
+    assert got.wide and got.amax == max(-got.lo, got.hi)
+    make_device_step(SimpleNamespace(device=torch.device("cpu")), wide,
+                     go, ge)
+    if entry == 1 << 20:
+        assert entry * 32 >= tsw.SCORE_CAP > entry
+        for call in (lambda mat: tsw.sw_score_batch(q, s, slens, mat, go, ge,
+                                                    device="cpu"),
+                     lambda mat: tsw.sw_band_score_batch(
+                         q, s, slens, mat, go, ge, 8, device="cpu")):
+            for mat in (wide, got):
+                with pytest.raises(ValueError, match="2\\^23"):
+                    call(mat)
+        return
+    for track in (True, False):
+        want = jsw.sw_score_ref(q, s, slens, wide, go, ge, track=track)
+        for mat in (wide, got):
+            _assert_equal(tsw.sw_score_batch(q, s, slens, mat, go, ge,
+                                             device="cpu", track=track),
+                          want, track)
+        W = jsw.band_width_for(32, 8)
+        want = jsw.sw_band_score_ref(q, s, slens, wide, go, ge, 8, W,
+                                     track=track)
+        _assert_equal(tsw.sw_band_score_batch(q, s, slens, got, go, ge, 8, W,
+                                              device="cpu", track=track),
+                      want, track)
     edge = m.copy()
     edge[0, 1], edge[1, 0] = -128, 127
     got = tsw.device_matrix(edge, "cpu")
-    assert got.dtype == torch.int32 and got.is_contiguous()
-    np.testing.assert_array_equal(got.numpy(), edge)
+    assert not got.wide
+    assert got.t.dtype == torch.int32 and got.t.is_contiguous()
+    np.testing.assert_array_equal(got.t.numpy(), edge)
     edge[0, 0] = 99                      # the tensor does not alias its source
-    assert int(got[0, 0]) == int(m[0, 0])
-    want = tsw.sw_score_batch(q, s, slens, m, go, ge, device="cpu")
-    assert torch.equal(
-        tsw.sw_score_batch(q, s, slens, tsw.device_matrix(m, "cpu"), go, ge,
-                           device="cpu"), want)
+    assert int(got.t[0, 0]) == int(m[0, 0])
+
+
+def test_score_cap_names_its_limit(scoring):
+    """max|entry| * min(Q, S) < 2^23 passes, one more column does not;
+    a CUDA-only wrapper checks it before anything else of the card."""
+    m, go, ge = scoring
+    q, s, slens = _windows(9, 2, 64, 128)
+    big = m.copy()
+    big[0, 0] = (1 << 23) // 64          # * 64 columns = 2^23
+    with pytest.raises(ValueError, match="2\\^23"):
+        tsw.sw_score_batch(q, s, slens, big, go, ge, device="cpu")
+    big[0, 0] -= 1
+    assert tsw.sw_score_batch(q, s, slens, big, go, ge, device="cpu").shape \
+        == (2,)
+    big[0, 0] += 1
+    args = [torch.from_numpy(x) for x in (q, s, slens)]
+    with pytest.raises(ValueError, match="2\\^23"):
+        tsw.sw_full_cuda(*args, tsw.device_matrix(big, "cpu"), go, ge)
+    with pytest.raises(TypeError, match="DeviceMatrix"):
+        tsw.sw_full_cuda(*args, torch.from_numpy(big), go, ge)
 
 
 def test_sw_cpu_path_launches_no_kernel(scoring):
@@ -347,9 +384,10 @@ def test_sw_cuda_wrapper_rejects_cpu_tensors(scoring):
     plain version in place of the kernel."""
     m, go, ge = scoring
     q, s, slens = _windows(3, 4, 48, 128)
-    args = [torch.from_numpy(x) for x in (q, s, slens, m)]
+    args = [torch.from_numpy(x) for x in (q, s, slens)]
     with pytest.raises(ValueError, match="cuda"):
-        tsw.sw_full_cuda(*args, go, ge, track=True)
+        tsw.sw_full_cuda(*args, tsw.device_matrix(m, "cpu"), go, ge,
+                         track=True)
 
 
 # ---- banded (long-read) kernel ------------------------------------------
@@ -506,15 +544,16 @@ def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
     limit: it never runs the plain version in place of the kernel."""
     m, go, ge = scoring
     q, s, slens = _band_windows(3, 4, 128, 256, 16, 128)
-    args = [torch.from_numpy(x) for x in (q, s, slens, m)]
+    args = [torch.from_numpy(x) for x in (q, s, slens)]
+    args.append(tsw.device_matrix(m, "cpu"))
     with pytest.raises(ValueError, match="cuda"):
         tsw.sw_band_cuda(*args, go, ge, 16, 128, track=True)
     with pytest.raises(ValueError, match=str(tsw.MAX_BAND_W)):
         tsw.sw_band_cuda(*args, go, ge, 16, tsw.MAX_BAND_W + 128)
-    # the tracked kernel's key holds scores below 2^23: int8 entries on
-    # windows whose shorter side is below MAX_BAND_CELLS
-    n = tsw.MAX_BAND_CELLS
-    assert 127 * (n - 1) < 1 << 23 <= 128 * n
+    # the tracked kernel's key holds scores below 2^23: max|entry| (3
+    # here) times the window's shorter side
+    n = -(-tsw.SCORE_CAP // 3)
+    assert int(np.abs(m).max()) == 3 and 3 * (n - 1) < 1 << 23 <= 3 * n
     big = torch.zeros((1, n), dtype=torch.int32)
     with pytest.raises(ValueError, match="2\\^23"):
         tsw.sw_band_cuda(big, big, args[2][:1], args[3], go, ge, 16, 128)
@@ -643,8 +682,8 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
         if kernel == "sw_band":
             S, pad, W = tsw.band_geometry(640)
             assert c.band == (W, pad + W // 2) and s.shape[1] == S
-            want = tsw.sw_band_score_ref(q[:2], s[:2], sl[:2], mat, go, ge,
-                                         pad, W, track=True)
+            want = tsw.sw_band_score_ref(q[:2], s[:2], sl[:2], mat.t, go,
+                                         ge, pad, W, track=True)
             assert all(torch.equal(a, b) for a, b in zip((best, ti, tj), want))
         else:
             assert c.band == ()
