@@ -25,10 +25,11 @@
    bound the kernel reached.
 3b. Holds sw_band (tracked and score-only) against sw_band_score_ref
    the same way, at the long-read windows of Q = 640, 1504 (the main
-   path), 4096 (W = 768, two warps a window) on 12,288 windows each,
-   and Q = 16,384 (W = 3,072, the kernel's widest band); times both
-   (the plain version over 2 calls after one warm-up, one call at the
-   two widest shapes) and prints GCUPS over the band's cells.  Then
+   path) on 12,288 windows each, 4096 (W = 768, two warps a window) on
+   4,096 and Q = 16,384 (W = 3,072, the kernel's widest band) on 32;
+   times both (the plain version over 2 calls after one warm-up, one
+   call at the two widest shapes) and prints GCUPS over the band's
+   cells.  Then
    tie-heavy band windows (a short unit repeated along the query and
    the subject: the maximum is reached in many band lanes and rows, and
    some windows score nothing) at Q = 640 and 1504, and the band widths
@@ -69,7 +70,9 @@
    lane's (the @PG line aside), no batch rendered on the host, the
    score-only sw_full launched in both runs and swq in the second with
    p2_hit > 0; reads/s of the three runs, the lane's counters, and one
-   batch's collate step and pass-2 step (CUDA events).  That batch's
+   batch's collate step and pass-2 step (CUDA events).  Then the host
+   lane and `--device-exact` with `-f bam`: the records, read back with
+   report/bam.py read_bam, equal (the header names the command).  That batch's
    collate outputs (pool, counts2, scores, fallback) and packed pass-2
    output must equal the port's CPU steps on the same batch (the SAM
    alone cannot show a wrong device step: the lane re-stages what it
@@ -83,14 +86,25 @@
    through the WIDE tracked sw_full; `map --device-exact` with
    SMALT_DX_P2=1 on 4,096 reads, SAM equal to the host C lane, through
    the WIDE score-only sw_full and swq, p2_hit > 0.
-9. Prints each kernel's launches by path (and per 4,096 reads), the
+9. Paired `map --device-exact` on the same genome and index: 10,240
+   pairs of 2 x 150 bp (five batches of 2,048 pairs, 20,480 mates),
+   inserts 300 +- 30 FR, 1% substitutions, mate B random bases in every
+   tenth pair (the rescue path), through the host C pair lane (`map`, no
+   device flag) and `map --device-exact` on the card: SAM byte-identical
+   (the @PG line aside), no batch rendered on the host, the score-only
+   sw_full launched and swq not; pairs/s of the lane (`# dxp-total`) and
+   reads/s of the CLI for both runs, the stages' seconds, n_restaged.
+   The first paired batch's collate outputs must equal the port's CPU
+   step's on that batch, and its collate step is timed.
+10. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6, 7's two device runs and 8's two) and read just after it; the comparisons
+6, 7's three device runs, 8's two and 9's device run) and read just
+after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
@@ -128,8 +142,8 @@ KERNEL_SHAPES = [(112, 128, 3 * BATCH), (80, 128, 4096), (512, 640, 1024),
 POOL_SHAPE = (128, 128, 6 * BATCH)    # the score-only main-path shape
 # banded kernel: (Q, windows); S, pad and W follow from Q as on the main
 # path.  Q = 1504 (1,500 bp reads) is the main-path shape.
-BAND_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH), (4096, 3 * BATCH),
-               (16384, 64)]
+BAND_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH), (4096, BATCH),
+               (16384, 32)]
 BAND_MAIN_Q = 1504
 BAND_TIE_SHAPES = [(640, 3 * BATCH), (1504, 3 * BATCH)]
 # band widths that are no multiple of 32, at Q = 640 on 1,024 windows
@@ -150,6 +164,7 @@ WIDE_PEN = (200, -200)
 WIDE_FULL_SHAPES = [(112, 128, 3 * BATCH), (160, 256, 6 * BATCH)]
 WIDE_SPEC = "match=200,subst=-2"
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
+N_PE_EXACT = 5 * BATCH // 2       # phase 9: five batches of 2,048 pairs
 # phase 7b: (read length, indels, -S) of the lane's band-width cases
 LANE_BANDS = [(150, False, None), (250, True, None), (250, True, WIDE_SPEC)]
 
@@ -815,7 +830,6 @@ def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
     from smalt_tpu_torch.map.fastmode import (RawBatch, encode_batch,
                                               get_device_step,
                                               iter_fastq_hybrid)
-    from smalt_tpu_torch.ops import sw
     from smalt_tpu_torch.seq.refset import RefSet
 
     rng = np.random.default_rng(SEED)
@@ -836,21 +850,7 @@ def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
     if is_cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    os.environ["SMALT_TIMING"] = "1"
-    err = io.StringIO()
-    for k in sw.launches:
-        sw.launches[k] = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = cli.main(["map", "--fast", "-f", "sam", "-o", sam,
-                       "--device", device, idx_name, fq])
-    wall = time.perf_counter() - t0
-    launches = dict(sw.launches)
-    sys.stderr.write(err.getvalue())
-    if rc != 0:
-        fail(f"map --fast on {device} exited {rc}")
-    m = re.search(r"fast pipeline: (\d+) reads in (\d+) batches, "
-                  r"([\d.]+) s \((\d+) reads/s\)", err.getvalue())
+    launches, wall, m = map_cli(device, idx_name, sam, [fq], BATCH)
     peak = torch.cuda.max_memory_allocated() if is_cuda else 0
     body = sam_body(sam)
     if len(body) != n_reads:
@@ -915,34 +915,52 @@ def ptxas_summary(log: str) -> str:
     return f"registers {' '.join(regs)}; spill bytes {spills}"
 
 
+def cli_run(argv, **env):
+    """The port's CLI in this process with `env` set (a value of None
+    unsets) and stderr caught, the launch counts set to 0 just before and
+    read just after.  Returns (exit code, stderr text, launches, wall
+    seconds)."""
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.ops import sw
+    saved = {k: os.environ.get(k) for k in env}
+    err = io.StringIO()
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for k in sw.launches:
+            sw.launches[k] = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(sw.launches)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, err.getvalue(), launches, wall
+
+
 def map_cli(device: str, idx_name: str, sam: str, reads, batch: int,
             extra=()):
     """`map --fast` through the port's CLI with the launch counts set to
     0 just before and read just after.  reads: [fq] or [fq, mates];
     extra: more options (-S).  Returns (launches, wall seconds, the
     SMALT_TIMING match)."""
-    from smalt_tpu_torch import cli
-    from smalt_tpu_torch.ops import sw
-    os.environ["SMALT_TIMING"] = "1"
-    os.environ["SMALT_FAST_BATCH"] = str(batch)
-    err = io.StringIO()
-    for k in sw.launches:
-        sw.launches[k] = 0
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stderr(err):
-            rc = cli.main(["map", "--fast", "-f", "sam", "-o", sam,
-                           "--device", device] + list(extra) +
-                          [idx_name] + list(reads))
-    finally:
-        os.environ.pop("SMALT_FAST_BATCH")
-    wall = time.perf_counter() - t0
-    launches = dict(sw.launches)
-    sys.stderr.write(err.getvalue())
+    rc, err, launches, wall = cli_run(
+        ["map", "--fast", "-f", "sam", "-o", sam, "--device", device] +
+        list(extra) + [idx_name] + list(reads), SMALT_TIMING="1",
+        SMALT_FAST_BATCH=str(batch))
+    sys.stderr.write(err)
     if rc != 0:
         fail(f"map --fast on {device} ({reads}) exited {rc}")
     m = re.search(r"fast pipeline: (\d+) reads in (\d+) batches, "
-                  r"([\d.]+) s \((\d+) reads/s\)", err.getvalue())
+                  r"([\d.]+) s \((\d+) reads/s\)", err)
     return launches, wall, m
 
 
@@ -1181,8 +1199,6 @@ def run_exact(d: str, genome, card: str):
     phase-4 genome and index.  Returns (launches of the SMALT_DX_P2=1
     run, launches of the run without, swq max_abs_err on the first
     pass-2 batch)."""
-    from smalt_tpu_torch import cli
-    from smalt_tpu_torch.ops import sw
     idx_name = os.path.join(d, "idx")
     rng = np.random.default_rng(SEED + 3)
     reads, _, _ = make_reads(rng, genome, N_EXACT, READLEN)
@@ -1192,27 +1208,12 @@ def run_exact(d: str, genome, card: str):
                              ("--device-exact", ["--device-exact"], None),
                              ("--device-exact SMALT_DX_P2=1",
                               ["--device-exact"], "1")):
-        os.environ["SMALT_DP1_TIMING"] = "1"
-        if p2 is None:
-            os.environ.pop("SMALT_DX_P2", None)
-        else:
-            os.environ["SMALT_DX_P2"] = p2
         sam = os.path.join(d, f"exact_{len(bodies)}.sam")
-        err = io.StringIO()
-        for k in sw.launches:
-            sw.launches[k] = 0
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stderr(err):
-                rc = cli.main(["map", "-r", "1", "-f", "sam", "-o", sam] +
-                              flags + [idx_name, fq])
-        finally:
-            os.environ.pop("SMALT_DX_P2", None)
-            os.environ.pop("SMALT_DP1_TIMING", None)
-        wall = time.perf_counter() - t0
-        launches[label] = dict(sw.launches)
+        rc, err, launches[label], wall = cli_run(
+            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
+            [idx_name, fq], SMALT_DP1_TIMING="1", SMALT_DX_P2=p2)
         if rc != 0:
-            sys.stderr.write(err.getvalue())
+            sys.stderr.write(err)
             fail(f"map {' '.join(flags)} (SMALT_DX_P2={p2}) exited {rc}")
         with open(sam) as f:
             bodies[label] = [ln for ln in f.read().splitlines()
@@ -1221,11 +1222,10 @@ def run_exact(d: str, genome, card: str):
         if n != N_EXACT:
             fail(f"{label}: {n} SAM records for {N_EXACT} reads")
         m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
-                      r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)",
-                      err.getvalue())
+                      r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)", err)
         stages = {}
         for st, sec in re.findall(r"# dx-(prep|dev|post|pass2) ([\d.]+)s",
-                                  err.getvalue()):
+                                  err):
             stages[st] = stages.get(st, 0.0) + float(sec)
         lane = "" if m is None else (
             f"; lane {m.group(1)} s ({N_EXACT / float(m.group(1)):.1f} "
@@ -1257,9 +1257,36 @@ def run_exact(d: str, genome, card: str):
                 fail(f"{label}: swq launched without SMALT_DX_P2=1")
     print(f"# device-exact SAM (SMALT_DX_P2 unset and =1) byte-identical to "
           f"the host C lane on {N_EXACT} reads", flush=True)
+    from smalt_tpu_torch.report.bam import BamRecord, read_bam
+    bams = {}
+    for label, flags in (("host C lane -f bam", []),
+                         ("--device-exact -f bam", ["--device-exact"])):
+        out = os.path.join(d, f"exact_{len(bams)}.bam")
+        rc, text, launches[label], wall = cli_run(
+            ["map", "-r", "1", "-f", "bam", "-o", out] + flags +
+            [idx_name, fq])
+        if rc != 0:
+            sys.stderr.write(text)
+            fail(f"map {' '.join(flags)} -f bam exited {rc}")
+        _, names, recs = read_bam(out)
+        bams[label] = (names, [tuple(getattr(r, k) for k in
+                                     BamRecord.__slots__) for r in recs])
+        print(f"# map {label}: {N_EXACT} reads in {wall:.3f} s through the "
+              f"CLI ({N_EXACT / wall:.1f} reads/s incl. index load); "
+              f"launches {launches[label]} | {card}", flush=True)
+    host_bam, dx_bam = bams.values()
+    if len(dx_bam[1]) != N_EXACT or dx_bam != host_bam:
+        fail(f"--device-exact -f bam: {len(dx_bam[1])} records, equal to the "
+             f"host lane's {dx_bam == host_bam}")
+    if launches["--device-exact -f bam"]["sw_full"] < 1:
+        fail("--device-exact -f bam: the score-only sw_full was never "
+             "launched")
+    print(f"# device-exact -f bam: the {N_EXACT} records read back equal the "
+          f"host lane's -f bam records", flush=True)
     err, _, _ = exact_batch_split(idx_name, fq, card)
     return (launches["--device-exact SMALT_DX_P2=1"],
-            launches["--device-exact"], err)
+            launches["--device-exact"], launches["--device-exact -f bam"],
+            err)
 
 
 def check_lane_bands(d: str, genome, card: str):
@@ -1333,8 +1360,6 @@ def run_wide_matrix(d: str, genome, card: str):
     equal to the host C lane's (the @PG line aside), through the WIDE
     score-only instance and swq, p2_hit > 0.  Returns the launches of the
     two runs."""
-    from smalt_tpu_torch import cli
-    from smalt_tpu_torch.ops import sw
     idx_name = os.path.join(d, "idx")
     rng = np.random.default_rng(SEED + 4)
     reads, truth, rev = make_reads(rng, genome, BATCH, READLEN)
@@ -1363,29 +1388,18 @@ def run_wide_matrix(d: str, genome, card: str):
     bodies = {}
     for label, flags in (("host C lane", []),
                          ("--device-exact SMALT_DX_P2=1", ["--device-exact"])):
-        os.environ["SMALT_DP1_TIMING"] = "1"
-        os.environ["SMALT_DX_P2"] = "1"
         out = os.path.join(d, f"wide_exact_{len(bodies)}.sam")
-        err = io.StringIO()
-        for k in sw.launches:
-            sw.launches[k] = 0
-        try:
-            with contextlib.redirect_stderr(err):
-                rc = cli.main(["map", "-r", "1", "-f", "sam", "-o", out] +
-                              spec + flags + [idx_name, fq])
-        finally:
-            os.environ.pop("SMALT_DX_P2", None)
-            os.environ.pop("SMALT_DP1_TIMING", None)
-        exact = dict(sw.launches)
+        rc, err, exact, _ = cli_run(
+            ["map", "-r", "1", "-f", "sam", "-o", out] + spec + flags +
+            [idx_name, fq], SMALT_DP1_TIMING="1", SMALT_DX_P2="1")
         if rc != 0:
-            sys.stderr.write(err.getvalue())
+            sys.stderr.write(err)
             fail(f"map -S {WIDE_SPEC} {' '.join(flags)} exited {rc}")
         with open(out) as f:
             bodies[label] = [ln for ln in f.read().splitlines()
                              if not ln.startswith("@PG")]
     m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
-                  r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)",
-                  err.getvalue())
+                  r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)", err)
     if bodies["--device-exact SMALT_DX_P2=1"] != bodies["host C lane"]:
         fail(f"-S {WIDE_SPEC}: --device-exact SAM differs from the host C "
              f"lane")
@@ -1399,6 +1413,116 @@ def run_wide_matrix(d: str, genome, card: str):
           f"{m.group(2)}, p2_used {m.group(3)}, p2_fb {m.group(4)}, p2_hit "
           f"{m.group(5)}; launches {exact} | {card}", flush=True)
     return fast, exact
+
+
+def exact_pairs_batch_split(idx_name: str, fq1: str, fq2: str, card: str):
+    """Phase 9, the first paired batch outside the CLI run (so its launches
+    are not counted there): both mates' rows through the CUDA collate step,
+    timed with CUDA events, and its outputs held against the port's CPU
+    step on the same batch (the lane re-stages what a wrong step flags, so
+    the SAM alone cannot show a collate fault).  Returns the step's ms."""
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.engine import MapEngine, MapParams
+    from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.map.fastmode import iter_fastq_batches
+    from smalt_tpu_torch.seq.refset import RefSet
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    eng = MapEngine(refset, idx, MapParams())
+    dev, cpu = (DeviceExact.make(eng, "sam", True, False, False, False,
+                                 device=x) for x in ("cuda", "cpu"))
+    mates = (next(iter_fastq_batches(f, dev.batch // 2)) for f in (fq1, fq2))
+    args = tuple(a + b for a, b in zip(*mates))     # mate A rows, then B
+    host, dargs = dev._prepare(*args)
+    outs = dev._collate_outputs(dargs)
+    step = dev._collate_fn()
+    col_ms = time_ms(lambda: step(*dargs), 3, warm=1)
+    t0 = time.perf_counter()
+    _, cargs = cpu._prepare(*args)
+    for name, g, w in zip(("pool", "counts2", "scores", "fallback"), outs,
+                          cpu._collate_outputs(cargs)):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"the CUDA collate step's {name} differs from the CPU "
+                 f"step's on the first paired batch of phase 9")
+    print(f"# device-exact pairs, one batch of {len(args[0]) // 2} pairs "
+          f"({len(args[0])} rows): collate step {col_ms:.3f} ms (CUDA "
+          f"events, 3 calls; Q={dev._cfg.Q}, H={dev._cfg.H}, pool "
+          f"{dev._cfg.pool}); outputs (pool, counts2, scores, fallback: "
+          f"{int(outs[3][:len(args[0])].sum())} mates flagged) equal to the "
+          f"port's CPU step ({time.perf_counter() - t0:.1f} s on the host) | "
+          f"{card}", flush=True)
+    return col_ms
+
+
+def run_exact_pairs(d: str, genome, card: str):
+    """Phase 9: paired `map --device-exact` against the host C pair lane on
+    the phase-4 genome and index.  Returns the launches of the device
+    run."""
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 6)
+    m1, m2, _, _ = make_pairs(rng, genome, N_PE_EXACT, PAIR_READLEN)
+    # every tenth pair: mate B random bases, which takes the rescue path
+    m2[::10] = ACGT[rng.integers(0, 4, m2[::10].shape)]
+    fq1, _ = write_fastq(os.path.join(d, "pe_exact_1.fq"), m1, b"e")
+    fq2, _ = write_fastq(os.path.join(d, "pe_exact_2.fq"), m2, b"e")
+    print(f"# paired device-exact data: {N_PE_EXACT} pairs of 2 x "
+          f"{PAIR_READLEN} bp, inserts {INSERT_MEAN} +- {INSERT_SD} FR, 1% "
+          f"substitutions, mate B random in every tenth pair", flush=True)
+    bodies, launches = {}, {}
+    for label, flags in (("host C pair lane", []),
+                         ("--device-exact", ["--device-exact"])):
+        sam = os.path.join(d, f"pe_exact_{len(bodies)}.sam")
+        rc, err, launches[label], wall = cli_run(
+            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
+            [idx_name, fq1, fq2], SMALT_DP1_TIMING="1", SMALT_TIMING="1")
+        if rc != 0:
+            sys.stderr.write(err)
+            fail(f"map {' '.join(flags)} on pairs exited {rc}")
+        with open(sam) as f:
+            bodies[label] = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("@PG")]
+        n = sum(1 for ln in bodies[label] if not ln.startswith("@"))
+        if n != 2 * N_PE_EXACT:
+            fail(f"{label}: {n} SAM records for {2 * N_PE_EXACT} mates")
+        t = re.search(r"mapping: ([\d.]+) s", err)
+        m = re.search(r"# dxp-total ([\d.]+)s n_restaged=(\d+) "
+                      r"host_batches=(\d+) npairs=(\d+)", err)
+        stages = {}
+        for st, sec in re.findall(r"# dxp-(prep|dev|post|tail) ([\d.]+)s",
+                                  err):
+            stages[st] = stages.get(st, 0.0) + float(sec)
+        lane = "" if m is None else (
+            f"; lane {m.group(1)} s ({N_PE_EXACT / float(m.group(1)):.1f} "
+            f"pairs/s, # dxp-total), n_restaged {m.group(2)} of "
+            f"{2 * N_PE_EXACT} mates, host_batches {m.group(3)}, npairs "
+            f"{m.group(4)}; seconds summed over batches: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()) +
+            " (dev: collate step + copy back, on the worker thread)")
+        secs = float(t.group(1)) if t else float("nan")
+        print(f"# map {label}: {N_PE_EXACT} pairs in {wall:.3f} s through the "
+              f"CLI ({2 * N_PE_EXACT / wall:.1f} reads/s incl. index load); "
+              f"mapping {secs:.2f} s ({N_PE_EXACT / secs:.1f} pairs/s, "
+              f"SMALT_TIMING){lane}; launches {launches[label]} | {card}",
+              flush=True)
+        if flags:
+            if m is None:
+                fail(f"{label}: no dxp-total line")
+            if int(m.group(3)) != 0:
+                fail(f"{label}: {m.group(3)} batches rendered on the host")
+            if int(m.group(4)) != N_PE_EXACT:
+                fail(f"{label}: {m.group(4)} pairs through the lane")
+            if bodies[label] != bodies["host C pair lane"]:
+                diff = next(i for i, (a, b) in enumerate(zip(
+                    bodies[label], bodies["host C pair lane"])) if a != b)
+                fail(f"{label} on pairs: SAM differs from the host C pair "
+                     f"lane at line {diff}: {bodies[label][diff][:120]!r} vs "
+                     f"{bodies['host C pair lane'][diff][:120]!r}")
+            if launches[label]["sw_full"] < 1 or launches[label]["swq"] != 0:
+                fail(f"{label} on pairs: launched {launches[label]} (the "
+                     f"score-only sw_full at least once, swq never)")
+    print(f"# paired device-exact SAM byte-identical to the host C pair lane "
+          f"on {N_PE_EXACT} pairs", flush=True)
+    exact_pairs_batch_split(idx_name, fq1, fq2, card)
+    return launches["--device-exact"]
 
 
 def main() -> int:
@@ -1461,7 +1585,7 @@ def main() -> int:
         print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
               flush=True)
         t0 = time.perf_counter()
-        dx, dx0, qerr7 = run_exact(d, genome, card)
+        dx, dx0, dxb, qerr7 = run_exact(d, genome, card)
         qerr = max(qerr, qerr7)
         print(f"# phase 7 (device-exact): {time.perf_counter() - t0:.2f} s",
               flush=True)
@@ -1473,6 +1597,10 @@ def main() -> int:
         wf, wx = run_wide_matrix(d, genome, card)
         print(f"# phase 8 (-S {WIDE_SPEC}): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        pdx = run_exact_pairs(d, genome, card)
+        print(f"# phase 9 (paired device-exact): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -1486,8 +1614,10 @@ def main() -> int:
              N_LONG), ("pairs --fast", pe, 2 * N_PAIRS),
              ("--device-exact", dx0, N_EXACT),
              ("--device-exact SMALT_DX_P2=1", dx, N_EXACT),
+             ("--device-exact -f bam", dxb, N_EXACT),
              (f"--fast -S {WIDE_SPEC}", wf, BATCH),
-             (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH))
+             (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH),
+             ("--device-exact pairs", pdx, 2 * N_PE_EXACT))
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"

@@ -9,7 +9,7 @@ help.
     python -m smalt_tpu_torch.cli map --fast [--device cuda|cpu] [options]
         <index_name> <reads.fq> [<mates.fq>] > out.sam
     python -m smalt_tpu_torch.cli map --device-exact [--device cuda|cpu]
-        [options] <index_name> <reads.fq> > out.sam
+        [options] <index_name> <reads.fq> [<mates.fq>] > out.sam
     python -m smalt_tpu_torch.cli sample [options] <index_name> <reads1>
         <reads2>
     python -m smalt_tpu_torch.cli check <reads> [<mates>]
@@ -20,11 +20,11 @@ lane.  `map --fast` runs the port's device pass (one device; single-end
 reads, or pairs with a mates file) and writes the same SAM as
 `smalt_tpu map --fast`.  `map --device-exact` runs the exact engine's
 front half (and, with SMALT_DX_P2=1, its pass 2) on one device for
-serial single-end FASTQ and writes the SAM of the exact host lane, byte
-for byte.  `--device` defaults to `cuda`; without a GPU that fails
-rather than running on the CPU, and `--device cpu` exists for the
-tests.  Options the port does not take exit 2 naming their ROADMAP.md
-item.
+serial FASTQ, single-end or paired, and writes the output of the exact
+host lane, byte for byte, in any output format and with `--resume`.
+`--device` defaults to `cuda`; without a GPU that fails rather than
+running on the CPU, and `--device cpu` exists for the tests.  Options
+the port does not take exit 2 naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -361,7 +361,9 @@ def cmd_map(argv: List[str]) -> int:
     if a.device_pass1:
         return _unported("--device-pass1", "Queue 1 #5")
     if a.device_exact:
-        return _cmd_map_device_exact(a, argv, device)
+        rc = _device_exact_refused(a, device)
+        if rc:
+            return rc
     engine, refset, idx = _build_engine(a, argv)
     t_setup = time.time()
     bam_writer = None
@@ -425,6 +427,7 @@ def cmd_map(argv: List[str]) -> int:
     fmt = a.oformat.split(":")[0]
     mods = a.oformat.split(":")[1].split(",") if ":" in a.oformat else []
     ran_raw = False
+    rc = 0
     if (a.nthreads <= 1 and
             a.informat not in ("sam", "bam") and
             not a.reads.endswith((".sam", ".sam.gz", ".bam"))):
@@ -447,7 +450,12 @@ def cmd_map(argv: List[str]) -> int:
                         bam_writer.write_raw(
                             enc.encode_text(text, star_qual_literal=True))
                 raw_out, raw_fmt = _SamTextBamSink(), "sam"
-        if raw_ok and a.mates is None:
+        if a.device_exact:
+            rc = _run_device_exact(a, engine, raw_out if raw_ok else None,
+                                   refset, raw_fmt, mods, ihist, fix_primary,
+                                   resume_log, device)
+            ran_raw = True
+        elif raw_ok and a.mates is None:
             ran_raw = run_pipeline_raw_fastq(
                 engine, a.reads, raw_out, refset, fmt=raw_fmt,
                 soft_clip="clip" not in mods, x_mismatch="x" in mods,
@@ -475,7 +483,7 @@ def cmd_map(argv: List[str]) -> int:
         t_end = time.time()
         print(f"# SMALT_TIMING setup: {t_setup - t_start:.2f} s, "
               f"mapping: {t_end - t_setup:.2f} s", file=sys.stderr)
-    return 0
+    return rc
 
 
 def _no_gpu(device: str) -> bool:
@@ -506,18 +514,13 @@ def _score_cap_refused(spec: Optional[str], qmin: int) -> bool:
     return False
 
 
-def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
-    """map --device-exact: serial single-end FASTQ to SAM through the
-    port's device-exact lane (smalt_tpu/cli.py:311-430 for that case)."""
-    from .map.pipeline import run_device_exact_fastq
-    fmt = a.oformat.split(":")[0]
+def _device_exact_refused(a, device: str) -> int:
+    """map --device-exact: the exit code of a run the port does not take
+    (2 naming its ROADMAP.md item, 1 with no GPU), else 0, decided before
+    anything is loaded."""
     sam_in = a.informat in ("sam", "bam") or \
         a.reads.endswith((".sam", ".sam.gz", ".bam"))
     for bad, what, item in (
-            (a.mates is not None, "--device-exact with a mates file",
-             "Queue 1 #6a"),
-            (fmt != "sam", f"--device-exact with -f {fmt}", "Queue 1 #6c"),
-            (a.resume, "--resume with --device-exact", "Queue 1 #6d"),
             (a.nthreads > 1, "--device-exact with -n > 1", "Queue 1 #6e"),
             (sam_in, "--device-exact on SAM/BAM input", "Queue 1 #6e")):
         if bad:
@@ -526,24 +529,36 @@ def _cmd_map_device_exact(a, argv: List[str], device: str) -> int:
         return 2
     if _no_gpu(device):
         return 1
-    engine, refset, _ = _build_engine(a, argv)
-    out = _open_out(a)
-    try:
-        mods = a.oformat.split(":")[1].split(",") if ":" in a.oformat else []
-        _writer(a, refset, argv, out)   # emits the SAM header
-        try:
-            run_device_exact_fastq(
-                engine, a.reads, out, refset, fmt="sam",
-                soft_clip="clip" not in mods, x_mismatch="x" in mods,
+    return 0
+
+
+def _run_device_exact(a, engine, out, refset, fmt: str, mods, ihist,
+                      fix_primary: bool, resume_log, device: str) -> int:
+    """map --device-exact on serial FASTQ, single-end or paired, after
+    cmd_map's set-up (output sink, BAM re-encoder, checkpoints, insert
+    histogram), as smalt_tpu/cli.py:386-430 hands the run to its lanes.
+    out is None where BAM cannot ride the lane's SAM text.  Returns the
+    exit code: 2 where the port has no device route for the run."""
+    from .map.pipeline import run_device_exact_fastq, run_device_exact_pairs
+    opts = dict(fmt=fmt, soft_clip="clip" not in mods,
+                x_mismatch="x" in mods,
                 seed=(a.randseed if a.randseed is not None else 0),
-                fix_primary=a.scorediff is not None, ali_out=a.aliout,
-                device=device)
-        except NotImplementedError as e:
-            print(f"smalt_tpu_torch: {e}", file=sys.stderr)
-            return 2
-    finally:
-        if out is not sys.stdout:
-            out.close()
+                fix_primary=fix_primary, ali_out=a.aliout, device=device)
+    try:
+        if out is None:
+            raise NotImplementedError(
+                "--device-exact -f bam where reference names collide once "
+                "cut at white space (the reference writes BAM from report "
+                "objects) is not ported yet (ROADMAP.md Queue 1 #6e)")
+        if a.mates is None:
+            run_device_exact_fastq(engine, a.reads, out, refset,
+                                   resume_log=resume_log, **opts)
+        else:
+            run_device_exact_pairs(engine, a.reads, a.mates, out, refset,
+                                   ihist=ihist, **opts)
+    except NotImplementedError as e:
+        print(f"smalt_tpu_torch: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

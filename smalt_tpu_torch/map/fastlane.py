@@ -12,14 +12,15 @@ RNG state (the lane commits the drand48 state only on success).
 
 `DevicePass1` keeps the reference's host halves (fl_pass1_block, the
 padded read batch, fl_pass2_block); its device leg is not ported and
-raises.  `DeviceExact` is `map --device-exact` for single-end FASTQ
-(fastlane.py:796 there): the host halves are the reference's — the C pre
-block (hit info, rank masks, hit-key expansion), the C post block
-(checksums, depth sort, pass-2 state), the pass-2 window prep and
-fl_pass2_block (pass 1 replay, pass 2, report, SAM) — and the device
-steps are the port's: the collate step (parallel/exact_collate.py), the
-pass-2 step (parallel/exact_pass2.py) and the batch loop that feeds
-them.
+raises.  `DeviceExact` is `map --device-exact` for single-end FASTQ and
+for read pairs in two FASTQ files (fastlane.py:796 there): the host
+halves are the reference's — the C pre block (hit info, rank masks,
+hit-key expansion), the C post block (checksums, depth sort, pass-2
+state), the pass-2 window prep, fl_pass2_block (pass 1 replay, pass 2,
+report, SAM) and, for pairs, fl_map_pair_block on the collate step's
+per-mate state — and the device steps are the port's: the collate step
+(parallel/exact_collate.py), the pass-2 step (parallel/exact_pass2.py)
+and the batch loop that feeds them.
 
 Output of `DeviceExact` is the SAM of the host C lane, byte for byte, by
 the reference's protocol: a read the device cannot serve exactly is
@@ -32,7 +33,9 @@ output.
 
 Per batch: host pre -> upload the padded reads once -> collate step on a
 worker thread -> host post -> (SMALT_DX_P2=1) pass-2 step on the worker
--> fl_pass2_block, pipelined one batch deep as in the reference.  Only
+-> fl_pass2_block, pipelined one batch deep as in the reference (pairs:
+both mates in one collate step -> host post under the pair flow's
+parameters -> fl_map_pair_block).  Only
 the host-hits regime is ported (every seq-by-seq reference with
 nskip <= wordlen); the device hit expansion raises NotImplementedError.
 """
@@ -683,6 +686,8 @@ class DeviceExact(DevicePass1):
         self.p2_hit = 0
         self.n_restaged = 0
         self.host_batches = 0
+        self._timing = False
+        self._exec = None
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
@@ -1016,11 +1021,13 @@ class DeviceExact(DevicePass1):
         """The collate step on the device, its outputs on the host."""
         return [x.cpu().numpy() for x in self._collate_fn()(*dargs)]
 
-    def _post_batch(self, host, outs):
+    def _post_batch(self, host, outs, pair: bool = False):
         """Host post block on the collate outputs (fastlane.py:1257-1297).
         Returns None when the C block refuses the batch, else (the
         batch's state for pass 2, whose last field is the pass-2 window
-        prep or None, and the number of reads re-staged on the host)."""
+        prep or None, and the number of reads re-staged on the host).
+        pair=True: the state of a paired batch (the pair flow's parameters,
+        no pass-2 window prep: the C pair block runs pass 2)."""
         (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs, pre,
          host_fb, _, _) = host
         pool, counts2, scores, fb = outs
@@ -1028,14 +1035,14 @@ class DeviceExact(DevicePass1):
         fb = fb.copy()
         fb[:n] |= host_fb
         st = self._post(n, read_offs, pre, pool, counts2[:n], scores,
-                        cksum[:n], fb[:n])
+                        cksum[:n], fb[:n], pair=pair)
         if st is None:
             return None
         state, state_offs, nrest = st
         self.n_restaged += nrest
         scores64 = np.ascontiguousarray(scores, np.int64)
         prep = None
-        if self._p2_on:
+        if self._p2_on and not pair:
             prep = self._prep_windows(n, codes, read_offs, state, state_offs,
                                       scores64)
         return (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs,
@@ -1062,99 +1069,242 @@ class DeviceExact(DevicePass1):
 
     # ---------------- batch loop ----------------
 
-    def run_raw_fastq(self, path: str, out, fallback) -> None:
-        """Map a strict FASTQ file, writing SAM records to `out` in input
-        order.  fallback(names, seqs, quals) renders a batch on the host
-        (a batch the lane does not take; counted in host_batches)."""
-        timing = bool(os.environ.get("SMALT_DP1_TIMING"))
-        pool_exec = ThreadPoolExecutor(max_workers=1)
-        self.n_restaged = 0
+    def _log(self, msg: str) -> None:
+        if self._timing:
+            print(msg, file=sys.stderr, flush=True)
 
-        def log(msg):
-            if timing:
-                print(msg, file=sys.stderr, flush=True)
+    def _launch(self, args, tag: str):
+        """Host pre block for one batch (names, seqs, quals) and its
+        collate step submitted to the worker thread: (host, future), or
+        None when the lane does not take the batch."""
+        t0 = time.time()
+        got = self._prepare(*args)
+        if got is None:
+            return None
+        host, dargs = got
+        self._log(f"# {tag}-prep {time.time() - t0:.3f}s")
 
-        def device_leg(dargs):
-            t0 = time.time()
+        def device_leg():
+            t1 = time.time()
             outs = self._collate_outputs(dargs)
-            log(f"# dx-dev {time.time() - t0:.3f}s")
+            self._log(f"# {tag}-dev {time.time() - t1:.3f}s")
             return outs
 
-        def host_render(raw):
-            self.host_batches += 1
-            return fallback(*raw)
+        return host, self._exec.submit(device_leg)
 
-        # a batch the lane does not take goes through the queues as None
-        # and is rendered by fin(), so the SAM and the host RNG stream
-        # keep the input order
-        def prepare(raw):
-            t0 = time.time()
-            got = self._prepare(*raw)
-            if got is None:
-                return None
-            host, dargs = got
-            log(f"# dx-prep {time.time() - t0:.3f}s")
-            return host, pool_exec.submit(device_leg, dargs)
+    def _land(self, item, tag: str, pair: bool = False):
+        """The collate step's outputs (a device error raises here) through
+        the host post block: _post_batch's item, or None when the batch
+        goes to the host (it did not launch, or the C block refused)."""
+        if item is None:
+            return None
+        host, fut = item
+        outs = fut.result()
+        t0 = time.time()
+        got = self._post_batch(host, outs, pair=pair)
+        if got is None:
+            return None
+        item2, nrest = got
+        self._log(f"# {tag}-post {time.time() - t0:.3f}s restaged={nrest}")
+        return item2
 
-        def mid(item, raw):
-            if item is None:
-                return None
-            host, fut = item
-            outs = fut.result()
-            t0 = time.time()
-            got = self._post_batch(host, outs)
-            if got is None:
-                return None
-            item2, nrest = got
-            prep = item2[-1]
-            fut2 = None
-            if prep is not None and len(prep[2]):
-                fut2 = pool_exec.submit(self._dispatch_pass2, prep[2],
-                                        host[10], host[11])
-            log(f"# dx-post {time.time() - t0:.3f}s restaged={nrest}")
-            return item2, fut2
-
-        def fin(item, raw):
-            if item is None:
-                return host_render(raw)
-            item2, fut2 = item
-            p2out = None if fut2 is None else fut2.result()
-            t1 = time.time()
-            text = self._finish(item2, p2out)
-            log(f"# dx-pass2 {time.time() - t1:.3f}s n={item2[0]} "
-                f"p2_used={self.p2_used} p2_fb={self.p2_fb} "
-                f"p2_hit={self.p2_hit}")
-            return host_render(raw) if text is None else text
-
+    def _drive(self, batches, tag: str, lane_args, mid, fin, write) -> float:
+        """The lane's batch loop, pipelined one batch deep at each stage:
+        _launch(lane_args(raw)) -> mid(item, raw) -> fin(item, raw) ->
+        write(text, raw), in input order.  A batch the lane does not take
+        goes through the queues as None and is rendered by fin(), so the
+        output and the host RNG stream keep the input order.  Returns the
+        seconds the loop took."""
+        self._timing = bool(os.environ.get("SMALT_DP1_TIMING"))
+        self._exec = ThreadPoolExecutor(max_workers=1)
+        self.n_restaged = 0
         t_run = time.time()
         midq, finq = deque(), deque()
         try:
-            for raw in iter_fastq_batches(path, self.batch):
-                midq.append((prepare(raw), raw))
+            for raw in batches:
+                midq.append((self._launch(lane_args(raw), tag), raw))
                 while len(midq) > 1:
                     it, rw = midq.popleft()
                     finq.append((mid(it, rw), rw))
                 while len(finq) > 1:
                     it, rw = finq.popleft()
-                    out.write(fin(it, rw))
+                    write(fin(it, rw), rw)
             while midq:
                 it, rw = midq.popleft()
                 finq.append((mid(it, rw), rw))
             while finq:
                 it, rw = finq.popleft()
-                out.write(fin(it, rw))
+                write(fin(it, rw), rw)
         finally:
-            pool_exec.shutdown(wait=True)
-        log(f"# dx-total {time.time() - t_run:.3f}s "
-            f"n_restaged={self.n_restaged} p2_used={self.p2_used} "
-            f"p2_fb={self.p2_fb} p2_hit={self.p2_hit} "
-            f"host_batches={self.host_batches}")
+            self._exec.shutdown(wait=True)
+        return time.time() - t_run
+
+    def run_raw_fastq(self, path: str, out, fallback,
+                      resume_log=None) -> None:
+        """Map a strict FASTQ file, writing SAM records to `out` in input
+        order.  fallback(names, seqs, quals) renders a batch on the host
+        (a batch the lane does not take; counted in host_batches).
+
+        resume_log: a ResumeLog.  Batches it checkpointed are skipped and
+        the drand48 state restored (no RNG is consumed before pass 2, so
+        the stream replays as the host loop's does); after each batch is
+        written in order it ticks {reads written, output bytes, drand48
+        state}, and the run ends with done()."""
+        skip, written = 0, [0]
+        if resume_log is not None:
+            st = resume_log.load()
+            if st:
+                skip = st["reads_done"]
+                rand._global._x = st["rng"]
+
+        def batches():
+            seen = 0
+            for raw in iter_fastq_batches(path, self.batch):
+                seen += len(raw[0])
+                if seen <= skip:
+                    written[0] = seen         # checkpointed: already written
+                    continue
+                yield raw
+
+        def mid(item, raw):
+            item2 = self._land(item, "dx")
+            if item2 is None:
+                return None
+            prep, fut2 = item2[-1], None
+            if prep is not None and len(prep[2]):
+                host = item[0]
+                fut2 = self._exec.submit(self._dispatch_pass2, prep[2],
+                                         host[10], host[11])
+            return item2, fut2
+
+        def fin(item, raw):
+            if item is None:
+                self.host_batches += 1
+                return fallback(*raw)
+            item2, fut2 = item
+            p2out = None if fut2 is None else fut2.result()
+            t1 = time.time()
+            text = self._finish(item2, p2out)
+            self._log(f"# dx-pass2 {time.time() - t1:.3f}s n={item2[0]} "
+                      f"p2_used={self.p2_used} p2_fb={self.p2_fb} "
+                      f"p2_hit={self.p2_hit}")
+            if text is None:
+                self.host_batches += 1
+                return fallback(*raw)
+            return text
+
+        def write(text, raw):
+            out.write(text)
+            written[0] += len(raw[0])
+            if resume_log is not None:
+                out.flush()
+                resume_log.tick(written[0], out.tell(), rand._global._x)
+
+        secs = self._drive(batches(), "dx", lambda raw: raw, mid, fin, write)
+        if resume_log is not None:
+            resume_log.done()
+        self._log(f"# dx-total {secs:.3f}s "
+                  f"n_restaged={self.n_restaged} p2_used={self.p2_used} "
+                  f"p2_fb={self.p2_fb} p2_hit={self.p2_hit} "
+                  f"host_batches={self.host_batches}")
 
     def run_raw_pairs(self, plane, pathA: str, pathB: str, out,
                       oracle_one_pair, mk_pair) -> None:
-        raise NotImplementedError(
-            "--device-exact on read pairs is not ported yet "
-            "(ROADMAP.md Queue 1 #6a)")
+        """Map two strict FASTQ files of mates, writing the pair records to
+        `out` in input order (fastlane.py:1383-1612 of the reference).
+        Both mates' front halves go through one collate step, mate A in
+        rows 0..n-1 and mate B in rows n..2n-1, and the C pair block
+        (`plane`, a PairLane) takes the resulting state for the pair
+        flow's unrestricted mapping calls (fl_pair_map_single_dev); mate
+        rescue, restricted remaps and the fine re-hash stay on the host.
+        A pair the C block does not cover is rendered by
+        oracle_one_pair(mk_pair(i, *raw)) on the same drand48 stream, as
+        the host pair lane does; a batch the lane does not take, or the C
+        block refuses, is rendered by the host pair lane in its place
+        (counted in host_batches).  Pass 2 runs in the C pair block: the
+        pass-2 step is not launched."""
+        npairs = self.batch // 2
+
+        def batches():
+            itB = iter_fastq_batches(pathB, npairs)
+            for nmA, sqA, qlA in iter_fastq_batches(pathA, npairs):
+                nmB, sqB, qlB = next(itB, (None, None, None))
+                if nmB is None or len(nmB) != len(nmA):
+                    raise ValueError("paired files have different read "
+                                     "counts")
+                yield nmA, sqA, qlA, nmB, sqB, qlB
+            if next(itB, None) is not None:
+                raise ValueError("paired files have different read counts")
+
+        def host_batch(raw):
+            self.host_batches += 1
+            text = plane.render_raw_pairs(*raw, lambda i: oracle_one_pair(
+                mk_pair(i, *raw)))
+            if text is None:
+                text = "".join(oracle_one_pair(mk_pair(i, *raw))
+                               for i in range(len(raw[0])))
+            return text
+
+        def fin(item, raw):
+            if item is None:
+                return host_batch(raw)
+            t0 = time.time()
+            text = self._pair_tail(plane, raw, item[8], item[9], item[10],
+                                   oracle_one_pair, mk_pair)
+            self._log(f"# dxp-tail {time.time() - t0:.3f}s "
+                      f"npairs={len(raw[0])}")
+            return host_batch(raw) if text is None else text
+
+        npr = [0]
+
+        def write(text, raw):
+            out.write(text)
+            npr[0] += len(raw[0])
+
+        secs = self._drive(
+            batches(), "dxp",
+            lambda r: (r[0] + r[3], r[1] + r[4], r[2] + r[5]),
+            lambda item, raw: self._land(item, "dxp", pair=True), fin, write)
+        self._log(f"# dxp-total {secs:.3f}s n_restaged={self.n_restaged} "
+                  f"host_batches={self.host_batches} npairs={npr[0]}")
+
+    @staticmethod
+    def _pair_tail(plane, raw, state, state_offs, scores64, oracle_one_pair,
+                   mk_pair) -> Optional[str]:
+        """The C pair block on one batch with the collate step's per-mate
+        state, the reference's per-pair protocol around it: the block maps
+        the leading pairs it covers, the next pair goes to the oracle, and
+        the block resumes after it.  None when the block refuses at the
+        first pair (the batch goes to the host)."""
+        nmA, sqA, qlA, nmB, sqB, qlB = raw
+        npr = len(nmA)
+        doffA = np.ascontiguousarray(state_offs[:npr])
+        doffB = np.ascontiguousarray(state_offs[npr:2 * npr])
+        parts = []
+        start = 0
+        while start < npr:
+            arrA = plane._raw_arrays(nmA[start:], sqA[start:], qlA[start:])
+            arrB = plane._raw_arrays(nmB[start:], sqB[start:], qlB[start:])
+            if arrA is None or arrB is None:
+                return None
+            dev = (state, np.ascontiguousarray(doffA[start:]),
+                   np.ascontiguousarray(doffB[start:]), scores64)
+            res = plane._call_arrays(npr - start, arrA, arrB,
+                                     ascii_codes=True, names_raw=True,
+                                     dev=dev)
+            if res is None:
+                if start == 0:
+                    return None
+                parts.extend(oracle_one_pair(mk_pair(i, *raw))
+                             for i in range(start, npr))
+                break
+            text, ndone = res
+            parts.append(text)
+            start += ndone
+            if start < npr:
+                parts.append(oracle_one_pair(mk_pair(start, *raw)))
+                start += 1
+        return "".join(parts)
 
 
 def codec_encode_bulk(ascii_codes: np.ndarray) -> bytes:

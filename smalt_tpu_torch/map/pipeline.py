@@ -17,11 +17,12 @@ race for one process-global stream (mthread_test.py only requires
 mapq>6 lines to match across thread counts).
 
 Counterpart of smalt_tpu/map/pipeline.py, whose host paths it keeps
-line for line.  The device lanes differ: `run_device_exact_fastq` is
-the port's `--device-exact` entry (it raises where the reference
-quietly runs its host lane), and the `--device-pass1` lane is not
-ported (ROADMAP.md Queue 1 #5), so `run_pipeline_raw_fastq` and
-`run_pipeline_raw_pairs` take no device flags here.
+line for line.  The device lanes differ: `run_device_exact_fastq` and
+`run_device_exact_pairs` are the port's `--device-exact` entries (they
+raise where the reference quietly runs its host lane), and the
+`--device-pass1` lane is not ported (ROADMAP.md Queue 1 #5), so
+`run_pipeline_raw_fastq` and `run_pipeline_raw_pairs` take no device
+flags here.
 """
 from __future__ import annotations
 
@@ -281,16 +282,17 @@ def run_device_exact_fastq(engine, path: str, out, refset, fmt: str = "sam",
                            soft_clip: bool = True, x_mismatch: bool = False,
                            seed: int = 1, fix_primary: bool = False,
                            ali_out: bool = False,
-                           device="cuda", batch: int = 0):
+                           device="cuda", batch: int = 0, resume_log=None):
     """Map the single-end FASTQ `path` through the device-exact lane on
     `device`, writing headerless records to `out` in input order: the
     device_exact branch of the reference's run_pipeline_raw_fastq
     (pipeline.py:183-238 there), with the same worker state, strict-FASTQ
-    check and host batch renderer.  Where the reference quietly runs its
-    host lane instead (input the bulk parser does not take, an engine
-    the device lane refuses), this raises NotImplementedError naming the
-    ROADMAP.md item.  Returns the lane, whose counters (n_restaged,
-    p2_used, p2_fb, p2_hit, host_batches) describe the run."""
+    check, host batch renderer and checkpoints (`resume_log`).  Where
+    the reference quietly runs its host lane instead (input the bulk
+    parser does not take, an engine the device lane refuses), this
+    raises NotImplementedError naming the ROADMAP.md item.  Returns the
+    lane, whose counters (n_restaged, p2_used, p2_fb, p2_hit,
+    host_batches) describe the run."""
     from .fastlane import DeviceExact, FastLane
     lane = FastLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
                          fix_primary)
@@ -309,8 +311,55 @@ def run_device_exact_fastq(engine, path: str, out, refset, fmt: str = "sam",
     _g["fix_primary"] = fix_primary
     _g["reseed_per_block"] = False
     _g["lane"] = lane
-    dev.run_raw_fastq(path, out, _host_batch_renderer(lane))
+    dev.run_raw_fastq(path, out, _host_batch_renderer(lane),
+                      resume_log=resume_log)
     return dev
+
+
+def run_device_exact_pairs(engine, reads_path: str, mates_path: str, out,
+                           refset, fmt: str = "sam", soft_clip: bool = True,
+                           x_mismatch: bool = False, seed: int = 1,
+                           ihist=None, fix_primary: bool = False,
+                           ali_out: bool = False, device="cuda",
+                           batch: int = 0):
+    """Map the read pairs of two FASTQ files through the device-exact lane
+    on `device`, writing headerless records to `out` in input order: the
+    device_exact branch of the reference's run_pipeline_raw_pairs
+    (pipeline.py:299-345 there), with the same worker state, insert
+    histogram (`ihist`, -g), strict-FASTQ check on both files and
+    per-pair oracle.  Where the reference quietly runs its host pair lane
+    instead, this raises NotImplementedError naming the ROADMAP.md item.
+    Returns the lane, whose counters (n_restaged, host_batches) describe
+    the run."""
+    from .fastlane import DeviceExact, PairLane
+    plane = PairLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
+                          fix_primary, ihist)
+    dev = DeviceExact.make(engine, fmt, soft_clip, x_mismatch, ali_out,
+                           fix_primary, batch=batch, device=device)
+    if plane is None or dev is None:
+        raise NotImplementedError(
+            "--device-exact on read pairs for this engine (the reference "
+            "runs its host pair lane) is not ported yet (ROADMAP.md Queue 1 "
+            "#6e)")
+    if not (_strict_fastq(reads_path) and _strict_fastq(mates_path)):
+        raise NotImplementedError(
+            "--device-exact on input other than strict 4-line FASTQ is not "
+            "ported yet (ROADMAP.md Queue 1 #6e)")
+    _init_worker(engine, (fmt, soft_clip, x_mismatch, refset, ali_out), seed)
+    _g["ihist"] = ihist
+    _g["fix_primary"] = fix_primary
+    _g["reseed_per_block"] = False
+    dev.run_raw_pairs(plane, reads_path, mates_path, out, _oracle_one_pair,
+                      _mk_pair)
+    return dev
+
+
+def _mk_pair(i, nA, sA, qA, nB, sB, qB):
+    """Pair i of a raw batch of both mate files as (Read, Read)."""
+    from ..seq import codec
+    from ..seq.io import Read
+    return (Read(name=nA[i].decode(), seq=codec.encode(sA[i]), qual=qA[i]),
+            Read(name=nB[i].decode(), seq=codec.encode(sB[i]), qual=qB[i]))
 
 
 def _strict_fastq(path: str) -> bool:
@@ -350,19 +399,11 @@ def run_pipeline_raw_pairs(engine, reads_path: str, mates_path: str,
         return False
 
     from .fastmode import iter_fastq_batches
-    from ..seq import codec
-    from ..seq.io import Read
     writer_args = (fmt, soft_clip, x_mismatch, refset, ali_out)
     _init_worker(engine, writer_args, seed)
     _g["ihist"] = ihist
     _g["fix_primary"] = fix_primary
     _g["reseed_per_block"] = False
-
-    def mk_pair(i, nA, sA, qA, nB, sB, qB):
-        return (Read(name=nA[i].decode(), seq=codec.encode(sA[i]),
-                     qual=qA[i]),
-                Read(name=nB[i].decode(), seq=codec.encode(sB[i]),
-                     qual=qB[i]))
 
     pairs_done = 0
     itB = iter_fastq_batches(mates_path, 1024)
@@ -372,13 +413,13 @@ def run_pipeline_raw_pairs(engine, reads_path: str, mates_path: str,
             raise ValueError("paired files have different read counts")
         def oracle_one_raw(i, nA=nA, sA=sA, qA=qA,
                            nB=nB, sB=sB, qB=qB):
-            return _oracle_one_pair(mk_pair(i, nA, sA, qA, nB, sB, qB))
+            return _oracle_one_pair(_mk_pair(i, nA, sA, qA, nB, sB, qB))
         text = plane.render_raw_pairs(nA, sA, qA, nB, sB, qB,
                                       oracle_one_raw)
         if text is None:
             # no RNG consumed: replay the batch through the block
             # renderer (C pair lane again, then the Python engine)
-            block = [mk_pair(i, nA, sA, qA, nB, sB, qB)
+            block = [_mk_pair(i, nA, sA, qA, nB, sB, qB)
                      for i in range(len(nA))]
             parts = []
             for args in _blocks(iter(block), BLOCK_READS):

@@ -410,10 +410,11 @@ def test_swq_cuda_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["-f", "bam"], "Queue 1 #6c"),
-    (["--resume"], "Queue 1 #6d"),
-    (["-n", "2"], "Queue 1 #6e"),
-    (["-S", "gapopen=-1,gapext=-3"], "Queue 1 #6e"),   # make refuses
+    # explicit ids: a case keeps its name when cases are added or removed
+    # (-f bam and --resume map: tests/test_torch_exact_io.py)
+    pytest.param(["-n", "2"], "Queue 1 #6e", id="extra2-Queue 1 #6e"),
+    pytest.param(["-S", "gapopen=-1,gapext=-3"], "Queue 1 #6e",  # make refuses
+                 id="extra3-Queue 1 #6e"),
 ])
 def test_cli_unported_exact_cases_exit_2(tmp_path, capsys, extra, item):
     from smalt_tpu_torch import cli as tcli

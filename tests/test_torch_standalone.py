@@ -169,8 +169,8 @@ CHANGED = {
     "tools/__init__.py": (
         "the usage line names this package", ("tools: simread", "\"\"\"")),
     "map/pipeline.py": (
-        "no --device-pass1 / device-pair branches (unported); "
-        "run_device_exact_fastq is the port's --device-exact entry",
+        "no --device-pass1 branch (unported); run_device_exact_fastq and "
+        "run_device_exact_pairs are the port's --device-exact entries",
         ("def _render_block(args):", "def run_pipeline_raw_fastq(")),
     "map/fastmode.py": (
         "the host half is the reference's; run_fast_pipeline drives the "
