@@ -18,7 +18,11 @@
    at the single-end, the pool and the paired shape.  Then the WIDE
    instances (a score matrix outside int8: match 200, mismatch -200, X
    -400), tracked and score-only, at Q=112 / S=128 and Q=160 / S=256 on
-   planted and tie-heavy windows.
+   planted and tie-heavy windows.  Then the strip path (queries past 512
+   columns), tracked and score-only, int8 and WIDE, at Q=640 / S=768,
+   Q=1,024 / S=1,152, Q=2,048 / S=2,304 and Q=4,096 / S=4,352 on 64
+   planted and 64 tie-heavy windows each, and timed at Q=2,048 /
+   S=2,304 on 4,096 tie-heavy windows (the plain version once).
    Phases 3, 3b and 3c print each kernel's roofline bound at each shape
    (smalt_tpu_torch/ops/bounds.py: the cells and bytes these inputs
    need), which of operations and bytes bounds it, and the share of the
@@ -96,15 +100,27 @@
    reads/s of the CLI for both runs, the stages' seconds, n_restaged.
    The first paired batch's collate outputs must equal the port's CPU
    step's on that batch, and its collate step is timed.
-10. Prints each kernel's launches by path (and per 4,096 reads), the
+10. `map --device-pass1` on the same genome and index: (a) phase 7's
+   20,480 reads, SAM byte-identical to phase 7's host C lane, no batch
+   rendered on the host, the lane's reads/s (`# dp1-total`) beside the
+   host lane's; (b) 1,024 reads of 1,500 bp with 1.5% indels (phase 5's
+   generator) through the host C lane and `--device-pass1`: SAM
+   byte-identical, through sw_full's strip path; (c) `--device-exact` on
+   a k15 s16 index of the genome, which DeviceExact.make refuses: the
+   pass-1 lane runs (stderr says so), SAM equal to the host C lane on
+   4,096 reads; (d) the pass-1 step alone on a resident reference of
+   2^31 + 2^24 random codes with windows below 2^31, straddling it,
+   above it and at its end, equal to its plain version built from an
+   int64 gather.
+11. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6, 7's three device runs, 8's two and 9's device run) and read just
-after it; the comparisons
+6, 7's three device runs, 8's two, 9's and 10's device runs) and read
+just after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
@@ -162,9 +178,17 @@ SWQ_WIDE = (256, 320, 2048)
 # -400), phase 8 maps with -S WIDE_SPEC
 WIDE_PEN = (200, -200)
 WIDE_FULL_SHAPES = [(112, 128, 3 * BATCH), (160, 256, 6 * BATCH)]
+# sw_full's strip path (queries past 512 columns): (Q, S) held exactly on
+# STRIP_CHECK_B windows of each kind, int8 and WIDE; timed at STRIP_TIME.
+# --device-pass1 pads 513-1,024 bp reads to Q = 1,024, up to 2 kb to 2,048
+STRIP_SHAPES = [(640, 768), (1024, 1152), (2048, 2304), (4096, 4352)]
+STRIP_CHECK_B = 64
+STRIP_TIME = (2048, 2304, BATCH)
 WIDE_SPEC = "match=200,subst=-2"
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
 N_PE_EXACT = 5 * BATCH // 2       # phase 9: five batches of 2,048 pairs
+N_DP1_LONG = 1024                 # phase 10b: reads of LONG_READLEN
+FAR_REF = (1 << 31) + (1 << 24)   # phase 10d: codes of the resident reference
 # phase 7b: (read length, indels, -S) of the lane's band-width cases
 LANE_BANDS = [(150, False, None), (250, True, None), (250, True, WIDE_SPEC)]
 
@@ -550,6 +574,69 @@ def check_wide_full(rng, card: str):
                         lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge), 3),
                         bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
     return (worst,) + main
+
+
+def check_strip(rng, card: str):
+    """Phase 3, queries past 512 columns: sw_full's strip path, tracked
+    and score-only, int8 and WIDE (WIDE_PEN), against sw_score_ref,
+    exactly, at STRIP_SHAPES on STRIP_CHECK_B planted and tie-heavy
+    windows; then timed at STRIP_TIME (a full batch), the plain version
+    once on the same windows.  Returns (max_abs_err, {instance: dict of
+    ms, plain_ms, bound_ms, bound_by at STRIP_TIME})."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    mats = {}
+    for tag, pen in (("", ()), ("_wide", WIDE_PEN)):
+        m, go, ge = ali.make_score_matrix(*pen)
+        mats[tag] = (sw.device_matrix(m, "cuda"), -go, -ge)
+    if not mats["_wide"][0].wide:
+        fail(f"the matrix of {WIDE_PEN} fits int8")
+    worst = 0
+    for Q, S in STRIP_SHAPES:
+        past = 0                      # best cells past the first strip
+        for tag, (mat, go, ge) in mats.items():
+            for kind, gen in (("planted", kernel_windows),
+                              ("tie-heavy", sw.tie_windows)):
+                q, s, sl = (torch.from_numpy(x).cuda()
+                            for x in gen(rng, STRIP_CHECK_B, Q, S))
+                got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
+                got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
+                want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
+                torch.cuda.synchronize()
+                errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+                err0 = int((got0 - want[0]).abs().max())
+                worst = max(worst, *errs, err0)
+                if max(errs + [err0]) != 0:
+                    fail(f"sw_full{tag} (strips) differs from sw_score_ref "
+                         f"at Q={Q} S={S} ({kind}): max |diff| best/ti/tj "
+                         f"{errs}, score-only {err0}")
+                past += int((want[2] >= sw.MAX_Q).sum())
+        if past == 0:
+            fail(f"degenerate strip windows at Q={Q} S={S}: no best cell "
+                 f"past the first strip")
+        print(f"# sw_full strips Q={Q} S={S}, {STRIP_CHECK_B} windows each "
+              f"of planted and tie-heavy, int8 and entries of {WIDE_PEN}: "
+              f"equal to sw_score_ref (best, ti, tj and score-only; {past} "
+              f"best cells past column 512) | {card}", flush=True)
+    Q, S, B = STRIP_TIME
+    q, s, sl = (torch.from_numpy(x).cuda() for x in sw.tie_windows(rng, B, Q,
+                                                                   S))
+    out = {}
+    for tag, (mat, go, ge) in mats.items():
+        for track in (True, False):
+            name = "sw_full" + ("_track" if track else "") + "_strip" + tag
+            k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                                   track=track), 5)
+            p_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge,
+                                                   track=track), 1, warm=0)
+            work = bounds.sw_full_work(Q, S, sl, track)
+            print(bound_line(f"{name} Q={Q} S={S} B={B} (tie-heavy windows; "
+                             f"plain {p_ms:.1f} ms)", work, k_ms, card),
+                  flush=True)
+            out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=work["bound_ms"],
+                             bound_by=work["bound_by"])
+    return worst, out
 
 
 def check_wide_band(rng, card: str):
@@ -1237,6 +1324,8 @@ def run_exact(d: str, genome, card: str):
         print(f"# map {label}: {N_EXACT} reads of {READLEN} bp in {wall:.3f} "
               f"s through the CLI ({N_EXACT / wall:.1f} reads/s incl. index "
               f"load){lane}; launches {launches[label]} | {card}", flush=True)
+        if not flags:
+            host_wall = wall
         if flags:
             if m is None:
                 fail(f"{label}: no dx-total line")
@@ -1286,7 +1375,7 @@ def run_exact(d: str, genome, card: str):
     err, _, _ = exact_batch_split(idx_name, fq, card)
     return (launches["--device-exact SMALT_DX_P2=1"],
             launches["--device-exact"], launches["--device-exact -f bam"],
-            err)
+            err, (bodies["host C lane"], host_wall))
 
 
 def check_lane_bands(d: str, genome, card: str):
@@ -1525,6 +1614,204 @@ def run_exact_pairs(d: str, genome, card: str):
     return launches["--device-exact"]
 
 
+def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str):
+    """`map -r 1` through the port's CLI for each (label, flags) of cases,
+    the launch counts set to 0 just before each run and read just after;
+    every device run's SAM must equal the first (the host C lane's, the
+    @PG line aside) with no batch rendered on the host (# dp1-total).
+    Returns {label: (launches, CLI wall s, lane s or None, stderr)}."""
+    bodies, runs = {}, {}
+    for label, flags in cases:
+        sam = os.path.join(os.path.dirname(fq), f"dp1_{len(bodies)}.sam")
+        rc, err, launches, wall = cli_run(
+            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
+            [idx_name, fq], SMALT_DP1_TIMING="1")
+        if rc != 0:
+            sys.stderr.write(err)
+            fail(f"map {' '.join(flags)} on {fq} exited {rc}")
+        with open(sam) as f:
+            bodies[label] = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("@PG")]
+        if sum(1 for ln in bodies[label] if not ln.startswith("@")) != n:
+            fail(f"{label}: SAM records for {n} reads expected")
+        m = re.search(r"# dp1-total ([\d.]+)s host_batches=(\d+) "
+                      r"nreads=(\d+)", err)
+        if flags:
+            if m is None or int(m.group(2)) != 0 or int(m.group(3)) != n:
+                fail(f"{label}: # dp1-total {m.groups() if m else None}")
+            host = next(iter(bodies.values()))
+            if bodies[label] != host:
+                diff = next(i for i, (a, b) in enumerate(zip(
+                    bodies[label], host)) if a != b)
+                fail(f"{label}: SAM differs from the host C lane at line "
+                     f"{diff}: {bodies[label][diff][:120]!r} vs "
+                     f"{host[diff][:120]!r}")
+        stages = {}
+        for sec in re.findall(r"# dp1-dev nw=\d+ call=([\d.]+)", err):
+            stages["dev call"] = stages.get("dev call", 0.0) + float(sec)
+        for sec in re.findall(r"# dp1-main stall=([\d.]+)", err):
+            stages["stall"] = stages.get("stall", 0.0) + float(sec)
+        lane = float(m.group(1)) if m else None
+        print(f"# map {label}: {n} reads in {wall:.3f} s through the CLI "
+              f"({n / wall:.1f} reads/s incl. index load)" +
+              (f"; lane {lane:.3f} s ({n / lane:.1f} reads/s, # dp1-total), "
+               f"main thread stalled on the device {stages.get('stall', 0):.3f}"
+               f" s" if lane else "") +
+              f"; launches {launches} | {card}", flush=True)
+        runs[label] = (launches, wall, lane, err)
+    return runs
+
+
+def check_far_windows(card: str):
+    """Phase 10d: the pass-1 step alone on a reference of FAR_REF codes
+    resident on the card, with windows below 2^31, straddling it, above
+    it and at the end, reads planted in half of them (every other four
+    windows): dp1_step (the
+    sw_full kernel) equal to the plain version of the step built here
+    from an int64 gather and sw_score_ref.  Returns the max |diff| (0)."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.map.fastlane import dp1_step
+    from smalt_tpu_torch.ops import sw
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    ref = torch.randint(0, 4, (FAR_REF,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    rng = np.random.default_rng(SEED + 10)
+    n, Q, S, W = 1024, 128, 256, BATCH
+    qlens = rng.integers(90, Q + 1, n).astype(np.int32)
+    reads = rng.integers(0, 4, (n, Q)).astype(np.uint8)
+    reads[rng.random((n, Q)) < 0.01] = 4
+    reads[np.arange(Q)[None, :] >= qlens[:, None]] = 7
+    rc = np.where(reads < 4, 3 - reads, reads)
+    wd = np.zeros((W, 4), np.int64)
+    two31 = 1 << 31
+    part = np.arange(W) % 4
+    wd[:, 0] = np.select(
+        [part == 0, part == 1, part == 2],
+        [rng.integers(0, two31 - S, W), two31 - rng.integers(1, S, W),
+         rng.integers(two31, FAR_REF - S, W)],
+        FAR_REF - rng.integers(1, S, W))
+    wd[:, 1] = rng.integers(S // 2, S + 1, W)
+    wd[5::16, 1] = 0                           # empty windows
+    wd[:, 2] = rng.integers(0, n, W)
+    wd[:, 3] = rng.integers(0, 2, W)
+    qcs = np.full((W, Q), 7, np.int32)          # the windows' queries
+    for w in range(W):
+        r, L = int(wd[w, 2]), int(qlens[wd[w, 2]])
+        qcs[w, :L] = rc[r, :L][::-1] if wd[w, 3] else reads[r, :L]
+        at = int(wd[w, 0]) + 8
+        if w // 4 % 2 == 0 and at + L <= FAR_REF:   # plant the query
+            ref[at: at + L] = torch.from_numpy(
+                np.where(qcs[w, :L] < 4, qcs[w, :L], 0).astype(np.uint8)
+            ).cuda()
+    m, go, ge = ali.make_score_matrix()
+    mat = sw.device_matrix(m, "cuda")
+    wd_t = torch.from_numpy(wd).cuda()
+    got = dp1_step(ref, torch.from_numpy(reads).cuda(),
+                   torch.from_numpy(qlens).cuda(), wd_t, S, mat, -go, -ge)
+
+    def plain(starts):
+        offs = torch.arange(S, dtype=torch.int64, device="cuda")[None, :]
+        idx = (starts[:, None] + offs).clamp(0, FAR_REF - 1)
+        slens = wd_t[:, 1].to(torch.int32)
+        wins = torch.where(offs >= slens[:, None], 7,
+                           ref[idx].to(torch.int32))
+        return sw.sw_score_ref(torch.from_numpy(qcs).cuda(), wins, slens,
+                               mat.t, -go, -ge)
+
+    want = plain(wd_t[:, 0])
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if int(((want.cpu().numpy() >= 80) & (part == 2)).sum()) < W // 16:
+        fail("degenerate windows past 2^31: few planted reads score")
+    if err:
+        fail(f"the pass-1 step differs from its plain version on windows "
+             f"past 2^31: {int((got != want).sum())} of {W} windows")
+    # the reference's int32 descriptors: starts past 2^31 wrap (negative,
+    # then clamped to 0)
+    wrapped = plain(torch.from_numpy(wd[:, 0].astype(np.int32).astype(
+        np.int64)).cuda())
+    far = wd[:, 0] + S > two31
+    moved = int((wrapped != want).cpu().numpy()[far].sum())
+    high = (want.cpu().numpy() >= 80) & (np.arange(W) // 4 % 2 == 0)
+    planted = [int(high[part == k].sum()) for k in range(4)]
+    print(f"# pass-1 step on a resident reference of {FAR_REF} codes "
+          f"({FAR_REF / 2**30:.2f} GiB): {W} windows (a quarter each below "
+          f"2^31, straddling it, above it, at the end; one in 16 empty), "
+          f"scores equal to the plain version from an int64 gather "
+          f"(planted windows scoring >= 80, of {W // 8} a quarter: "
+          f"{planted}); with int32 "
+          f"starts {moved} of the {int(far.sum())} windows reaching past "
+          f"2^31 would score otherwise; {time.perf_counter() - t0:.1f} s | "
+          f"{card}", flush=True)
+    del ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def run_pass1(d: str, genome, card: str, host):
+    """Phase 10: `map --device-pass1` against the host C lane on the
+    phase-4 genome and index.  host = (phase 7's host C lane SAM body,
+    its CLI seconds).  Returns (launches of the 100 bp run, of the 1,500
+    bp run, of the k15 s16 --device-exact run, the step's max |diff|
+    past 2^31)."""
+    idx_name = os.path.join(d, "idx")
+    # (a) phase 7's reads against phase 7's host C lane
+    fq = os.path.join(d, "exact.fq")
+    runs = pass1_runs([("--device-pass1", ["--device-pass1"])], idx_name, fq,
+                      N_EXACT, card)
+    la, _, lane_a, _ = runs["--device-pass1"]
+    body = [ln for ln in open(os.path.join(d, "dp1_0.sam")).read()
+            .splitlines() if not ln.startswith("@PG")]
+    if body != host[0]:
+        fail("--device-pass1: SAM differs from phase 7's host C lane")
+    print(f"# --device-pass1 on phase 7's {N_EXACT} reads: SAM "
+          f"byte-identical to the host C lane; lane {N_EXACT / lane_a:.1f} "
+          f"reads/s against the host C lane's {N_EXACT / host[1]:.1f} CLI "
+          f"reads/s (phase 7) | {card}", flush=True)
+    if la["sw_full"] < 1 or la["sw_full_strip"] or la["swq"]:
+        fail(f"--device-pass1 on 100 bp reads launched {la}")
+    # (b) kilobase reads: the strip path
+    rng = np.random.default_rng(SEED + 8)
+    reads, _, _ = make_long_reads(rng, genome, N_DP1_LONG, LONG_READLEN)
+    fq, _ = write_fastq(os.path.join(d, "dp1_long.fq"), reads, b"k")
+    runs = pass1_runs([("host C lane, 1,500 bp", []),
+                       ("--device-pass1, 1,500 bp", ["--device-pass1"])],
+                      idx_name, fq, N_DP1_LONG, card)
+    lb = runs["--device-pass1, 1,500 bp"][0]
+    if lb["sw_full_strip"] < 1 or lb["sw_full"] or lb["sw_full_track_strip"]:
+        fail(f"--device-pass1 on 1,500 bp reads launched {lb}")
+    print(f"# --device-pass1 on {N_DP1_LONG} reads of {LONG_READLEN} bp "
+          f"(1.5% indels): SAM byte-identical to the host C lane, through "
+          f"sw_full's strip path", flush=True)
+    # (c) an index DeviceExact.make refuses: k15 s16 (nskip > wordlen, k >
+    # 14) on the same genome
+    from smalt_tpu_torch import cli
+    idx15 = os.path.join(d, "idx15")
+    if cli.main(["index", "-k", "15", "-s", "16", idx15,
+                 os.path.join(d, "genome.fa")]) != 0:
+        fail("index -k 15 -s 16")
+    rng = np.random.default_rng(SEED + 9)
+    reads, _, _ = make_reads(rng, genome, BATCH, READLEN)
+    fq, _ = write_fastq(os.path.join(d, "dp1_k15.fq"), reads, b"f")
+    runs = pass1_runs([("host C lane, k15 s16", []),
+                       ("--device-exact, k15 s16", ["--device-exact"])],
+                      idx15, fq, BATCH, card)
+    lc, _, _, err = runs["--device-exact, k15 s16"]
+    if "the --device-pass1 lane maps" not in err:
+        fail(f"--device-exact on k15 s16: stderr names no pass-1 lane: "
+             f"{err[:300]!r}")
+    if lc["sw_full"] < 1:
+        fail(f"--device-exact on k15 s16 launched {lc}")
+    print(f"# --device-exact on a k15 s16 index (DeviceExact.make refuses): "
+          f"the --device-pass1 lane ran (stderr says so), SAM byte-identical "
+          f"to the host C lane on {BATCH} reads", flush=True)
+    # (d) the step alone, windows past 2^31
+    return la, lb, lc, check_far_windows(card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1555,6 +1842,7 @@ def main() -> int:
     t0 = time.perf_counter()
     err, k_full_t, k_full = check_kernel(rng, card)
     werr, k_wfull_t, k_wfull = check_wide_full(rng, card)
+    serr, k_strip = check_strip(rng, card)
     print(f"# phase 3 (sw_full against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -1585,7 +1873,7 @@ def main() -> int:
         print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
               flush=True)
         t0 = time.perf_counter()
-        dx, dx0, dxb, qerr7 = run_exact(d, genome, card)
+        dx, dx0, dxb, qerr7, hostx = run_exact(d, genome, card)
         qerr = max(qerr, qerr7)
         print(f"# phase 7 (device-exact): {time.perf_counter() - t0:.2f} s",
               flush=True)
@@ -1601,6 +1889,11 @@ def main() -> int:
         pdx = run_exact_pairs(d, genome, card)
         print(f"# phase 9 (paired device-exact): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        dp1, dp1l, dp1x, ferr = run_pass1(d, genome, card, hostx)
+        err = max(err, ferr)
+        print(f"# phase 10 (--device-pass1): {time.perf_counter() - t0:.2f} s",
+              flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -1617,7 +1910,10 @@ def main() -> int:
              ("--device-exact -f bam", dxb, N_EXACT),
              (f"--fast -S {WIDE_SPEC}", wf, BATCH),
              (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH),
-             ("--device-exact pairs", pdx, 2 * N_PE_EXACT))
+             ("--device-exact pairs", pdx, 2 * N_PE_EXACT),
+             ("--device-pass1", dp1, N_EXACT),
+             ("--device-pass1 1,500 bp", dp1l, N_DP1_LONG),
+             ("--device-exact k15 s16 (the pass-1 lane)", dp1x, BATCH))
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
@@ -1643,7 +1939,13 @@ def main() -> int:
             ("sw_band", band, berr, k_band),
             ("sw_band_track_wide", band, wberr, k_wband_t),
             ("sw_band_wide", band, wberr, k_wband),
-            ("swq", swq, qerr, k_swq))]}))
+            ("swq", swq, qerr, k_swq),
+            ("sw_full_track_strip", full, serr, k_strip["sw_full_track_strip"]),
+            ("sw_full_strip", full, serr, k_strip["sw_full_strip"]),
+            ("sw_full_track_strip_wide", full, serr,
+             k_strip["sw_full_track_strip_wide"]),
+            ("sw_full_strip_wide", full, serr,
+             k_strip["sw_full_strip_wide"]))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -358,14 +358,29 @@ def cmd_map(argv: List[str]) -> int:
     a = _map_argparser("smalt_tpu_torch map").parse_args(argv)
     if a.fastmode:
         return _cmd_map_fast(a, argv, device)
-    if a.device_pass1:
-        return _unported("--device-pass1", "Queue 1 #5")
-    if a.device_exact:
-        rc = _device_exact_refused(a, device)
-        if rc:
-            return rc
+    if a.device_pass1 or a.device_exact:
+        # the reference's handoff (smalt_tpu/cli.py:379-385), decided from
+        # the arguments before any device call: -n > 1 forks workers
+        if _device_handoff(a):
+            print("# --device-pass1/--device-exact apply to serial "
+                  "FASTQ runs (--device-pass1: single-end only); ignored "
+                  "(output is identical either way)", file=sys.stderr)
+            a.device_pass1 = a.device_exact = False
+        elif _score_cap_refused(a.scorspec, 128):
+            return 2
     engine, refset, idx = _build_engine(a, argv)
     t_setup = time.time()
+    ihist = InsHist.read(a.insfil) if a.insfil else None
+    if ihist is not None:
+        engine.params.insert_min = min(engine.params.insert_min, ihist.insizlo)
+        engine.params.insert_max = max(engine.params.insert_max, ihist.insizhi)
+    fix_primary = (a.scorediff is not None and
+                   a.oformat.startswith(("sam", "bam")))
+    lane = None
+    if a.device_pass1 or a.device_exact:
+        lane = _device_lane(a, engine, refset, ihist, fix_primary, device)
+        if lane is not None and _no_gpu(device):
+            return 1
     bam_writer = None
     resume_log = None
     if a.oformat.split(":")[0] == "bam":
@@ -400,12 +415,6 @@ def cmd_map(argv: List[str]) -> int:
         else:
             out = _open_out(a)
             writer = _writer(a, refset, argv, out)  # emits the SAM header
-    ihist = InsHist.read(a.insfil) if a.insfil else None
-    if ihist is not None:
-        engine.params.insert_min = min(engine.params.insert_min, ihist.insizlo)
-        engine.params.insert_max = max(engine.params.insert_max, ihist.insizhi)
-    fix_primary = (a.scorediff is not None and
-                   a.oformat.startswith(("sam", "bam")))
     if a.informat == "bam" or a.reads.endswith(".bam"):
         from .seq.io import BamReader
         br = BamReader(a.reads)
@@ -450,10 +459,9 @@ def cmd_map(argv: List[str]) -> int:
                         bam_writer.write_raw(
                             enc.encode_text(text, star_qual_literal=True))
                 raw_out, raw_fmt = _SamTextBamSink(), "sam"
-        if a.device_exact:
-            rc = _run_device_exact(a, engine, raw_out if raw_ok else None,
-                                   refset, raw_fmt, mods, ihist, fix_primary,
-                                   resume_log, device)
+        if lane is not None:
+            rc = _run_device_lane(a, lane, engine, raw_out, refset, raw_fmt,
+                                  mods, ihist, fix_primary, resume_log)
             ran_raw = True
         elif raw_ok and a.mates is None:
             ran_raw = run_pipeline_raw_fastq(
@@ -514,48 +522,66 @@ def _score_cap_refused(spec: Optional[str], qmin: int) -> bool:
     return False
 
 
-def _device_exact_refused(a, device: str) -> int:
-    """map --device-exact: the exit code of a run the port does not take
-    (2 naming its ROADMAP.md item, 1 with no GPU), else 0, decided before
-    anything is loaded."""
+def _device_handoff(a) -> bool:
+    """True where the reference runs its host lane for a device flag from
+    the arguments alone (smalt_tpu/cli.py:379-385): -n > 1, SAM/BAM input,
+    --device-pass1 with mates."""
     sam_in = a.informat in ("sam", "bam") or \
         a.reads.endswith((".sam", ".sam.gz", ".bam"))
-    for bad, what, item in (
-            (a.nthreads > 1, "--device-exact with -n > 1", "Queue 1 #6e"),
-            (sam_in, "--device-exact on SAM/BAM input", "Queue 1 #6e")):
-        if bad:
-            return _unported(what, item)
-    if _score_cap_refused(a.scorspec, 128):
-        return 2
-    if _no_gpu(device):
-        return 1
-    return 0
+    return not ((a.mates is None or a.device_exact) and a.nthreads <= 1 and
+                not sam_in)
 
 
-def _run_device_exact(a, engine, out, refset, fmt: str, mods, ihist,
-                      fix_primary: bool, resume_log, device: str) -> int:
-    """map --device-exact on serial FASTQ, single-end or paired, after
-    cmd_map's set-up (output sink, BAM re-encoder, checkpoints, insert
-    histogram), as smalt_tpu/cli.py:386-430 hands the run to its lanes.
-    out is None where BAM cannot ride the lane's SAM text.  Returns the
-    exit code: 2 where the port has no device route for the run."""
-    from .map.pipeline import run_device_exact_fastq, run_device_exact_pairs
-    opts = dict(fmt=fmt, soft_clip="clip" not in mods,
-                x_mismatch="x" in mods,
-                seed=(a.randseed if a.randseed is not None else 0),
-                fix_primary=fix_primary, ali_out=a.aliout, device=device)
+def _device_lane(a, engine, refset, ihist, fix_primary: bool, device: str):
+    """The lane a --device-exact / --device-pass1 run takes on this engine
+    (map/pipeline.py device_lane, the reference's order), with a note on
+    stderr where that is not the lane the flag names: None where the host
+    lane maps.  `-f bam` with reference names that collide once cut at
+    white space maps on the host too: the reference then writes BAM from
+    report objects."""
+    from .map.pipeline import device_lane
+    flag = "--device-exact" if a.device_exact else "--device-pass1"
+    fmt = a.oformat.split(":")[0]
+    mods = a.oformat.split(":")[1].split(",") if ":" in a.oformat else []
+    # cmd_map keeps checkpoints for a single-end run with -o (not BAM)
+    resume = bool(a.resume and a.oufilnam and a.mates is None and
+                  fmt != "bam")
+    if fmt == "bam":
+        from .report.bam import SamTextEncoder
+        if SamTextEncoder.make(refset) is None:
+            print(f"# {flag}: -f bam with reference names that collide once "
+                  f"cut at white space; the host lane writes BAM from report "
+                  f"objects (output is identical either way)",
+                  file=sys.stderr)
+            return None
+        fmt = "sam"               # the lane's SAM text, re-encoded
+    lane, plane, what = device_lane(
+        engine, a.reads, fmt, "clip" not in mods, "x" in mods, fix_primary,
+        a.aliout, exact=a.device_exact, mates_path=a.mates, ihist=ihist,
+        resume=resume, device=device)
+    if what != f"the {flag} lane":
+        print(f"# {flag}: the engine or the input is outside the {flag} "
+              f"lane's gates; {what} maps (output is identical either way)",
+              file=sys.stderr)
+    return None if lane is None else (lane, plane)
+
+
+def _run_device_lane(a, lane, engine, out, refset, fmt: str, mods, ihist,
+                     fix_primary: bool, resume_log) -> int:
+    """map --device-exact / --device-pass1 through the lane _device_lane
+    chose, after cmd_map's set-up (output sink, BAM re-encoder,
+    checkpoints, insert histogram).  Returns the exit code: 2 where the
+    lane meets a part it has not ported (it raises NotImplementedError
+    naming its ROADMAP.md item)."""
+    from .map.pipeline import run_device_lane
+    dev, plane = lane
     try:
-        if out is None:
-            raise NotImplementedError(
-                "--device-exact -f bam where reference names collide once "
-                "cut at white space (the reference writes BAM from report "
-                "objects) is not ported yet (ROADMAP.md Queue 1 #6e)")
-        if a.mates is None:
-            run_device_exact_fastq(engine, a.reads, out, refset,
-                                   resume_log=resume_log, **opts)
-        else:
-            run_device_exact_pairs(engine, a.reads, a.mates, out, refset,
-                                   ihist=ihist, **opts)
+        run_device_lane(dev, engine, a.reads, out, refset, fmt=fmt,
+                        soft_clip="clip" not in mods, x_mismatch="x" in mods,
+                        seed=(a.randseed if a.randseed is not None else 0),
+                        fix_primary=fix_primary, ali_out=a.aliout,
+                        mates_path=a.mates, plane=plane, ihist=ihist,
+                        resume_log=resume_log)
     except NotImplementedError as e:
         print(f"smalt_tpu_torch: {e}", file=sys.stderr)
         return 2

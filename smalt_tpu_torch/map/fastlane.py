@@ -10,15 +10,20 @@ byte-for-byte.  `FastLane.make` gates on the modes the lane covers;
 caller reruns the block through the Python engine with the untouched
 RNG state (the lane commits the drand48 state only on success).
 
-`DevicePass1` keeps the reference's host halves (fl_pass1_block, the
-padded read batch, fl_pass2_block); its device leg is not ported and
-raises.  `DeviceExact` is `map --device-exact` for single-end FASTQ and
-for read pairs in two FASTQ files (fastlane.py:796 there): the host
-halves are the reference's — the C pre block (hit info, rank masks,
-hit-key expansion), the C post block (checksums, depth sort, pass-2
-state), the pass-2 window prep, fl_pass2_block (pass 1 replay, pass 2,
-report, SAM) and, for pairs, fl_map_pair_block on the collate step's
-per-mate state — and the device steps are the port's: the collate step
+`DevicePass1` is `map --device-pass1` for single-end FASTQ (fastlane.py:442
+there): the reference's host halves (fl_pass1_block: seeding, collation
+and the pass-1 window list; the padded read batch; fl_pass2_block: the
+pass-1 replay on the device's scores, pass 2, report, SAM) around the
+port's device leg, `dp1_step` (reverse complement, the window gather from
+a reference resident on the device, score-only full-matrix SW, through
+ops/csrc/sw_full.cu on a card), and the batch loop both lanes share
+(`DevicePass1._drive`).  `DeviceExact` is `map --device-exact` for
+single-end FASTQ and for read pairs in two FASTQ files (fastlane.py:796
+there): the host halves are the reference's — the C pre block (hit
+info, rank masks, hit-key expansion), the C post block (checksums, depth
+sort, pass-2 state), the pass-2 window prep, fl_pass2_block (pass 1
+replay, pass 2, report, SAM) and, for pairs, fl_map_pair_block on the
+collate step's per-mate state — and the device steps are the port's: the collate step
 (parallel/exact_collate.py), the pass-2 step (parallel/exact_pass2.py)
 and the batch loop that feeds them.
 
@@ -54,6 +59,7 @@ import torch
 from .. import rand
 from ..align import core as ali_mod
 from ..native import get_lib
+from ..ops.sw import device_matrix, sw_score_batch
 from ..parallel.exact_collate import CollateCfg, build_exact_collate
 from ..parallel.exact_pass2 import (band_tiles, build_pass2_step,
                                    unpack_pass2)
@@ -481,26 +487,51 @@ class PairLane:
 
 
 class DevicePass1:
-    """Host halves of the device-assisted exact lanes: phase A
-    (fl_pass1_block: seeding, collation and the pass-1 window list), the
-    fixed-shape padded read batch, and phase B (fl_pass2_block: pass-1
-    replay on a score stream, pass 2, report, SAM).  The `--device-pass1`
-    device leg itself (window scoring on the device and its batch loop,
-    fastlane.py:555-613,690-793 of the reference) is not ported:
-    `run_raw_fastq` raises NotImplementedError."""
+    """Device-assisted exact mapping, `map --device-pass1`: the device
+    scores the pass-1 full-matrix candidate windows of whole batches
+    (the reference's SIMD kernel slot) while the host C lane does
+    seeding, collation, the pass-1 replay and pass 2.  Output is the host
+    lane's, byte for byte: sw_full computes the integer scores the C
+    sw_full computes, and fl_pass2_block replays the early-break logic on
+    the score stream.  Also the host halves DeviceExact builds on: phase
+    A (fl_pass1_block), the fixed-shape padded read batch, phase B
+    (fl_pass2_block) and the batch loop (`_drive`).
 
-    def __init__(self, lane: FastLane, batch: int = 0):
+    Per batch: phase A on the main thread, the device leg (upload, step,
+    copy back into pinned memory) on a worker thread, phase B two batches
+    later, so the device and the copies overlap the host work of the
+    neighbouring batches.  Three faults of the reference's loop
+    (fastlane.py:604-606,772-773,784-786) are not copied: window starts
+    stay int64 on their way to the device (the reference's int32 copy
+    wraps past 2^31 reference bases), a batch refused in phase A is
+    rendered on the host in its place in the output (the reference
+    writes it ahead of the pending batches), and a device error raises
+    (the reference renders the batch on the host)."""
+
+    def __init__(self, lane: FastLane, batch: int = 0, device="cuda"):
         self.lane = lane
         self.batch = batch or int(os.environ.get("SMALT_DP1_BATCH", 8192))
+        self.device = torch.device(device)
         eng = lane.engine
         if -eng.gapopen < -eng.gapext:
             raise ValueError("device kernel needs gapopen >= gapext")
-        # sticky shape cap: every device call is padded to (batch, qcap)
+        # sticky shape caps: every device call is padded to (batch, qcap)
+        # reads and wcap windows of scap subject rows, as in the reference
         self._qcap = 128
+        self._scap = 128
+        self._wcap = 4 * self.batch
+        self._ref_alpha = None          # the resident reference (lazily)
+        self._mat = None
+        self.host_batches = 0
+        self.n_restaged = 0
+        self._timing = False
+        self._exec = None
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out, fix_primary,
-             batch: int = 0) -> Optional["DevicePass1"]:
+             batch: int = 0, device="cuda") -> Optional["DevicePass1"]:
+        """The lane for `engine`, or None where the engine is outside the
+        lane's gates (the reference then runs its host lane)."""
         lane = FastLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
                              fix_primary)
         if lane is None:
@@ -516,7 +547,7 @@ class DevicePass1:
             return None
         if -engine.gapopen < -engine.gapext:
             return None
-        return cls(lane, batch=batch)
+        return cls(lane, batch=batch, device=device)
 
     # ---------------- phase A ----------------
 
@@ -578,6 +609,45 @@ class DevicePass1:
                 o, e = int(read_offs[i]), int(read_offs[i + 1])
                 fwd[i, : e - o] = al[o:e]
         return fwd, qlens
+
+    def _score_windows(self, win_desc, fwd, qlens):
+        """Dispatch one batch of windows (fastlane.py:586-613): the read
+        batch and the window descriptors go up, dp1_step scores the
+        windows against the resident reference, and the scores come back
+        into pinned host memory without blocking.  Returns (host scores
+        [wcap], an event that completes with the copy or None on the CPU,
+        nw)."""
+        lane = self.lane
+        dev = self.device
+        if self._ref_alpha is None:
+            eng = lane.engine
+            self._ref_alpha = torch.from_numpy(
+                (lane._refcodes & 7).astype(np.uint8)).to(dev)
+            self._mat = device_matrix(np.asarray(eng.matrix, np.int32), dev)
+        nw = len(win_desc)
+        # S to the sticky power-of-two cap, the window count to the
+        # sticky window cap (padded windows have slen 0: score 0)
+        S = int(win_desc[:, 1].max()) if nw else 128
+        while self._scap < S:
+            self._scap *= 2
+        while self._wcap < nw:
+            self._wcap *= 2
+        wd = np.zeros((self._wcap, 4), dtype=np.int64)
+        wd[:nw] = win_desc
+        cuda = dev.type == "cuda"
+        args = [torch.from_numpy(x) for x in (fwd, qlens, wd)]
+        if cuda:
+            args = [x.pin_memory().to(dev, non_blocking=True) for x in args]
+        eng = self.lane.engine
+        out = dp1_step(self._ref_alpha, *args, self._scap, self._mat,
+                       -eng.gapopen, -eng.gapext)
+        if not cuda:
+            return out, None, nw
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done, nw
 
     # ---------------- phase B ----------------
 
@@ -651,10 +721,123 @@ class DevicePass1:
             return out[:rc].tobytes().decode("ascii")
         return None
 
+    # ---------------- batch loop ----------------
+
+    def _log(self, msg: str) -> None:
+        if self._timing:
+            print(msg, file=sys.stderr, flush=True)
+
+    def _drive(self, batches, tag: str, lane_args, mid, fin, write) -> float:
+        """The lane's batch loop, pipelined one batch deep at each stage:
+        _launch(lane_args(raw)) -> mid(item, raw) -> fin(item, raw) ->
+        write(text, raw), in input order.  A batch the lane does not take
+        goes through the queues as None and is rendered by fin(), so the
+        output and the host RNG stream keep the input order.  Returns the
+        seconds the loop took."""
+        self._timing = bool(os.environ.get("SMALT_DP1_TIMING"))
+        self._exec = ThreadPoolExecutor(max_workers=1)
+        self.n_restaged = 0
+        t_run = time.time()
+        midq, finq = deque(), deque()
+        try:
+            for raw in batches:
+                midq.append((self._launch(lane_args(raw), tag), raw))
+                while len(midq) > 1:
+                    it, rw = midq.popleft()
+                    finq.append((mid(it, rw), rw))
+                while len(finq) > 1:
+                    it, rw = finq.popleft()
+                    write(fin(it, rw), rw)
+            while midq:
+                it, rw = midq.popleft()
+                finq.append((mid(it, rw), rw))
+            while finq:
+                it, rw = finq.popleft()
+                write(fin(it, rw), rw)
+        finally:
+            self._exec.shutdown(wait=True)
+        return time.time() - t_run
+
+    def _launch(self, args, tag: str):
+        """Phase A for one batch (names, seqs, quals) and its device leg
+        submitted to the worker thread (fastlane.py:710-757): (host
+        state, future of the scores or None with no window), or None when
+        the lane does not take the batch (a read without its quality
+        string, fl_pass1_block refuses)."""
+        names, seqs, quals = args
+        n = len(names)
+        read_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in seqs], out=read_offs[1:])
+        name_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in names], out=name_offs[1:])
+        qmax = int((read_offs[1:] - read_offs[:-1]).max()) if n else 1
+        has_qual = np.empty(n, dtype=np.uint8)
+        for i, q in enumerate(quals):
+            if q is None or len(q) != len(seqs[i]):
+                return None
+            has_qual[i] = 1
+        codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+        qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
+        narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+        st = self._pass1(n, qmax, codes, read_offs, qarr, has_qual,
+                         ascii_codes=True)
+        if st is None:
+            return None
+        state, state_offs, win_desc = st
+        fut = None
+        if len(win_desc):
+            fwd, qlens = self._padded_reads(
+                np.frombuffer(codec_encode_bulk(codes), np.uint8),
+                read_offs, n, qmax)
+            fut = self._exec.submit(self._device_leg, win_desc, fwd, qlens)
+        return (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs,
+                state, state_offs), fut
+
+    def _device_leg(self, win_desc, fwd, qlens):
+        """The worker thread's part of a batch: the scores [nw] on the
+        host.  A device error raises out of the future."""
+        t0 = time.time()
+        scores, done, nw = self._score_windows(win_desc, fwd, qlens)
+        t1 = time.time()
+        if done is not None:
+            done.synchronize()
+        t2 = time.time()
+        sc = scores[:nw].numpy()
+        self._log(f"# dp1-dev nw={nw} call={t1 - t0:.3f} wait={t2 - t1:.3f} "
+                  f"fetch={time.time() - t2:.3f}")
+        return sc
+
     def run_raw_fastq(self, path: str, out, fallback) -> None:
-        raise NotImplementedError(
-            "--device-pass1 (pass-1 window scoring on the device) is not "
-            "ported yet (ROADMAP.md Queue 1 #5)")
+        """Map a strict FASTQ file, writing SAM records to `out` in input
+        order (fastlane.py:690-793 of the reference): phase A -> device
+        leg -> phase B.  fallback(names, seqs, quals) renders on the host
+        a batch the lane does not take (counted in host_batches); a
+        device error raises."""
+        def fin(item, raw):
+            if item is None:
+                self.host_batches += 1
+                return fallback(*raw)
+            host, fut = item
+            t0 = time.time()
+            sc = fut.result() if fut is not None else np.zeros(0, np.int32)
+            self._log(f"# dp1-main stall={time.time() - t0:.3f}")
+            text = self._pass2(*host, sc, ascii_codes=True, names_raw=True)
+            if text is None:
+                self.host_batches += 1
+                return fallback(*raw)
+            return text
+
+        nreads = [0]
+
+        def write(text, raw):
+            out.write(text)
+            nreads[0] += len(raw[0])
+
+        secs = self._drive(iter_fastq_batches(path, self.batch), "dp1",
+                           lambda raw: raw, lambda item, raw: item, fin,
+                           write)
+        self._log(f"# dp1-total {secs:.3f}s host_batches={self.host_batches} "
+                  f"nreads={nreads[0]}")
 
 
 class DeviceExact(DevicePass1):
@@ -671,8 +854,8 @@ class DeviceExact(DevicePass1):
 
     def __init__(self, lane: FastLane, batch: int = 0, device="cuda"):
         super().__init__(lane, batch=batch or
-                         int(os.environ.get("SMALT_DX_BATCH", 4096)))
-        self.device = torch.device(device)
+                         int(os.environ.get("SMALT_DX_BATCH", 4096)),
+                         device=device)
         self._collate = None
         self._di = None
         # device pass 2 (exact_pass2.py) is opt-in with SMALT_DX_P2=1, as
@@ -684,10 +867,6 @@ class DeviceExact(DevicePass1):
         self.p2_used = 0
         self.p2_fb = 0
         self.p2_hit = 0
-        self.n_restaged = 0
-        self.host_batches = 0
-        self._timing = False
-        self._exec = None
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
@@ -696,7 +875,8 @@ class DeviceExact(DevicePass1):
         """The lane for `engine`, or None where the engine is outside
         the lane's gates (the reference then runs its host lane)."""
         base = DevicePass1.make(engine, fmt, soft_clip, x_mismatch,
-                                ali_out, fix_primary, batch=batch)
+                                ali_out, fix_primary, batch=batch,
+                                device=device)
         if base is None:
             return None
         lane = base.lane
@@ -1069,10 +1249,6 @@ class DeviceExact(DevicePass1):
 
     # ---------------- batch loop ----------------
 
-    def _log(self, msg: str) -> None:
-        if self._timing:
-            print(msg, file=sys.stderr, flush=True)
-
     def _launch(self, args, tag: str):
         """Host pre block for one batch (names, seqs, quals) and its
         collate step submitted to the worker thread: (host, future), or
@@ -1107,37 +1283,6 @@ class DeviceExact(DevicePass1):
         item2, nrest = got
         self._log(f"# {tag}-post {time.time() - t0:.3f}s restaged={nrest}")
         return item2
-
-    def _drive(self, batches, tag: str, lane_args, mid, fin, write) -> float:
-        """The lane's batch loop, pipelined one batch deep at each stage:
-        _launch(lane_args(raw)) -> mid(item, raw) -> fin(item, raw) ->
-        write(text, raw), in input order.  A batch the lane does not take
-        goes through the queues as None and is rendered by fin(), so the
-        output and the host RNG stream keep the input order.  Returns the
-        seconds the loop took."""
-        self._timing = bool(os.environ.get("SMALT_DP1_TIMING"))
-        self._exec = ThreadPoolExecutor(max_workers=1)
-        self.n_restaged = 0
-        t_run = time.time()
-        midq, finq = deque(), deque()
-        try:
-            for raw in batches:
-                midq.append((self._launch(lane_args(raw), tag), raw))
-                while len(midq) > 1:
-                    it, rw = midq.popleft()
-                    finq.append((mid(it, rw), rw))
-                while len(finq) > 1:
-                    it, rw = finq.popleft()
-                    write(fin(it, rw), rw)
-            while midq:
-                it, rw = midq.popleft()
-                finq.append((mid(it, rw), rw))
-            while finq:
-                it, rw = finq.popleft()
-                write(fin(it, rw), rw)
-        finally:
-            self._exec.shutdown(wait=True)
-        return time.time() - t_run
 
     def run_raw_fastq(self, path: str, out, fallback,
                       resume_log=None) -> None:
@@ -1310,3 +1455,39 @@ class DeviceExact(DevicePass1):
 def codec_encode_bulk(ascii_codes: np.ndarray) -> bytes:
     """ASCII read letters -> mangled codes (vectorized CODTAB gather)."""
     return codec.CODTAB[ascii_codes].tobytes()
+
+
+def dp1_step(ref_alpha, reads, qlens, wd, S: int, mat, go: int, ge: int):
+    """The device stage of `--device-pass1` (fastlane.py:1639-1664 of the
+    reference, `_dp1_step_fn`'s step) on the device of its tensors:
+    ref_alpha [N] uint8 reference codes (refcodes & 7, resident), reads
+    [n, Q] uint8 alpha codes padded with 7, qlens [n] int32, wd [W, 4]
+    int64 window descriptors {start, slen, read index, is_rev}, S the
+    windows' padded subject length, mat the DeviceMatrix.  Returns the
+    [W] int32 score-only full-matrix SW scores (sw_score_batch: sw_full.cu
+    on a card, sw_score_ref on the CPU).
+
+    Window starts are int64 end to end, so windows past 2^31 reference
+    bases gather the right bases (the reference's int32 descriptors wrap
+    there), and every gather index is clamped into range explicitly, as
+    JAX clamps its gathers."""
+    dev = reads.device
+    reads = reads.to(torch.int32)
+    n, Q = reads.shape
+    starts, slens = wd[:, 0].to(torch.int64), wd[:, 1].to(torch.int32)
+    ridx = wd[:, 2].to(torch.int64).clamp(0, n - 1)
+    is_rev = wd[:, 3] == 1
+    # reverse complement with each read's length (padding code 7; N and
+    # the other codes with bit 2 set are their own complement)
+    j = torch.arange(Q, dtype=torch.int64, device=dev)[None, :]
+    src = qlens.to(torch.int64)[:, None] - 1 - j
+    g = torch.gather(reads, 1, src.clamp(0, Q - 1))
+    rcq = torch.where(src >= 0, torch.where((g & 4) == 0, g ^ 3, g), 7)
+    qcs = torch.where(is_rev[:, None], rcq[ridx], reads[ridx])
+    # the windows, gathered from the resident reference: code 7 at and
+    # past each window's slen
+    offs = torch.arange(S, dtype=torch.int64, device=dev)[None, :]
+    gidx = (starts[:, None] + offs).clamp(0, ref_alpha.shape[0] - 1)
+    wins = torch.where(offs >= slens[:, None], 7,
+                       ref_alpha[gidx].to(torch.int32))
+    return sw_score_batch(qcs, wins, slens, mat, go, ge, device=dev)

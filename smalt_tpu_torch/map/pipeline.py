@@ -17,12 +17,14 @@ race for one process-global stream (mthread_test.py only requires
 mapq>6 lines to match across thread counts).
 
 Counterpart of smalt_tpu/map/pipeline.py, whose host paths it keeps
-line for line.  The device lanes differ: `run_device_exact_fastq` and
-`run_device_exact_pairs` are the port's `--device-exact` entries (they
-raise where the reference quietly runs its host lane), and the
-`--device-pass1` lane is not ported (ROADMAP.md Queue 1 #5), so
-`run_pipeline_raw_fastq` and `run_pipeline_raw_pairs` take no device
-flags here.
+line for line.  The device lanes are entered apart from the host paths:
+`device_lane` chooses the lane of a `--device-exact` or `--device-pass1`
+run as the reference's run_pipeline_raw_fastq / run_pipeline_raw_pairs
+choose it (DeviceExact, then DevicePass1, then the host lane), so that a
+caller knows before any device call whether a device runs, and
+`run_device_lane` maps through the lane chosen.  `run_device_fastq`,
+`run_device_exact_fastq` and `run_device_exact_pairs` do both, and run
+the host lane where the reference does.
 """
 from __future__ import annotations
 
@@ -278,42 +280,118 @@ def _host_batch_renderer(lane):
     return fallback_batch
 
 
+def device_lane(engine, reads_path: str, fmt: str = "sam",
+                soft_clip: bool = True, x_mismatch: bool = False,
+                fix_primary: bool = False, ali_out: bool = False, *,
+                exact: bool, mates_path: Optional[str] = None, ihist=None,
+                resume: bool = False, device="cuda", batch: int = 0):
+    """The device lane of `map --device-exact` (exact) or `map
+    --device-pass1` on this engine and input, chosen in the reference's
+    order (smalt_tpu/map/pipeline.py:205-249 for single-end reads,
+    318-346 for pairs): DeviceExact under --device-exact; then, for
+    single-end reads without checkpoints (`resume`: DevicePass1 keeps
+    none), DevicePass1; else none, and the host lane maps.  Nothing here
+    touches a device.  Returns (lane, plane, what): lane None where the
+    host lane maps (also where the C lane does not take the options or
+    the input is not strict FASTQ), plane the PairLane of a paired run,
+    what the name of the lane that maps."""
+    from .fastlane import DeviceExact, DevicePass1, FastLane, PairLane
+    args = (engine, fmt, soft_clip, x_mismatch, ali_out, fix_primary)
+    mk = dict(batch=batch, device=device)
+    if os.environ.get("SMALT_TPU_NO_FASTLANE"):
+        return None, None, "the host lane"
+    if mates_path is not None:
+        plane = PairLane.make(*args, ihist)
+        if plane is not None and exact and _strict_fastq(reads_path) and \
+                _strict_fastq(mates_path):
+            dev = DeviceExact.make(*args, **mk)
+            if dev is not None:
+                return dev, plane, "the --device-exact lane"
+        return None, None, "the host pair lane"
+    if FastLane.make(*args) is None or not _strict_fastq(reads_path):
+        return None, None, "the host lane"
+    if exact:
+        dev = DeviceExact.make(*args, **mk)
+        if dev is not None:
+            return dev, None, "the --device-exact lane"
+    if not resume:
+        dev = DevicePass1.make(*args, **mk)
+        if dev is not None:
+            return dev, None, "the --device-pass1 lane"
+    return None, None, "the host lane"
+
+
+def run_device_lane(lane, engine, reads_path: str, out, refset,
+                    fmt: str = "sam", soft_clip: bool = True,
+                    x_mismatch: bool = False, seed: int = 1,
+                    fix_primary: bool = False, ali_out: bool = False, *,
+                    mates_path: Optional[str] = None, plane=None, ihist=None,
+                    resume_log=None):
+    """Map through `lane` (device_lane's), writing headerless records to
+    `out` in input order, with the worker state, host batch renderer and
+    per-pair oracle of the reference's raw paths.  resume_log: the
+    checkpoints of a single-end DeviceExact run.  Returns the lane, whose
+    counters (host_batches; DeviceExact's n_restaged, p2_used, p2_fb,
+    p2_hit) describe the run."""
+    from .fastlane import DeviceExact
+    _init_worker(engine, (fmt, soft_clip, x_mismatch, refset, ali_out), seed)
+    _g["ihist"] = ihist
+    _g["fix_primary"] = fix_primary
+    _g["reseed_per_block"] = False
+    if mates_path is not None:
+        lane.run_raw_pairs(plane, reads_path, mates_path, out,
+                           _oracle_one_pair, _mk_pair)
+        return lane
+    _g["lane"] = lane.lane
+    fallback = _host_batch_renderer(lane.lane)
+    if isinstance(lane, DeviceExact):
+        lane.run_raw_fastq(reads_path, out, fallback, resume_log=resume_log)
+    else:
+        lane.run_raw_fastq(reads_path, out, fallback)
+    return lane
+
+
+def run_device_fastq(engine, path: str, out, refset, fmt: str = "sam",
+                     soft_clip: bool = True, x_mismatch: bool = False,
+                     seed: int = 1, fix_primary: bool = False,
+                     ali_out: bool = False, *, exact: bool, device="cuda",
+                     batch: int = 0, resume_log=None):
+    """Map the single-end FASTQ `path` as `map --device-exact` (exact) or
+    `map --device-pass1` does on `device`, writing headerless records to
+    `out` in input order: through the lane device_lane chooses, or where
+    it chooses none through the host lane, as the reference's
+    run_pipeline_raw_fastq and its caller do.  Returns the device lane
+    that ran, or None."""
+    lane, _, _ = device_lane(engine, path, fmt, soft_clip, x_mismatch,
+                             fix_primary, ali_out, exact=exact,
+                             resume=resume_log is not None, device=device,
+                             batch=batch)
+    opts = dict(fmt=fmt, soft_clip=soft_clip, x_mismatch=x_mismatch,
+                seed=seed, fix_primary=fix_primary, ali_out=ali_out)
+    if lane is not None:
+        return run_device_lane(lane, engine, path, out, refset,
+                               resume_log=resume_log, **opts)
+    if not run_pipeline_raw_fastq(engine, path, out, refset,
+                                  resume_log=resume_log, **opts):
+        from ..seq.io import FastqReader
+        run_pipeline(engine, FastqReader(path), out, refset, **opts)
+    return None
+
+
 def run_device_exact_fastq(engine, path: str, out, refset, fmt: str = "sam",
                            soft_clip: bool = True, x_mismatch: bool = False,
                            seed: int = 1, fix_primary: bool = False,
                            ali_out: bool = False,
                            device="cuda", batch: int = 0, resume_log=None):
-    """Map the single-end FASTQ `path` through the device-exact lane on
-    `device`, writing headerless records to `out` in input order: the
-    device_exact branch of the reference's run_pipeline_raw_fastq
-    (pipeline.py:183-238 there), with the same worker state, strict-FASTQ
-    check, host batch renderer and checkpoints (`resume_log`).  Where
-    the reference quietly runs its host lane instead (input the bulk
-    parser does not take, an engine the device lane refuses), this
-    raises NotImplementedError naming the ROADMAP.md item.  Returns the
-    lane, whose counters (n_restaged, p2_used, p2_fb, p2_hit,
-    host_batches) describe the run."""
-    from .fastlane import DeviceExact, FastLane
-    lane = FastLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
-                         fix_primary)
-    dev = DeviceExact.make(engine, fmt, soft_clip, x_mismatch, ali_out,
-                           fix_primary, batch=batch, device=device)
-    if lane is None or dev is None:
-        raise NotImplementedError(
-            "--device-exact for this engine (the reference runs its host "
-            "lane) is not ported yet (ROADMAP.md Queue 1 #6e)")
-    if not _strict_fastq(path):
-        raise NotImplementedError(
-            "--device-exact on input other than strict 4-line FASTQ is not "
-            "ported yet (ROADMAP.md Queue 1 #6e)")
-    _init_worker(engine, (fmt, soft_clip, x_mismatch, refset, ali_out), seed)
-    _g["ihist"] = None           # single-end: no insert histogram
-    _g["fix_primary"] = fix_primary
-    _g["reseed_per_block"] = False
-    _g["lane"] = lane
-    dev.run_raw_fastq(path, out, _host_batch_renderer(lane),
-                      resume_log=resume_log)
-    return dev
+    """run_device_fastq for `map --device-exact`: DeviceExact, or where
+    DeviceExact.make refuses the engine (a reference of 2^31 bases or
+    more; nskip > wordlen with k > 14 or more than 8 sequences)
+    DevicePass1 unless checkpoints are kept, or the host lane.  Returns
+    the device lane that ran, or None."""
+    return run_device_fastq(engine, path, out, refset, fmt, soft_clip,
+                            x_mismatch, seed, fix_primary, ali_out,
+                            exact=True, device=device, batch=batch,
+                            resume_log=resume_log)
 
 
 def run_device_exact_pairs(engine, reads_path: str, mates_path: str, out,
@@ -322,36 +400,28 @@ def run_device_exact_pairs(engine, reads_path: str, mates_path: str, out,
                            ihist=None, fix_primary: bool = False,
                            ali_out: bool = False, device="cuda",
                            batch: int = 0):
-    """Map the read pairs of two FASTQ files through the device-exact lane
-    on `device`, writing headerless records to `out` in input order: the
-    device_exact branch of the reference's run_pipeline_raw_pairs
-    (pipeline.py:299-345 there), with the same worker state, insert
-    histogram (`ihist`, -g), strict-FASTQ check on both files and
-    per-pair oracle.  Where the reference quietly runs its host pair lane
-    instead, this raises NotImplementedError naming the ROADMAP.md item.
-    Returns the lane, whose counters (n_restaged, host_batches) describe
-    the run."""
-    from .fastlane import DeviceExact, PairLane
-    plane = PairLane.make(engine, fmt, soft_clip, x_mismatch, ali_out,
-                          fix_primary, ihist)
-    dev = DeviceExact.make(engine, fmt, soft_clip, x_mismatch, ali_out,
-                           fix_primary, batch=batch, device=device)
-    if plane is None or dev is None:
-        raise NotImplementedError(
-            "--device-exact on read pairs for this engine (the reference "
-            "runs its host pair lane) is not ported yet (ROADMAP.md Queue 1 "
-            "#6e)")
-    if not (_strict_fastq(reads_path) and _strict_fastq(mates_path)):
-        raise NotImplementedError(
-            "--device-exact on input other than strict 4-line FASTQ is not "
-            "ported yet (ROADMAP.md Queue 1 #6e)")
-    _init_worker(engine, (fmt, soft_clip, x_mismatch, refset, ali_out), seed)
-    _g["ihist"] = ihist
-    _g["fix_primary"] = fix_primary
-    _g["reseed_per_block"] = False
-    dev.run_raw_pairs(plane, reads_path, mates_path, out, _oracle_one_pair,
-                      _mk_pair)
-    return dev
+    """Map the read pairs of two FASTQ files as `map --device-exact` does
+    on `device`, writing headerless records to `out` in input order:
+    through DeviceExact where device_lane chooses it, else through the
+    host pair lane, as the reference's run_pipeline_raw_pairs and its
+    caller do (pipeline.py:299-346 there).  Returns the device lane that
+    ran (counters n_restaged, host_batches), or None."""
+    lane, plane, _ = device_lane(engine, reads_path, fmt, soft_clip,
+                                 x_mismatch, fix_primary, ali_out,
+                                 exact=True, mates_path=mates_path,
+                                 ihist=ihist, device=device, batch=batch)
+    opts = dict(fmt=fmt, soft_clip=soft_clip, x_mismatch=x_mismatch,
+                seed=seed, fix_primary=fix_primary, ali_out=ali_out)
+    if lane is not None:
+        return run_device_lane(lane, engine, reads_path, out, refset,
+                               mates_path=mates_path, plane=plane,
+                               ihist=ihist, **opts)
+    if not run_pipeline_raw_pairs(engine, reads_path, mates_path, out,
+                                  refset, ihist=ihist, **opts):
+        from ..seq.io import PairedReader
+        run_pipeline(engine, PairedReader(reads_path, mates_path), out,
+                     refset, ihist=ihist, **opts)
+    return None
 
 
 def _mk_pair(i, nA, sA, qA, nB, sB, qB):

@@ -98,6 +98,41 @@
 //   - Subject codes arrive L rows at a time, one per lane, and are
 //     broadcast with __shfl_sync.  No global memory is touched inside the
 //     row loop.
+//
+// Queries longer than 512 columns (sw_full_strip_launch): column strips.
+// The (C, L) instances above keep a window's whole query in one warp's
+// registers, 16 columns a lane at most.  Past that, one warp runs the
+// window's query in strips of STRIP_W = 32 * 16 columns, lane l holding
+// columns k*STRIP_W + l*16 + [0, 16) of strip k: strip 0 over all of the
+// window's rows, then strip 1 over all of them, and so on, with the row
+// loop of the 32-lane instance inside.  Only two values a row cross a
+// strip boundary, and strip k leaves them for strip k + 1 in a scratch
+// buffer carry[b][i] = {x, y} of the wrapper's:
+//   x = H[i, j0 - 1], the last column's H, from which the next strip's
+//       first column takes T[i + 1, j0] = H[i, j0 - 1] + w;
+//   y = max over j' < j0 of (H0[i, j'] + j' * ge), the running prefix max
+//       from which F continues into the next strip (its carry is H0, the
+//       value before F, as the recurrence at the top says).
+// E stays in its column, and so inside its strip.  The strip's global
+// column offset j0 enters the lane's offset j0 * ge of the prefix max's
+// lane-local coordinates; lane 0 folds y into its total before the scan
+// (so lane 31's inclusive total is the next strip's y) and starts its
+// exclusive value from y, where strip 0 starts from NEG.  Padded columns
+// (code 7) exist only in the last strip, right of every real column.
+// The carry is 8 bytes a row and strip, read 32 rows at a time (one
+// coalesced load a lane, broadcast by shuffle as the subject codes are)
+// and written by lane 31 a row: at Q = 2,048, S = 2,304 and B = 4,096
+// that is 453 MB over three strip boundaries, 0.14 ms at the card's
+// memory rate against 5.8 ms of the bound's integer work, so it lives
+// in device memory at every S and not in shared memory.
+// Tracking: a lane's strict-greater record is the first of its best
+// cells in the order it visits them, which is row-major within a strip
+// but not across strips.  So a lane keeps one record a strip (the proof
+// above holds strip by strip, over the lane's columns in that strip) and
+// merges it into its running record by the same rule the reduction
+// after the loop applies: highest T, then lowest row, then lowest
+// (global) column.  The lexicographic minimum over the lanes' records of
+// the cells with T = M is then the reference's cell, as above.
 
 #include <cuda_runtime.h>
 
@@ -308,6 +343,166 @@ int launch(bool track, bool wide, const int* q, const int* subj,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int STRIP_C = 16;                 // columns a lane in a strip
+constexpr int STRIP_W = 32 * STRIP_C;       // columns a strip
+constexpr int MAX_STRIP_Q = 16384;          // ops/sw.py MAX_STRIP_Q
+
+// One warp a window, the query in strips of STRIP_W columns (header).
+template <bool TRACK, bool WIDE>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+sw_strip_kernel(const int* __restrict__ q, const int* __restrict__ subj,
+                const int* __restrict__ slens,
+                const int* __restrict__ matrix, int B, int Q, int S,
+                int go, int ge, int kmul, int2* __restrict__ carry,
+                int* __restrict__ best_out, int* __restrict__ ti_out,
+                int* __restrict__ tj_out) {
+  constexpr int C = STRIP_C, L = 32;
+  __shared__ int smat[64];
+  if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;    // window in block
+  const int b = blockIdx.x * WARPS + wib;
+  if (b >= B) return;
+  // the 32-lane instance's profile layout: lane l's word k of row s at
+  // byte s * PITCH + k * 128 + l * 4, read back by lane l alone
+  constexpr int PITCH = L * C;
+  constexpr int WSTRIDE = 8 * PITCH + 128;
+  __shared__ __align__(16) signed char prof[WIDE ? 16 : WARPS * WSTRIDE];
+  signed char* pbase = prof + (WIDE ? 0 : wib * WSTRIDE + lane * 4);
+
+  const int* srow = subj + (size_t)b * S;
+  int2* crow = carry + (size_t)b * S;
+  const int rows = min(slens[b], S);
+  const int nstrip = (Q + STRIP_W - 1) / STRIP_W;
+  int bt = 0, bi = 0, bj = 0;          // TRACK: the lane's record so far
+  int acc = 0;                         // !TRACK: the lane's max of T
+  for (int k = 0; k < nstrip; ++k) {
+    const int j0 = k * STRIP_W + lane * C;   // the lane's first column
+    const int j0ge = j0 * ge;
+    const bool last = k + 1 == nstrip;
+    int qc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0 + c;
+      qc[c] = j < Q ? q[(size_t)b * Q + j] & 7 : 7;
+    }
+    if (!WIDE) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+#pragma unroll
+        for (int w4 = 0; w4 < C / 4; ++w4) {
+          const unsigned w = (smat[8 * s + qc[4 * w4]] & 0xff) |
+                             (smat[8 * s + qc[4 * w4 + 1]] & 0xff) << 8 |
+                             (smat[8 * s + qc[4 * w4 + 2]] & 0xff) << 16 |
+                             (unsigned)smat[8 * s + qc[4 * w4 + 3]] << 24;
+          *reinterpret_cast<unsigned*>(pbase + s * PITCH + w4 * (L * 4)) = w;
+        }
+    }
+    int H[C], Eh[C];                   // Eh = E + i*ge
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      H[c] = 0;
+      Eh[c] = 0;
+    }
+    // strip k - 1's carry stores (lane 31) are seen by every lane
+    __syncwarp();
+    int lthr = 255, lkey = 255, li = 0;  // TRACK: this strip's record
+    int scode = 7;
+    int2 cv = make_int2(0, NEG);       // strip 0: H = 0 left, no prefix
+    int hprev = 0;                     // x of the row above (lane 0 reads)
+    for (int i = 0; i < rows; ++i) {
+      if ((i & 31) == 0) {
+        const int r = i + lane;
+        scode = r < S ? srow[r] & 7 : 7;
+        if (k > 0 && r < rows) cv = crow[r];
+      }
+      const int sc = __shfl_sync(FULL, scode, i & 31);
+      const signed char* prow = pbase + sc * PITCH;
+      const int* mrow = smat + 8 * sc;   // WIDE
+      const int nige = -i * ge;          // E = Eh + nige
+      const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
+
+      int hleft = __shfl_up_sync(FULL, H[C - 1], 1);
+      if (lane == 0) hleft = hprev;      // H[i-1, j0-1] of the last strip
+      hprev = __shfl_sync(FULL, cv.x, i & 31);
+      const int pmc = __shfl_sync(FULL, cv.y, i & 31);
+      int T[C], H0[C], run[C];
+      int r = NEG;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int w = WIDE ? mrow[qc[c]] : prow[(c / 4) * (L * 4) + c % 4];
+        T[c] = (c == 0 ? hleft : H[c - 1]) + w;
+        H0[c] = addmax_relu(Eh[c], nige, T[c]);
+        r = addmax(H0[c], c * ge, r);    // prefix max within the lane
+        run[c] = r;
+      }
+      // inclusive prefix max of the lane totals, in window coordinates,
+      // the strips to the left folded in at lane 0
+      int incl = r + j0ge;
+      if (lane == 0) incl = max(incl, pmc);
+#pragma unroll
+      for (int d = 1; d < L; d <<= 1)
+        incl = max(incl, __shfl_up_sync(FULL, incl, d));
+      int excl = __shfl_up_sync(FULL, incl, 1);
+      excl = (lane == 0 ? pmc : excl) - j0ge;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int cm = c == 0 ? excl : max(excl, run[c - 1]);
+        const int hn = addmax(cm, -(go + (c - 1) * ge), H0[c]);  // max(F, H0)
+        Eh[c] = addmax(hn, ci, Eh[c]);
+        H[c] = hn;
+      }
+      if (!last && lane == 31) crow[i] = make_int2(H[C - 1], incl);
+
+      if (TRACK) {
+        const int m = row_key<C>(T, kmul);
+        if (m > lthr) {                  // T strictly above the strip's best
+          lkey = m;
+          li = i;
+          lthr = m | 255;
+        }
+      } else {
+        acc = max(acc, row_max<C>(T));
+      }
+    }
+    if (TRACK) {
+      const int st = lkey >> 8, sj = j0 + 255 - (lkey & 255);
+      if (st > bt || (st == bt && (li < bi || (li == bi && sj < bj)))) {
+        bt = st;
+        bi = li;
+        bj = sj;
+      }
+    }
+  }
+  if (TRACK) {
+    // highest T, then lowest row, then lowest column, over the warp
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const int ot = __shfl_xor_sync(FULL, bt, d);
+      const int oi = __shfl_xor_sync(FULL, bi, d);
+      const int oj = __shfl_xor_sync(FULL, bj, d);
+      if (ot > bt || (ot == bt && (oi < bi || (oi == bi && oj < bj)))) {
+        bt = ot;
+        bi = oi;
+        bj = oj;
+      }
+    }
+    if (lane == 0) {
+      const bool hit = bt > 0;         // else no row beat the initial 0
+      best_out[b] = hit ? bt : 0;
+      ti_out[b] = hit ? bi : 0;
+      tj_out[b] = hit ? bj : 0;
+    }
+  } else {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      acc = max(acc, __shfl_xor_sync(FULL, acc, d));
+    if (lane == 0) best_out[b] = acc;
+  }
+}
+
 }  // namespace
 
 // Scores B windows on `stream`.  q [B,Q], subj [B,S], slens [B] and
@@ -344,4 +539,29 @@ extern "C" int sw_full_launch(const void* q, const void* subj,
   SWF_TRY(16, 32);
 #undef SWF_TRY
   return -1;
+}
+
+// The same for a query of STRIP_W < Q <= MAX_STRIP_Q columns, in column
+// strips (header).  carry is an int32 [B, S, 2] device scratch buffer the
+// kernel writes before it reads (the caller need not clear it).  Returns
+// the CUDA error of the launch, or -1 when Q is out of range.
+extern "C" int sw_full_strip_launch(const void* q, const void* subj,
+                                    const void* slens, const void* matrix,
+                                    int B, int Q, int S, int go, int ge,
+                                    int track, void* best, void* ti, void* tj,
+                                    void* stream, int wide, void* carry) {
+  if (Q <= STRIP_W || Q > MAX_STRIP_Q || S < 0 || B < 0) return -1;
+  if (B == 0) return 0;
+  const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
+  auto kernel = track ? (wide ? sw_strip_kernel<true, true>
+                              : sw_strip_kernel<true, false>)
+                      : (wide ? sw_strip_kernel<false, true>
+                              : sw_strip_kernel<false, false>);
+  auto st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, block, 0, st>>>(
+      static_cast<const int*>(q), static_cast<const int*>(subj),
+      static_cast<const int*>(slens), static_cast<const int*>(matrix), B, Q,
+      S, go, ge, 256, static_cast<int2*>(carry), static_cast<int*>(best),
+      static_cast<int*>(ti), static_cast<int*>(tj));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,9 @@ import torch
 
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
+# widest query sw_full's strip path takes (strips of MAX_Q columns, one
+# warp a window; sw_full.cu MAX_STRIP_Q): reads up to 16 kb, as sw_band
+MAX_STRIP_Q = 16384
 MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
 # Every score a kernel handles lies below SCORE_CAP in magnitude when
 # max|entry| * (query columns or subject rows, the fewer) is below it:
@@ -40,10 +43,12 @@ SCORE_CAP = 1 << 23
 # launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these).  "_wide": a
 # matrix outside int8 (sw_full's WIDE instances; sw_band's several-warps
-# kernel at any width)
+# kernel at any width); "_strip": sw_full's path for queries past MAX_Q
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
-            "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0}
+            "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0,
+            "sw_full_track_strip": 0, "sw_full_strip": 0,
+            "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0}
 
 _libs: dict = {}
 
@@ -232,23 +237,33 @@ def band_tie_windows(rng, B: int, Q: int):
     return tie_windows(rng, B, Q, S) + (pad, W, S)
 
 
-# ctypes signatures of the kernels' plain C entry points (p pointer, i int);
-# sw_full's and sw_band's `wide` comes last, so that earlier versions of
-# those sources (which take none) can be timed beside them (ops/time_sw.py)
+# ctypes signatures of the kernels' plain C entry points (p pointer, i int),
+# by entry point less its "_launch"; sw_full's and sw_band's `wide` comes
+# last, so that earlier versions of those sources (which take none) can be
+# timed beside them (ops/time_sw.py).  sw_full_strip is sw_full.cu's entry
+# for queries past MAX_Q: sw_full's arguments and the carry scratch.
 _SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
-         "swq": "ppppiiiiiippppp"}
+         "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppip"}
+
+
+def bind(lib, entry: str):
+    """Set the ctypes signature of lib's `<entry>_launch` (_SIGS)."""
+    fn = getattr(lib, entry + "_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                   for c in _SIGS[entry]]
 
 
 def _kernel_lib(name: str):
-    """Build (at first use) and bind csrc/<name>.cu."""
+    """Build (at first use) and bind csrc/<name>.cu: every entry point
+    of _SIGS the source has."""
     lib = _libs.get(name)
     if lib is None:
         from .build import load
         lib = load(name)
-        fn = getattr(lib, name + "_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                       for c in _SIGS[name]]
+        for entry in _SIGS:
+            if entry == name or entry.startswith(name + "_"):
+                bind(lib, entry)
         _libs[name] = lib
     return lib
 
@@ -277,31 +292,39 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     """Launch csrc/sw_full.cu on the current stream.  Same arguments
     and results as sw_score_ref; every tensor contiguous int32 on one
     CUDA device, the matrix a DeviceMatrix (one outside int8 runs the
-    WIDE instances)."""
+    WIDE instances).  A query past MAX_Q columns runs the strip path
+    (sw_full_strip_launch), with an int32 [B, S, 2] carry scratch made
+    here; past MAX_STRIP_Q it raises."""
     B, Q = qcodes.shape
-    if not 1 <= Q <= MAX_Q:
-        raise ValueError(f"sw_full: query length {Q} outside 1..{MAX_Q}")
+    if not 1 <= Q <= MAX_STRIP_Q:
+        raise ValueError(f"sw_full: query length {Q} outside "
+                         f"1..{MAX_STRIP_Q} (the strip path's limit)")
     S = subj.shape[1]
     check_score_cap("sw_full", matrix, min(Q, S))
     _check_args("sw_full", qcodes, subj, slens, matrix.t)
     dev = qcodes.device
     wide = matrix.wide
+    strip = Q > MAX_Q
     lib = _kernel_lib("sw_full")
     best = torch.empty(B, dtype=torch.int32, device=dev)
     ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
     tj = torch.empty(B, dtype=torch.int32, device=dev) if track else None
+    carry = (torch.empty((B, S, 2), dtype=torch.int32, device=dev),) \
+        if strip else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_full_launch(
+        launch = lib.sw_full_strip_launch if strip else lib.sw_full_launch
+        rc = launch(
             qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
             matrix.t.data_ptr(), B, Q, S, int(gapopen_pos), int(gapext_pos),
             1 if track else 0, best.data_ptr(),
             ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream, int(wide))
+            tj.data_ptr() if track else None, stream, int(wide),
+            *(c.data_ptr() for c in carry))
     if rc != 0:
         raise RuntimeError(f"sw_full launch failed (code {rc})")
     launches[("sw_full_track" if track else "sw_full") +
-             ("_wide" if wide else "")] += 1
+             ("_strip" if strip else "") + ("_wide" if wide else "")] += 1
     return (best, ti, tj) if track else best
 
 
@@ -309,7 +332,8 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
                    gapext_pos: int, device, track: bool = False):
     """Batched full-matrix SW scores on `device`.
 
-    qcodes: [B, Q] query codes 0..7 (Q <= 512 on CUDA)
+    qcodes: [B, Q] query codes 0..7 (on CUDA: Q <= MAX_Q in registers,
+            up to MAX_STRIP_Q in column strips)
     subj:   [B, S] subject codes; rows at or past slens are ignored
     slens:  [B]    valid subject lengths
     matrix: [8, 8] score matrix (code 7 must score 0: it pads): a host

@@ -17,10 +17,12 @@ The versions are then timed in turns (CUDA events over --reps launches,
 shapes the mapping paths use, on random windows and on tie-heavy ones
 (swq: chip_smoke.py phase 3c's windows; the lane's own pass-2 windows
 are timed by chip_smoke.py phase 7).
-Prints one line a version and shape with the median and the minimum over
-the rounds, the share of the roofline bound (ops/bounds.py) and the
-card's name and power limit; writes the same as JSON.  Fails without a
-GPU, and on the first difference.
+Prints, for each baseline, how many of the kernels it shares with the
+shipped source compile to the same SASS (cuobjdump), then one line a
+version and shape with the median and the minimum over the rounds, the
+share of the roofline bound (ops/bounds.py) and the card's name and
+power limit; writes the same as JSON.  Fails without a GPU, and on the
+first difference.
 """
 from __future__ import annotations
 
@@ -43,9 +45,13 @@ from . import bounds, build, sw
 
 # sw_full, (Q, S, B): single-end and paired `map --fast`; the pass-1
 # pools of `map --device-exact` for 100 bp and 150 bp reads; the widest
-# query.  Every shape runs tracked and score-only.
+# query in registers; then the strip path (Q > 512): `map --device-pass1`
+# on reads of 513-1,024 bp, up to 2 kb and up to 4 kb.  Every shape runs
+# tracked and score-only; a baseline source without the strip path skips
+# the strip shapes.
 FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
-               (256, 384, 24576), (512, 640, 1024)]
+               (256, 384, 24576), (512, 640, 1024), (1024, 1152, 4096),
+               (2048, 2304, 4096), (4096, 4352, 1024)]
 # sw_band, (Q, B); S, pad and W follow from Q (sw.band_geometry):
 # 1,500 bp reads (the long-read path of `map --fast`) and 640 bp reads
 # (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
@@ -94,7 +100,16 @@ def load(kernel: str, src: str = ""):
         sig = "ppppiiiiipppppp"
     fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
                    for c in sig]
+    if hasattr(lib, "sw_full_strip_launch"):
+        sw.bind(lib, "sw_full_strip")
     return lib
+
+
+def takes(kernel: str, lib, Q: int) -> bool:
+    """Whether `lib` runs this query length (an sw_full source from before
+    the strip path stops at sw.MAX_Q)."""
+    return kernel != "sw_full" or Q <= sw.MAX_Q or \
+        hasattr(lib, "sw_full_strip_launch")
 
 
 def swq_launcher(lib, qa, sj, par, mat, go: int, ge: int, tiles: int):
@@ -136,15 +151,38 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     stream = torch.cuda.current_stream().cuda_stream
     launch = getattr(lib, kernel + "_launch")
     wide = int(mat.wide)
+    scratch = []
+    if kernel == "sw_full" and Q > sw.MAX_Q:     # the strip path
+        launch = lib.sw_full_strip_launch
+        scratch.append(torch.empty((B, s.shape[1], 2), dtype=torch.int32,
+                                   device=q.device))
+    carry = [x.data_ptr() for x in scratch]
 
-    def fn():
+    def fn(scratch=scratch):                     # holds the carry buffer
         rc = launch(q.data_ptr(), s.data_ptr(), sl.data_ptr(),
                     mat.t.data_ptr(), B, Q, s.shape[1], *band, go, ge,
-                    int(track), *ptrs, stream, wide)
+                    int(track), *ptrs, stream, wide, *carry)
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed (code {rc})")
         return out
     return fn
+
+
+def sass_by_kernel(path: str) -> dict:
+    """{kernel's mangled name: its SASS instructions, addresses and
+    encodings dropped} of a built library (cuobjdump, from the CUDA
+    toolkit beside nvcc).  The anonymous namespace's part of a name,
+    which carries the source file's name and a hash, is dropped."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    addr = re.compile(r"/\*[0-9a-f]{4}\*/")
+    anon = re.compile(r"^_ZN\d+_GLOBAL__N__\w+?_[0-9a-f]{8}(?=\d)")
+    return {anon.sub("_ZN", name): [addr.sub("", ln).split(";")[0].strip()
+                                    for ln in body.splitlines()
+                                    if addr.search(ln)]
+            for name, body in zip(parts[1::2], parts[2::2])}
 
 
 def event_ms(fn, reps: int) -> float:
@@ -266,6 +304,18 @@ def main(argv=None) -> int:
               f"{worst}, spill bytes {spills}, largest stack frame {stack}",
               flush=True)
 
+    shipped = sass_by_kernel(build.build_info[a.kernel]["path"])
+    for label, path in srcs.items():
+        if path:
+            base = sass_by_kernel(build.build_info[f"{a.kernel} {path}"]
+                                  ["path"])
+            both = sorted(set(shipped) & set(base))
+            same = sum(shipped[k] == base[k] for k in both)
+            print(f"# SASS [{label}]: {len(base)} kernels, {len(shipped)} "
+                  f"shipped; of the {len(both)} both have, {same} identical "
+                  f"instruction for instruction; only shipped: "
+                  f"{len(set(shipped) - set(base))}", flush=True)
+
     m, go, ge = ali.make_score_matrix()
     go, ge = -go, -ge
     dev = torch.device("cuda")
@@ -281,7 +331,8 @@ def main(argv=None) -> int:
         where = f"{case.shape} track={track} ({case.kind})"
         want = case.plain(head)
         fns = {label: launcher(a.kernel, lib, q, s, sl, mat, go, ge, track,
-                               case.band) for label, lib in libs.items()}
+                               case.band) for label, lib in libs.items()
+               if takes(a.kernel, lib, q.shape[1])}
         ship = [o.clone() for o in fns["shipped"]()]
         for label, fn in fns.items():
             got = fn()

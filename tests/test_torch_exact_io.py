@@ -179,3 +179,59 @@ def test_resume_with_mates_is_ignored(saved, tmp_path, capsys, monkeypatch):
     assert not os.path.exists(got + ".resume")
     assert tcli.main(["map", "-r", "1", "-o", want, name, fq1, fq2]) == 0
     assert _records(got) == _records(want) and len(_records(got)) == 240
+
+
+def _sam_reads(fq: str, path: str) -> str:
+    """The reads of a FASTQ file as unmapped SAM records (read input)."""
+    lines = open(fq).read().splitlines()
+    with open(path, "w") as f:
+        for i in range(0, len(lines), 4):
+            f.write(f"{lines[i][1:]}\t4\t*\t0\t0\t*\t*\t0\t0\t{lines[i + 1]}\t"
+                    f"{lines[i + 3]}\n")
+    return path
+
+
+@pytest.mark.parametrize("case", ["sam-exact", "sam-pass1", "mates-pass1",
+                                  "bam-collide", "crlf-exact"])
+def test_device_flags_hand_off_to_the_host_lane(saved, tmp_path, capsys,
+                                                monkeypatch, case):
+    """Runs the reference hands to its host lane run there in the port too,
+    with a note on stderr, and write the output of `map` without the flag:
+    SAM input, --device-pass1 with mates (smalt_tpu/cli.py:379-385), -f
+    bam where reference names collide once cut at white space (BAM from
+    report objects), and FASTQ the bulk parser does not take (CRLF line
+    ends: smalt_tpu/map/pipeline.py:211-213).  No card is needed: the handoff comes before
+    any device check."""
+    monkeypatch.setenv("SMALT_DX_BATCH", "64")
+    name, *files = saved["pe" if case == "mates-pass1" else "se"]
+    flag = "--device-pass1" if case.endswith("pass1") else "--device-exact"
+    fmt, note = "sam", "apply to serial FASTQ runs"
+    if case.startswith("sam"):
+        files = [_sam_reads(files[0], str(tmp_path / "reads.sam"))]
+    if case == "crlf-exact":
+        crlf = tmp_path / "crlf.fq"
+        crlf.write_bytes(open(files[0], "rb").read().replace(b"\n",
+                                                             b"\r\n"))
+        files = [str(crlf)]
+        note = "lane's gates; the host lane maps"
+    if case == "bam-collide":
+        # the corpus's genome cut in two sequences, "ctg one", "ctg two"
+        seq = "".join(ln.strip() for ln in open(os.path.join(
+            os.path.dirname(name), "g.fa")) if not ln.startswith(">"))
+        fa = str(tmp_path / "g.fa")
+        half = len(seq) // 2
+        open(fa, "w").write(f">ctg one\n{seq[:half]}\n>ctg two\n"
+                            f"{seq[half:]}\n")
+        name = str(tmp_path / "idx")
+        assert tcli.cmd_index(["-k", "11", "-s", "2", name, fa]) == 0
+        fmt, note = "bam", "the host lane writes BAM from report objects"
+    outs = []
+    for flags in ([flag, "--device", "cuda"], []):
+        out = str(tmp_path / f"o{len(outs)}.{fmt}")
+        capsys.readouterr()
+        assert tcli.main(["map"] + flags + ["-f", fmt, "-r", "1", "-o", out,
+                                            name] + files) == 0
+        if flags:
+            assert note in capsys.readouterr().err
+        outs.append(_bam_body(out) if fmt == "bam" else _text_body(out))
+    assert outs[0] == outs[1] and len(outs[1]) > 200

@@ -312,13 +312,27 @@ def test_cli_pairs_match_jax_cli(saved_pairs):
     (["--fast", "--profile", "prof"], "Queue 1 #12"),
     (["--fast", "-n", "2"], "Queue 1 #11"),
     # an explicit id: the case keeps its name when cases are added or
-    # removed (--device-exact with mates maps: tests/test_torch_exact_pe.py)
-    pytest.param(["--device-pass1"], "Queue 1 #5", id="extra4-Queue 1 #5"),
+    # removed (--device-exact with mates maps: tests/test_torch_exact_pe.py).
+    # --device-pass1 maps since it was ported (item None): the case holds
+    # it to `map` without the flag (tests/test_torch_pass1.py has the rest)
+    pytest.param(["--device-pass1", "-r", "1"], None,
+                 id="extra4-Queue 1 #5"),
 ])
-def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys):
+def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys,
+                                           monkeypatch):
     from smalt_tpu_torch import cli
     name, fq = saved_index
+    if item is None:
+        monkeypatch.setenv("SMALT_DP1_BATCH", "64")
+        assert cli.main(["map", "-r", "1", name, fq]) == 0
+        want = _body(capsys.readouterr().out)
     rc = cli.main(["map"] + extra + ["--device", "cpu", name, fq])
+    if item is None:
+        got = capsys.readouterr()
+        assert rc == 0 and _body(got.out) == want
+        assert len([ln for ln in want if ln[:1] != "@"]) == 200
+        assert got.err == ""                 # the lane the flag names ran
+        return
     assert rc == 2
     assert f"ROADMAP.md {item})" in capsys.readouterr().err
 

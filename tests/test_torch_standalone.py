@@ -169,8 +169,10 @@ CHANGED = {
     "tools/__init__.py": (
         "the usage line names this package", ("tools: simread", "\"\"\"")),
     "map/pipeline.py": (
-        "no --device-pass1 branch (unported); run_device_exact_fastq and "
-        "run_device_exact_pairs are the port's --device-exact entries",
+        "the device branches of run_pipeline_raw_fastq / _pairs move to "
+        "device_lane (the reference's order of lanes, chosen before any "
+        "device call) and run_device_lane / run_device_fastq / "
+        "run_device_exact_pairs",
         ("def _render_block(args):", "def run_pipeline_raw_fastq(")),
     "map/fastmode.py": (
         "the host half is the reference's; run_fast_pipeline drives the "
@@ -181,8 +183,8 @@ CHANGED = {
         "host halves only; DeviceExact runs the port's torch steps",
         ("class FastLane:", "class DevicePass1:")),
     "cli.py": (
-        "--device, the port's --fast and --device-exact lanes, the "
-        "program's name, unported options exit 2",
+        "--device, the port's --fast, --device-exact and --device-pass1 "
+        "lanes, the program's name, unported options exit 2",
         ("def _parse_penalties(", "def _sam_is_paired(")),
 }
 
