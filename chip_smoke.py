@@ -22,7 +22,14 @@
    columns), tracked and score-only, int8 and WIDE, at Q=640 / S=768,
    Q=1,024 / S=1,152, Q=2,048 / S=2,304 and Q=4,096 / S=4,352 on 64
    planted and 64 tie-heavy windows each, and timed at Q=2,048 /
-   S=2,304 on 4,096 tie-heavy windows (the plain version once).
+   S=2,304 on 4,096 tie-heavy windows (the plain version once).  Then
+   the strip path past 16,384 columns: Q=32,768 / S=2,048 on 64 windows
+   planted past column 16,384 and 64 tie-heavy ones, int8 and WIDE, with
+   the carry scratch budget (ops/sw.py STRIP_SCRATCH_BYTES) lowered so
+   that each call runs in 4 launches; and the two-part record (the _rec
+   kernels) on 16 windows that score past 2^23 (S = 16,384; Q = 16,384
+   with entries of +-1,000, and their first 512 columns with entries of
+   +-24,000), timed on 1,056 copies of them.
    Phases 3, 3b and 3c print each kernel's roofline bound at each shape
    (smalt_tpu_torch/ops/bounds.py: the cells and bytes these inputs
    need), which of operations and bytes bounds it, and the share of the
@@ -42,7 +49,12 @@
    with a subject of 26,000 rows at W = 256 (no room for the one-warp
    kernel's shared-memory profile).  Then Q = 1504 / W = 384 on 4,096
    windows with the matrix outside int8 of phase 3, which runs the
-   several-warps kernel.
+   several-warps kernel.  Then sw_band_many_kernel (bands past 3,072
+   lanes, up to 32 warps a window): the band of 20 kb reads (Q = 20,000,
+   W = 3,840, S = 22,528) on 12 windows (the plain version timed there),
+   then timed on 1,024 copies of them (12,288 windows, the default
+   batch's), and the widest band, W = 16,384 (Q = 87,040), on 4 windows
+   of 8,192 subject rows.
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -60,13 +72,19 @@
    (bench.py:771), batch 4,096: one record per read, >= 85% placed
    within 150 bp on the right strand, sw_band_track launched and
    sw_full_track not, the first 256 reads' SAM equal to `--device cpu`;
-   the device step's and the host tail's time for one batch.
+   the device step's and the host tail's time for one batch.  Then the
+   same reads with the tail pool (-n min(8, cores), spawned workers): SAM
+   byte-identical to -n 1, both rates and their ratio.
 6. Pairs on the same genome and index: 50,000 pairs of 2 x 150 bp,
    inserts 300 +- 30 in FR orientation, 1% substitutions, batch 4,096
    pairs: one record per mate, >= 95% of mates within 8 bp on the right
    strand, the share flagged proper pair, the first batch's packed
    [12, 8,192] step output and its 4,096 pairs' SAM equal to
-   `--device cpu`.
+   `--device cpu`; the tail pool as in phase 5.
+6b. `map --fast --resume` on phase 4's first 4,096 reads in batches of
+   512, killed after two checkpoints and run again: SAM byte-identical to
+   the uninterrupted run; `--profile DIR` on the same reads: a torch
+   profiler trace under DIR (its device kernel events counted), same SAM.
 7. `map --device-exact` on the same genome and index: 20,480 reads of
    100 bp (five batches of 4,096) through the host C lane (`map`, no
    device flag), then `map --device-exact` on the card with SMALT_DX_P2
@@ -88,8 +106,9 @@
 8. `-S match=200,subst=-2` (a matrix outside int8) on the same genome
    and index: `map --fast` on 4,096 reads, SAM equal to `--device cpu`,
    through the WIDE tracked sw_full; `map --device-exact` with
-   SMALT_DX_P2=1 on 4,096 reads, SAM equal to the host C lane, through
-   the WIDE score-only sw_full and swq, p2_hit > 0.
+   SMALT_DX_P2=1 and `map --device-pass1` on 4,096 reads, SAM equal to
+   the host C lane, through the WIDE score-only sw_full (and swq,
+   p2_hit > 0).
 9. Paired `map --device-exact` on the same genome and index: 10,240
    pairs of 2 x 150 bp (five batches of 2,048 pairs, 20,480 mates),
    inserts 300 +- 30 FR, 1% substitutions, mate B random bases in every
@@ -112,15 +131,27 @@
    2^31 + 2^24 random codes with windows below 2^31, straddling it,
    above it and at its end, equal to its plain version built from an
    int64 gather.
-11. Prints each kernel's launches by path (and per 4,096 reads), the
+11. Reads over 16 kb on the same genome and index: 1,024 reads of 20
+   kb (phase 5's generator) through `map --fast -n 8` on the card at the
+   default batch (3,072 windows through sw_band_many_kernel), the first
+   4 records byte-identical to --device cpu on those 4 reads; the 4
+   through `map --device-pass1` against the host C lane (SAM
+   byte-identical, the strip path at Q = 32,768), again with the strip
+   scratch budget lowered (the windows in groups, SAM unchanged); then
+   4 reads of 9 kb under -S KEY_SPEC (the default penalties times
+   1,000), whose windows score past 2^23, through both lanes the same
+   way; then 4,096 reads of 100 bp through `map --fast -S
+   KEY_SHORT_SPEC` (the penalties times 40,000: sw_full's two-part
+   record), SAM byte-identical to --device cpu.
+12. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6, 7's three device runs, 8's two, 9's and 10's device runs) and read
-just after it; the comparisons
+6 and their -n runs, 6b's, 7's three device runs, 8's three, 9's, 10's
+and 11's device runs) and read just after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
@@ -184,6 +215,25 @@ WIDE_FULL_SHAPES = [(112, 128, 3 * BATCH), (160, 256, 6 * BATCH)]
 STRIP_SHAPES = [(640, 768), (1024, 1152), (2048, 2304), (4096, 4352)]
 STRIP_CHECK_B = 64
 STRIP_TIME = (2048, 2304, BATCH)
+# the strip path past 16,384 columns (the pass-1 lane pads reads over 16 kb
+# to 32,768): (Q, S, windows), the carry scratch split into
+# STRIP_FAR_GROUPS launches by a lowered ops/sw.py STRIP_SCRATCH_BYTES
+STRIP_FAR = (32768, 2048, 64)
+STRIP_FAR_GROUPS = 4
+# scores past 2^23 (the tracking key's limit): the two-part record (the
+# _rec kernels) on planted Q = S = 16,384 windows with entries of +-1000,
+# and on their first 512 columns with entries of +-24,000 (in registers),
+# checked on KEY_SHAPE's 16 windows and timed on KEY_FULL_B copies of them
+KEY_PEN, KEY_REG_PEN = (1000, -1000), (24000, -24000)
+KEY_SHAPE = (16384, 16384, 16)
+KEY_FULL_B = 66 * 16                  # 8 warps a SM
+# sw_band_many_kernel (W > 3,072): the band of 20 kb reads (phase 11's
+# shape, 3 windows a read), checked on BAND_MANY_B windows and timed on
+# BAND_MANY_FULL_B, and the widest band, W = 16,384 (Q = 87,040), on its
+# first BAND_WIDEST[1] subject rows
+BAND_MANY_Q, BAND_MANY_B = 20000, 12
+BAND_MANY_FULL_B = 3 * BATCH          # timed: the default batch's windows
+BAND_WIDEST = (87040, 8192, 4)        # Q, subject rows, windows
 WIDE_SPEC = "match=200,subst=-2"
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
 N_PE_EXACT = 5 * BATCH // 2       # phase 9: five batches of 2,048 pairs
@@ -191,6 +241,22 @@ N_DP1_LONG = 1024                 # phase 10b: reads of LONG_READLEN
 FAR_REF = (1 << 31) + (1 << 24)   # phase 10d: codes of the resident reference
 # phase 7b: (read length, indels, -S) of the lane's band-width cases
 LANE_BANDS = [(150, False, None), (250, True, None), (250, True, WIDE_SPEC)]
+# phases 5 and 6 also map with the tail pool of this many processes
+POOL_N = min(8, os.cpu_count() or 1)
+# phase 6b: --resume killed after RESUME_TICKS batches of RESUME_BATCH
+# reads of phase 4's head, and restarted; --profile on the same reads
+RESUME_BATCH, RESUME_TICKS = 512, 2
+# phase 11: reads over 16 kb (phase 5's generator), one batch; then
+# KEY_READLEN reads under -S KEY_SPEC, whose scores pass 2^23: the
+# default penalties times 1,000 (a match of 1,000 alone makes gaps so
+# cheap that the host C pass-2 block refuses every batch: its direction
+# matrix grows past its cap, and the lane renders the batch on the host)
+VLONG_READLEN, N_VLONG, VLONG_DP1_BATCH = 20_000, 4, 64
+N_VLONG_FAST = 1024               # --fast on the card: 3,072 windows
+KEY_READLEN = 9_000
+KEY_SPEC = "match=1000,subst=-2000,gapopen=-4000,gapext=-3000"
+# the default penalties times 40,000: a 100 bp window could score 2^23
+KEY_SHORT_SPEC = "match=40000,subst=-80000,gapopen=-160000,gapext=-120000"
 
 
 def fail(msg: str):
@@ -639,6 +705,217 @@ def check_strip(rng, card: str):
     return worst, out
 
 
+def far_windows(rng, B: int, Q: int, S: int):
+    """Windows whose subject is a stretch of the query starting past its
+    first half (4% substitutions, one indel run in four windows), so that
+    the best cells, and the carry that reaches them, lie in the query's
+    far strips; half the subject lengths below S."""
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    off = rng.integers(Q // 2, Q - S + 1, B)
+    s = np.take_along_axis(q, off[:, None] + np.arange(S)[None, :], 1)
+    gap = (np.arange(B) % 4 == 0)[:, None] & (np.arange(S)[None, :] >=
+                                              S // 2)
+    s = np.where(gap, np.roll(s, 7, axis=1), s)
+    mut = rng.random((B, S)) < 0.04
+    s[mut] = rng.integers(0, 4, int(mut.sum()))
+    slens = np.where(rng.random(B) < 0.5, S,
+                     rng.integers(S // 2, S + 1, B)).astype(np.int32)
+    s[np.arange(S)[None, :] >= slens[:, None]] = 7
+    return q, s.astype(np.int32), slens
+
+
+def full_equal(q, s, sl, mat, go: int, ge: int, what: str):
+    """sw_full_cuda, tracked and score-only, against sw_score_ref on the
+    same windows, exactly.  Returns (the launches the two calls made, the
+    plain version's result, its time in ms)."""
+    import torch
+    from smalt_tpu_torch.ops import sw
+    before = dict(sw.launches)
+    got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
+    got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
+    n = {k: sw.launches[k] - before[k] for k in sw.launches
+         if sw.launches[k] != before[k]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
+    err0 = int((got0 - want[0]).abs().max())
+    if max(errs + [err0]) != 0:
+        bad = ((got[0] != want[0]) | (got[1] != want[1]) |
+               (got[2] != want[2]) | (got0 != want[0])).nonzero().flatten()
+        fail(f"sw_full differs from sw_score_ref at {what}: max |diff| "
+             f"best/ti/tj {errs}, score-only {err0}; windows "
+             f"{bad[:8].tolist()}")
+    return n, want, plain_ms
+
+
+def check_strip_far(rng, card: str):
+    """Phase 3, past 16,384 columns and past 2^23: the strip path at
+    STRIP_FAR (int8 and WIDE_PEN, tracked and score-only, far-planted and
+    tie-heavy windows) with ops/sw.py STRIP_SCRATCH_BYTES lowered so that
+    a call runs STRIP_FAR_GROUPS launches, then timed with the module's
+    budget (one launch); then the two-part record (sw_full_track_rec,
+    sw_full_track_strip_rec) at KEY_SHAPE, whose best scores pass 2^23,
+    in registers (Q <= 512 windows cut from the same, under KEY_REG_PEN)
+    and in strips (under KEY_PEN), timed on KEY_FULL_B copies of the
+    windows.  All against
+    sw_score_ref, exactly.  Returns (the max |diff| (0), {instance: its
+    kernels-line entry})."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    Q, S, B = STRIP_FAR
+    budget = sw.STRIP_SCRATCH_BYTES
+    for tag, pen in (("", ()), ("_wide", WIDE_PEN)):
+        m, go, ge = ali.make_score_matrix(*pen)
+        mat, go, ge = sw.device_matrix(m, "cuda"), -go, -ge
+        for kind, gen in (("far-planted", far_windows),
+                          ("tie-heavy", sw.tie_windows)):
+            q, s, sl = (torch.from_numpy(x).cuda() for x in gen(rng, B, Q, S))
+            sw.STRIP_SCRATCH_BYTES = 8 * S * (B // STRIP_FAR_GROUPS)
+            try:
+                n, want, _ = full_equal(q, s, sl, mat, go, ge,
+                                        f"Q={Q} S={S} ({kind}{tag})")
+            finally:
+                sw.STRIP_SCRATCH_BYTES = budget
+            if n != {f"sw_full_track_strip{tag}": STRIP_FAR_GROUPS,
+                     f"sw_full_strip{tag}": STRIP_FAR_GROUPS}:
+                fail(f"strips at Q={Q}: launches {n}, {STRIP_FAR_GROUPS} "
+                     f"groups of each instance expected")
+            far = int((want[2] >= 16384).sum())
+            if kind == "far-planted" and far < B // 2:
+                fail(f"degenerate far windows at Q={Q}: {far} best cells "
+                     f"past column 16,384")
+            print(f"# sw_full strips Q={Q} S={S} B={B}, {kind} windows"
+                  f"{', entries ' + str(WIDE_PEN) if tag else ''}: equal to "
+                  f"sw_score_ref (best, ti, tj and score-only; {far} best "
+                  f"cells past column 16,384) in {STRIP_FAR_GROUPS} launches "
+                  f"of {B // STRIP_FAR_GROUPS} windows each | {card}",
+                  flush=True)
+            if kind == "far-planted" and not tag:
+                k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                                       track=False), 3)
+                print(bound_line(f"sw_full_strip Q={Q} S={S} B={B} (one "
+                                 f"launch)", bounds.sw_full_work(
+                                     Q, S, sl, False), k_ms, card),
+                      flush=True)
+    Q, S, B = KEY_SHAPE
+    q, s, sl = (torch.from_numpy(x).cuda() for x in
+                kernel_windows(rng, B, Q, S))
+    sl.fill_(S)
+    recs = {}
+    for cut, pen in ((sw.MAX_Q, KEY_REG_PEN), (Q, KEY_PEN)):
+        m, go, ge = ali.make_score_matrix(*pen)   # in registers, in strips
+        mat, go, ge = sw.device_matrix(m, "cuda"), -go, -ge
+        qc = q[:, :cut].contiguous()
+        n, want, p_ms = full_equal(qc, s, sl, mat, go, ge,
+                                   f"Q={cut} S={S}, entries {pen}")
+        best = int(want[0].max())
+        if best < sw.KEY_CAP:
+            fail(f"degenerate key windows at Q={cut}: best {best} below "
+                 f"2^23")
+        name = next(k for k in n if "track" in k)
+        if not name.endswith("_rec"):
+            fail(f"Q={cut} S={S} under entries {pen} ran {name}, not the "
+                 f"two-part record")
+        # timed on copies of the windows, enough to fill the card
+        rep = KEY_FULL_B // B
+        qf, sf, slf = qc.repeat(rep, 1), s.repeat(rep, 1), sl.repeat(rep)
+        got = sw.sw_full_cuda(qf, sf, slf, mat, go, ge, track=True)
+        if not all(torch.equal(g, w.repeat(rep)) for g, w in zip(got, want)):
+            fail(f"{name} Q={cut}: the {rep} copies of {B} windows differ "
+                 f"from the plain version's result")
+        k_ms = time_ms(lambda: sw.sw_full_cuda(qf, sf, slf, mat, go, ge,
+                                               track=True), 2, warm=1)
+        work = bounds.sw_full_work(cut, S, slf, True)
+        print(f"# {name} Q={cut} S={S} B={B}, entries {pen}: equal to "
+              f"sw_score_ref (best, ti, tj and score-only; best up to "
+              f"{best}, 2^23 = {sw.KEY_CAP}), plain {p_ms:.1f} ms; repeated "
+              f"to B={B * rep}: each copy equal | {card}", flush=True)
+        print(bound_line(f"{name} Q={cut} S={S} B={B * rep} (scores past "
+                         f"2^23)", work, k_ms, card), flush=True)
+        # ms and bound_ms on the copies, plain_ms on the first B windows
+        recs[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=work["bound_ms"],
+                          bound_by=work["bound_by"], windows=B * rep,
+                          plain_windows=B)
+        del qf, sf, slf, got
+    return 0, recs
+
+
+def check_band_many(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, bands past 3,072 lanes: sw_band_many_kernel (up to 32
+    warps a window) against sw_band_score_ref at BAND_MANY_Q (the band of
+    20 kb reads) on BAND_MANY_B windows (the plain version timed there),
+    then those windows repeated to BAND_MANY_FULL_B (the default batch's
+    windows: the card filled), each copy's result equal to its original's,
+    timed; and at the widest band, W = 16,384, on BAND_WIDEST.  Returns
+    (max_abs_err, tracked, score-only) as check_band_kernel does, the
+    kernel's times those of the full batch."""
+    import torch
+    from smalt_tpu_torch.ops import bounds, sw
+    Q, B = BAND_MANY_Q, BAND_MANY_B
+    q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    before = dict(sw.launches)
+    err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                           f"Q={Q} W={W} S={S} (many warps)")
+    n = {k: sw.launches[k] - before[k] for k in sw.launches
+         if sw.launches[k] != before[k]}
+    if n != {"sw_band_track_many": 1, "sw_band_many": 1}:
+        fail(f"sw_band at W={W}: launches {n}")
+    if int(want[0].max()) <= Q // 4:
+        fail(f"degenerate band windows at Q={Q}")
+    p_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad,
+                                                W, track=True), 1, warm=0)
+    p0_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge,
+                                                 pad, W), 1, warm=0)
+    rep = BAND_MANY_FULL_B // B
+    qf, sf, slf = q.repeat(rep, 1), s.repeat(rep, 1), sl.repeat(rep)
+    got = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=True)
+    got0 = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=False)
+    if not all(torch.equal(g, w.repeat(rep)) for g, w in zip(got, want)) or \
+            not torch.equal(got0, want[0].repeat(rep)):
+        fail(f"sw_band at Q={Q} W={W}: the {rep} copies of {B} windows "
+             f"differ from the plain version's result")
+    k_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W,
+                                           track=True), 2, warm=1)
+    k0_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W,
+                                            track=False), 2, warm=1)
+    Bf = B * rep
+    print(f"# sw_band Q={Q} W={W} S={S} B={B} (sw_band_many_kernel, "
+          f"{-(-W // 384)} warps a window): equal to sw_band_score_ref "
+          f"(best, ti, tj and score-only), plain {p_ms:.1f} ms tracked, "
+          f"{p0_ms:.1f} ms score-only; repeated to B={Bf}: each copy equal, "
+          f"track {k_ms:.4f} ms, score-only {k0_ms:.4f} ms | {card}",
+          flush=True)
+    wt, w0 = (bounds.sw_band_work(Q, S, W, pad, slf, t) for t in (True, False))
+    print(bound_line(f"sw_band_track_many Q={Q} W={W} S={S} B={Bf}", wt, k_ms,
+                     card))
+    print(bound_line(f"sw_band_many Q={Q} W={W} S={S} B={Bf}", w0, k0_ms,
+                     card), flush=True)
+    del qf, sf, slf, got, got0
+    Qw, Sw, Bw = BAND_WIDEST
+    q, s, sl, pad, W, _ = sw.band_windows(rng, Bw, Qw)
+    s = np.ascontiguousarray(s[:, :Sw])
+    sl = np.minimum(sl, Sw).astype(np.int32)
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    if W != sw.MAX_BAND_W:
+        fail(f"the band at Q={Qw} is {W} lanes, not {sw.MAX_BAND_W}")
+    err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                              f"Q={Qw} W={W} S={Sw} (32 warps)")[0])
+    print(f"# sw_band Q={Qw} W={W} (the widest band, 32 warps of 16 lanes a "
+          f"thread), first {Sw} subject rows, B={Bw}: equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only) | {card}",
+          flush=True)
+    # ms and bound_ms on the full batch, plain_ms on its first B windows
+    return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                      bound_by=wt["bound_by"], windows=Bf, plain_windows=B),
+            dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
+                 bound_by=w0["bound_by"], windows=Bf, plain_windows=B))
+
+
 def check_wide_band(rng, card: str):
     """Phase 3b, a matrix outside int8 (WIDE_PEN): sw_band at the main
     path's Q = BAND_MAIN_Q, which sends such a matrix to the several-warps
@@ -904,7 +1181,8 @@ def check_band_kernel(rng, card: str):
     worst = max(worst, check_band_ties(rng, mat, go, ge, card),
                 check_band_odd_widths(rng, mat, go, ge, card),
                 check_band_long_subject(rng, mat, go, ge, card))
-    return (worst,) + main
+    many = check_band_many(rng, mat, go, ge, card)
+    return (max(worst, many[0]),) + main + many[1:]
 
 
 def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
@@ -1038,7 +1316,7 @@ def map_cli(device: str, idx_name: str, sam: str, reads, batch: int,
     """`map --fast` through the port's CLI with the launch counts set to
     0 just before and read just after.  reads: [fq] or [fq, mates];
     extra: more options (-S).  Returns (launches, wall seconds, the
-    SMALT_TIMING match)."""
+    SMALT_TIMING match, whose .string is the run's stderr)."""
     rc, err, launches, wall = cli_run(
         ["map", "--fast", "-f", "sam", "-o", sam, "--device", device] +
         list(extra) + [idx_name] + list(reads), SMALT_TIMING="1",
@@ -1096,6 +1374,41 @@ def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
           f"{tail_ms:.1f} ms (one call) | {card}", flush=True)
 
 
+def import_seconds(module: str) -> float:
+    """Seconds a fresh interpreter takes to import `module`."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); "
+         f"import {module}; print(time.perf_counter() - t)"],
+        capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        fail(f"import {module} in a fresh process: {r.stderr[-300:]}")
+    return float(r.stdout)
+
+
+def pool_run(what: str, device: str, idx_name: str, reads, body, n: int,
+             wall1: float, m1, card: str):
+    """The mapping run of a phase again with the tail pool (-n POOL_N):
+    SAM byte-identical to the -n 1 run's `body`; both runs' reads/s (CLI
+    and pipeline) and their ratio, which compare only inside one call,
+    and the pool's own timing line.  Returns the pooled run's
+    launches."""
+    sam = os.path.join(os.path.dirname(idx_name), f"{what[:4]}_n{POOL_N}.sam")
+    launches, wall, m = map_cli(device, idx_name, sam, reads, BATCH,
+                                ["-n", str(POOL_N)])
+    if sam_body(sam) != body:
+        fail(f"{what}: SAM of -n {POOL_N} differs from -n 1")
+    p1, pn = (int(x.group(4)) if x else 0 for x in (m1, m))
+    pool = re.search(r"tail pool: .*", m.string) if m else None
+    print(f"# map --fast, {what}, -n {POOL_N} (spawned tail workers): SAM "
+          f"byte-identical to -n 1; CLI {n / wall:.1f} reads/s against "
+          f"{n / wall1:.1f} at -n 1 ({wall1 / wall:.2f}x), pipeline {pn} "
+          f"reads/s against {p1} ({pn / max(p1, 1):.2f}x); "
+          f"{pool.group(0) if pool else 'no tail pool line'}; launches "
+          f"{launches} | {card}", flush=True)
+    return launches
+
+
 def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
     """Phase 5: kilobase reads on the phase-4 genome and index."""
     from smalt_tpu_torch.map.fastmode import iter_fastq_hybrid
@@ -1126,6 +1439,13 @@ def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
         fail("the long-read path launched sw_full")
     if placed < MIN_LONG * N_LONG:
         fail(f"only {placed}/{N_LONG} long reads placed within {LONG_TOL} bp")
+    # what a tail worker's start costs: it imports map/fastmode.py (and
+    # the host layers), not torch
+    print(f"# import in a fresh process: smalt_tpu_torch.map.fastmode (a "
+          f"tail worker's) {import_seconds('smalt_tpu_torch.map.fastmode'):.2f}"
+          f" s, torch {import_seconds('torch'):.2f} s | {card}", flush=True)
+    pooled = pool_run("long reads", device, idx_name, [fq], body, N_LONG,
+                      wall, m, card)
 
     batch_split("long reads", idx_name, next(iter(iter_fastq_hybrid(
         fq, BATCH))), False, device, card)
@@ -1138,7 +1458,7 @@ def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
     print(f"# SAM of the first {LONG_HEAD} long reads byte-identical to "
           f"--device cpu ({time.perf_counter() - t0:.1f} s on the CPU)",
           flush=True)
-    return launches
+    return launches, pooled
 
 
 def run_pairs(d: str, genome, card: str, device: str = "cuda"):
@@ -1174,6 +1494,8 @@ def run_pairs(d: str, genome, card: str, device: str = "cuda"):
         fail("the paired path never launched the sw_full kernel")
     if placed < MIN_PLACED * nm:
         fail(f"only {placed}/{nm} mates placed within {PLACE_TOL} bp")
+    pooled = pool_run("pairs", device, idx_name, [fq1, fq2], body, nm, wall,
+                      m, card)
     (n1, s1, q1), (n2, s2, q2) = (next(iter_fastq_batches(f, BATCH))
                                   for f in (fq1, fq2))
     batch_split("pairs", idx_name, (n1 + n2, s1 + s2, q1 + q2), True,
@@ -1185,7 +1507,7 @@ def run_pairs(d: str, genome, card: str, device: str = "cuda"):
         fail(f"SAM of the first {PAIR_HEAD} pairs differs from the CPU path")
     print(f"# SAM of the first {PAIR_HEAD} pairs byte-identical to --device "
           f"cpu ({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
-    return launches
+    return launches, pooled
 
 
 def lane_pass2_batch(dev, raw):
@@ -1474,11 +1796,12 @@ def run_wide_matrix(d: str, genome, card: str):
           f"byte-identical to --device cpu "
           f"({time.perf_counter() - t0:.1f} s on the CPU); launches {fast} | "
           f"{card}", flush=True)
-    bodies = {}
-    for label, flags in (("host C lane", []),
+    bodies, lanes = {}, {}
+    for label, flags in (("--device-pass1", ["--device-pass1"]),
+                         ("host C lane", []),
                          ("--device-exact SMALT_DX_P2=1", ["--device-exact"])):
         out = os.path.join(d, f"wide_exact_{len(bodies)}.sam")
-        rc, err, exact, _ = cli_run(
+        rc, err, lanes[label], _ = cli_run(
             ["map", "-r", "1", "-f", "sam", "-o", out] + spec + flags +
             [idx_name, fq], SMALT_DP1_TIMING="1", SMALT_DX_P2="1")
         if rc != 0:
@@ -1487,6 +1810,15 @@ def run_wide_matrix(d: str, genome, card: str):
         with open(out) as f:
             bodies[label] = [ln for ln in f.read().splitlines()
                              if not ln.startswith("@PG")]
+    exact, dp1 = lanes["--device-exact SMALT_DX_P2=1"], lanes["--device-pass1"]
+    if bodies["--device-pass1"] != bodies["host C lane"]:
+        fail(f"-S {WIDE_SPEC}: --device-pass1 SAM differs from the host C "
+             f"lane")
+    if dp1["sw_full_wide"] < 1 or dp1["sw_full"]:
+        fail(f"-S {WIDE_SPEC}: --device-pass1 launched {dp1}")
+    print(f"# map --device-pass1 -S {WIDE_SPEC}: SAM byte-identical to the "
+          f"host C lane on {BATCH} reads; launches {dp1} | {card}",
+          flush=True)
     m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
                   r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)", err)
     if bodies["--device-exact SMALT_DX_P2=1"] != bodies["host C lane"]:
@@ -1501,7 +1833,7 @@ def run_wide_matrix(d: str, genome, card: str):
           f"byte-identical to the host C lane on {BATCH} reads; n_restaged "
           f"{m.group(2)}, p2_used {m.group(3)}, p2_fb {m.group(4)}, p2_hit "
           f"{m.group(5)}; launches {exact} | {card}", flush=True)
-    return fast, exact
+    return fast, exact, dp1
 
 
 def exact_pairs_batch_split(idx_name: str, fq1: str, fq2: str, card: str):
@@ -1614,18 +1946,19 @@ def run_exact_pairs(d: str, genome, card: str):
     return launches["--device-exact"]
 
 
-def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str):
+def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str, **env):
     """`map -r 1` through the port's CLI for each (label, flags) of cases,
     the launch counts set to 0 just before each run and read just after;
     every device run's SAM must equal the first (the host C lane's, the
     @PG line aside) with no batch rendered on the host (# dp1-total).
-    Returns {label: (launches, CLI wall s, lane s or None, stderr)}."""
+    `env`: more variables for the runs.  Returns {label: (launches, CLI
+    wall s, lane s or None, stderr)}."""
     bodies, runs = {}, {}
     for label, flags in cases:
         sam = os.path.join(os.path.dirname(fq), f"dp1_{len(bodies)}.sam")
         rc, err, launches, wall = cli_run(
             ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
-            [idx_name, fq], SMALT_DP1_TIMING="1")
+            [idx_name, fq], SMALT_DP1_TIMING="1", **env)
         if rc != 0:
             sys.stderr.write(err)
             fail(f"map {' '.join(flags)} on {fq} exited {rc}")
@@ -1636,7 +1969,7 @@ def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str):
             fail(f"{label}: SAM records for {n} reads expected")
         m = re.search(r"# dp1-total ([\d.]+)s host_batches=(\d+) "
                       r"nreads=(\d+)", err)
-        if flags:
+        if any(f.startswith("--device") for f in flags):
             if m is None or int(m.group(2)) != 0 or int(m.group(3)) != n:
                 fail(f"{label}: # dp1-total {m.groups() if m else None}")
             host = next(iter(bodies.values()))
@@ -1812,6 +2145,179 @@ def run_pass1(d: str, genome, card: str, host):
     return la, lb, lc, check_far_windows(card)
 
 
+def run_fast_options(d: str, card: str):
+    """Phase 6b: `map --fast --resume` on phase 4's first BATCH reads in
+    batches of RESUME_BATCH, killed after RESUME_TICKS checkpoints (the
+    ResumeLog's tick raises) and run again: SAM byte-identical to an
+    uninterrupted run, the sidecar gone; then `--profile DIR` on the same
+    reads: a torch profiler trace under DIR (its kernel events counted)
+    and the same SAM.  Returns the launches of the restarted run and of
+    the profiled one."""
+    from smalt_tpu_torch import resume as rz
+    idx_name, fq = os.path.join(d, "idx"), os.path.join(d, "reads_head.fq")
+    full = os.path.join(d, "resume_full.sam")
+    map_cli("cuda", idx_name, full, [fq], RESUME_BATCH)
+    want = sam_body(full)
+
+    class Killed(Exception):
+        pass
+
+    tick, every, ticks = rz.ResumeLog.tick, rz.CHECKPOINT_BATCHES, [0]
+
+    def dying_tick(self, *a):
+        tick(self, *a)
+        ticks[0] += 1
+        if ticks[0] >= RESUME_TICKS:
+            raise Killed()
+
+    out = os.path.join(d, "resume.sam")
+    argv = ["map", "--fast", "-f", "sam", "-o", out, "--resume", idx_name, fq]
+    rz.CHECKPOINT_BATCHES = 1
+    rz.ResumeLog.tick = dying_tick
+    try:
+        cli_run(argv, SMALT_FAST_BATCH=str(RESUME_BATCH))
+        fail("--resume: the run was not killed")
+    except Killed:
+        pass
+    finally:
+        rz.ResumeLog.tick = tick
+    kept = len(sam_body(out))
+    if not os.path.exists(out + ".resume") or not 0 < kept < len(want):
+        fail(f"--resume: killed run left {kept} records and no checkpoint")
+    try:
+        rc, err, rs, wall = cli_run(argv, SMALT_FAST_BATCH=str(RESUME_BATCH))
+    finally:
+        rz.CHECKPOINT_BATCHES = every
+    if rc != 0 or sam_body(out) != want or os.path.exists(out + ".resume"):
+        fail(f"--resume: the restarted run (exit {rc}) does not write the "
+             f"uninterrupted run's SAM")
+    print(f"# map --fast --resume on {BATCH} reads, batches of "
+          f"{RESUME_BATCH}: killed after {RESUME_TICKS} checkpoints "
+          f"({kept} records on disk), restarted: SAM byte-identical to the "
+          f"uninterrupted run, {wall:.3f} s; launches {rs} | {card}",
+          flush=True)
+    prof = os.path.join(d, "prof")
+    sam = os.path.join(d, "profiled.sam")
+    rc, err, pf, wall = cli_run(["map", "--fast", "-f", "sam", "-o", sam,
+                                 "--profile", prof, idx_name, fq],
+                                SMALT_FAST_BATCH=str(RESUME_BATCH))
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".pt.trace.json")] if os.path.isdir(prof) else []
+    if rc != 0 or len(traces) != 1 or sam_body(sam) != want:
+        fail(f"--profile: exit {rc}, traces {traces}, SAM equal "
+             f"{sam_body(sam) == want}")
+    with open(traces[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"# map --fast --profile: trace {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0])} bytes, {len(events)} events, "
+          f"{kern} of them device kernels), SAM byte-identical, {wall:.3f} "
+          f"s; launches {pf} | {card}", flush=True)
+    return rs, pf
+
+
+def run_very_long(d: str, genome, card: str):
+    """Phase 11, on the phase-4 genome and index: (a) N_VLONG_FAST reads of
+    VLONG_READLEN bp (phase 5's generator) through `map --fast -n POOL_N`
+    on the card at the default batch (three windows a read through
+    sw_band_many_kernel), its first N_VLONG records byte-identical to
+    `--device cpu` on those reads; (b) those N_VLONG reads through `map
+    --device-pass1` against the host C lane, SAM byte-identical, through
+    sw_full's strip path at Q = 32,768, then again with ops/sw.py
+    STRIP_SCRATCH_BYTES lowered so that the scratch runs in groups; then
+    N_VLONG reads of KEY_READLEN bp under -S KEY_SPEC, whose windows score
+    past 2^23: (c) `map --fast` (the several-warps kernel) against
+    --device cpu and (d) `map --device-pass1` (the WIDE score-only strips)
+    against the host C lane; (e) BATCH reads of READLEN bp through `map
+    --fast -S KEY_SHORT_SPEC` (sw_full's two-part record) against --device
+    cpu.  Returns the launches of each device run."""
+    from smalt_tpu_torch.ops import sw
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 11)
+    runs = {}
+    for rl, n, spec, tag in ((VLONG_READLEN, N_VLONG_FAST, [], ""),
+                             (KEY_READLEN, N_VLONG, ["-S", KEY_SPEC], " key")):
+        reads, truth, rev = make_long_reads(rng, genome, n, rl)
+        fq, fq_head = write_fastq(os.path.join(d, f"vlong{rl}.fq"), reads,
+                                  b"v", head=N_VLONG)
+        del reads
+        sams = [os.path.join(d, f"vlong{rl}_{dev}.sam")
+                for dev in ("cuda", "cpu")]
+        pool = ["-n", str(POOL_N)] if n > N_VLONG else []
+        t0 = time.perf_counter()
+        runs["fast" + tag], wall, m = map_cli("cuda", idx_name, sams[0], [fq],
+                                              BATCH, spec + pool)
+        t1 = time.perf_counter()
+        map_cli("cpu", idx_name, sams[1], [fq_head], N_VLONG, spec)
+        body = sam_body(sams[0])
+        if len(body) != n or body[:N_VLONG] != sam_body(sams[1]):
+            fail(f"--fast {' '.join(spec)} on {rl} bp reads: SAM differs "
+                 f"from --device cpu")
+        want = "sw_band_track_many" if not tag else "sw_band_track_wide"
+        if runs["fast" + tag][want] < 1:
+            fail(f"--fast on {rl} bp reads launched {runs['fast' + tag]}")
+        placed = placement(body, truth, rev, LONG_TOL)
+        print(f"# map --fast {' '.join(spec + pool)} on {n} reads of {rl} bp "
+              f"(batch {BATCH}): the first {N_VLONG} records byte-identical "
+              f"to --device cpu ({t1 - t0:.1f} s on the card, {n / wall:.1f} "
+              f"CLI reads/s, pipeline {m.group(4) if m else '?'} reads/s; "
+              f"{time.perf_counter() - t1:.1f} s on the CPU for "
+              f"{N_VLONG}); placed {placed}/{n} within {LONG_TOL} bp; "
+              f"launches {runs['fast' + tag]} | {card}", flush=True)
+        cases = [(f"host C lane, {rl} bp", spec),
+                 (f"--device-pass1, {rl} bp", spec + ["--device-pass1"])]
+        got = pass1_runs(cases, idx_name, fq_head, N_VLONG, card,
+                         SMALT_DP1_BATCH=str(VLONG_DP1_BATCH))
+        runs["dp1" + tag] = got[cases[1][0]][0]
+        want = "sw_full_strip" + ("_wide" if tag else "")
+        if runs["dp1" + tag][want] < 1:
+            fail(f"--device-pass1 on {rl} bp reads launched "
+                 f"{runs['dp1' + tag]}")
+        print(f"# --device-pass1 {' '.join(spec)} on {N_VLONG} reads of {rl} "
+              f"bp: SAM byte-identical to the host C lane, through {want}",
+              flush=True)
+        if tag:
+            continue
+        budget = sw.STRIP_SCRATCH_BYTES
+        sw.STRIP_SCRATCH_BYTES = 8 * 32768 * VLONG_DP1_BATCH
+        try:
+            got = pass1_runs([(f"--device-pass1, {rl} bp, scratch in groups",
+                               ["--device-pass1"])], idx_name, fq_head,
+                             N_VLONG, card,
+                             SMALT_DP1_BATCH=str(VLONG_DP1_BATCH))
+        finally:
+            sw.STRIP_SCRATCH_BYTES = budget
+        # pass1_runs wrote this run's SAM over the host lane's (dp1_0.sam);
+        # dp1_1.sam is the first --device-pass1 run's, equal to the host's
+        same = sam_body(os.path.join(d, "dp1_0.sam")) == \
+            sam_body(os.path.join(d, "dp1_1.sam"))
+        runs["dp1 groups"] = next(iter(got.values()))[0]
+        if not same or runs["dp1 groups"]["sw_full_strip"] < 2:
+            fail(f"--device-pass1 with the scratch in groups: launches "
+                 f"{runs['dp1 groups']}, SAM equal to the first run {same}")
+        print(f"# --device-pass1 on {rl} bp reads with the strip scratch "
+              f"budget at {8 * 32768 * VLONG_DP1_BATCH} bytes: "
+              f"{runs['dp1 groups']['sw_full_strip']} strip launches, SAM "
+              f"byte-identical | {card}", flush=True)
+    reads, truth, rev = make_reads(rng, genome, BATCH, READLEN)
+    fq, _ = write_fastq(os.path.join(d, "keyshort.fq"), reads, b"k")
+    spec = ["-S", KEY_SHORT_SPEC]
+    sams = [os.path.join(d, f"keyshort_{dev}.sam") for dev in ("cuda", "cpu")]
+    runs["fast key short"], wall, _ = map_cli("cuda", idx_name, sams[0],
+                                              [fq], BATCH, spec)
+    map_cli("cpu", idx_name, sams[1], [fq], BATCH, spec)
+    body = sam_body(sams[0])
+    if len(body) != BATCH or body != sam_body(sams[1]):
+        fail(f"--fast -S {KEY_SHORT_SPEC}: SAM differs from --device cpu")
+    if runs["fast key short"]["sw_full_track_rec"] < 1:
+        fail(f"--fast -S {KEY_SHORT_SPEC} launched {runs['fast key short']}")
+    print(f"# map --fast -S {KEY_SHORT_SPEC} on {BATCH} reads of {READLEN} "
+          f"bp: SAM byte-identical to --device cpu, {wall:.3f} s on the card; "
+          f"placed {placement(body, truth, rev)}/{BATCH} within {PLACE_TOL} "
+          f"bp; launches {runs['fast key short']} | {card}", flush=True)
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1843,10 +2349,12 @@ def main() -> int:
     err, k_full_t, k_full = check_kernel(rng, card)
     werr, k_wfull_t, k_wfull = check_wide_full(rng, card)
     serr, k_strip = check_strip(rng, card)
+    ferr, k_rec = check_strip_far(rng, card)
+    serr = max(serr, ferr)
     print(f"# phase 3 (sw_full against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
-    berr, k_band_t, k_band = check_band_kernel(rng, card)
+    berr, k_band_t, k_band, k_many_t, k_many = check_band_kernel(rng, card)
     wberr, k_wband_t, k_wband = check_wide_band(rng, card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1865,13 +2373,17 @@ def main() -> int:
               flush=True)
         genome = make_genome(np.random.default_rng(SEED), GENOME_LEN)
         t0 = time.perf_counter()
-        lr = run_long_reads(d, genome, card)
+        lr, lrn = run_long_reads(d, genome, card)
         print(f"# phase 5 (long reads): {time.perf_counter() - t0:.2f} s",
               flush=True)
         t0 = time.perf_counter()
-        pe = run_pairs(d, genome, card)
+        pe, pen = run_pairs(d, genome, card)
         print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        rs, pf = run_fast_options(d, card)
+        print(f"# phase 6b (--resume, --profile): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         t0 = time.perf_counter()
         dx, dx0, dxb, qerr7, hostx = run_exact(d, genome, card)
         qerr = max(qerr, qerr7)
@@ -1882,7 +2394,7 @@ def main() -> int:
         print(f"# phase 7b (lane band widths): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         t0 = time.perf_counter()
-        wf, wx = run_wide_matrix(d, genome, card)
+        wf, wx, wp = run_wide_matrix(d, genome, card)
         print(f"# phase 8 (-S {WIDE_SPEC}): {time.perf_counter() - t0:.2f} s",
               flush=True)
         t0 = time.perf_counter()
@@ -1894,6 +2406,10 @@ def main() -> int:
         err = max(err, ferr)
         print(f"# phase 10 (--device-pass1): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        vl = run_very_long(d, genome, card)
+        print(f"# phase 11 (reads over 16 kb, scores past 2^23): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -1904,16 +2420,31 @@ def main() -> int:
         fail(f"imported from outside the port: {alien[:5]}")
 
     paths = (("single-end --fast", se, N_READS), ("long reads --fast", lr,
-             N_LONG), ("pairs --fast", pe, 2 * N_PAIRS),
+             N_LONG), (f"long reads --fast -n {POOL_N}", lrn, N_LONG),
+             ("pairs --fast", pe, 2 * N_PAIRS),
+             (f"pairs --fast -n {POOL_N}", pen, 2 * N_PAIRS),
+             ("--fast --resume (restarted)", rs, BATCH),
+             ("--fast --profile", pf, BATCH),
              ("--device-exact", dx0, N_EXACT),
              ("--device-exact SMALT_DX_P2=1", dx, N_EXACT),
              ("--device-exact -f bam", dxb, N_EXACT),
              (f"--fast -S {WIDE_SPEC}", wf, BATCH),
              (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH),
+             (f"--device-pass1 -S {WIDE_SPEC}", wp, BATCH),
              ("--device-exact pairs", pdx, 2 * N_PE_EXACT),
              ("--device-pass1", dp1, N_EXACT),
              ("--device-pass1 1,500 bp", dp1l, N_DP1_LONG),
-             ("--device-exact k15 s16 (the pass-1 lane)", dp1x, BATCH))
+             ("--device-exact k15 s16 (the pass-1 lane)", dp1x, BATCH),
+             (f"--fast -n {POOL_N} {VLONG_READLEN} bp", vl["fast"],
+              N_VLONG_FAST),
+             (f"--device-pass1 {VLONG_READLEN} bp", vl["dp1"], N_VLONG),
+             (f"--device-pass1 {VLONG_READLEN} bp, scratch in groups",
+              vl["dp1 groups"], N_VLONG),
+             (f"--fast -S {KEY_SPEC} {KEY_READLEN} bp", vl["fast key"],
+              N_VLONG),
+             (f"--device-pass1 -S {KEY_SPEC} {KEY_READLEN} bp", vl["dp1 key"],
+              N_VLONG),
+             (f"--fast -S {KEY_SHORT_SPEC}", vl["fast key short"], BATCH))
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
@@ -1939,13 +2470,18 @@ def main() -> int:
             ("sw_band", band, berr, k_band),
             ("sw_band_track_wide", band, wberr, k_wband_t),
             ("sw_band_wide", band, wberr, k_wband),
+            ("sw_band_track_many", band, berr, k_many_t),
+            ("sw_band_many", band, berr, k_many),
             ("swq", swq, qerr, k_swq),
             ("sw_full_track_strip", full, serr, k_strip["sw_full_track_strip"]),
             ("sw_full_strip", full, serr, k_strip["sw_full_strip"]),
             ("sw_full_track_strip_wide", full, serr,
              k_strip["sw_full_track_strip_wide"]),
             ("sw_full_strip_wide", full, serr,
-             k_strip["sw_full_strip_wide"]))]}))
+             k_strip["sw_full_strip_wide"]),
+            ("sw_full_track_rec", full, serr, k_rec["sw_full_track_rec"]),
+            ("sw_full_track_strip_rec", full, serr,
+             k_rec["sw_full_track_strip_rec"]))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

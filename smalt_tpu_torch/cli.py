@@ -203,13 +203,15 @@ def _map_argparser(prog):
                     help="identity threshold: exactly matching bases "
                          "as a count or fraction of read length")
     ap.add_argument("--profile", default=None, dest="profdir",
-                    help="profiler trace of the device mapping loop "
-                         "(not ported: ROADMAP.md Queue 1 #12)")
+                    help="write a torch profiler trace of the device "
+                         "mapping loop to this directory (--fast only)")
     ap.add_argument("--device-pass1", action="store_true",
                     dest="device_pass1",
                     help="score the exact pass-1 candidate windows on "
-                         "the device (not ported: ROADMAP.md Queue 1 "
-                         "#5)")
+                         "the device (batched Smith-Waterman kernel) "
+                         "while the host runs seeding and the exact "
+                         "pass-2; output stays bit-identical (extension "
+                         "over the reference CLI)")
     ap.add_argument("--device-exact", action="store_true",
                     dest="device_exact",
                     help="run the exact engine's full front half "
@@ -505,16 +507,17 @@ def _no_gpu(device: str) -> bool:
 
 
 def _score_cap_refused(spec: Optional[str], qmin: int) -> bool:
-    """The device kernels take windows with max|entry| * query columns
-    below 2^23 (ops/sw.py check_score_cap).  Queries pad to at least
-    `qmin` columns (--fast 32, --device-exact 128), so a matrix that
-    fails there can score no read: say so and refuse before anything is
-    loaded."""
+    """The device kernels take windows whose int32 DP stays within its
+    bound (ops/sw.py check_score_cap).  Queries pad to at least `qmin`
+    columns (--fast 32, --device-exact 128) against at least as many
+    subject rows, so a matrix that fails there can score no read: say so
+    and refuse before anything is loaded."""
     from .align.core import make_score_matrix
     from .ops.sw import check_score_cap, device_matrix
+    m, go, ge = make_score_matrix(*_parse_penalties(spec))
     try:
-        check_score_cap(f"-S {spec}", device_matrix(
-            make_score_matrix(*_parse_penalties(spec))[0], "cpu"), qmin)
+        check_score_cap(f"-S {spec}", device_matrix(m, "cpu"), qmin, qmin,
+                        -go, -ge)
     except ValueError as e:
         print(f"smalt_tpu_torch: {e}; `map` without a device flag takes any "
               f"matrix", file=sys.stderr)
@@ -589,18 +592,16 @@ def _run_device_lane(a, lane, engine, out, refset, fmt: str, mods, ihist,
 
 
 def _cmd_map_fast(a, argv: List[str], device: str) -> int:
-    """map --fast: the port's device pass + the host traceback tail."""
+    """map --fast: the port's device pass + the host traceback tail
+    (with -n > 1 on that many worker processes, spawned: none of them
+    touches the device), checkpoints with --resume, a torch profiler
+    trace with --profile."""
     from .map.fastmode import run_fast_pipeline
     if a.oformat.split(":")[0] != "sam":
         print("--fast emits SAM only", file=sys.stderr)
         return 1
-    for bad, what, item in (
-            (a.mesh_spec is not None, "--mesh", "Queue 1 #8"),
-            (a.profdir is not None, "--profile", "Queue 1 #12"),
-            (a.nthreads > 1, "-n > 1 with --fast", "Queue 1 #11"),
-            (a.resume, "--resume with --fast", "Queue 1 #13")):
-        if bad:
-            return _unported(what, item)
+    if a.mesh_spec is not None:
+        return _unported("--mesh", "Queue 1 #8")
     if _score_cap_refused(a.scorspec, 32):
         return 2
     if _no_gpu(device):
@@ -619,23 +620,53 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
     if ihist is not None:
         insert_min = min(insert_min, ihist.insizlo)
         insert_max = max(insert_max, ihist.insizhi)
-    out = _open_out(a)
-    _writer(a, refset, argv, out)   # emits the SAM header
+    resume_log = resume_state = None
+    if a.resume and a.oufilnam and a.nthreads <= 1:
+        from .resume import ResumeLog
+        resume_log = ResumeLog(a.oufilnam, ["map-fast"] + argv)
+        resume_state = resume_log.load()   # truncates OUT if found
+    elif a.resume:
+        print("# --resume needs -o and -n 1; ignored", file=sys.stderr)
+    if resume_state:
+        out = open(a.oufilnam, "a")        # header already present
+    else:
+        out = _open_out(a)
+        _writer(a, refset, argv, out)      # emits the SAM header
     batch = int(os.environ.get("SMALT_FAST_BATCH", "4096"))
     try:
-        run_fast_pipeline(refset, idx, a.reads, out, batch=batch,
-                          penalties=_parse_penalties(a.scorspec),
-                          minscor=(a.minscor if a.minscor is not None
-                                   else 18),
-                          device=device, mates_path=a.mates,
-                          insert_min=insert_min,
-                          insert_max=insert_max, exact_engine=exact_engine,
-                          seed=(a.randseed if a.randseed is not None else 1),
-                          libcode=libcode, ihist=ihist)
+        with _profiled(a.profdir, device):
+            run_fast_pipeline(
+                refset, idx, a.reads, out, batch=batch,
+                penalties=_parse_penalties(a.scorspec),
+                minscor=(a.minscor if a.minscor is not None else 18),
+                nthreads=a.nthreads, device=device, mates_path=a.mates,
+                insert_min=insert_min, insert_max=insert_max,
+                exact_engine=exact_engine,
+                seed=(a.randseed if a.randseed is not None else 1),
+                libcode=libcode, ihist=ihist, resume_log=resume_log,
+                index_name=a.index_name)
     finally:
         if out is not sys.stdout:
             out.close()
     return 0
+
+
+def _profiled(profdir: Optional[str], device: str):
+    """--profile DIR: torch.profiler over the block (the host's ops, and
+    the card's kernels when the device is a card), its trace written
+    under DIR as <host>_<pid>.<time>.pt.trace.json when the block ends.
+    Without DIR, a context that does nothing."""
+    import contextlib
+    if not profdir:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profdir, exist_ok=True)
+    return profile(activities=acts, on_trace_ready=(
+        torch.profiler.tensorboard_trace_handler(profdir)))
 
 
 def cmd_sample(argv: List[str]) -> int:

@@ -8,7 +8,16 @@ encoder, the mapq formula, and the traceback + SAM tail (`FastTail`,
 reads and for pairs, and the exact-lane fallbacks).  The batch loop
 (`run_fast_pipeline`, fastmode.py:1137 there) is the port's: its device
 step is parallel/mesh.py, single-end and paired.  Paired runs put both
-mates of a batch through one step of 2 x batch reads.
+mates of a batch through one step of 2 x batch reads.  With nthreads > 1
+the tails run on a pool of worker processes (`TailPool`), started fresh
+(spawn) rather than forked, since a process forked after the parent made
+a CUDA context may not use CUDA; no worker touches the device, each
+builds its tail from picklable inputs (the name the index is saved
+under, and for --fallback-exact its exact engine's engine_recipe),
+and the output stays in input order and byte-identical to one process.
+With a ResumeLog (nthreads = 1) the run ticks it after every batch it
+writes (a checkpoint every CHECKPOINT_BATCHES ticks) and, restarted,
+skips the batches a checkpoint recorded, whole.
 
 Fast mode trades the exhaustive candidate search of the exact lane for
 the device heuristic: output is reference-STYLE SAM (same fields, flags,
@@ -24,15 +33,17 @@ synchronously (the tests' path).
 """
 from __future__ import annotations
 
+import copy
 import io
+import multiprocessing as mp
 import os
 import sys
 import time
+import weakref
 from collections import deque
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..seq import codec
 from ..seq.io import Read, open_maybe_gzip
@@ -40,14 +51,15 @@ from ..seq.refset import RefSet
 from ..index.table import KmerIndex
 
 from ..align import core as ali_mod
-from ..parallel.mesh import (LONG_READ_Q, OUT_KEYS, DeviceIndex,
-                             make_device_step, window_len, window_pad)
 from ..report.report import ReportWriter, RepAli, REPMATEFLG
 
 # LONG_READ_Q is the kernel-selection boundary: reads padded above it use
 # the banded device kernel and the banded/anchored host tail.  It MUST
 # match the literal 512 in native/fastlane.c (fl_fast_tail_block /
-# ft_map_one).
+# ft_map_one).  It is parallel/mesh.py's, declared again here (a test
+# holds them equal) so that this module imports neither torch nor the
+# device step: a tail worker (TailPool) imports it.
+LONG_READ_Q = 512
 
 MAPQ_MAX = 60           # results.c:70 MAPSCOR_MAX
 MAPSCOR_MAX_RANDOM = 3  # results.c:57
@@ -1141,6 +1153,163 @@ def _tail_render(args):
 
 
 # ------------------------------------------------------------------
+# the tail pool (the port's own)
+# ------------------------------------------------------------------
+
+# How tail workers start: a fresh interpreter each.  The reference forks
+# them (fastmode.py:1351); a process forked after its parent made a CUDA
+# context cannot use CUDA and may hang on locks the context's threads
+# held, and the port's parent may have made one (chip_smoke.py, repeated
+# runs through get_device_step's cache) before a pool starts.  A worker
+# imports this module and the host layers only, not torch, whose import
+# alone takes seconds (chip_smoke.py phase 5 prints both).
+TAIL_START_METHOD = "spawn"
+
+
+def engine_recipe(engine) -> tuple:
+    """What a tail worker rebuilds an exact engine from, beside the saved
+    index it loads, as the CLI's _build_engine made it (the engine itself
+    does not cross processes: its index and scratch buffers cache raw
+    addresses of their arrays): a copy of its params, its penalties and
+    its identity filter."""
+    from ..map.engine import MapEngine
+    m = engine.matrix                  # m[0, 0] the match, m[0, 1] mismatch
+    pen = (int(m[0, 0]), int(m[0, 1]), engine.gapopen, engine.gapext)
+    return (MapEngine, copy.copy(engine.params), pen,
+            engine.filter.min_identity)
+
+
+def _tail_worker_init(index_name, engine_src, penalties, minscor,
+                      writer_args, inserts, seed, libcode, ihist):
+    """_tail_init in a tail worker, from picklable inputs: the reference
+    (and for an exact engine the index) saved under `index_name`, and
+    engine_src, None or an engine_recipe."""
+    refset = RefSet.load(index_name)
+    engine = None
+    if engine_src is not None:
+        cls, params, pen, min_identity = engine_src
+        engine = cls(refset, KmerIndex.load(index_name), params,
+                     penalties=pen)
+        engine.filter.min_identity = min_identity
+    _tail_init(refset, penalties, minscor, writer_args, inserts, engine,
+               seed, libcode, ihist)
+
+
+def tail_worker_facts():
+    """What a tail worker reports of itself: (pid, start method, whether
+    it had imported torch, whether torch has initialised CUDA in it (torch
+    is imported here to ask), whether smalt_tpu or jax is loaded)."""
+    had_torch = "torch" in sys.modules
+    alien = any(m.split(".")[0] in ("smalt_tpu", "jax", "jaxlib")
+                for m in sys.modules)
+    import torch
+    return (os.getpid(), mp.get_start_method(allow_none=True), had_torch,
+            torch.cuda.is_initialized(), alien)
+
+
+def _compact(item):
+    """A RawBatch over its own records' bytes (a view: pickling sends
+    only those), so that a batch crosses to a worker without the rest of
+    the 8 MB read chunk its buffer belongs to.  Other items as they are."""
+    if not isinstance(item, RawBatch) or item.n == 0:
+        return item
+    lo = int(min(item.name_off.min(), item.seq_off.min(),
+                 item.qual_off.min()))
+    hi = int(max((item.name_off + item.name_len).max(),
+                 (item.qual_off + item.seq_len).max()))
+    return RawBatch(item.buf[lo:hi], item.n, item.name_off - lo,
+                    item.name_len, item.seq_off - lo, item.seq_len,
+                    item.qual_off - lo)
+
+
+def _chunk(args, a: int, b: int):
+    """_tail_render's args for reads (pairs) [a, b) of a batch's args.
+    Each read's (pair's) serial, base_idx + its place in the batch, and
+    with it its drand48 stream stay as they were, and the window geometry
+    and padded query length are the batch's, so the text is the batch's
+    text of those records: a batch renders in chunks on several workers,
+    byte for byte as in one call."""
+    paired, item, outs, wl, wp, Q, base = args
+    if paired:                 # mates A in rows [0, n), B in [n, 2n)
+        n = len(item[0]) // 2
+        item = tuple(x[a:b] + x[n + a:n + b] for x in item)
+        outs = {k: np.concatenate([v[a:b], v[n + a:n + b]])
+                for k, v in outs.items()}
+    else:
+        if isinstance(item, RawBatch):
+            item = _compact(RawBatch(
+                item.buf, b - a, item.name_off[a:b], item.name_len[a:b],
+                item.seq_off[a:b], item.seq_len[a:b], item.qual_off[a:b]))
+        else:
+            item = tuple(x[a:b] for x in item)
+        outs = {k: v[a:b] for k, v in outs.items()}
+    return (paired, item, outs, wl, wp, Q, base + a)
+
+
+class TailPool:
+    """n worker processes rendering batches with _tail_render, each batch
+    in chunks of at least CHUNK_MIN reads (pairs) spread over the
+    workers, the texts taken back in input order.  initargs are
+    _tail_worker_init's.  The workers start when the pool is made (their
+    start overlaps the caller's set-up); at most 2n chunks wait in the
+    pool, so the device loop, which runs on the caller's thread, stays a
+    bounded distance ahead of the tails.  A worker that fails or dies
+    fails the run (concurrent.futures' BrokenProcessPool), it does not
+    hang it.  ready_s (pool made to first text back) and wait_s (the
+    caller's time blocked on texts) say where a run's time went."""
+
+    CHUNK_MIN = 128
+
+    def __init__(self, n: int, initargs: tuple):
+        from concurrent.futures import ProcessPoolExecutor
+        self.n = n
+        self.ctx = mp.get_context(TAIL_START_METHOD)
+        self.pool = ProcessPoolExecutor(n, mp_context=self.ctx,
+                                        initializer=_tail_worker_init,
+                                        initargs=initargs)
+        self.t0 = time.perf_counter()
+        self.ready_s = self.wait_s = 0.0
+        self.chunks = 0
+        for _ in range(n):             # start every worker now
+            self.pool.submit(os.getpid)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=exc[0] is not None)
+
+    def facts(self):
+        """tail_worker_facts of the workers that take the next n tasks."""
+        return [f.result() for f in [self.pool.submit(tail_worker_facts)
+                                     for _ in range(self.n)]]
+
+    def _take(self, fut) -> str:
+        t = time.perf_counter()
+        text = fut.result()
+        self.wait_s += time.perf_counter() - t
+        if not self.ready_s:
+            self.ready_s = time.perf_counter() - self.t0
+        return text
+
+    def render(self, batches, write) -> None:
+        """write(_tail_render(args)) for every args of `batches`, in
+        order, the rendering on the workers."""
+        pending = deque()
+        for args in batches:
+            n = len(args[1][0]) // 2 if args[0] else _nreads(args[1])
+            step = max(self.CHUNK_MIN, -(-n // self.n))
+            for a in range(0, n, step):
+                pending.append(self.pool.submit(
+                    _tail_render, _chunk(args, a, min(n, a + step))))
+                self.chunks += 1
+                if len(pending) >= 2 * self.n:
+                    write(self._take(pending.popleft()))
+        while pending:
+            write(self._take(pending.popleft()))
+
+
+# ------------------------------------------------------------------
 # the device pass (the port's own)
 # ------------------------------------------------------------------
 
@@ -1150,7 +1319,8 @@ PREFETCH = 4   # batches in flight on the device
 class _InFlight:
     """One batch's packed step output on its way to the host."""
 
-    def __init__(self, step, arr: np.ndarray, device: torch.device):
+    def __init__(self, step, arr: np.ndarray, device):
+        import torch
         reads = torch.from_numpy(arr)
         if device.type == "cuda":
             reads = reads.pin_memory().to(device, non_blocking=True)
@@ -1177,10 +1347,19 @@ def _nreads(item) -> int:
     return item.n if isinstance(item, RawBatch) else len(item[0])
 
 
+_step_cache: dict = {}   # id(index) -> {(device, penalties): step}
+
+
 def get_device_step(refset: RefSet, idx: KmerIndex, device, penalties):
-    """The packed mapping step for (device, penalties), cached on `idx`:
-    repeated runs in one process upload the index once."""
-    cache = idx.__dict__.setdefault("_torch_step_cache", {})
+    """The packed mapping step for (device, penalties), cached for the
+    life of `idx`: repeated runs in one process upload the index once.
+    The cache is kept beside the index, not on it, so that an index (or
+    an exact engine holding it) pickles to a tail worker without it."""
+    cache = _step_cache.get(id(idx))
+    if cache is None:
+        cache = _step_cache[id(idx)] = {}
+        weakref.finalize(idx, _step_cache.pop, id(idx), None)
+    from ..parallel.mesh import DeviceIndex, make_device_step
     key = (str(device), tuple(penalties))
     step = cache.get(key)
     if step is None:
@@ -1199,30 +1378,57 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                       mesh_spec: Optional[str] = None,
                       libcode=None, ihist=None,
                       host_id: int = 0, n_hosts: int = 1,
-                      shard_writer=None, resume_log=None) -> None:
+                      shard_writer=None, resume_log=None,
+                      index_name: Optional[str] = None) -> None:
     """Map reads with the device pass + host traceback tail, writing
     headerless SAM records to `out` in input order.  With `mates_path`,
     pairs map together: both mates go through the device pass in one
     batch and the pair tail rescues, pairs and flags them.  With
     `exact_engine`, reads (or pairs) whose seed search the device pass
     truncated are remapped through the exact host lane
-    (--fallback-exact)."""
-    unported = [
-        (mesh_spec is not None or n_hosts > 1 or shard_writer is not None,
-         "a device mesh or several hosts", "Queue 1 #8"),
-        (nthreads > 1, "a forked tail pool (nthreads > 1)", "Queue 1 #11"),
-        (resume_log is not None, "--resume", "Queue 1 #13"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} in the torch fast path is not ported yet "
-                f"(ROADMAP.md {item})")
+    (--fallback-exact).
+
+    nthreads > 1 renders on a TailPool of that many processes, which
+    load the reference and index saved under `index_name` (required
+    then: `refset` and `idx` must be what it holds) and rebuild the
+    exact engine from its engine_recipe.  resume_log (a ResumeLog; nthreads = 1 only, as in
+    the reference) skips the batches a checkpoint recorded and ticks
+    after each batch written."""
+    import torch
+    from ..parallel.mesh import OUT_KEYS, window_len, window_pad
+    if mesh_spec is not None or n_hosts > 1 or shard_writer is not None:
+        raise NotImplementedError(
+            "a device mesh or several hosts in the torch fast path is not "
+            "ported yet (ROADMAP.md Queue 1 #8)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but no GPU is visible")
-    step = get_device_step(refset, idx, device, penalties)
     writer_args = (True, False)   # soft_clip, x_mismatch
+    inserts = (insert_min, insert_max)
+    pool = None
+    if nthreads > 1:
+        if not index_name:
+            raise ValueError("nthreads > 1 needs index_name, the name the "
+                             "reference and index are saved under: the "
+                             "tail workers load them from it")
+        # started first: the workers load their tail while the index
+        # goes up to the device
+        pool = TailPool(nthreads, (
+            index_name,
+            None if exact_engine is None else engine_recipe(exact_engine),
+            penalties, minscor, writer_args, inserts, seed, libcode, ihist))
+        resume_log = None
+    skip_reads = 0
+    if resume_log is not None:
+        st = resume_log.load()
+        if st:
+            skip_reads = st["reads_done"]
+    try:
+        step = get_device_step(refset, idx, device, penalties)
+    except BaseException:
+        if pool is not None:
+            pool.__exit__(*sys.exc_info())
+        raise
     paired = mates_path is not None
 
     def raw_batches():
@@ -1247,6 +1453,9 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
         base = 0
         want = batch * (2 if paired else 1)   # PE: both mates
         for item in raw_batches():
+            if base + _nreads(item) <= skip_reads:
+                base += _nreads(item)   # checkpointed: already written
+                continue
             if isinstance(item, RawBatch):
                 qmax = int(item.seq_len.max()) if item.n else 0
             else:
@@ -1274,12 +1483,33 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
     timing = os.environ.get("SMALT_TIMING")
     t_start = time.time()
     n_done = n_batches = 0
-    _tail_init(refset, penalties, minscor, writer_args,
-               (insert_min, insert_max), exact_engine, seed, libcode, ihist)
-    for args in batches():
-        out.write(_tail_render(args))
-        n_done += _nreads(args[1])
-        n_batches += 1
+
+    def counted():
+        nonlocal n_done, n_batches
+        for args in batches():
+            n_done += _nreads(args[1])
+            n_batches += 1
+            yield args
+
+    if pool is not None:
+        with pool:
+            pool.render(counted(), out.write)
+        if timing:
+            print(f"# SMALT_TIMING tail pool: {nthreads} workers "
+                  f"({TAIL_START_METHOD}), {pool.chunks} chunks, first text "
+                  f"{pool.ready_s:.2f} s after the pool started, the device "
+                  f"loop blocked on texts {pool.wait_s:.2f} s",
+                  file=sys.stderr)
+    else:
+        _tail_init(refset, penalties, minscor, writer_args, inserts,
+                   exact_engine, seed, libcode, ihist)
+        for args in counted():
+            out.write(_tail_render(args))
+            if resume_log is not None:
+                out.flush()
+                resume_log.tick(args[6] + _nreads(args[1]), out.tell(), 0)
+        if resume_log is not None:
+            resume_log.done()
     if timing:
         dt = max(time.time() - t_start, 1e-9)
         print(f"# SMALT_TIMING fast pipeline: {n_done} reads in "

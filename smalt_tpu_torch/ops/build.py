@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for Hopper (`sm_90a`) into `build/kernels/` at the repository
-root, under a name keyed on a hash of the source and the flags, then
+root, under a name keyed on a hash of the source (with the `csrc/*.cuh`
+it includes) and the flags, then
 loaded with `ctypes`.  Nothing is compiled at import: the first call
 of `load(name)` builds (a few seconds for a plain-C-interface file) and
 later calls reuse the loaded library; builds of different sources may
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,6 +49,18 @@ def nvcc() -> str:
     return found
 
 
+def _source_bytes(src: str) -> bytes:
+    """The source's bytes and those of the files it includes by a quoted
+    name from its own directory (csrc/*.cuh), so that an edit of either
+    keys a new build."""
+    with open(src, "rb") as f:
+        data = f.read()
+    for inc in re.findall(rb'^#include "([^"]+)"', data, re.M):
+        with open(os.path.join(os.path.dirname(src), inc.decode()), "rb") as f:
+            data += f.read()
+    return data
+
+
 def load(name: str, src: str = "") -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`, or, for a script that
     times an earlier version of a kernel beside the shipped one, another
@@ -59,8 +73,8 @@ def load(name: str, src: str = "") -> ctypes.CDLL:
         lib = _libs.get(ident)
         if lib is not None:
             return lib
-        with open(src, "rb") as f:
-            key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        key = hashlib.sha256(_source_bytes(src) +
+                             " ".join(NVCC_FLAGS).encode())
         so = os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
         t0 = time.perf_counter()
         log = ""

@@ -46,12 +46,15 @@
 //
 // Two kernels.  Bands up to 512 lanes (every band the mapping path makes
 // for reads up to ~2.8 kb) run sw_band_warp_kernel: one warp a window, up
-// to four windows a block.  Wider bands, up to W = 3,072, run
-// sw_band_multi_kernel: one window a block on NW = ceil(W/512) warps.  In
-// both a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
+// to four windows a block.  Wider bands run the several-warps kernel, one
+// window a block: sw_band_multi_kernel on NW = ceil(W/512) <= 6 warps up
+// to W = 3,072, and above that sw_band_many_kernel, the same code on up to
+// 32 warps (1,024 threads, W <= 16,384: reads up to ~87 kb).  In all of
+// them a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
 // registers; lanes at or past W are padding that never reaches a real
 // lane (E flows from the right, only through NEG, and F only to the
-// right).
+// right).  A band wider than 16,384 lanes would need state outside
+// registers; ops/sw.py refuses it.
 //
 // sw_band_warp_kernel, and what each part is for.
 //   - Hopper's 3-input integer instructions carry the recurrence, each
@@ -116,9 +119,11 @@
 //     lexicographic minimum over ITS cells with T equal to its own
 //     maximum; the threads whose maximum is M hold between them every cell
 //     with T = M, so the minimum of their records by (i, t) is the global
-//     one.  Scores are below 2^23 (sw.py admits only max|entry| *
-//     min(Q, S) < 2^23; here the entries are int8) and C < 256, so the key
-//     fits and c is recovered from its low byte.
+//     one.  The key holds |T| < 2^23 and C < 256, so c is recovered from
+//     its low byte; with int8 entries that holds while 128 * min(Q, S)
+//     < 2^23, and ops/sw.py (sw_band_instance) sends a tracked launch
+//     past it to the several-warps kernel, whose record keeps the value
+//     and the lane apart.
 //   - Padding lanes (band lanes at or past W, where 32 * C > W; the PAD
 //     instances, so that the widths the mapping path makes, multiples of
 //     128, carry none of this) are kept out of the max through H, not T:
@@ -135,8 +140,9 @@
 //     register and one __shfl_down_sync, the mirror image of sw_full.cu's
 //     __shfl_up_sync of H.  No global memory is touched inside a row.
 //
-// sw_band_multi_kernel (W > 512, a profile too large for shared memory, or
-// a matrix outside int8): C = 12 or 16, 2-input max and add, one
+// The several-warps kernel (W > 512, a profile too large for shared
+// memory, a matrix outside int8, a tracked window that could score 2^23,
+// or (S + 1) * ge >= 2^28): C = 12 or 16, 2-input max and add, one
 // lookup in the 8x8 int32 matrix a cell, the query codes in registers and
 // shifted down one register a row (a thread takes the next thread's first
 // code by __shfl_down_sync, the warp's last thread the one new code), and
@@ -150,7 +156,13 @@
 // published total of warp w' as max(total, Ein_last + L*ge), which is the
 // same max.  The shared buffers alternate with the row's parity, so one
 // barrier a row orders every write before its reads and every read before
-// the next write to the same buffer.
+// the next write to the same buffer.  Tracking keeps the window's best
+// value and its row in registers (the row max is window-uniform) and
+// looks for the lowest lane only on a row that beats it: no packed key,
+// so any int32 score.  Its text is csrc/sw_band_multi.cuh, included
+// once for each of its two instances.  At 1,024 threads a block a thread
+// may hold 64 registers: ptxas's spills are printed by chip_smoke.py
+// phase 2.
 
 #include <climits>
 
@@ -161,8 +173,9 @@ namespace {
 constexpr int NEG = -(1 << 28);
 constexpr int HPAD = -(1 << 22);       // H of a padding lane (one warp)
 constexpr int WARPS = 4;               // windows (warps) per block, W <= 512
-constexpr int MAX_NW = 6;              // warps per window, W <= 3072
-constexpr int MAX_W = 32 * 16 * MAX_NW;
+constexpr int MAX_NW = 6;              // sw_band_multi_kernel, W <= 3072
+constexpr int MANY_NW = 32;            // sw_band_many_kernel, W <= 16384
+constexpr int MAX_W = 32 * 16 * MANY_NW;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int addmax(int a, int b, int c) {
@@ -361,175 +374,16 @@ sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
   }
 }
 
-// One window a block on NW = blockDim.x / 32 warps, 512 < W <= 32 * C * NW.
-template <int C, bool TRACK>
-__global__ void __launch_bounds__(MAX_NW * 32)
-sw_band_multi_kernel(const int* __restrict__ q, const int* __restrict__ subj,
-                     const int* __restrict__ slens,
-                     const int* __restrict__ matrix, int B, int Q, int S,
-                     int W, int prepad, int go, int ge,
-                     int* __restrict__ best_out, int* __restrict__ ti_out,
-                     int* __restrict__ tj_out) {
-  __shared__ int smat[64];
-  // the exchange, by row parity: scan totals, row maxima, and E of each
-  // warp's first lane (the state after the previous row)
-  __shared__ int wtot[2][MAX_NW], wmax[2][MAX_NW], eb[2][MAX_NW + 1];
-  __shared__ int wacc[MAX_NW], blane;
-  if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
-
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;      // this warp's place in its window
-  const int NW = blockDim.x >> 5;
-  const int b = blockIdx.x;
-  if (threadIdx.x < MAX_NW + 1) eb[0][threadIdx.x] = NEG;
-  if (threadIdx.x == 0) blane = 0;
-  __syncthreads();
-  if (b >= B) return;                  // block-uniform
-
-  const int t0 = (w * 32 + lane) * C;  // first band lane of this thread
-  const int tlast = (w * 32 + 31) * C + C - 1;   // the warp's last lane
-  const bool partial = t0 + C > W;     // holds padding lanes past W
-  const int* qrow = q + (size_t)b * Q;
-  const int* srow = subj + (size_t)b * S;
-  const int slen = min(slens[b], S);
-
-  int qc[C], H[C], E[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int j = t0 + c - prepad;
-    qc[c] = (j >= 0 && j < Q) ? qrow[j] & 7 : 7;
-    H[c] = 0;
-    E[c] = NEG;
-  }
-
-  int best = 0, bi = 0;                // TRACK: window-uniform running best
-  int acc = 0;                         // !TRACK: this thread's max of T
-  int scode = 7, qin = 7;
-  for (int i = 0; i < slen; ++i) {
-    const int p = i & 1;
-    if ((i & 31) == 0) {
-      const int r = i + lane;
-      scode = r < S ? srow[r] & 7 : 7;
-      const int jn = r + 1 - prepad + tlast;   // enters at row r + 1
-      qin = (jn >= 0 && jn < Q) ? qrow[jn] & 7 : 7;
-    }
-    const int* mrow = smat + 8 * __shfl_sync(FULL, scode, i & 31);
-
-    // phase A: T, H0 and the in-warp F scan.  The warp's last lane takes
-    // Ein = NEG for now (its true value arrives in phase B).
-    int enext = __shfl_down_sync(FULL, E[0], 1);
-    if (lane == 31) enext = NEG;
-    int T[C], H0[C], run[C];
-    int r = NEG;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      T[c] = H[c] + mrow[qc[c]];
-      const int ein = c < C - 1 ? E[c + 1] : enext;
-      H0[c] = max(max(T[c], ein), 0);
-      r = max(r, H0[c] + (t0 + c) * ge);
-      run[c] = r;                      // prefix max within the thread
-    }
-    int incl = r;                      // inclusive prefix max over lanes
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(FULL, incl, d);
-      if (lane >= d) incl = max(incl, v);
-    }
-    int excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = NEG;
-
-    if (partial) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (t0 + c >= W) T[c] = NEG;   // padding lanes: out of the max
-    }
-    int m = 0;                         // TRACK: the row max of T
-    if (TRACK) {
-      m = T[0];
-#pragma unroll
-      for (int c = 1; c < C; ++c) m = max(m, T[c]);
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) m = max(m, __shfl_xor_sync(FULL, m, d));
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc = max(acc, T[c]);
-    }
-
-    if (lane == 31) wtot[p][w] = incl;
-    if (TRACK && lane == 0) wmax[p][w] = m;
-    __syncthreads();
-    // phase B: the other warps' totals, corrected by the E their last
-    // lanes take from the next warp's first lane
-    int pre = NEG;
-    for (int v = 0; v < w; ++v)
-      pre = max(pre, max(wtot[p][v],
-                         eb[p][v + 1] + ((v + 1) * 32 * C - 1) * ge));
-    excl = max(excl, pre);
-    if (lane == 31) {
-      enext = w + 1 < NW ? eb[p][w + 1] : NEG;
-      H0[C - 1] = max(H0[C - 1], enext);
-    }
-    if (TRACK) {
-      for (int v = 0; v < NW; ++v) m = max(m, wmax[p][v]);
-    }
-
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int cm = c == 0 ? excl : max(excl, run[c - 1]);
-      const int F = cm - go - (t0 + c - 1) * ge;
-      const int hn = max(H0[c], F);
-      const int ein = c < C - 1 ? E[c + 1] : enext;   // E[c+1] still old
-      E[c] = max(ein - ge, hn - go);
-      H[c] = hn;
-    }
-    if (partial) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (t0 + c >= W) E[c] = NEG;
-    }
-    if (lane == 0) eb[p ^ 1][w] = E[0];
-
-    if (TRACK && m > best) {           // uniform over the window's warps
-      int v = 0;                       // the first warp reaching m owns it
-      while (v < NW - 1 && wmax[p][v] != m) ++v;
-      if (v == w) {
-        int first = 1 << 28;
-#pragma unroll
-        for (int c = C - 1; c >= 0; --c)
-          if (T[c] == m) first = t0 + c;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1)
-          first = min(first, __shfl_xor_sync(FULL, first, d));
-        if (lane == 0) blane = first;
-      }
-      best = m;
-      bi = i;
-    }
-
-    // slide the band one query column right for row i + 1
-    const int qnew = __shfl_sync(FULL, qin, i & 31);
-    const int qnext = __shfl_down_sync(FULL, qc[0], 1);
-#pragma unroll
-    for (int c = 0; c < C - 1; ++c) qc[c] = qc[c + 1];
-    qc[C - 1] = lane == 31 ? qnew : qnext;
-  }
-
-  if (!TRACK) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) acc = max(acc, __shfl_xor_sync(FULL, acc, d));
-    if (lane == 0) wacc[w] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  if (TRACK) {
-    best_out[b] = best;                // >= 0: the running best starts at 0
-    ti_out[b] = bi;
-    tj_out[b] = bi + blane - prepad;
-  } else {
-    for (int v = 1; v < NW; ++v) acc = max(acc, wacc[v]);
-    best_out[b] = acc;                 // >= 0: acc starts at 0
-  }
-}
+#define SWB_MULTI_KERNEL sw_band_multi_kernel   // W <= 3,072
+#define SWB_MULTI_NW 6
+#include "sw_band_multi.cuh"
+#undef SWB_MULTI_KERNEL
+#undef SWB_MULTI_NW
+#define SWB_MULTI_KERNEL sw_band_many_kernel    // W <= 16,384
+#define SWB_MULTI_NW 32
+#include "sw_band_multi.cuh"
+#undef SWB_MULTI_KERNEL
+#undef SWB_MULTI_NW
 
 struct Args {
   const int *q, *subj, *slens, *matrix;
@@ -572,14 +426,14 @@ cudaError_t launch_warp(bool track, const Args& a) {
 template <int C>
 void launch_multi(bool track, int nw, const Args& a) {
   const dim3 grid(a.B), block(nw * 32);
-  if (track)
-    sw_band_multi_kernel<C, true><<<grid, block, 0, a.stream>>>(
-        a.q, a.subj, a.slens, a.matrix, a.B, a.Q, a.S, a.W, a.prepad, a.go,
-        a.ge, a.best, a.ti, a.tj);
-  else
-    sw_band_multi_kernel<C, false><<<grid, block, 0, a.stream>>>(
-        a.q, a.subj, a.slens, a.matrix, a.B, a.Q, a.S, a.W, a.prepad, a.go,
-        a.ge, a.best, a.ti, a.tj);
+  auto kernel = nw > MAX_NW
+                    ? (track ? sw_band_many_kernel<C, true>
+                             : sw_band_many_kernel<C, false>)
+                    : (track ? sw_band_multi_kernel<C, true>
+                             : sw_band_multi_kernel<C, false>);
+  kernel<<<grid, block, 0, a.stream>>>(a.q, a.subj, a.slens, a.matrix, a.B,
+                                       a.Q, a.S, a.W, a.prepad, a.go, a.ge,
+                                       a.best, a.ti, a.tj);
 }
 
 }  // namespace
@@ -588,11 +442,12 @@ void launch_multi(bool track, int nw, const Args& a) {
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  The band has W lanes and
 // sits prepad columns left of the window start.  wide != 0 (a matrix
-// entry outside -128..127) runs the several-warps kernel; sw.py admits
-// only max|entry| * min(Q, S) < 2^23.  Returns the CUDA error of the
-// launch (0 on success), or -1 when an argument is out of range (W
-// outside 1..3072 included, and for the one-warp kernel a gap extension
-// with (S + 1) * ge >= 2^28).
+// entry outside -128..127, or a tracked window that could score 2^23:
+// ops/sw.py sw_band_instance) runs the several-warps kernel, as does a gap
+// extension with (S + 1) * ge >= 2^28 (the one-warp kernel's stand-in for
+// NEG).  W past 3,072 runs sw_band_many_kernel.  Returns the CUDA error
+// of the launch (0 on success), or -1 when an argument is out of range
+// (W outside 1..16384 included).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
@@ -614,12 +469,15 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
   // block loads the matrix with 64 threads)
   if (nw == 1 && 8 * profile_pitch(S, C1) > MAX_SMEM) nw = 2;
   if (wide) nw = max(nw, 2);           // no int8 profile: int32 lookups
+  if (ge < 0) return -1;
+  if (nw == 1 && (long long)(S + 1) * ge >= (1 << 28)) nw = 2;
+  if (nw > MAX_NW && W <= 32 * 12 * MANY_NW)
+    nw = (W + 383) / 384;              // 12 lanes a thread: fewer registers
   if (nw > 1) {
     if ((W + 32 * nw - 1) / (32 * nw) <= 12) launch_multi<12>(tr, nw, a);
     else launch_multi<16>(tr, nw, a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (ge < 0 || (long long)(S + 1) * ge >= (1 << 28)) return -1;
   switch (C1) {
     case 4: return static_cast<int>(launch_warp<4>(tr, a));
     case 6: return static_cast<int>(launch_warp<6>(tr, a));

@@ -86,9 +86,22 @@
 //     lexicographic minimum over ITS cells with T equal to its own
 //     maximum; the lanes whose maximum is M hold between them every cell
 //     with T = M, so the minimum of their records by (i, j) is the global
-//     one.  (ops/sw.py admits a window only when max|entry| * min(Q, S)
-//     < 2^23, so |T| < 2^23 for every cell, padding included, and with
-//     C < 256 the key fits and c is recovered from its low byte.)
+//     one.  (The key holds |T| < 2^23, and with C < 256 c is recovered
+//     from its low byte.  A window keeps |T| < 2^23 while max|entry| *
+//     min(Q, S) < 2^23: an int8 matrix below 65,536 columns.)
+//   - A tracked launch past that, int8 matrix or not, runs the WIDE
+//     instance of the _rec kernels (sw_full_rec_kernel,
+//     sw_strip_rec_kernel: the same text, sw_full_kernels.cuh, included
+//     twice), which tracks without the key.  Its record has two parts,
+//     the value and its column: a lane takes the row's max of T (3-input
+//     max), and only when that beats its best so far (strictly, rows
+//     below its window's slen) does it look for the lowest column
+//     reaching it, C compares and selects inside that branch.  The record
+//     is the key's, value for value, so the proof above holds as it
+//     stands, for any int32 score; scores are bounded only by the int32
+//     DP itself (ops/sw.py check_score_cap).  Every other launch keeps
+//     the key, whose row costs fewer instructions (ops/sw.py
+//     sw_full_instance decides from the matrix's range and the shape).
 //   - Query columns past Q are padded with code 7, which scores 0 against
 //     every subject code.  Padded columns lie to the right of every real
 //     column, so they never feed a real cell, and their T = H[i-1,j-1] is
@@ -124,7 +137,12 @@
 // and written by lane 31 a row: at Q = 2,048, S = 2,304 and B = 4,096
 // that is 453 MB over three strip boundaries, 0.14 ms at the card's
 // memory rate against 5.8 ms of the bound's integer work, so it lives
-// in device memory at every S and not in shared memory.
+// in device memory at every S and not in shared memory.  The buffer
+// holds a window's carry for all of its rows (8 * S bytes), and the
+// wrapper (ops/sw.py strip_groups) keeps it within a fixed budget by
+// launching groups of windows; nothing in the kernel bounds Q (a window
+// of Q columns runs Q / 512 strips, every offset that can pass 2^31 in
+// size_t).
 // Tracking: a lane's strict-greater record is the first of its best
 // cells in the order it visits them, which is row-major within a strip
 // but not across strips.  So a lane keeps one record a strip (the proof
@@ -172,335 +190,49 @@ __device__ __forceinline__ int row_max(const int (&T)[C]) {
   return m;
 }
 
-// The second launch bound (one block a SM at least) lets ptxas take the
-// registers it asks for: without it the build spilled 8 bytes.  WIDE:
-// scores from smat (int32) a cell, no int8 profile.
-template <int C, int L, bool TRACK, bool WIDE>
-__global__ void __launch_bounds__(WARPS * 32, 1)
-sw_full_kernel(const int* __restrict__ q, const int* __restrict__ subj,
-               const int* __restrict__ slens,
-               const int* __restrict__ matrix, int B, int Q, int S,
-               int go, int ge, int kmul, int* __restrict__ best_out,
-               int* __restrict__ ti_out, int* __restrict__ tj_out) {
-  static_assert(L == 8 || L == 16 || L == 32, "lanes a window");
-  static_assert(C >= 1 && C < 256, "the key keeps the column in a byte");
-  constexpr int G = 32 / L;            // windows a warp
-  __shared__ int smat[64];
-  if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int sub = lane & (L - 1);      // lane within the window's group
-  const int wib = (threadIdx.x >> 5) * G + lane / L;   // window in block
-  const int bw = blockIdx.x * (WARPS * G) + wib;
-  if (bw - lane / L >= B) return;      // no window in this warp
-  // a group past the last window repeats it: it runs the warp's rows with
-  // the others (every shuffle below names the full warp) and stores nothing
-  const bool live = bw < B;
-  const int b = live ? bw : B - 1;
-
-  const int j0 = sub * C;
-  const int j0ge = j0 * ge;
-  int H[C], Eh[C];                     // Eh = E + i*ge
-  // The window's query profile, int8: entry (s, j) = matrix[s][q[j]].
-  // Column c of lane l lies at byte ((c/4)*L + l)*4 + c%4 of row s, so
-  // for one c the lanes of a group read consecutive 32-bit words; rows
-  // and windows are a multiple of all 32 banks apart, and the g-th group
-  // of a warp starts g*L words further on: no bank is hit twice.
-  constexpr int CP = (C + 3) / 4 * 4;
-  constexpr int PITCH = (L * CP + 127) / 128 * 128;
-  constexpr int WSTRIDE = 8 * PITCH + 128;         // room for the shift
-  __shared__ __align__(16) signed char prof[WIDE ? 16 : WARPS * G * WSTRIDE];
-  signed char* pbase = prof + (WIDE ? 0 : wib * WSTRIDE + (lane / L) * (L * 4)
-                                          + sub * 4);
-  int qc[CP];
+// The lowest c with T[c] == m, m the max of T (the two-part record's column).
+template <int C>
+__device__ __forceinline__ int first_col(const int (&T)[C], int m) {
+  int c0 = C - 1;
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    const int j = j0 + c;
-    qc[c] = c < C && j < Q ? q[(size_t)b * Q + j] & 7 : 7;
-  }
-  if (!WIDE) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s)
-#pragma unroll
-      for (int k = 0; k < CP / 4; ++k) {
-        const unsigned w = (smat[8 * s + qc[4 * k]] & 0xff) |
-                           (smat[8 * s + qc[4 * k + 1]] & 0xff) << 8 |
-                           (smat[8 * s + qc[4 * k + 2]] & 0xff) << 16 |
-                           (unsigned)smat[8 * s + qc[4 * k + 3]] << 24;
-        *reinterpret_cast<unsigned*>(pbase + s * PITCH + k * (L * 4)) = w;
-      }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    H[c] = 0;
-    Eh[c] = 0;
-  }
-  __syncwarp();                        // a group reads its own lanes' words
-  const int* srow = subj + (size_t)b * S;
-  const int slen = live ? min(slens[b], S) : 0;
-  int rows = slen;                     // the warp's windows run together
-#pragma unroll
-  for (int d = L; d < 32; d <<= 1)
-    rows = max(rows, __shfl_xor_sync(FULL, rows, d));
-
-  int lthr = 255, lkey = 255, li = 0;  // TRACK: this lane's best, T = 0
-  int acc = 0;                         // !TRACK: this lane's max of T
-  int scode = 7;
-  for (int i = 0; i < rows; ++i) {
-    if ((i & (L - 1)) == 0) {
-      const int r = i + sub;
-      scode = r < S ? srow[r] & 7 : 7;
-    }
-    const int sc = __shfl_sync(FULL, scode, i & (L - 1), L);
-    const signed char* prow = pbase + sc * PITCH;
-    const int* mrow = smat + 8 * sc;   // WIDE
-    const int nige = -i * ge;          // E = Eh + nige
-    const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
-
-    int hleft = __shfl_up_sync(FULL, H[C - 1], 1, L);
-    if (sub == 0) hleft = 0;
-    int T[C], H0[C], run[C];
-    int r = NEG;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int w = WIDE ? mrow[qc[c]] : prow[(c / 4) * (L * 4) + c % 4];
-      T[c] = (c == 0 ? hleft : H[c - 1]) + w;
-      H0[c] = addmax_relu(Eh[c], nige, T[c]);
-      r = addmax(H0[c], c * ge, r);    // prefix max within the lane
-      run[c] = r;
-    }
-    // inclusive prefix max of the lane totals over the group, in window
-    // coordinates; a lane below the shift gets its own value back
-    int incl = r + j0ge;
-#pragma unroll
-    for (int d = 1; d < L; d <<= 1)
-      incl = max(incl, __shfl_up_sync(FULL, incl, d, L));
-    int excl = __shfl_up_sync(FULL, incl, 1, L);
-    excl = sub == 0 ? NEG : excl - j0ge;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int cm = c == 0 ? excl : max(excl, run[c - 1]);
-      const int hn = addmax(cm, -(go + (c - 1) * ge), H0[c]);  // max(F, H0)
-      Eh[c] = addmax(hn, ci, Eh[c]);
-      H[c] = hn;
-    }
-
-    // rows at or past the window's own slen (another window of the warp
-    // is still running) compute on, but count for nothing
-    if (TRACK) {
-      const int m = row_key<C>(T, kmul);
-      if (m > lthr && i < slen) {      // T strictly above the lane's best
-        lkey = m;
-        li = i;
-        lthr = m | 255;
-      }
-    } else {
-      const int m = row_max<C>(T);
-      if (i < slen) acc = max(acc, m);
-    }
-  }
-  if (TRACK) {
-    // highest T, then lowest row, then lowest column, over the group
-    int bt = lkey >> 8, bi = li, bj = j0 + 255 - (lkey & 255);
-#pragma unroll
-    for (int d = L / 2; d > 0; d >>= 1) {
-      const int ot = __shfl_xor_sync(FULL, bt, d, L);
-      const int oi = __shfl_xor_sync(FULL, bi, d, L);
-      const int oj = __shfl_xor_sync(FULL, bj, d, L);
-      if (ot > bt || (ot == bt && (oi < bi || (oi == bi && oj < bj)))) {
-        bt = ot;
-        bi = oi;
-        bj = oj;
-      }
-    }
-    if (sub == 0 && live) {
-      const bool hit = bt > 0;         // else no row beat the initial 0
-      best_out[b] = hit ? bt : 0;
-      ti_out[b] = hit ? bi : 0;
-      tj_out[b] = hit ? bj : 0;
-    }
-  } else {
-#pragma unroll
-    for (int d = L / 2; d > 0; d >>= 1)
-      acc = max(acc, __shfl_xor_sync(FULL, acc, d, L));
-    if (sub == 0 && live) best_out[b] = acc;
-  }
+  for (int c = C - 2; c >= 0; --c) c0 = T[c] == m ? c : c0;
+  return c0;
 }
 
+constexpr int STRIP_C = 16;                 // columns a lane in a strip
+constexpr int STRIP_W = 32 * STRIP_C;       // columns a strip
+
+// sw_full_kernel and sw_strip_kernel track with the key; the _rec
+// kernels (tracked WIDE instances only) with the two-part record.
+#define SWF_KERNEL sw_full_kernel
+#define SWF_STRIP_KERNEL sw_strip_kernel
+#define SWF_REC false
+#include "sw_full_kernels.cuh"
+#undef SWF_KERNEL
+#undef SWF_STRIP_KERNEL
+#undef SWF_REC
+#define SWF_KERNEL sw_full_rec_kernel
+#define SWF_STRIP_KERNEL sw_strip_rec_kernel
+#define SWF_REC true
+#include "sw_full_kernels.cuh"
+#undef SWF_KERNEL
+#undef SWF_STRIP_KERNEL
+#undef SWF_REC
+
 template <int C, int L>
-int launch(bool track, bool wide, const int* q, const int* subj,
+int launch(bool track, int wide, const int* q, const int* subj,
            const int* slens, const int* matrix, int B, int Q, int S, int go,
            int ge, int* best, int* ti, int* tj, cudaStream_t stream) {
   constexpr int PER_BLOCK = WARPS * (32 / L);      // windows a block
   const dim3 grid((B + PER_BLOCK - 1) / PER_BLOCK), block(WARPS * 32);
-  auto kernel = track ? (wide ? sw_full_kernel<C, L, true, true>
-                              : sw_full_kernel<C, L, true, false>)
+  auto kernel = track ? (wide == 2 ? sw_full_rec_kernel<C, L, true, true>
+                         : wide ? sw_full_kernel<C, L, true, true>
+                                : sw_full_kernel<C, L, true, false>)
                       : (wide ? sw_full_kernel<C, L, false, true>
                               : sw_full_kernel<C, L, false, false>);
   kernel<<<grid, block, 0, stream>>>(q, subj, slens, matrix, B, Q, S, go, ge,
                                      256, best, ti, tj);
   return static_cast<int>(cudaGetLastError());
-}
-
-constexpr int STRIP_C = 16;                 // columns a lane in a strip
-constexpr int STRIP_W = 32 * STRIP_C;       // columns a strip
-constexpr int MAX_STRIP_Q = 16384;          // ops/sw.py MAX_STRIP_Q
-
-// One warp a window, the query in strips of STRIP_W columns (header).
-template <bool TRACK, bool WIDE>
-__global__ void __launch_bounds__(WARPS * 32, 1)
-sw_strip_kernel(const int* __restrict__ q, const int* __restrict__ subj,
-                const int* __restrict__ slens,
-                const int* __restrict__ matrix, int B, int Q, int S,
-                int go, int ge, int kmul, int2* __restrict__ carry,
-                int* __restrict__ best_out, int* __restrict__ ti_out,
-                int* __restrict__ tj_out) {
-  constexpr int C = STRIP_C, L = 32;
-  __shared__ int smat[64];
-  if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;    // window in block
-  const int b = blockIdx.x * WARPS + wib;
-  if (b >= B) return;
-  // the 32-lane instance's profile layout: lane l's word k of row s at
-  // byte s * PITCH + k * 128 + l * 4, read back by lane l alone
-  constexpr int PITCH = L * C;
-  constexpr int WSTRIDE = 8 * PITCH + 128;
-  __shared__ __align__(16) signed char prof[WIDE ? 16 : WARPS * WSTRIDE];
-  signed char* pbase = prof + (WIDE ? 0 : wib * WSTRIDE + lane * 4);
-
-  const int* srow = subj + (size_t)b * S;
-  int2* crow = carry + (size_t)b * S;
-  const int rows = min(slens[b], S);
-  const int nstrip = (Q + STRIP_W - 1) / STRIP_W;
-  int bt = 0, bi = 0, bj = 0;          // TRACK: the lane's record so far
-  int acc = 0;                         // !TRACK: the lane's max of T
-  for (int k = 0; k < nstrip; ++k) {
-    const int j0 = k * STRIP_W + lane * C;   // the lane's first column
-    const int j0ge = j0 * ge;
-    const bool last = k + 1 == nstrip;
-    int qc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = j0 + c;
-      qc[c] = j < Q ? q[(size_t)b * Q + j] & 7 : 7;
-    }
-    if (!WIDE) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-#pragma unroll
-        for (int w4 = 0; w4 < C / 4; ++w4) {
-          const unsigned w = (smat[8 * s + qc[4 * w4]] & 0xff) |
-                             (smat[8 * s + qc[4 * w4 + 1]] & 0xff) << 8 |
-                             (smat[8 * s + qc[4 * w4 + 2]] & 0xff) << 16 |
-                             (unsigned)smat[8 * s + qc[4 * w4 + 3]] << 24;
-          *reinterpret_cast<unsigned*>(pbase + s * PITCH + w4 * (L * 4)) = w;
-        }
-    }
-    int H[C], Eh[C];                   // Eh = E + i*ge
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      H[c] = 0;
-      Eh[c] = 0;
-    }
-    // strip k - 1's carry stores (lane 31) are seen by every lane
-    __syncwarp();
-    int lthr = 255, lkey = 255, li = 0;  // TRACK: this strip's record
-    int scode = 7;
-    int2 cv = make_int2(0, NEG);       // strip 0: H = 0 left, no prefix
-    int hprev = 0;                     // x of the row above (lane 0 reads)
-    for (int i = 0; i < rows; ++i) {
-      if ((i & 31) == 0) {
-        const int r = i + lane;
-        scode = r < S ? srow[r] & 7 : 7;
-        if (k > 0 && r < rows) cv = crow[r];
-      }
-      const int sc = __shfl_sync(FULL, scode, i & 31);
-      const signed char* prow = pbase + sc * PITCH;
-      const int* mrow = smat + 8 * sc;   // WIDE
-      const int nige = -i * ge;          // E = Eh + nige
-      const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
-
-      int hleft = __shfl_up_sync(FULL, H[C - 1], 1);
-      if (lane == 0) hleft = hprev;      // H[i-1, j0-1] of the last strip
-      hprev = __shfl_sync(FULL, cv.x, i & 31);
-      const int pmc = __shfl_sync(FULL, cv.y, i & 31);
-      int T[C], H0[C], run[C];
-      int r = NEG;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int w = WIDE ? mrow[qc[c]] : prow[(c / 4) * (L * 4) + c % 4];
-        T[c] = (c == 0 ? hleft : H[c - 1]) + w;
-        H0[c] = addmax_relu(Eh[c], nige, T[c]);
-        r = addmax(H0[c], c * ge, r);    // prefix max within the lane
-        run[c] = r;
-      }
-      // inclusive prefix max of the lane totals, in window coordinates,
-      // the strips to the left folded in at lane 0
-      int incl = r + j0ge;
-      if (lane == 0) incl = max(incl, pmc);
-#pragma unroll
-      for (int d = 1; d < L; d <<= 1)
-        incl = max(incl, __shfl_up_sync(FULL, incl, d));
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      excl = (lane == 0 ? pmc : excl) - j0ge;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int cm = c == 0 ? excl : max(excl, run[c - 1]);
-        const int hn = addmax(cm, -(go + (c - 1) * ge), H0[c]);  // max(F, H0)
-        Eh[c] = addmax(hn, ci, Eh[c]);
-        H[c] = hn;
-      }
-      if (!last && lane == 31) crow[i] = make_int2(H[C - 1], incl);
-
-      if (TRACK) {
-        const int m = row_key<C>(T, kmul);
-        if (m > lthr) {                  // T strictly above the strip's best
-          lkey = m;
-          li = i;
-          lthr = m | 255;
-        }
-      } else {
-        acc = max(acc, row_max<C>(T));
-      }
-    }
-    if (TRACK) {
-      const int st = lkey >> 8, sj = j0 + 255 - (lkey & 255);
-      if (st > bt || (st == bt && (li < bi || (li == bi && sj < bj)))) {
-        bt = st;
-        bi = li;
-        bj = sj;
-      }
-    }
-  }
-  if (TRACK) {
-    // highest T, then lowest row, then lowest column, over the warp
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const int ot = __shfl_xor_sync(FULL, bt, d);
-      const int oi = __shfl_xor_sync(FULL, bi, d);
-      const int oj = __shfl_xor_sync(FULL, bj, d);
-      if (ot > bt || (ot == bt && (oi < bi || (oi == bi && oj < bj)))) {
-        bt = ot;
-        bi = oi;
-        bj = oj;
-      }
-    }
-    if (lane == 0) {
-      const bool hit = bt > 0;         // else no row beat the initial 0
-      best_out[b] = hit ? bt : 0;
-      ti_out[b] = hit ? bi : 0;
-      tj_out[b] = hit ? bj : 0;
-    }
-  } else {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      acc = max(acc, __shfl_xor_sync(FULL, acc, d));
-    if (lane == 0) best_out[b] = acc;
-  }
 }
 
 }  // namespace
@@ -509,9 +241,11 @@ sw_strip_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  A query of length Q runs
 // the first instantiated (C, L) below with L * C >= Q (Q <= 512).
-// wide != 0 (a matrix entry outside -128..127) runs the WIDE instance;
-// ops/sw.py admits only max|entry| * min(Q, S) < 2^23.  Returns the CUDA
-// error of the launch (0 on success), or -1 when Q is out of range.
+// wide = 1 (a matrix entry outside -128..127) runs the WIDE instance;
+// wide = 2, for a tracked window that could score 2^23, the WIDE
+// instance with the two-part record (ops/sw.py sw_full_instance decides).
+// Returns the CUDA error of the launch (0 on success), or -1 when Q is out
+// of range.
 extern "C" int sw_full_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int go, int ge, int track,
@@ -527,10 +261,10 @@ extern "C" int sw_full_launch(const void* q, const void* subj,
   auto* ip = static_cast<int*>(ti);
   auto* jp = static_cast<int*>(tj);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool tr = track != 0, wd = wide != 0;
+  const bool tr = track != 0;
 #define SWF_TRY(C, L)                                                     \
   if (Q <= (C) * (L))                                                     \
-    return launch<C, L>(tr, wd, qp, sp, lp, mp, B, Q, S, go, ge, bp, ip, jp, \
+    return launch<C, L>(tr, wide, qp, sp, lp, mp, B, Q, S, go, ge, bp, ip, jp, \
                         st)
   // 8 lanes a window to Q = 128, 16 to 192, 32 above
   SWF_TRY(4, 8); SWF_TRY(8, 8); SWF_TRY(12, 8); SWF_TRY(14, 8);
@@ -541,20 +275,23 @@ extern "C" int sw_full_launch(const void* q, const void* subj,
   return -1;
 }
 
-// The same for a query of STRIP_W < Q <= MAX_STRIP_Q columns, in column
-// strips (header).  carry is an int32 [B, S, 2] device scratch buffer the
-// kernel writes before it reads (the caller need not clear it).  Returns
-// the CUDA error of the launch, or -1 when Q is out of range.
+// The same for a query of more than STRIP_W columns, in column strips
+// (header).  carry is an int32 [B, S, 2] device scratch buffer the kernel
+// writes before it reads (the caller need not clear it); ops/sw.py bounds
+// it by launching groups of windows (their pointers offset to the group's
+// first window).  wide as above.  Returns the CUDA error of the launch,
+// or -1 when Q is out of range.
 extern "C" int sw_full_strip_launch(const void* q, const void* subj,
                                     const void* slens, const void* matrix,
                                     int B, int Q, int S, int go, int ge,
                                     int track, void* best, void* ti, void* tj,
                                     void* stream, int wide, void* carry) {
-  if (Q <= STRIP_W || Q > MAX_STRIP_Q || S < 0 || B < 0) return -1;
+  if (Q <= STRIP_W || S < 0 || B < 0) return -1;
   if (B == 0) return 0;
   const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
-  auto kernel = track ? (wide ? sw_strip_kernel<true, true>
-                              : sw_strip_kernel<true, false>)
+  auto kernel = track ? (wide == 2 ? sw_strip_rec_kernel<true, true>
+                         : wide ? sw_strip_kernel<true, true>
+                                : sw_strip_kernel<true, false>)
                       : (wide ? sw_strip_kernel<false, true>
                               : sw_strip_kernel<false, false>);
   auto st = static_cast<cudaStream_t>(stream);

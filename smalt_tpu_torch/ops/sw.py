@@ -26,29 +26,48 @@ import torch
 
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
-# widest query sw_full's strip path takes (strips of MAX_Q columns, one
-# warp a window; sw_full.cu MAX_STRIP_Q): reads up to 16 kb, as sw_band
-MAX_STRIP_Q = 16384
-MAX_BAND_W = 3072  # widest band sw_band runs: 6 warps of 16 lanes a thread
-# Every score a kernel handles lies below SCORE_CAP in magnitude when
-# max|entry| * (query columns or subject rows, the fewer) is below it:
-# sw_full.cu and sw_band.cu pack a score and a column into the int32 key
-# T * 256 + 255 - c, which holds |T| < 2^23.  The sentinels sit far from
-# that range: NEG = -2^28 (and NEG less a row's gap penalties), the
-# column sentinel 1 << 28, and sw_band.cu's padding-lane H of -2^22,
-# which only the int8 kernel uses (|entry| <= 128: its key stays above
-# -2^31).  NEG * 256 is never formed.
-SCORE_CAP = 1 << 23
+# Queries past MAX_Q run sw_full's strip path (one warp a window, strips
+# of MAX_Q columns), which has no limit on Q.  Its carry scratch, int32
+# [windows, S, 2], is kept within this many bytes by launching groups of
+# windows (strip_groups).
+STRIP_SCRATCH_BYTES = 1 << 30
+MULTI_BAND_W = 3072  # widest band of sw_band_multi_kernel (6 warps)
+# widest band sw_band runs: sw_band_many_kernel, 32 warps of 16 lanes a
+# thread (reads up to ~87 kb); a wider band needs state outside registers
+MAX_BAND_W = 16384
+# The tracking key T * 256 + 255 - c (sw_full.cu, sw_band.cu's one-warp
+# kernel) holds |T| < 2^23; a window can score no more than max|entry| *
+# (query columns or subject rows, the fewer), and a tracked launch that
+# reaches KEY_CAP that way runs the instances whose record keeps the
+# value and the column apart (sw_full's _rec kernels, sw_band's
+# several-warps kernel).
+KEY_CAP = 1 << 23
+# What every kernel, and the Pallas kernels whose arithmetic they share,
+# holds in int32: H and E up to the window's best score plus a gap
+# extension a column or row (the prefix max H0 + j*ge, E kept as
+# E + i*ge), and NEG-based sentinels down to NEG less go and a gap
+# extension a column.  Both stay inside int32 when
+# max|entry| * min(Q, S) + (go + ge) * (Q + S + W) < DP_CAP = 2^30
+# (W the band width, 0 for sw_full): the positive side below 2^30, the
+# negative above -(2^28 + 2^30).  check_score_cap refuses the rest.
+DP_CAP = 1 << 30
 
 # launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these).  "_wide": a
-# matrix outside int8 (sw_full's WIDE instances; sw_band's several-warps
-# kernel at any width); "_strip": sw_full's path for queries past MAX_Q
+# matrix outside int8 (sw_full's WIDE instances), or that or a tracked
+# window that could score KEY_CAP (sw_band's several-warps kernel at any
+# width up to MULTI_BAND_W); "_rec": a tracked sw_full window that could
+# score KEY_CAP (the WIDE instance of sw_full_rec_kernel or
+# sw_strip_rec_kernel); "_strip": sw_full's path for queries past MAX_Q;
+# "_many": sw_band_many_kernel, bands past MULTI_BAND_W.  The names are
+# what sw_full_instance and sw_band_instance return.
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
             "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0,
             "sw_full_track_strip": 0, "sw_full_strip": 0,
-            "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0}
+            "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0,
+            "sw_band_track_many": 0, "sw_band_many": 0,
+            "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0}
 
 _libs: dict = {}
 
@@ -88,16 +107,76 @@ def device_matrix(matrix, device) -> DeviceMatrix:
                         int(m.max()))
 
 
-def check_score_cap(kname: str, matrix: DeviceMatrix, n: int) -> None:
-    """Raise ValueError unless max|entry| * n < SCORE_CAP, n the fewer of
-    a window's query columns and subject rows (swq: its query columns)."""
+def dp_extent(amax: int, Q: int, S: int, go: int, ge: int,
+              W: int = 0) -> int:
+    """max|entry| * min(Q, S) + (go + ge) * (Q + S + W): what the int32 DP
+    of a window of Q query columns and S subject rows (a band of W lanes)
+    must hold below DP_CAP."""
+    return amax * min(Q, S) + (abs(go) + abs(ge)) * (Q + S + W)
+
+
+def check_score_cap(kname: str, matrix: DeviceMatrix, Q: int, S: int,
+                    go: int, ge: int, W: int = 0) -> None:
+    """Raise ValueError unless dp_extent(...) < DP_CAP: the int32 DP of
+    every kernel (and of the Pallas kernels) holds such a window."""
     if not isinstance(matrix, DeviceMatrix):
         raise TypeError(f"{kname}: the score matrix must be the DeviceMatrix "
                         f"device_matrix makes, got {type(matrix).__name__}")
-    if matrix.amax * n >= SCORE_CAP:
-        raise ValueError(f"{kname}: max |score matrix entry| {matrix.amax} "
-                         f"times {n} columns reaches 2^23, the kernels' "
-                         f"score limit (max|entry| * min(Q, S) < 2^23)")
+    ext = dp_extent(matrix.amax, Q, S, go, ge, W)
+    if ext >= DP_CAP:
+        raise ValueError(
+            f"{kname}: max |score matrix entry| {matrix.amax} on a window of "
+            f"{Q} x {S} (gap penalties {abs(go)}, {abs(ge)}) reaches 2^30, "
+            f"the int32 DP's limit (max|entry| * min(Q, S) + (go + ge) * "
+            f"(Q + S + W) < 2^30)")
+
+
+def key_over(matrix: DeviceMatrix, Q: int, S: int) -> bool:
+    """Whether a window of Q x S could score KEY_CAP (the int8
+    instances' tracking key does not hold it)."""
+    return matrix.amax * min(Q, S) >= KEY_CAP
+
+
+def sw_full_instance(Q: int, S: int, matrix: DeviceMatrix,
+                     track: bool) -> str:
+    """The sw_full.cu instance a launch runs, by its name in `launches`:
+    the strip path past MAX_Q columns; "_rec", the two-part record, for a
+    tracked window that could score KEY_CAP, whatever the matrix (the
+    score-only instances keep no key); else "_wide" for a matrix outside
+    int8.  Only "_rec" launches pay for the record's longer row."""
+    rec = track and key_over(matrix, Q, S)
+    return ("sw_full_track" if track else "sw_full") + \
+        ("_strip" if Q > MAX_Q else "") + \
+        ("_rec" if rec else "_wide" if matrix.wide else "")
+
+
+def _wide_code(name: str) -> int:
+    """The `wide` argument of sw_full.cu's launches for an instance name:
+    0 int8, 1 WIDE, 2 WIDE with the two-part record."""
+    return 2 if name.endswith("_rec") else int(name.endswith("_wide"))
+
+
+def strip_groups(B: int, S: int):
+    """[(first, end)) groups of windows whose strip-path carry scratch
+    (8 * S bytes a window) fits STRIP_SCRATCH_BYTES, at least one window
+    a group."""
+    per = max(1, STRIP_SCRATCH_BYTES // (8 * max(S, 1)))
+    return [(g, min(B, g + per)) for g in range(0, B, per)]
+
+
+def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
+                     track: bool) -> str:
+    """The sw_band.cu instance a launch runs, by its name in `launches`:
+    "_many" (sw_band_many_kernel) past MULTI_BAND_W lanes; "_wide" (the
+    several-warps kernel, int32 lookups and no packed key) for a matrix
+    outside int8 or a tracked window that could score KEY_CAP; else the
+    int8 route (one warp a window to W = 512, sw_band_multi_kernel above,
+    or where the one-warp kernel's profile does not fit)."""
+    name = "sw_band_track" if track else "sw_band"
+    if W > MULTI_BAND_W:
+        return name + "_many"
+    wide = matrix.wide or (track and key_over(matrix, Q, S))
+    return name + ("_wide" if wide else "")
 
 
 def _matrix_on(matrix, device) -> DeviceMatrix:
@@ -291,41 +370,43 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, track: bool = False):
     """Launch csrc/sw_full.cu on the current stream.  Same arguments
     and results as sw_score_ref; every tensor contiguous int32 on one
-    CUDA device, the matrix a DeviceMatrix (one outside int8 runs the
-    WIDE instances).  A query past MAX_Q columns runs the strip path
-    (sw_full_strip_launch), with an int32 [B, S, 2] carry scratch made
-    here; past MAX_STRIP_Q it raises."""
+    CUDA device, the matrix a DeviceMatrix; the instance as
+    sw_full_instance names it.  A query past MAX_Q columns runs the strip
+    path (sw_full_strip_launch) over the groups of windows strip_groups
+    makes, one launch a group, with an int32 carry scratch for one group
+    made here."""
     B, Q = qcodes.shape
-    if not 1 <= Q <= MAX_STRIP_Q:
-        raise ValueError(f"sw_full: query length {Q} outside "
-                         f"1..{MAX_STRIP_Q} (the strip path's limit)")
+    if Q < 1:
+        raise ValueError("sw_full: empty query")
     S = subj.shape[1]
-    check_score_cap("sw_full", matrix, min(Q, S))
+    check_score_cap("sw_full", matrix, Q, S, gapopen_pos, gapext_pos)
     _check_args("sw_full", qcodes, subj, slens, matrix.t)
     dev = qcodes.device
-    wide = matrix.wide
+    name = sw_full_instance(Q, S, matrix, track)
     strip = Q > MAX_Q
     lib = _kernel_lib("sw_full")
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
-    tj = torch.empty(B, dtype=torch.int32, device=dev) if track else None
-    carry = (torch.empty((B, S, 2), dtype=torch.int32, device=dev),) \
-        if strip else ()
+    outs = [torch.empty(B, dtype=torch.int32, device=dev)
+            for _ in range(3 if track else 1)]
+    groups = strip_groups(B, S) if strip else [(0, B)]
+    carry = ()
+    if strip and groups:
+        g = groups[0][1] - groups[0][0]
+        carry = (torch.empty((g, S, 2), dtype=torch.int32, device=dev),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch = lib.sw_full_strip_launch if strip else lib.sw_full_launch
-        rc = launch(
-            qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
-            matrix.t.data_ptr(), B, Q, S, int(gapopen_pos), int(gapext_pos),
-            1 if track else 0, best.data_ptr(),
-            ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream, int(wide),
-            *(c.data_ptr() for c in carry))
-    if rc != 0:
-        raise RuntimeError(f"sw_full launch failed (code {rc})")
-    launches[("sw_full_track" if track else "sw_full") +
-             ("_strip" if strip else "") + ("_wide" if wide else "")] += 1
-    return (best, ti, tj) if track else best
+        for lo, hi in groups:          # pointers at the group's first window
+            outp = [o.data_ptr() + 4 * lo for o in outs] + \
+                [None] * (3 - len(outs))
+            rc = launch(
+                qcodes.data_ptr() + 4 * lo * Q, subj.data_ptr() + 4 * lo * S,
+                slens.data_ptr() + 4 * lo, matrix.t.data_ptr(), hi - lo, Q, S,
+                int(gapopen_pos), int(gapext_pos), 1 if track else 0, *outp,
+                stream, _wide_code(name), *(c.data_ptr() for c in carry))
+            if rc != 0:
+                raise RuntimeError(f"sw_full launch failed (code {rc})")
+            launches[name] += 1
+    return tuple(outs) if track else outs[0]
 
 
 def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
@@ -333,12 +414,12 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     """Batched full-matrix SW scores on `device`.
 
     qcodes: [B, Q] query codes 0..7 (on CUDA: Q <= MAX_Q in registers,
-            up to MAX_STRIP_Q in column strips)
+            longer queries in column strips)
     subj:   [B, S] subject codes; rows at or past slens are ignored
     slens:  [B]    valid subject lengths
     matrix: [8, 8] score matrix (code 7 must score 0: it pads): a host
             array, or the DeviceMatrix device_matrix made of one;
-            any int32 entries with max|entry| * min(Q, S) < 2^23
+            any int32 entries within the int32 DP's bound
             (check_score_cap, on every device)
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
@@ -348,7 +429,8 @@ def sw_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     device = torch.device(device)
     args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
     mat = _matrix_on(matrix, device)
-    check_score_cap("sw_full", mat, min(args[0].shape[1], args[1].shape[1]))
+    check_score_cap("sw_full", mat, args[0].shape[1], args[1].shape[1],
+                    gapopen_pos, gapext_pos)
     if device.type == "cpu":
         return sw_score_ref(*args, mat.t, gapopen_pos, gapext_pos,
                             track=track)
@@ -428,17 +510,16 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, pad: int, W: int, track: bool = False):
     """Launch csrc/sw_band.cu on the current stream.  Same arguments
     and results as sw_band_score_ref (W as given, 1..MAX_BAND_W); every
-    tensor contiguous int32 on one CUDA device, the matrix a DeviceMatrix
-    (one outside int8 runs the several-warps kernel, which looks its
-    scores up in int32)."""
+    tensor contiguous int32 on one CUDA device, the matrix a DeviceMatrix;
+    the instance as sw_band_instance names it."""
     if not 1 <= W <= MAX_BAND_W:
         raise ValueError(f"sw_band: band width {W} outside 1..{MAX_BAND_W} "
-                         f"(the kernel's limit: reads up to ~16 kb)")
+                         f"(the kernel's limit: reads up to ~87 kb)")
     B, Q = qcodes.shape
     S = subj.shape[1]
-    check_score_cap("sw_band", matrix, min(Q, S))
+    check_score_cap("sw_band", matrix, Q, S, gapopen_pos, gapext_pos, W)
     _check_args("sw_band", qcodes, subj, slens, matrix.t)
-    wide = matrix.wide
+    name = sw_band_instance(Q, S, W, matrix, track)
     dev = qcodes.device
     if Q < 1:
         raise ValueError("sw_band: empty query")
@@ -453,11 +534,11 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
             matrix.t.data_ptr(), B, Q, S, W, pad + W // 2, int(gapopen_pos),
             int(gapext_pos), 1 if track else 0, best.data_ptr(),
             ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream, int(wide))
+            tj.data_ptr() if track else None, stream,
+            int(name.endswith("_wide")))
     if rc != 0:
         raise RuntimeError(f"sw_band launch failed (code {rc})")
-    launches[("sw_band_track" if track else "sw_band") +
-             ("_wide" if wide else "")] += 1
+    launches[name] += 1
     return (best, ti, tj) if track else best
 
 
@@ -470,7 +551,7 @@ def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     so the seed diagonal sits mid-band.  W defaults to band_width_for
     and is clamped as the Pallas wrapper clamps it (clamp_band_width).
     The matrix is a host array or the DeviceMatrix device_matrix made of
-    one, with max|entry| * min(Q, S) < 2^23 (check_score_cap).
+    one, within the int32 DP's bound (check_score_cap).
 
     Returns best [B] int32, or (best, ti, tj) with track=True: the
     row-major-first argmax cell in (subject row, query column)."""
@@ -479,7 +560,8 @@ def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,
     W = clamp_band_width(int(qcodes.shape[1]), pad, W)
     args = [_as_i32(x, device) for x in (qcodes, subj, slens)]
     mat = _matrix_on(matrix, device)
-    check_score_cap("sw_band", mat, min(args[0].shape[1], args[1].shape[1]))
+    check_score_cap("sw_band", mat, args[0].shape[1], args[1].shape[1],
+                    gapopen_pos, gapext_pos, W)
     if device.type == "cpu":
         return sw_band_score_ref(*args, mat.t, gapopen_pos, gapext_pos, pad,
                                  W, track=track)

@@ -2,7 +2,7 @@
 earlier versions of the source.
 
     python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band|swq]
-        [--baseline old.cu]... [--rounds 5] [--reps 20]
+        [--baseline old.cu]... [--rounds 5] [--reps 20] [--wide]
         [--out build/time_sw.json]
 
 Builds the kernel as shipped and, for each --baseline, another version of
@@ -16,7 +16,9 @@ The versions are then timed in turns (CUDA events over --reps launches,
 --rounds rounds, each round in the opposite order of the last), at the
 shapes the mapping paths use, on random windows and on tie-heavy ones
 (swq: chip_smoke.py phase 3c's windows; the lane's own pass-2 windows
-are timed by chip_smoke.py phase 7).
+are timed by chip_smoke.py phase 7).  --wide scores with a matrix outside
+int8 (WIDE_PEN: sw_full's WIDE instances, sw_band's several-warps
+kernel) in place of the default one.
 Prints, for each baseline, how many of the kernels it shares with the
 shipped source compile to the same SASS (cuobjdump), then one line a
 version and shape with the median and the minimum over the rounds, the
@@ -62,6 +64,7 @@ BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
 SWQ_SHAPES = [(128, 256, 8192), (256, 512, 8192)]
 SWQ_WIDE = (256, 320, 2048)
 HEAD = {"sw_full": 512, "sw_band": 128, "swq": None}  # held against plain
+WIDE_PEN = (200, -200)     # --wide: match, mismatch (X -400), as chip_smoke.py
 OUTS = {"sw_full": ("best", "ti", "tj"), "sw_band": ("best", "ti", "tj"),
         "swq": ("best", "mi", "mj", "rec")}
 
@@ -185,6 +188,15 @@ def sass_by_kernel(path: str) -> dict:
             for name, body in zip(parts[1::2], parts[2::2])}
 
 
+def short_name(mangled: str) -> str:
+    """A kernel's mangled name as <name> <template arguments>, e.g.
+    'sw_full_kernel 16,32,1,1' (the arguments' values in order)."""
+    m = re.search(r"\d+(\w+?_kernel)I(\w+?)EEv", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + " " + ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+
+
 def event_ms(fn, reps: int) -> float:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -279,6 +291,9 @@ def main(argv=None) -> int:
                          "beside the shipped one (may be repeated)")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--wide", action="store_true",
+                    help="score with a matrix outside int8 (match 200, "
+                         "mismatch -200)")
     ap.add_argument("--out", default="build/time_sw.json")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -315,11 +330,17 @@ def main(argv=None) -> int:
                   f"shipped; of the {len(both)} both have, {same} identical "
                   f"instruction for instruction; only shipped: "
                   f"{len(set(shipped) - set(base))}", flush=True)
+            for k in both:
+                if shipped[k] != base[k]:
+                    print(f"#   differs: {short_name(k)} ({len(base[k])} -> "
+                          f"{len(shipped[k])} instructions)", flush=True)
 
-    m, go, ge = ali.make_score_matrix()
+    m, go, ge = ali.make_score_matrix(*(WIDE_PEN if a.wide else ()))
     go, ge = -go, -ge
     dev = torch.device("cuda")
     mat = sw.device_matrix(m, dev)
+    print(f"# matrix entries {int(m.min())}..{int(m.max())} "
+          f"({'WIDE' if mat.wide else 'int8'})", flush=True)
     rng = np.random.default_rng(20240601)
     head = HEAD[a.kernel]
     results = []
@@ -352,6 +373,7 @@ def main(argv=None) -> int:
         for label in fns:
             med = statistics.median(times[label])
             row = {"kernel": a.kernel, "version": label, "shape": case.shape,
+                   "wide": mat.wide,
                    "track": track, "windows": case.kind, "median_ms": med,
                    "min_ms": min(times[label]), "rounds": times[label],
                    "bound_ms": work["bound_ms"],

@@ -145,10 +145,12 @@ def swq_cuda(qalpha, subj, par, matrix, go: int, ge: int, tiles: int):
     """Launch csrc/swq.cu on the current stream.  Same arguments as
     swq_fill_walk_ref, every tensor contiguous int32 on one CUDA device,
     Qp a multiple of 32 up to MAX_QP, Sp even, the matrix a DeviceMatrix
-    (ops/sw.py) with max|entry| * Qp < 2^23.  `tiles` bounds every band
-    of the launch (band_tiles, from the host's copy of the windows).
-    Returns int32 best, mi, mj [W] and int16 rec [W, Sp]."""
-    sw_ops.check_score_cap("swq", matrix, qalpha.shape[1])
+    (ops/sw.py) within the int32 DP's bound (check_score_cap; swq keeps
+    its best as a (value, row, column) record, no packed key).  `tiles`
+    bounds every band of the launch (band_tiles, from the host's copy of
+    the windows).  Returns int32 best, mi, mj [W] and int16 rec [W, Sp]."""
+    sw_ops.check_score_cap("swq", matrix, qalpha.shape[1], subj.shape[1],
+                           go, ge)
     dev = qalpha.device
     for name, t in (("qalpha", qalpha), ("subj", subj), ("par", par),
                     ("matrix", matrix.t)):
@@ -279,7 +281,7 @@ def build_pass2_step(matrix, go: int, ge: int, device):
     """step(ref_alpha, reads, qlens, wd, Sp, tiles) -> int32
     [W, 3 + Sp/2], the pass-2 step of exact_pass2.py:404 on `device`:
     pass2_inputs, then swq_cuda on CUDA or swq_fill_walk_ref on the CPU,
-    then the packing.  max|entry| * Qp < 2^23 on every device
+    then the packing.  The int32 DP's bound on every device
     (check_score_cap); `tiles` as swq_cuda takes it (the CPU needs none).
 
     ref_alpha: [L] resident reference alpha codes; reads: [B, Qp] uint8
@@ -298,7 +300,7 @@ def build_pass2_step(matrix, go: int, ge: int, device):
         raise ValueError(f"build_pass2_step: no kernel for device {device}")
 
     def step(ref_alpha, reads, qlens, wd, Sp: int, tiles: int):
-        sw_ops.check_score_cap("swq", mat, reads.shape[1])
+        sw_ops.check_score_cap("swq", mat, reads.shape[1], Sp, go, ge)
         args = pass2_inputs(ref_alpha, reads, qlens, wd, Sp)
         if device.type == "cpu":
             return _pack(*swq_fill_walk_ref(*args, mat.t, go, ge))

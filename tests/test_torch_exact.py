@@ -496,15 +496,17 @@ def test_cli_matrix_outside_int8_exits_2(one_seq_index, tmp_path, capsys,
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_cli_matrix_past_score_cap_exits_2(tmp_path, capsys, device):
-    """What stays refused: a matrix that lets even the shortest padded
-    query (128 columns) reach 2^23 exits 2 naming the limit, on every
-    device and before the index is opened (none exists here)."""
+    """What stays refused: a matrix whose window of the shortest padded
+    query (128 columns) would overflow the kernels' int32 DP (2^30,
+    ops/sw.py check_score_cap) exits 2 naming the limit, on every device
+    and before the index is opened (none exists here).  (A subst of
+    -65,536 passes since windows that score 2^23 map.)"""
     from smalt_tpu_torch import cli as tcli
     rc = tcli.main(["map", "--device-exact", "--device", device, "-S",
-                    "subst=-65536", "-o", str(tmp_path / "o.sam"),
+                    "subst=-8388608", "-o", str(tmp_path / "o.sam"),
                     str(tmp_path / "no_index"),
                     str(tmp_path / "no_reads.fq")])
     err = capsys.readouterr().err
     assert rc == 2
-    assert err.count("\n") == 1 and "2^23" in err and "65537" in err
+    assert err.count("\n") == 1 and "2^30" in err and "8388609" in err
     assert not (tmp_path / "o.sam").exists()

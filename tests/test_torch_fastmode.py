@@ -126,11 +126,29 @@ def test_contig_boundary_identical(tmp_path):
 @pytest.mark.parametrize("kw,item", [
     ({"n_hosts": 2}, "Queue 1 #8"),
     ({"mesh_spec": "2,1"}, "Queue 1 #8"),
-    ({"nthreads": 2}, "Queue 1 #11"),
-    ({"resume_log": object()}, "Queue 1 #13"),
+    # explicit ids: the cases keep their names.  The tail pool and
+    # --resume are ported (item None): each run writes the SAM of the
+    # plain run (tests/test_torch_fast_driver.py has the rest)
+    pytest.param({"nthreads": 2}, None, id="kw2-Queue 1 #11"),
+    pytest.param({"resume_log": "-o"}, None, id="kw3-Queue 1 #13"),
 ])
-def test_pipeline_unported_options_raise(simulated, kw, item):
+def test_pipeline_unported_options_raise(simulated, kw, item, tmp_path):
     refset, idx, fq, _ = simulated
+    if item is None:
+        if "resume_log" in kw:
+            from smalt_tpu_torch.resume import ResumeLog
+            kw = {"resume_log": ResumeLog(str(tmp_path / "o.sam"), ["map"])}
+        else:                  # the pool's workers load the index by name
+            name = str(tmp_path / "idx")
+            refset.save(name)
+            idx.save(name)
+            kw = dict(kw, index_name=name)
+        want, got = io.StringIO(), io.StringIO()
+        _port_run(refset, idx, fq, want, batch=64)
+        _port_run(refset, idx, fq, got, batch=64, **kw)
+        assert len(got.getvalue().splitlines()) == 200
+        assert got.getvalue() == want.getvalue()
+        return
     with pytest.raises(NotImplementedError, match=item):
         _port_run(refset, idx, fq, io.StringIO(), **kw)
 
@@ -309,29 +327,37 @@ def test_cli_pairs_match_jax_cli(saved_pairs):
 
 @pytest.mark.parametrize("extra,item", [
     (["--fast", "--mesh", "2,1"], "Queue 1 #8"),
-    (["--fast", "--profile", "prof"], "Queue 1 #12"),
-    (["--fast", "-n", "2"], "Queue 1 #11"),
-    # an explicit id: the case keeps its name when cases are added or
-    # removed (--device-exact with mates maps: tests/test_torch_exact_pe.py).
-    # --device-pass1 maps since it was ported (item None): the case holds
-    # it to `map` without the flag (tests/test_torch_pass1.py has the rest)
+    # explicit ids: a case keeps its name when cases are added or removed
+    # (--device-exact with mates maps: tests/test_torch_exact_pe.py).
+    # Ported options map (item None): --profile and -n 2 with --fast write
+    # the SAM of `map --fast` without them (tests/test_torch_fast_driver.py
+    # has the rest; the trace goes to a directory of the test's), and
+    # --device-pass1 the SAM of `map` without the flag
+    # (tests/test_torch_pass1.py has the rest)
+    pytest.param(["--fast", "--profile", "PROFDIR"], None,
+                 id="extra1-Queue 1 #12"),
+    pytest.param(["--fast", "-n", "2"], None, id="extra2-Queue 1 #11"),
     pytest.param(["--device-pass1", "-r", "1"], None,
                  id="extra4-Queue 1 #5"),
 ])
 def test_cli_unported_options_exit_nonzero(saved_index, extra, item, capsys,
-                                           monkeypatch):
+                                           monkeypatch, tmp_path):
     from smalt_tpu_torch import cli
     name, fq = saved_index
+    extra = [str(tmp_path / "prof") if x == "PROFDIR" else x for x in extra]
+    fast = extra[0] == "--fast"
     if item is None:
         monkeypatch.setenv("SMALT_DP1_BATCH", "64")
-        assert cli.main(["map", "-r", "1", name, fq]) == 0
+        assert cli.main(["map", "-r", "1", name, fq] if not fast else
+                        ["map", "--fast", "--device", "cpu", name, fq]) == 0
         want = _body(capsys.readouterr().out)
     rc = cli.main(["map"] + extra + ["--device", "cpu", name, fq])
     if item is None:
         got = capsys.readouterr()
         assert rc == 0 and _body(got.out) == want
         assert len([ln for ln in want if ln[:1] != "@"]) == 200
-        assert got.err == ""                 # the lane the flag names ran
+        if not fast:
+            assert got.err == ""             # the lane the flag names ran
         return
     assert rc == 2
     assert f"ROADMAP.md {item})" in capsys.readouterr().err
@@ -388,17 +414,18 @@ def test_cli_matrix_outside_int8_exits_2(simulated, saved_index, tmp_path,
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_cli_matrix_past_score_cap_exits_2(tmp_path, capsys, device):
-    """What stays refused: a matrix that lets even the shortest padded
-    query (32 columns) reach 2^23 exits 2 with one line naming the
-    limit, on every device and before the index is opened (none exists
-    here)."""
+    """What stays refused: a matrix whose window of the shortest padded
+    query (32 columns) would overflow the kernels' int32 DP (2^30, ops/sw.py
+    check_score_cap) exits 2 with one line naming the limit, on every
+    device and before the index is opened (none exists here).  (A match
+    of 262,144 passes since windows that score 2^23 map.)"""
     from smalt_tpu_torch import cli
     rc = cli.main(["map", "--fast", "--device", device, "-S",
-                   "match=262144", str(tmp_path / "no_index"),
+                   "match=33554432", str(tmp_path / "no_index"),
                    str(tmp_path / "no_reads.fq")])
     err = capsys.readouterr().err
     assert rc == 2
-    assert err.count("\n") == 1 and "2^23" in err and "262144" in err
+    assert err.count("\n") == 1 and "2^30" in err and "33554432" in err
 
 
 def test_cli_matrix_at_int8_ends_maps(saved_index):

@@ -269,17 +269,21 @@ def test_strip_rendering_matches_plain(Q, S, pen):
 
 
 def test_sw_full_cuda_strip_limits():
-    """The CUDA wrapper takes queries up to MAX_STRIP_Q and refuses CPU
-    tensors (it never runs the plain version)."""
-    assert tsw.MAX_STRIP_Q >= 4096
+    """The CUDA wrapper's strip path has no limit on the query (reads past
+    16 kb pad to 32,768 columns and more): such a query gets past every
+    check but the device's, and CPU tensors are refused (the wrapper never
+    runs the plain version).  An empty query is refused."""
     m = tsw.device_matrix(tali.make_score_matrix()[0], "cpu")
-    q = torch.zeros((2, tsw.MAX_STRIP_Q + 1), dtype=torch.int32)
     s = torch.zeros((2, 8), dtype=torch.int32)
     sl = torch.full((2,), 8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="strip path's limit"):
-        tsw.sw_full_cuda(q, s, sl, m, 2, 1)
-    with pytest.raises(ValueError, match="cuda"):
-        tsw.sw_full_cuda(q[:, :640].contiguous(), s, sl, m, 2, 1)
+    for Q in (640, 16385, 32768, 100_000):
+        q = torch.zeros((2, Q), dtype=torch.int32)
+        assert tsw.sw_full_instance(Q, 8, m, True) == "sw_full_track_strip"
+        with pytest.raises(ValueError, match="cuda"):
+            tsw.sw_full_cuda(q, s, sl, m, 2, 1)
+    with pytest.raises(ValueError, match="empty query"):
+        tsw.sw_full_cuda(torch.zeros((2, 0), dtype=torch.int32), s, sl, m,
+                         2, 1)
 
 
 # ------------------------------------------------------------------

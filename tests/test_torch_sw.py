@@ -305,9 +305,11 @@ def test_sw_gap_order_asserted(scoring):
 def test_matrix_outside_int8_raises(scoring, entry):
     """A matrix entry outside -128..127 is taken at every place a matrix
     is (device_matrix records its range beside the tensor): the
-    full-matrix and the banded scores equal the JAX package's oracles.
-    What stays refused, on every device, is a window that could score
-    2^23 or more (max|entry| * min(Q, S)): entry 1 << 20 on 32 columns."""
+    full-matrix and the banded scores equal the JAX package's oracles,
+    entry 1 << 20 on 32 columns too (a window that could score 2^25, past
+    the int8 instances' key).  What stays refused, on every device, is a
+    window whose int32 DP could pass 2^30 (check_score_cap): entry 1 << 25
+    on 32 columns."""
     from smalt_tpu_torch.parallel.mesh import make_device_step
     m, go, ge = scoring
     q, s, slens = _windows(5, 6, 32, 64)
@@ -319,15 +321,17 @@ def test_matrix_outside_int8_raises(scoring, entry):
     make_device_step(SimpleNamespace(device=torch.device("cpu")), wide,
                      go, ge)
     if entry == 1 << 20:
-        assert entry * 32 >= tsw.SCORE_CAP > entry
+        assert tsw.key_over(got, 32, 64)
+        assert tsw.dp_extent(got.amax, 32, 64, go, ge) < tsw.DP_CAP
+        huge = wide.copy()
+        huge[2, 3] = huge[3, 2] = 1 << 25
         for call in (lambda mat: tsw.sw_score_batch(q, s, slens, mat, go, ge,
                                                     device="cpu"),
                      lambda mat: tsw.sw_band_score_batch(
                          q, s, slens, mat, go, ge, 8, device="cpu")):
-            for mat in (wide, got):
-                with pytest.raises(ValueError, match="2\\^23"):
+            for mat in (huge, tsw.device_matrix(huge, "cpu")):
+                with pytest.raises(ValueError, match="2\\^30"):
                     call(mat)
-        return
     for track in (True, False):
         want = jsw.sw_score_ref(q, s, slens, wide, go, ge, track=track)
         for mat in (wide, got):
@@ -351,20 +355,24 @@ def test_matrix_outside_int8_raises(scoring, entry):
 
 
 def test_score_cap_names_its_limit(scoring):
-    """max|entry| * min(Q, S) < 2^23 passes, one more column does not;
-    a CUDA-only wrapper checks it before anything else of the card."""
+    """The int32 DP's bound, max|entry| * min(Q, S) + (go + ge) * (Q + S)
+    < 2^30: the least entry that reaches it on a 64 x 128 window is
+    refused, one less passes; a CUDA-only wrapper checks it before
+    anything else of the card."""
     m, go, ge = scoring
     q, s, slens = _windows(9, 2, 64, 128)
     big = m.copy()
-    big[0, 0] = (1 << 23) // 64          # * 64 columns = 2^23
-    with pytest.raises(ValueError, match="2\\^23"):
+    big[0, 0] = -(-(tsw.DP_CAP - (go + ge) * (64 + 128)) // 64)
+    assert tsw.dp_extent(int(big[0, 0]), 64, 128, go, ge) >= tsw.DP_CAP > \
+        tsw.dp_extent(int(big[0, 0]) - 1, 64, 128, go, ge)
+    with pytest.raises(ValueError, match="2\\^30"):
         tsw.sw_score_batch(q, s, slens, big, go, ge, device="cpu")
     big[0, 0] -= 1
     assert tsw.sw_score_batch(q, s, slens, big, go, ge, device="cpu").shape \
         == (2,)
     big[0, 0] += 1
     args = [torch.from_numpy(x) for x in (q, s, slens)]
-    with pytest.raises(ValueError, match="2\\^23"):
+    with pytest.raises(ValueError, match="2\\^30"):
         tsw.sw_full_cuda(*args, tsw.device_matrix(big, "cpu"), go, ge)
     with pytest.raises(TypeError, match="DeviceMatrix"):
         tsw.sw_full_cuda(*args, torch.from_numpy(big), go, ge)
@@ -550,13 +558,14 @@ def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
         tsw.sw_band_cuda(*args, go, ge, 16, 128, track=True)
     with pytest.raises(ValueError, match=str(tsw.MAX_BAND_W)):
         tsw.sw_band_cuda(*args, go, ge, 16, tsw.MAX_BAND_W + 128)
-    # the tracked kernel's key holds scores below 2^23: max|entry| (3
-    # here) times the window's shorter side
-    n = -(-tsw.SCORE_CAP // 3)
-    assert int(np.abs(m).max()) == 3 and 3 * (n - 1) < 1 << 23 <= 3 * n
-    big = torch.zeros((1, n), dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^23"):
-        tsw.sw_band_cuda(big, big, args[2][:1], args[3], go, ge, 16, 128)
+    # the int32 DP's bound (check_score_cap), before anything of the
+    # card: an entry of 2^24 on a 64 x 64 window reaches 2^30
+    big = m.copy()
+    big[0, 0] = 1 << 24
+    small = torch.zeros((1, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^30"):
+        tsw.sw_band_cuda(small, small, args[2][:1],
+                         tsw.device_matrix(big, "cpu"), go, ge, 16, 128)
 
 
 def _band_t_matrix(q, s, slen, m, go, ge, pad, W):
@@ -690,3 +699,99 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
         assert c.timed
     if not torch.cuda.is_available():
         assert time_sw.main(["--kernel", kernel]) == 1
+
+
+# ------------------------------------------------------------------
+# which instance a CUDA launch runs, decided on the host (pure functions,
+# so the card's routing is held here)
+# ------------------------------------------------------------------
+
+@pytest.mark.parametrize("Q,S,entry,track,want", [
+    (112, 128, 127, True, "sw_full_track"),            # int8, in registers
+    (112, 128, 200, True, "sw_full_track_wide"),       # a matrix past int8
+    (112, 128, 200, False, "sw_full_wide"),
+    (2048, 2304, 127, True, "sw_full_track_strip"),    # past 512 columns
+    (2048, 2304, 200, True, "sw_full_track_strip_wide"),
+    # int8 entries on a window that could score 2^23: the key's limit
+    (70_000, 70_000, 127, True, "sw_full_track_strip_rec"),
+    (70_000, 70_000, 127, False, "sw_full_strip"),     # score-only: no key
+    (65_000, 70_000, 127, True, "sw_full_track_strip"),  # 127 * 65,000 < 2^23
+    # in registers, entries past int8: the key up to 2^23, then the record
+    (512, 16_384, 16_383, True, "sw_full_track_wide"),
+    (512, 16_384, 16_384, True, "sw_full_track_rec"),
+    (512, 16_384, 16_384, False, "sw_full_wide"),
+    (4096, 4096, 2048, True, "sw_full_track_strip_rec"),
+])
+def test_sw_full_instance_routing(Q, S, entry, track, want):
+    """A tracked launch whose window could score 2^23 (max|entry| *
+    min(Q, S)) runs the two-part record (_rec: the WIDE instance of
+    sw_full.cu's _rec kernels), whatever the matrix; every other tracked
+    launch keeps the key, a matrix past int8 on the WIDE instance; a
+    score-only launch tracks no cell and never takes the record.  Every
+    name is a launch count's, and its `wide` code the C interface's."""
+    m = np.zeros((8, 8), np.int32)
+    m[0, 0] = entry
+    mat = tsw.device_matrix(m, "cpu")
+    assert tsw.key_over(mat, Q, S) == (entry * min(Q, S) >= 1 << 23)
+    assert tsw.sw_full_instance(Q, S, mat, track) == want
+    assert want in tsw.launches
+    assert tsw._wide_code(want) == (2 if want.endswith("_rec") else
+                                    1 if want.endswith("_wide") else 0)
+
+
+@pytest.mark.parametrize("W,S,entry,track,want", [
+    (384, 1792, 3, True, "sw_band_track"),     # 1,500 bp reads
+    (768, 4864, 3, True, "sw_band_track"),     # several warps, int8
+    (3072, 18432, 3, True, "sw_band_track"),   # the 6-warp kernel's widest
+    (3200, 18560, 3, True, "sw_band_track_many"),   # past 3,072 lanes
+    (3840, 22528, 3, False, "sw_band_many"),   # 20 kb reads
+    (16384, 97920, 200, True, "sw_band_track_many"),  # wide matrix: many
+    (384, 1792, 200, True, "sw_band_track_wide"),
+    (512, 70_000, 127, True, "sw_band_track_wide"),  # 2^23 on int8 entries
+    (512, 70_000, 127, False, "sw_band"),
+])
+def test_sw_band_instance_routing(W, S, entry, track, want):
+    """W > 3,072 (MULTI_BAND_W) runs sw_band_many_kernel, up to 32 warps a
+    window, whatever the matrix; below it a matrix past int8 or a tracked
+    window that could score 2^23 runs the several-warps kernel (the
+    `wide` flag of sw_band_launch)."""
+    m = np.zeros((8, 8), np.int32)
+    m[0, 0] = entry
+    mat = tsw.device_matrix(m, "cpu")
+    Q = S if S == 70_000 else S * 8 // 9
+    assert tsw.sw_band_instance(Q, S, W, mat, track) == want
+    assert want in tsw.launches
+    assert tsw.MULTI_BAND_W == 3072 and tsw.MAX_BAND_W == 16384
+
+
+def test_band_width_of_long_reads_fits_the_many_kernel():
+    """The band of a read padded to Q: past ~16 kb it is wider than the
+    6-warp kernel's 3,072 lanes, and up to ~87 kb within MAX_BAND_W."""
+    from smalt_tpu_torch.parallel.mesh import window_pad
+    for Q, many in ((16384, False), (16400, True), (20000, True),
+                    (87040, True)):
+        W = tsw.clamp_band_width(Q, window_pad(Q))
+        assert (W > tsw.MULTI_BAND_W) == many and W <= tsw.MAX_BAND_W, Q
+    W = tsw.clamp_band_width(90000, window_pad(90000))
+    assert W > tsw.MAX_BAND_W
+
+
+@pytest.mark.parametrize("B,S,budget,want", [
+    (10, 1024, 3 * 8 * 1024, [(0, 3), (3, 6), (6, 9), (9, 10)]),
+    (4, 1024, 8 * 1024 - 1, [(0, 1), (1, 2), (2, 3), (3, 4)]),  # >= 1 a group
+    (5, 128, 1 << 30, [(0, 5)]),
+    (0, 128, 1 << 30, []),
+])
+def test_strip_groups_split_the_scratch(B, S, budget, want, monkeypatch):
+    """The strip path's carry (8 * S bytes a window) is launched in groups
+    that fit STRIP_SCRATCH_BYTES (set here as chip_smoke.py lowers it);
+    at the module's own budget, 40,000 windows of 32,768 rows need
+    several groups."""
+    groups = tsw.strip_groups(40_000, 32_768)
+    per = tsw.STRIP_SCRATCH_BYTES // (8 * 32_768)
+    assert len(groups) == -(-40_000 // per) > 1
+    assert all(8 * 32_768 * (hi - lo) <= tsw.STRIP_SCRATCH_BYTES
+               for lo, hi in groups)
+    assert groups[-1][1] == 40_000
+    monkeypatch.setattr(tsw, "STRIP_SCRATCH_BYTES", budget)
+    assert tsw.strip_groups(B, S) == want
