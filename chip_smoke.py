@@ -25,7 +25,7 @@
    S=2,304 on 4,096 tie-heavy windows (the plain version once).  Then
    the strip path past 16,384 columns: Q=32,768 / S=2,048 on 64 windows
    planted past column 16,384 and 64 tie-heavy ones, int8 and WIDE, with
-   the carry scratch budget (ops/sw.py STRIP_SCRATCH_BYTES) lowered so
+   the carry scratch budget (ops/sw.py SCRATCH_BYTES) lowered so
    that each call runs in 4 launches; and the two-part record (the _rec
    kernels) on 16 windows that score past 2^23 (S = 16,384; Q = 16,384
    with entries of +-1,000, and their first 512 columns with entries of
@@ -54,7 +54,13 @@
    W = 3,840, S = 22,528) on 12 windows (the plain version timed there),
    then timed on 1,024 copies of them (12,288 windows, the default
    batch's), and the widest band, W = 16,384 (Q = 87,040), on 4 windows
-   of 8,192 subject rows.
+   of 8,192 subject rows.  Then sw_band_tiled_kernel (bands past 16,384
+   lanes): with ops/sw.py TILED_BAND_W lowered to 0, so that every band
+   takes it, at W = 768 (Q = 4,096, 512 windows) and W = 3,840 (Q =
+   20,000, 12 windows) on the first 4,096 subject rows of planted and
+   tie-heavy windows, and at W = 200
+   and 330 (Q = 640); then at its own route the 6 windows of 2 reads of
+   100 kb (W = 18,816, S = 112,512), timed, with its bound.
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -117,7 +123,7 @@
    (the @PG line aside), no batch rendered on the host, the score-only
    sw_full launched and swq not; pairs/s of the lane (`# dxp-total`) and
    reads/s of the CLI for both runs, the stages' seconds, n_restaged.
-   The first paired batch's collate outputs must equal the port's CPU
+   A first paired batch of 512 pairs: its collate outputs must equal the CPU
    step's on that batch, and its collate step is timed.
 10. `map --device-pass1` on the same genome and index: (a) phase 7's
    20,480 reads, SAM byte-identical to phase 7's host C lane, no batch
@@ -131,27 +137,42 @@
    2^31 + 2^24 random codes with windows below 2^31, straddling it,
    above it and at its end, equal to its plain version built from an
    int64 gather.
-11. Reads over 16 kb on the same genome and index: 1,024 reads of 20
+11. Reads over 16 kb on the same genome and index: 512 reads of 20
    kb (phase 5's generator) through `map --fast -n 8` on the card at the
-   default batch (3,072 windows through sw_band_many_kernel), the first
-   4 records byte-identical to --device cpu on those 4 reads; the 4
+   default batch (1,536 windows through sw_band_many_kernel), the first
+   2 records byte-identical to --device cpu on those 2 reads; the 2
    through `map --device-pass1` against the host C lane (SAM
    byte-identical, the strip path at Q = 32,768), again with the strip
    scratch budget lowered (the windows in groups, SAM unchanged); then
-   4 reads of 9 kb under -S KEY_SPEC (the default penalties times
+   2 reads of 9 kb under -S KEY_SPEC (the default penalties times
    1,000), whose windows score past 2^23, through both lanes the same
    way; then 4,096 reads of 100 bp through `map --fast -S
    KEY_SHORT_SPEC` (the penalties times 40,000: sw_full's two-part
-   record), SAM byte-identical to --device cpu.
-12. Prints each kernel's launches by path (and per 4,096 reads), the
+   record), SAM byte-identical to --device cpu; then 2 reads of 100 kb
+   through `map --fast` on the card in a batch of 2 (sw_band_tiled_kernel),
+   both placed within 150 bp.  Reads this long are not mapped with `--device cpu`:
+   its plain versions take minutes a batch (phase 3b holds the kernel
+   against its plain version on windows of this shape instead).
+12. `map --fast` on split-word indexes (k16 s13 and k20 s13) of the same
+   genome: 4,096 reads of 100 bp and 256 of 1,500 bp, SAM byte-identical
+   to `--device cpu`, placement printed.
+13. `map --device-exact` on a k13 s16 index of the same genome (nskip >
+   wordlen: the collate step expands the hits on the device): 4,096
+   reads of 150 bp through the host C lane and the lane with SMALT_DX_P2
+   unset and =1, and 2,048 pairs of 2 x 150 bp through the host C pair
+   lane and the lane, SAM byte-identical with no batch rendered on the
+   host; n_restaged and p2_hit printed; the five collate outputs (the
+   hit-info checksum included) of a first single-end batch of 1,024 reads
+   equal to the port's CPU step's.
+14. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6 and their -n runs, 6b's, 7's three device runs, 8's three, 9's, 10's
-and 11's device runs) and read just after it; the comparisons
+6 and their -n runs, 6b's, 7's three device runs, 8's three, 9's, 10's,
+11's, 12's and 13's device runs) and read just after it; the comparisons
 with the plain versions do not count.  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
@@ -217,7 +238,7 @@ STRIP_CHECK_B = 64
 STRIP_TIME = (2048, 2304, BATCH)
 # the strip path past 16,384 columns (the pass-1 lane pads reads over 16 kb
 # to 32,768): (Q, S, windows), the carry scratch split into
-# STRIP_FAR_GROUPS launches by a lowered ops/sw.py STRIP_SCRATCH_BYTES
+# STRIP_FAR_GROUPS launches by a lowered ops/sw.py SCRATCH_BYTES
 STRIP_FAR = (32768, 2048, 64)
 STRIP_FAR_GROUPS = 4
 # scores past 2^23 (the tracking key's limit): the two-part record (the
@@ -234,9 +255,27 @@ KEY_FULL_B = 66 * 16                  # 8 warps a SM
 BAND_MANY_Q, BAND_MANY_B = 20000, 12
 BAND_MANY_FULL_B = 3 * BATCH          # timed: the default batch's windows
 BAND_WIDEST = (87040, 8192, 4)        # Q, subject rows, windows
+# sw_band_tiled_kernel (bands past 16,384 lanes): with ops/sw.py
+# TILED_BAND_W lowered to 0 (every band tiled), held at the band geometry
+# of TILED_SMALL (Q, windows: W = 768 and 3,840, one tile and two) on
+# planted and tie-heavy windows and at ODD_BAND_WIDTHS; then at its own
+# route on the windows of TILED_READS reads of TILED_READLEN bp (W past
+# 16,384, three windows a read), timed there
+TILED_SMALL = [(4096, 512), (20000, 12)]
+TILED_SMALL_ROWS = 4096               # subject rows held at those widths
+TILED_READLEN, TILED_READS = 100_000, 2
 WIDE_SPEC = "match=200,subst=-2"
+# phase 12: the split-word index, (k, step) each, on the phase-4 genome:
+# BATCH reads of READLEN bp and N_BIGK_LONG of LONG_READLEN bp
+BIGK = ((16, 13), (20, 13))
+N_BIGK_LONG = 256
+# phase 13: the device hit expansion of --device-exact (nskip > wordlen)
+# on a k13 s16 index of the phase-4 genome
+DXH_INDEX = (13, 16)
+DXH_CHECK_B = 1024    # reads in the batch held against the CPU step
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
 N_PE_EXACT = 5 * BATCH // 2       # phase 9: five batches of 2,048 pairs
+PE_CHECK_B = 1024                 # phase 9: mate rows held against the CPU
 N_DP1_LONG = 1024                 # phase 10b: reads of LONG_READLEN
 FAR_REF = (1 << 31) + (1 << 24)   # phase 10d: codes of the resident reference
 # phase 7b: (read length, indels, -S) of the lane's band-width cases
@@ -251,8 +290,8 @@ RESUME_BATCH, RESUME_TICKS = 512, 2
 # default penalties times 1,000 (a match of 1,000 alone makes gaps so
 # cheap that the host C pass-2 block refuses every batch: its direction
 # matrix grows past its cap, and the lane renders the batch on the host)
-VLONG_READLEN, N_VLONG, VLONG_DP1_BATCH = 20_000, 4, 64
-N_VLONG_FAST = 1024               # --fast on the card: 3,072 windows
+VLONG_READLEN, N_VLONG, VLONG_DP1_BATCH = 20_000, 2, 64
+N_VLONG_FAST = 512                # --fast on the card: 1,536 windows
 KEY_READLEN = 9_000
 KEY_SPEC = "match=1000,subst=-2000,gapopen=-4000,gapext=-3000"
 # the default penalties times 40,000: a 100 bp window could score 2^23
@@ -318,7 +357,7 @@ def make_long_reads(rng, genome: np.ndarray, n: int, rl: int):
     100 bases, each event deletes a base (0.75%), inserts a random one
     (0.75%), substitutes (1%) or copies, until rl bases are out; half
     reverse-complemented.  Returns (ASCII [n, rl], positions, is_reverse)."""
-    K = rl + 200
+    K = rl + max(200, rl // 100)     # deletions leave ~0.75% of events
     pos = rng.integers(0, len(genome) - rl - 100, n)
     src = np.searchsorted(ACGT, genome[pos[:, None] + np.arange(rl + 100)])
     r = rng.random((n, K))
@@ -754,7 +793,7 @@ def full_equal(q, s, sl, mat, go: int, ge: int, what: str):
 def check_strip_far(rng, card: str):
     """Phase 3, past 16,384 columns and past 2^23: the strip path at
     STRIP_FAR (int8 and WIDE_PEN, tracked and score-only, far-planted and
-    tie-heavy windows) with ops/sw.py STRIP_SCRATCH_BYTES lowered so that
+    tie-heavy windows) with ops/sw.py SCRATCH_BYTES lowered so that
     a call runs STRIP_FAR_GROUPS launches, then timed with the module's
     budget (one launch); then the two-part record (sw_full_track_rec,
     sw_full_track_strip_rec) at KEY_SHAPE, whose best scores pass 2^23,
@@ -767,19 +806,19 @@ def check_strip_far(rng, card: str):
     from smalt_tpu_torch.align import core as ali
     from smalt_tpu_torch.ops import bounds, sw
     Q, S, B = STRIP_FAR
-    budget = sw.STRIP_SCRATCH_BYTES
+    budget = sw.SCRATCH_BYTES
     for tag, pen in (("", ()), ("_wide", WIDE_PEN)):
         m, go, ge = ali.make_score_matrix(*pen)
         mat, go, ge = sw.device_matrix(m, "cuda"), -go, -ge
         for kind, gen in (("far-planted", far_windows),
                           ("tie-heavy", sw.tie_windows)):
             q, s, sl = (torch.from_numpy(x).cuda() for x in gen(rng, B, Q, S))
-            sw.STRIP_SCRATCH_BYTES = 8 * S * (B // STRIP_FAR_GROUPS)
+            sw.SCRATCH_BYTES = 8 * S * (B // STRIP_FAR_GROUPS)
             try:
                 n, want, _ = full_equal(q, s, sl, mat, go, ge,
                                         f"Q={Q} S={S} ({kind}{tag})")
             finally:
-                sw.STRIP_SCRATCH_BYTES = budget
+                sw.SCRATCH_BYTES = budget
             if n != {f"sw_full_track_strip{tag}": STRIP_FAR_GROUPS,
                      f"sw_full_strip{tag}": STRIP_FAR_GROUPS}:
                 fail(f"strips at Q={Q}: launches {n}, {STRIP_FAR_GROUPS} "
@@ -859,18 +898,20 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
     q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
     before = dict(sw.launches)
+    times = {}
     err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
-                           f"Q={Q} W={W} S={S} (many warps)")
+                           f"Q={Q} W={W} S={S} (many warps)", times)
     n = {k: sw.launches[k] - before[k] for k in sw.launches
          if sw.launches[k] != before[k]}
     if n != {"sw_band_track_many": 1, "sw_band_many": 1}:
         fail(f"sw_band at W={W}: launches {n}")
     if int(want[0].max()) <= Q // 4:
         fail(f"degenerate band windows at Q={Q}")
-    p_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad,
-                                                W, track=True), 1, warm=0)
-    p0_ms = time_ms(lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge,
-                                                 pad, W), 1, warm=0)
+    p_ms = times["plain"]
+    rows = S // 8              # the score-only plain version on these rows
+    p0_ms = time_ms(lambda: sw.sw_band_score_ref(
+        q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t, go,
+        ge, pad, W), 1, warm=0)
     rep = BAND_MANY_FULL_B // B
     qf, sf, slf = q.repeat(rep, 1), s.repeat(rep, 1), sl.repeat(rep)
     got = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=True)
@@ -887,7 +928,8 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     print(f"# sw_band Q={Q} W={W} S={S} B={B} (sw_band_many_kernel, "
           f"{-(-W // 384)} warps a window): equal to sw_band_score_ref "
           f"(best, ti, tj and score-only), plain {p_ms:.1f} ms tracked, "
-          f"{p0_ms:.1f} ms score-only; repeated to B={Bf}: each copy equal, "
+          f"{p0_ms:.1f} ms score-only on the first {rows} rows; repeated to "
+          f"B={Bf}: each copy equal, "
           f"track {k_ms:.4f} ms, score-only {k0_ms:.4f} ms | {card}",
           flush=True)
     wt, w0 = (bounds.sw_band_work(Q, S, W, pad, slf, t) for t in (True, False))
@@ -901,8 +943,8 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     s = np.ascontiguousarray(s[:, :Sw])
     sl = np.minimum(sl, Sw).astype(np.int32)
     q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-    if W != sw.MAX_BAND_W:
-        fail(f"the band at Q={Qw} is {W} lanes, not {sw.MAX_BAND_W}")
+    if W != sw.TILED_BAND_W:
+        fail(f"the band at Q={Qw} is {W} lanes, not {sw.TILED_BAND_W}")
     err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
                               f"Q={Qw} W={W} S={Sw} (32 warps)")[0])
     print(f"# sw_band Q={Qw} W={W} (the widest band, 32 warps of 16 lanes a "
@@ -913,7 +955,107 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
                       bound_by=wt["bound_by"], windows=Bf, plain_windows=B),
             dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
-                 bound_by=w0["bound_by"], windows=Bf, plain_windows=B))
+                 bound_by=w0["bound_by"], windows=Bf, plain_windows=B,
+                 plain_rows=rows))
+
+
+def check_band_tiled(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, bands past 16,384 lanes: sw_band_tiled_kernel (one block a
+    window over tiles of 2,048 lanes, the row's state in a global scratch)
+    against sw_band_score_ref.  First with ops/sw.py TILED_BAND_W lowered
+    to 0, so that every band takes the tiled route: the geometry of
+    TILED_SMALL on planted and on tie-heavy windows (on their first
+    TILED_SMALL_ROWS subject rows), and ODD_BAND_WIDTHS
+    (a tile that ends past W).  Then at the module's threshold the
+    windows of TILED_READS reads of TILED_READLEN bp (band_windows: the
+    mapping path's geometry, three windows a read), timed beside the plain
+    version (the score-only plain version on its first S / 16 rows: a
+    minute a call at the full shape).  Returns (max_abs_err, tracked,
+    score-only) as check_band_many does, at that real shape."""
+    import torch
+    from smalt_tpu_torch.ops import bounds, sw
+    err = 0
+    thresh = sw.TILED_BAND_W
+    sw.TILED_BAND_W = 0
+    try:
+        for Q, B in TILED_SMALL:
+            for kind, gen in (("planted", sw.band_windows),
+                              ("tie-heavy", sw.band_tie_windows)):
+                q, s, sl, pad, W, S = gen(rng, B, Q)
+                if S > TILED_SMALL_ROWS:      # the plain version: a row a step
+                    S = TILED_SMALL_ROWS
+                    s = np.ascontiguousarray(s[:, :S])
+                    sl = np.minimum(sl, S).astype(np.int32)
+                q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+                before = dict(sw.launches)
+                e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                                     f"Q={Q} W={W} S={S}, {kind} (tiled)")
+                n = {k: sw.launches[k] - before[k] for k in sw.launches
+                     if sw.launches[k] != before[k]}
+                if n != {"sw_band_track_tiled": 1, "sw_band_tiled": 1}:
+                    fail(f"sw_band with TILED_BAND_W = 0: launches {n}")
+                if int(want[0].max()) <= 0:
+                    fail(f"degenerate {kind} windows at Q={Q} (tiled)")
+                err = max(err, e)
+                print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows, "
+                      f"TILED_BAND_W lowered to 0 ({-(-W // 2048)} tiles a "
+                      f"row): sw_band_tiled_kernel equal to sw_band_score_ref "
+                      f"(best, ti, tj and score-only) | {card}", flush=True)
+        Q, B = ODD_BAND_Q, 256
+        for kind, gen in (("planted", sw.band_windows),
+                          ("tie-heavy", sw.band_tie_windows)):
+            q, s, sl, pad, _, S = gen(rng, B, Q)
+            q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+            for W in ODD_BAND_WIDTHS:
+                err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                                          f"Q={Q} W={W} S={S}, {kind} "
+                                          f"(tiled)")[0])
+                print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows, "
+                      f"TILED_BAND_W lowered to 0: sw_band_tiled_kernel "
+                      f"equal to sw_band_score_ref | {card}", flush=True)
+    finally:
+        sw.TILED_BAND_W = thresh
+    Q = -(-TILED_READLEN // 16) * 16
+    B = 3 * TILED_READS
+    q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
+    if W <= sw.TILED_BAND_W:
+        fail(f"the band of {TILED_READLEN} bp reads is {W} lanes")
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    before = dict(sw.launches)
+    times = {}
+    e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                         f"Q={Q} W={W} S={S} (tiled)", times)
+    n = {k: sw.launches[k] - before[k] for k in sw.launches
+         if sw.launches[k] != before[k]}
+    if n != {"sw_band_track_tiled": 1, "sw_band_tiled": 1}:
+        fail(f"sw_band at W={W}: launches {n}")
+    if int(want[0].max()) <= Q // 4:
+        fail(f"degenerate band windows at Q={Q}")
+    err = max(err, e)
+    # each kernel's one call in the check is its timing, as the plain
+    # version's (a minute at this shape); the score-only plain version on
+    # the windows' first S / 16 rows
+    k_ms, k0_ms, p_ms = times["track"], times["score"], times["plain"]
+    rows = S // 16
+    p0_ms = time_ms(lambda: sw.sw_band_score_ref(
+        q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t, go,
+        ge, pad, W), 1, warm=0)
+    print(f"# sw_band Q={Q} W={W} S={S} B={B} (sw_band_tiled_kernel, "
+          f"{-(-W // 2048)} tiles of 2,048 lanes a row; the windows of "
+          f"{TILED_READS} reads of {TILED_READLEN} bp): equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only); track "
+          f"{k_ms:.1f} ms, score-only {k0_ms:.1f} ms; plain {p_ms:.1f} ms "
+          f"tracked, {p0_ms:.1f} ms score-only on the first {rows} rows | "
+          f"{card}", flush=True)
+    wt, w0 = (bounds.sw_band_work(Q, S, W, pad, sl, t) for t in (True, False))
+    print(bound_line(f"sw_band_track_tiled Q={Q} W={W} S={S} B={B}", wt, k_ms,
+                     card))
+    print(bound_line(f"sw_band_tiled Q={Q} W={W} S={S} B={B}", w0, k0_ms,
+                     card), flush=True)
+    return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                      bound_by=wt["bound_by"], windows=B),
+            dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
+                 bound_by=w0["bound_by"], windows=B, plain_rows=rows))
 
 
 def check_wide_band(rng, card: str):
@@ -1029,17 +1171,35 @@ def check_swq_kernel(rng, card: str):
     return worst, main
 
 
+def timed(fn):
+    """(fn(), the ms it took on the stream: CUDA events around one call)."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def band_equal(q, s, sl, mat, go: int, ge: int, pad: int, W: int,
-               what: str):
+               what: str, times=None):
     """sw_band_cuda, tracked and score-only, against sw_band_score_ref on
     the same windows, exactly.  Returns (the max |difference| over best,
-    ti, tj and the score-only best (0), the plain version's result)."""
-    import torch
+    ti, tj and the score-only best (0), the plain version's result).
+    `times`, a dict, takes each call's ms ("track", "score", "plain"):
+    where the plain version takes a minute, its one call is its timing."""
     from smalt_tpu_torch.ops import sw
-    got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=True)
-    got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W, track=False)
-    want = sw.sw_band_score_ref(q, s, sl, mat.t, go, ge, pad, W, track=True)
-    torch.cuda.synchronize()
+    ms = {}
+    got, ms["track"] = timed(lambda: sw.sw_band_cuda(
+        q, s, sl, mat, go, ge, pad, W, track=True))
+    got0, ms["score"] = timed(lambda: sw.sw_band_cuda(
+        q, s, sl, mat, go, ge, pad, W, track=False))
+    want, ms["plain"] = timed(lambda: sw.sw_band_score_ref(
+        q, s, sl, mat.t, go, ge, pad, W, track=True))
+    if times is not None:
+        times.update(ms)
     errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
     err0 = int((got0 - want[0]).abs().max())
     if max(errs + [err0]) != 0:
@@ -1151,12 +1311,10 @@ def check_band_kernel(rng, card: str):
                                                track=True), reps)
         k0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad,
                                                 W, track=False), reps)
-        # the plain version takes seconds a call at the wide shapes: one
-        # call there (it ran once already, for `want`)
-        wide = S > 4000
+        # the plain version takes seconds a call: one call (it ran once
+        # already, for `want`)
         p_ms = time_ms(lambda: sw.sw_band_score_ref(
-            q, s, sl, mat.t, go, ge, pad, W, track=True), 1 if wide else 2,
-            warm=0 if wide else 1)
+            q, s, sl, mat.t, go, ge, pad, W, track=True), 1, warm=0)
         cells = B * W * S
         print(f"# sw_band Q={Q} W={W} S={S} B={B}: equal to "
               f"sw_band_score_ref (best, ti, tj and score-only); track "
@@ -1175,7 +1333,7 @@ def check_band_kernel(rng, card: str):
                          bound_by=wt["bound_by"]),
                     dict(ms=k0_ms, plain_ms=time_ms(
                         lambda: sw.sw_band_score_ref(q, s, sl, mat.t, go, ge,
-                                                     pad, W), 2, warm=1),
+                                                     pad, W), 1, warm=0),
                          bound_ms=w0["bound_ms"], bound_by=w0["bound_by"]))
         del q, s, sl, want
     worst = max(worst, check_band_ties(rng, mat, go, ge, card),
@@ -1520,6 +1678,23 @@ def lane_pass2_batch(dev, raw):
     return host, dargs, outs, wd, Sp, nw, tiles
 
 
+COLLATE_OUTS = ("pool", "counts2", "scores", "fallback")
+DEVICE_HIT_OUTS = ("pool", "counts2", "scores", "cksum", "fallback")
+
+
+def collate_equal(outs, cpu_outs, what: str):
+    """The CUDA collate step's outputs (host arrays) against the port's CPU
+    step's on the same batch: equal dtypes and values, every output (the
+    device-hit step's checksum included)."""
+    names = DEVICE_HIT_OUTS if len(outs) == 5 else COLLATE_OUTS
+    if len(cpu_outs) != len(outs):
+        fail(f"{what}: {len(outs)} CUDA outputs, {len(cpu_outs)} CPU ones")
+    for name, g, w in zip(names, outs, cpu_outs):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            fail(f"the CUDA collate step's {name} differs from the CPU "
+                 f"step's on {what}")
+
+
 def exact_batch_split(idx_name: str, fq: str, card: str):
     """Phase 7, one batch outside the CLI runs (so its launches are not
     counted there): the collate step and the pass-2 step of the first
@@ -1551,11 +1726,8 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     # against the port's CPU step on the same batch
     t0 = time.perf_counter()
     chost, cargs = cpu._prepare(*raw)
-    for name, g, w in zip(("pool", "counts2", "scores", "fallback"), outs,
-                          cpu._collate_outputs(cargs)):
-        if g.dtype != w.dtype or not np.array_equal(g, w):
-            fail(f"the CUDA collate step's {name} differs from the CPU "
-                 f"step's on the first batch of phase 7")
+    collate_equal(outs, cpu._collate_outputs(cargs),
+                  "the first batch of phase 7")
     cpu_col_s = time.perf_counter() - t0
     p2_step = dev._pass2_step()
     p2_ms = time_ms(lambda: p2_step(dev._di.ref_alpha, host[10], host[11], wd,
@@ -1603,21 +1775,21 @@ def exact_batch_split(idx_name: str, fq: str, card: str):
     return err, col_ms, p2_ms
 
 
-def run_exact(d: str, genome, card: str):
-    """Phase 7: `map --device-exact` against the host C lane on the
-    phase-4 genome and index.  Returns (launches of the SMALT_DX_P2=1
-    run, launches of the run without, swq max_abs_err on the first
-    pass-2 batch)."""
-    idx_name = os.path.join(d, "idx")
-    rng = np.random.default_rng(SEED + 3)
-    reads, _, _ = make_reads(rng, genome, N_EXACT, READLEN)
-    fq, _ = write_fastq(os.path.join(d, "exact.fq"), reads, b"x")
-    bodies, launches = {}, {}
+def exact_lane_runs(d: str, idx_name: str, fq: str, n_reads: int,
+                    card: str, tag: str = ""):
+    """`map -r 1` on `fq` through the host C lane, then `map
+    --device-exact` with SMALT_DX_P2 unset and =1: each device run's SAM
+    byte-identical to the host lane's (the @PG line aside), no batch
+    rendered on the host, the score-only sw_full launched, swq launched
+    with p2_hit > 0 exactly when SMALT_DX_P2=1.  Returns (SAM bodies,
+    launches, `# dx-total` matches, each by label, the host lane's CLI
+    seconds)."""
+    bodies, launches, totals = {}, {}, {}
     for label, flags, p2 in (("host C lane", [], None),
                              ("--device-exact", ["--device-exact"], None),
                              ("--device-exact SMALT_DX_P2=1",
                               ["--device-exact"], "1")):
-        sam = os.path.join(d, f"exact_{len(bodies)}.sam")
+        sam = os.path.join(d, f"exact{tag}_{len(bodies)}.sam")
         rc, err, launches[label], wall = cli_run(
             ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
             [idx_name, fq], SMALT_DP1_TIMING="1", SMALT_DX_P2=p2)
@@ -1628,23 +1800,24 @@ def run_exact(d: str, genome, card: str):
             bodies[label] = [ln for ln in f.read().splitlines()
                              if not ln.startswith("@PG")]
         n = sum(1 for ln in bodies[label] if not ln.startswith("@"))
-        if n != N_EXACT:
-            fail(f"{label}: {n} SAM records for {N_EXACT} reads")
+        if n != n_reads:
+            fail(f"{label}: {n} SAM records for {n_reads} reads")
         m = re.search(r"# dx-total ([\d.]+)s n_restaged=(\d+) p2_used=(\d+) "
                       r"p2_fb=(\d+) p2_hit=(\d+) host_batches=(\d+)", err)
+        totals[label] = m
         stages = {}
         for st, sec in re.findall(r"# dx-(prep|dev|post|pass2) ([\d.]+)s",
                                   err):
             stages[st] = stages.get(st, 0.0) + float(sec)
         lane = "" if m is None else (
-            f"; lane {m.group(1)} s ({N_EXACT / float(m.group(1)):.1f} "
+            f"; lane {m.group(1)} s ({n_reads / float(m.group(1)):.1f} "
             f"reads/s), n_restaged {m.group(2)}, p2_used {m.group(3)}, "
             f"p2_fb {m.group(4)}, p2_hit {m.group(5)}, host_batches "
             f"{m.group(6)}; seconds summed over batches: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stages.items()) +
             " (dev: collate step + copy back, on the worker thread)")
-        print(f"# map {label}: {N_EXACT} reads of {READLEN} bp in {wall:.3f} "
-              f"s through the CLI ({N_EXACT / wall:.1f} reads/s incl. index "
+        print(f"# map {label}: {n_reads} reads in {wall:.3f} "
+              f"s through the CLI ({n_reads / wall:.1f} reads/s incl. index "
               f"load){lane}; launches {launches[label]} | {card}", flush=True)
         if not flags:
             host_wall = wall
@@ -1666,6 +1839,20 @@ def run_exact(d: str, genome, card: str):
                      f"times, p2_hit {m.group(5)}")
             if not p2 and launches[label]["swq"] != 0:
                 fail(f"{label}: swq launched without SMALT_DX_P2=1")
+    return bodies, launches, totals, host_wall
+
+
+def run_exact(d: str, genome, card: str):
+    """Phase 7: `map --device-exact` against the host C lane on the
+    phase-4 genome and index.  Returns (launches of the SMALT_DX_P2=1
+    run, launches of the run without, swq max_abs_err on the first
+    pass-2 batch)."""
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 3)
+    reads, _, _ = make_reads(rng, genome, N_EXACT, READLEN)
+    fq, _ = write_fastq(os.path.join(d, "exact.fq"), reads, b"x")
+    bodies, launches, _, host_wall = exact_lane_runs(d, idx_name, fq,
+                                                     N_EXACT, card)
     print(f"# device-exact SAM (SMALT_DX_P2 unset and =1) byte-identical to "
           f"the host C lane on {N_EXACT} reads", flush=True)
     from smalt_tpu_torch.report.bam import BamRecord, read_bam
@@ -1837,8 +2024,9 @@ def run_wide_matrix(d: str, genome, card: str):
 
 
 def exact_pairs_batch_split(idx_name: str, fq1: str, fq2: str, card: str):
-    """Phase 9, the first paired batch outside the CLI run (so its launches
-    are not counted there): both mates' rows through the CUDA collate step,
+    """Phase 9, a first paired batch of PE_CHECK_B mate rows outside the
+    CLI run (so its launches are not counted there): both mates' rows
+    through the CUDA collate step,
     timed with CUDA events, and its outputs held against the port's CPU
     step on the same batch (the lane re-stages what a wrong step flags, so
     the SAM alone cannot show a collate fault).  Returns the step's ms."""
@@ -1850,7 +2038,8 @@ def exact_pairs_batch_split(idx_name: str, fq1: str, fq2: str, card: str):
     refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
     eng = MapEngine(refset, idx, MapParams())
     dev, cpu = (DeviceExact.make(eng, "sam", True, False, False, False,
-                                 device=x) for x in ("cuda", "cpu"))
+                                 batch=PE_CHECK_B, device=x)
+                for x in ("cuda", "cpu"))
     mates = (next(iter_fastq_batches(f, dev.batch // 2)) for f in (fq1, fq2))
     args = tuple(a + b for a, b in zip(*mates))     # mate A rows, then B
     host, dargs = dev._prepare(*args)
@@ -1859,19 +2048,80 @@ def exact_pairs_batch_split(idx_name: str, fq1: str, fq2: str, card: str):
     col_ms = time_ms(lambda: step(*dargs), 3, warm=1)
     t0 = time.perf_counter()
     _, cargs = cpu._prepare(*args)
-    for name, g, w in zip(("pool", "counts2", "scores", "fallback"), outs,
-                          cpu._collate_outputs(cargs)):
-        if g.dtype != w.dtype or not np.array_equal(g, w):
-            fail(f"the CUDA collate step's {name} differs from the CPU "
-                 f"step's on the first paired batch of phase 9")
+    collate_equal(outs, cpu._collate_outputs(cargs),
+                  "the first paired batch of phase 9")
     print(f"# device-exact pairs, one batch of {len(args[0]) // 2} pairs "
           f"({len(args[0])} rows): collate step {col_ms:.3f} ms (CUDA "
-          f"events, 3 calls; Q={dev._cfg.Q}, H={dev._cfg.H}, pool "
-          f"{dev._cfg.pool}); outputs (pool, counts2, scores, fallback: "
-          f"{int(outs[3][:len(args[0])].sum())} mates flagged) equal to the "
-          f"port's CPU step ({time.perf_counter() - t0:.1f} s on the host) | "
-          f"{card}", flush=True)
+          f"events, 3 calls; Q={dev._cfg.Q}, H={dev._cfg.H}, V="
+          f"{dev._cfg.V}, pool {dev._cfg.pool}); outputs ("
+          f"{', '.join(DEVICE_HIT_OUTS if len(outs) == 5 else COLLATE_OUTS)}"
+          f": {int(outs[-1][:len(args[0])].sum())} mates flagged) equal to "
+          f"the port's CPU step ({time.perf_counter() - t0:.1f} s on the "
+          f"host) | {card}", flush=True)
     return col_ms
+
+
+def exact_pair_runs(d: str, idx_name: str, fq1: str, fq2: str,
+                    npairs: int, card: str, tag: str = ""):
+    """Paired `map -r 1` through the host C pair lane, then `map
+    --device-exact`: the device run's SAM byte-identical to the host
+    lane's (the @PG line aside), no batch rendered on the host, every pair
+    through the lane, the score-only sw_full launched and swq not.
+    Returns (launches, `# dxp-total` match), each by label."""
+    bodies, launches, totals = {}, {}, {}
+    for label, flags in (("host C pair lane", []),
+                         ("--device-exact", ["--device-exact"])):
+        sam = os.path.join(d, f"pe_exact{tag}_{len(bodies)}.sam")
+        rc, err, launches[label], wall = cli_run(
+            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
+            [idx_name, fq1, fq2], SMALT_DP1_TIMING="1", SMALT_TIMING="1")
+        if rc != 0:
+            sys.stderr.write(err)
+            fail(f"map {' '.join(flags)} on pairs exited {rc}")
+        with open(sam) as f:
+            bodies[label] = [ln for ln in f.read().splitlines()
+                             if not ln.startswith("@PG")]
+        n = sum(1 for ln in bodies[label] if not ln.startswith("@"))
+        if n != 2 * npairs:
+            fail(f"{label}: {n} SAM records for {2 * npairs} mates")
+        t = re.search(r"mapping: ([\d.]+) s", err)
+        m = re.search(r"# dxp-total ([\d.]+)s n_restaged=(\d+) "
+                      r"host_batches=(\d+) npairs=(\d+)", err)
+        totals[label] = m
+        stages = {}
+        for st, sec in re.findall(r"# dxp-(prep|dev|post|tail) ([\d.]+)s",
+                                  err):
+            stages[st] = stages.get(st, 0.0) + float(sec)
+        lane = "" if m is None else (
+            f"; lane {m.group(1)} s ({npairs / float(m.group(1)):.1f} "
+            f"pairs/s, # dxp-total), n_restaged {m.group(2)} of "
+            f"{2 * npairs} mates, host_batches {m.group(3)}, npairs "
+            f"{m.group(4)}; seconds summed over batches: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()) +
+            " (dev: collate step + copy back, on the worker thread)")
+        secs = float(t.group(1)) if t else float("nan")
+        print(f"# map {label}: {npairs} pairs in {wall:.3f} s through the "
+              f"CLI ({2 * npairs / wall:.1f} reads/s incl. index load); "
+              f"mapping {secs:.2f} s ({npairs / secs:.1f} pairs/s, "
+              f"SMALT_TIMING){lane}; launches {launches[label]} | {card}",
+              flush=True)
+        if flags:
+            if m is None:
+                fail(f"{label}: no dxp-total line")
+            if int(m.group(3)) != 0:
+                fail(f"{label}: {m.group(3)} batches rendered on the host")
+            if int(m.group(4)) != npairs:
+                fail(f"{label}: {m.group(4)} pairs through the lane")
+            if bodies[label] != bodies["host C pair lane"]:
+                diff = next(i for i, (a, b) in enumerate(zip(
+                    bodies[label], bodies["host C pair lane"])) if a != b)
+                fail(f"{label} on pairs: SAM differs from the host C pair "
+                     f"lane at line {diff}: {bodies[label][diff][:120]!r} vs "
+                     f"{bodies['host C pair lane'][diff][:120]!r}")
+            if launches[label]["sw_full"] < 1 or launches[label]["swq"] != 0:
+                fail(f"{label} on pairs: launched {launches[label]} (the "
+                     f"score-only sw_full at least once, swq never)")
+    return launches, totals
 
 
 def run_exact_pairs(d: str, genome, card: str):
@@ -1888,58 +2138,7 @@ def run_exact_pairs(d: str, genome, card: str):
     print(f"# paired device-exact data: {N_PE_EXACT} pairs of 2 x "
           f"{PAIR_READLEN} bp, inserts {INSERT_MEAN} +- {INSERT_SD} FR, 1% "
           f"substitutions, mate B random in every tenth pair", flush=True)
-    bodies, launches = {}, {}
-    for label, flags in (("host C pair lane", []),
-                         ("--device-exact", ["--device-exact"])):
-        sam = os.path.join(d, f"pe_exact_{len(bodies)}.sam")
-        rc, err, launches[label], wall = cli_run(
-            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
-            [idx_name, fq1, fq2], SMALT_DP1_TIMING="1", SMALT_TIMING="1")
-        if rc != 0:
-            sys.stderr.write(err)
-            fail(f"map {' '.join(flags)} on pairs exited {rc}")
-        with open(sam) as f:
-            bodies[label] = [ln for ln in f.read().splitlines()
-                             if not ln.startswith("@PG")]
-        n = sum(1 for ln in bodies[label] if not ln.startswith("@"))
-        if n != 2 * N_PE_EXACT:
-            fail(f"{label}: {n} SAM records for {2 * N_PE_EXACT} mates")
-        t = re.search(r"mapping: ([\d.]+) s", err)
-        m = re.search(r"# dxp-total ([\d.]+)s n_restaged=(\d+) "
-                      r"host_batches=(\d+) npairs=(\d+)", err)
-        stages = {}
-        for st, sec in re.findall(r"# dxp-(prep|dev|post|tail) ([\d.]+)s",
-                                  err):
-            stages[st] = stages.get(st, 0.0) + float(sec)
-        lane = "" if m is None else (
-            f"; lane {m.group(1)} s ({N_PE_EXACT / float(m.group(1)):.1f} "
-            f"pairs/s, # dxp-total), n_restaged {m.group(2)} of "
-            f"{2 * N_PE_EXACT} mates, host_batches {m.group(3)}, npairs "
-            f"{m.group(4)}; seconds summed over batches: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in stages.items()) +
-            " (dev: collate step + copy back, on the worker thread)")
-        secs = float(t.group(1)) if t else float("nan")
-        print(f"# map {label}: {N_PE_EXACT} pairs in {wall:.3f} s through the "
-              f"CLI ({2 * N_PE_EXACT / wall:.1f} reads/s incl. index load); "
-              f"mapping {secs:.2f} s ({N_PE_EXACT / secs:.1f} pairs/s, "
-              f"SMALT_TIMING){lane}; launches {launches[label]} | {card}",
-              flush=True)
-        if flags:
-            if m is None:
-                fail(f"{label}: no dxp-total line")
-            if int(m.group(3)) != 0:
-                fail(f"{label}: {m.group(3)} batches rendered on the host")
-            if int(m.group(4)) != N_PE_EXACT:
-                fail(f"{label}: {m.group(4)} pairs through the lane")
-            if bodies[label] != bodies["host C pair lane"]:
-                diff = next(i for i, (a, b) in enumerate(zip(
-                    bodies[label], bodies["host C pair lane"])) if a != b)
-                fail(f"{label} on pairs: SAM differs from the host C pair "
-                     f"lane at line {diff}: {bodies[label][diff][:120]!r} vs "
-                     f"{bodies['host C pair lane'][diff][:120]!r}")
-            if launches[label]["sw_full"] < 1 or launches[label]["swq"] != 0:
-                fail(f"{label} on pairs: launched {launches[label]} (the "
-                     f"score-only sw_full at least once, swq never)")
+    launches, _ = exact_pair_runs(d, idx_name, fq1, fq2, N_PE_EXACT, card)
     print(f"# paired device-exact SAM byte-identical to the host C pair lane "
           f"on {N_PE_EXACT} pairs", flush=True)
     exact_pairs_batch_split(idx_name, fq1, fq2, card)
@@ -2224,13 +2423,18 @@ def run_very_long(d: str, genome, card: str):
     `--device cpu` on those reads; (b) those N_VLONG reads through `map
     --device-pass1` against the host C lane, SAM byte-identical, through
     sw_full's strip path at Q = 32,768, then again with ops/sw.py
-    STRIP_SCRATCH_BYTES lowered so that the scratch runs in groups; then
+    SCRATCH_BYTES lowered so that the scratch runs in groups; then
     N_VLONG reads of KEY_READLEN bp under -S KEY_SPEC, whose windows score
     past 2^23: (c) `map --fast` (the several-warps kernel) against
     --device cpu and (d) `map --device-pass1` (the WIDE score-only strips)
     against the host C lane; (e) BATCH reads of READLEN bp through `map
     --fast -S KEY_SHORT_SPEC` (sw_full's two-part record) against --device
-    cpu.  Returns the launches of each device run."""
+    cpu; (f) TILED_READS reads of TILED_READLEN bp through `map --fast` on
+    the card (sw_band_tiled_kernel), placed within LONG_TOL bp: reads
+    this long take the plain versions minutes a batch on the CPU, so they
+    are not compared with `--device cpu` (phase 3b holds the kernel
+    against its plain version on windows of this shape).  Returns the
+    launches of each device run."""
     from smalt_tpu_torch.ops import sw
     idx_name = os.path.join(d, "idx")
     rng = np.random.default_rng(SEED + 11)
@@ -2278,15 +2482,15 @@ def run_very_long(d: str, genome, card: str):
               flush=True)
         if tag:
             continue
-        budget = sw.STRIP_SCRATCH_BYTES
-        sw.STRIP_SCRATCH_BYTES = 8 * 32768 * VLONG_DP1_BATCH
+        budget = sw.SCRATCH_BYTES
+        sw.SCRATCH_BYTES = 8 * 32768 * VLONG_DP1_BATCH
         try:
             got = pass1_runs([(f"--device-pass1, {rl} bp, scratch in groups",
                                ["--device-pass1"])], idx_name, fq_head,
                              N_VLONG, card,
                              SMALT_DP1_BATCH=str(VLONG_DP1_BATCH))
         finally:
-            sw.STRIP_SCRATCH_BYTES = budget
+            sw.SCRATCH_BYTES = budget
         # pass1_runs wrote this run's SAM over the host lane's (dp1_0.sam);
         # dp1_1.sam is the first --device-pass1 run's, equal to the host's
         same = sam_body(os.path.join(d, "dp1_0.sam")) == \
@@ -2315,7 +2519,147 @@ def run_very_long(d: str, genome, card: str):
           f"bp: SAM byte-identical to --device cpu, {wall:.3f} s on the card; "
           f"placed {placement(body, truth, rev)}/{BATCH} within {PLACE_TOL} "
           f"bp; launches {runs['fast key short']} | {card}", flush=True)
+    # (f) reads whose band passes 16,384 lanes: sw_band_tiled_kernel
+    reads, truth, rev = make_long_reads(rng, genome, TILED_READS,
+                                        TILED_READLEN)
+    fq, _ = write_fastq(os.path.join(d, "vlong100k.fq"), reads, b"t")
+    sam = os.path.join(d, "vlong100k.sam")
+    # a batch of these reads alone: the pipeline pads a batch to its size,
+    # and every pad row's three windows would run the whole band
+    runs["fast 100 kb"], wall, _ = map_cli("cuda", idx_name, sam, [fq],
+                                           TILED_READS)
+    body = sam_body(sam)
+    placed = placement(body, truth, rev, LONG_TOL)
+    if len(body) != TILED_READS or placed != TILED_READS or \
+            runs["fast 100 kb"]["sw_band_track_tiled"] < 1:
+        fail(f"--fast on {TILED_READS} reads of {TILED_READLEN} bp: "
+             f"{len(body)} records, {placed} placed, launches "
+             f"{runs['fast 100 kb']}")
+    print(f"# map --fast on {TILED_READS} reads of {TILED_READLEN} bp (bands "
+          f"past 16,384 lanes): {wall:.1f} s on the card, placed "
+          f"{placed}/{TILED_READS} within {LONG_TOL} bp; launches "
+          f"{runs['fast 100 kb']} | {card}", flush=True)
     return runs
+
+
+def run_bigk(d: str, genome, card: str):
+    """Phase 12: `map --fast` on split-word indexes (BIGK: k = 16 and 20,
+    step 13) of the phase-4 genome: BATCH reads of READLEN bp (sw_full)
+    and N_BIGK_LONG reads of LONG_READLEN bp (sw_band), each run on the
+    card byte-identical to `--device cpu`; placement printed.  Returns the
+    launches of each card run, by (k, read length)."""
+    from smalt_tpu_torch import cli
+    rng = np.random.default_rng(SEED + 12)
+    short = make_reads(rng, genome, BATCH, READLEN)
+    long_ = make_long_reads(rng, genome, N_BIGK_LONG, LONG_READLEN)
+    fq_s, _ = write_fastq(os.path.join(d, "bigk_short.fq"), short[0], b"b")
+    fq_l, _ = write_fastq(os.path.join(d, "bigk_long.fq"), long_[0], b"l")
+    runs = {}
+    for k, step in BIGK:
+        idx_name = os.path.join(d, f"idx{k}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["index", "-k", str(k), "-s", str(step), idx_name,
+                           os.path.join(d, "genome.fa")])
+        if rc != 0:
+            fail(f"index -k {k} -s {step}")
+        for rl, fq, (_, truth, rev), n, tol, want in (
+                (READLEN, fq_s, short, BATCH, PLACE_TOL, "sw_full_track"),
+                (LONG_READLEN, fq_l, long_, N_BIGK_LONG, LONG_TOL,
+                 "sw_band_track")):
+            sams = [os.path.join(d, f"bigk{k}_{rl}_{dev}.sam")
+                    for dev in ("cuda", "cpu")]
+            t0 = time.perf_counter()
+            got, wall, _ = map_cli("cuda", idx_name, sams[0], [fq], BATCH)
+            t1 = time.perf_counter()
+            map_cli("cpu", idx_name, sams[1], [fq], n)     # no pad rows
+            body = sam_body(sams[0])
+            if len(body) != n or body != sam_body(sams[1]):
+                fail(f"--fast on a k{k} s{step} index, {rl} bp reads: SAM "
+                     f"differs from --device cpu")
+            if got[want] < 1:
+                fail(f"--fast on a k{k} index, {rl} bp reads: launched {got}")
+            runs[(k, rl)] = got
+            print(f"# map --fast, k{k} s{step} (split-word index) on {n} "
+                  f"reads of {rl} bp: SAM byte-identical to --device cpu "
+                  f"({t1 - t0:.1f} s on the card, "
+                  f"{time.perf_counter() - t1:.1f} s on the CPU); placed "
+                  f"{placement(body, truth, rev, tol)}/{n} within {tol} bp; "
+                  f"launches {got} | {card}", flush=True)
+    return runs
+
+
+def run_exact_device_hits(d: str, genome, card: str):
+    """Phase 13: `map --device-exact` on a DXH_INDEX (k13 s16) index of the
+    phase-4 genome, nskip > wordlen, where the collate step expands the
+    hits on the device: BATCH reads of PAIR_READLEN bp through the host C
+    lane and the lane
+    (SMALT_DX_P2 unset and =1), BATCH // 2 pairs through the host C pair
+    lane and the lane, SAM byte-identical with no batch rendered on the
+    host; the five collate outputs (the hit-info checksum included) of a
+    first batch of DXH_CHECK_B reads held against the port's CPU step, and
+    the step timed.
+    Returns the launches of the three device runs."""
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.engine import MapEngine, MapParams
+    from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.map.fastmode import iter_fastq_batches
+    from smalt_tpu_torch.seq.refset import RefSet
+    k, step = DXH_INDEX
+    idx_name = os.path.join(d, f"idx{k}s{step}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["index", "-k", str(k), "-s", str(step), idx_name,
+                       os.path.join(d, "genome.fa")])
+    if rc != 0:
+        fail(f"index -k {k} -s {step}")
+    rng = np.random.default_rng(SEED + 13)
+    # 150 bp reads: at nskip = 16 a 100 bp read's pass-1 window passes the
+    # 128-column pad of reads up to 128 bp, and every read would re-stage
+    reads, _, _ = make_reads(rng, genome, BATCH, PAIR_READLEN)
+    fq, _ = write_fastq(os.path.join(d, "dxh.fq"), reads, b"h")
+    _, launches, totals, _ = exact_lane_runs(d, idx_name, fq, BATCH, card,
+                                             tag="dxh")
+    for label, m in totals.items():
+        if m is not None:
+            print(f"# device hit expansion, {label}: n_restaged {m.group(2)} "
+                  f"of {BATCH}, p2_hit {m.group(5)}", flush=True)
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    eng = MapEngine(refset, idx, MapParams())
+    dev, cpu = (DeviceExact.make(eng, "sam", True, False, False, False,
+                                 batch=DXH_CHECK_B, device=x)
+                for x in ("cuda", "cpu"))
+    if dev is None or dev._host_hits:
+        fail(f"--device-exact on k{k} s{step}: not the device hit expansion")
+    raw = next(iter(iter_fastq_batches(fq, dev.batch)))
+    host, dargs = dev._prepare(*raw)
+    outs = dev._collate_outputs(dargs)
+    col = dev._collate_fn()
+    col_ms = time_ms(lambda: col(*dargs), 3, warm=1)
+    t0 = time.perf_counter()
+    _, cargs = cpu._prepare(*raw)
+    collate_equal(outs, cpu._collate_outputs(cargs),
+                  "the first batch of phase 13")
+    print(f"# device hit expansion, one batch of {len(raw[0])} reads: "
+          f"collate step {col_ms:.3f} ms (CUDA events, 3 calls; Q="
+          f"{dev._cfg.Q}, H={dev._cfg.H}, V={dev._cfg.V}, pool "
+          f"{dev._cfg.pool}); its five outputs (pool, counts2, scores, cksum, "
+          f"fallback: {int(outs[4][:len(raw[0])].sum())} reads flagged) "
+          f"equal to the port's CPU step ({time.perf_counter() - t0:.1f} s "
+          f"on the host) | {card}", flush=True)
+    npairs = BATCH // 2
+    m1, m2, _, _ = make_pairs(rng, genome, npairs, PAIR_READLEN)
+    m2[::10] = ACGT[rng.integers(0, 4, m2[::10].shape)]
+    fq1, _ = write_fastq(os.path.join(d, "dxh_1.fq"), m1, b"p")
+    fq2, _ = write_fastq(os.path.join(d, "dxh_2.fq"), m2, b"p")
+    plaunch, ptotals = exact_pair_runs(d, idx_name, fq1, fq2, npairs, card,
+                                       tag="dxh")
+    m = ptotals["--device-exact"]
+    print(f"# device hit expansion on {npairs} pairs: SAM byte-identical to "
+          f"the host C pair lane, n_restaged {m.group(2)} of {2 * npairs} "
+          f"mates", flush=True)
+    return (launches["--device-exact"],
+            launches["--device-exact SMALT_DX_P2=1"],
+            plaunch["--device-exact"])
 
 
 def main() -> int:
@@ -2324,6 +2668,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from smalt_tpu_torch.align import core as ali
     from smalt_tpu_torch.ops import build, sw
 
     card = card_line()
@@ -2356,6 +2701,9 @@ def main() -> int:
     t0 = time.perf_counter()
     berr, k_band_t, k_band, k_many_t, k_many = check_band_kernel(rng, card)
     wberr, k_wband_t, k_wband = check_wide_band(rng, card)
+    m_, go_, ge_ = ali.make_score_matrix()
+    terr, k_tiled_t, k_tiled = check_band_tiled(
+        rng, sw.device_matrix(m_, "cuda"), -go_, -ge_, card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -2410,6 +2758,14 @@ def main() -> int:
         vl = run_very_long(d, genome, card)
         print(f"# phase 11 (reads over 16 kb, scores past 2^23): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        bk = run_bigk(d, genome, card)
+        print(f"# phase 12 (k = 16 and 20): {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        dxh, dxh2, dxhp = run_exact_device_hits(d, genome, card)
+        print(f"# phase 13 (device hit expansion): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -2444,7 +2800,13 @@ def main() -> int:
               N_VLONG),
              (f"--device-pass1 -S {KEY_SPEC} {KEY_READLEN} bp", vl["dp1 key"],
               N_VLONG),
-             (f"--fast -S {KEY_SHORT_SPEC}", vl["fast key short"], BATCH))
+             (f"--fast -S {KEY_SHORT_SPEC}", vl["fast key short"], BATCH),
+             (f"--fast {TILED_READLEN} bp", vl["fast 100 kb"], TILED_READS)) + \
+        tuple((f"--fast k{k} {rl} bp", n, BATCH if rl == READLEN
+               else N_BIGK_LONG) for (k, rl), n in bk.items()) + \
+        (("--device-exact k13 s16 (device hits)", dxh, BATCH),
+         ("--device-exact k13 s16 SMALT_DX_P2=1", dxh2, BATCH),
+         ("--device-exact k13 s16 pairs", dxhp, BATCH))
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
@@ -2481,7 +2843,9 @@ def main() -> int:
              k_strip["sw_full_strip_wide"]),
             ("sw_full_track_rec", full, serr, k_rec["sw_full_track_rec"]),
             ("sw_full_track_strip_rec", full, serr,
-             k_rec["sw_full_track_strip_rec"]))]}))
+             k_rec["sw_full_track_strip_rec"]),
+            ("sw_band_track_tiled", band, terr, k_tiled_t),
+            ("sw_band_tiled", band, terr, k_tiled))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

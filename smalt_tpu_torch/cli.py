@@ -23,8 +23,9 @@ front half (and, with SMALT_DX_P2=1, its pass 2) on one device for
 serial FASTQ, single-end or paired, and writes the output of the exact
 host lane, byte for byte, in any output format and with `--resume`.
 `--device` defaults to `cuda`; without a GPU that fails rather than
-running on the CPU, and `--device cpu` exists for the tests.  Options
-the port does not take exit 2 naming their ROADMAP.md item.
+running on the CPU, and `--device cpu` exists for the tests.  What the
+port does not take yet (a device mesh, merge-shards) exits 2 naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -573,21 +574,15 @@ def _run_device_lane(a, lane, engine, out, refset, fmt: str, mods, ihist,
                      fix_primary: bool, resume_log) -> int:
     """map --device-exact / --device-pass1 through the lane _device_lane
     chose, after cmd_map's set-up (output sink, BAM re-encoder,
-    checkpoints, insert histogram).  Returns the exit code: 2 where the
-    lane meets a part it has not ported (it raises NotImplementedError
-    naming its ROADMAP.md item)."""
+    checkpoints, insert histogram).  Returns the exit code."""
     from .map.pipeline import run_device_lane
     dev, plane = lane
-    try:
-        run_device_lane(dev, engine, a.reads, out, refset, fmt=fmt,
-                        soft_clip="clip" not in mods, x_mismatch="x" in mods,
-                        seed=(a.randseed if a.randseed is not None else 0),
-                        fix_primary=fix_primary, ali_out=a.aliout,
-                        mates_path=a.mates, plane=plane, ihist=ihist,
-                        resume_log=resume_log)
-    except NotImplementedError as e:
-        print(f"smalt_tpu_torch: {e}", file=sys.stderr)
-        return 2
+    run_device_lane(dev, engine, a.reads, out, refset, fmt=fmt,
+                    soft_clip="clip" not in mods, x_mismatch="x" in mods,
+                    seed=(a.randseed if a.randseed is not None else 0),
+                    fix_primary=fix_primary, ali_out=a.aliout,
+                    mates_path=a.mates, plane=plane, ihist=ihist,
+                    resume_log=resume_log)
     return 0
 
 

@@ -40,9 +40,12 @@ Per batch: host pre -> upload the padded reads once -> collate step on a
 worker thread -> host post -> (SMALT_DX_P2=1) pass-2 step on the worker
 -> fl_pass2_block, pipelined one batch deep as in the reference (pairs:
 both mates in one collate step -> host post under the pair flow's
-parameters -> fl_map_pair_block).  Only
-the host-hits regime is ported (every seq-by-seq reference with
-nskip <= wordlen); the device hit expansion raises NotImplementedError.
+parameters -> fl_map_pair_block).  In
+the host-hits regime (every seq-by-seq reference with nskip <= wordlen)
+the C pre block expands the hit keys; elsewhere (nskip > wordlen, on at
+most 8 sequences with k <= 14) the collate step expands them on the
+device from the resident direct table, and its hit-info checksum goes to
+the C post block in place of the host's.
 """
 from __future__ import annotations
 
@@ -934,11 +937,14 @@ class DeviceExact(DevicePass1):
         # the device index and built steps live on the shared KmerIndex
         # under a name of the port's own (the JAX lane caches its
         # objects there too)
+        # (the host-hits step reads only the reference codes; the device
+        # hit expansion reads the direct table and the positions too)
         cache = idx.__dict__.setdefault("_torch_dx_cache", {})
-        dkey = ("ref_only", str(self.device))
+        dkey = ("ref_only" if host_hits else "full", str(self.device))
         if dkey not in cache:
-            cache[dkey] = DeviceIndex.build_ref_only(eng.refset, idx,
-                                                     self.device)
+            build = (DeviceIndex.build_ref_only if host_hits
+                     else DeviceIndex.build)
+            cache[dkey] = build(eng.refset, idx, self.device)
         self._di = cache[dkey]
         p = eng.params
         # hit cap and pass-1 window pad scale with the read cap
@@ -1164,12 +1170,14 @@ class DeviceExact(DevicePass1):
         qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
         narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
         B = self.batch
-        self._collate_fn()                  # cfg (H) first; raises if unported
+        host_hits = self._host_hits
+        self._collate_fn()                  # cfg (H) first
         st = self._pre(n, codes, read_offs, qarr, has_qual, Qcap,
-                       hits_B=B, hits_H=self._cfg.H)
+                       hits_B=B if host_hits else 0,
+                       hits_H=self._cfg.H if host_hits else 0)
         if st is None:
             return None
-        pre, _, k1, k2, tot, ks = st
+        pre, selmask, k1, k2, tot, ks = st
         codes_pad = np.zeros((B, Qcap), np.uint8)
         enc = np.frombuffer(codec_encode_bulk(codes), np.uint8)
         for i in range(n):
@@ -1179,20 +1187,35 @@ class DeviceExact(DevicePass1):
         qlens[:n] = qlens_n
         mincov = np.zeros(B, np.int32)
         mincov[:n] = pre[:, 5].astype(np.int32)
-        # lanes the host expansion could not fit re-stage on the host
-        host_fb = (tot[:n] < 0).any(axis=1)
-        np.maximum(tot, 0, out=tot)
-        R, H = 2 * B, self._cfg.H
         dev = self.device
         # the padded batch goes up ONCE: the collate and the pass-2 step
         # both read it
         codes_t, qlens_t = (torch.from_numpy(x).to(dev)
                             for x in (codes_pad, qlens))
-        dargs = tuple(torch.from_numpy(x).to(dev) for x in (
-            k1.reshape(R, H), k2.reshape(R, H), tot.reshape(R))) + \
-            (codes_t, qlens_t, torch.from_numpy(mincov).to(dev))
-        if ks is not None:
-            dargs = (torch.from_numpy(ks.reshape(R, H)).to(dev),) + dargs
+        mincov_t = torch.from_numpy(mincov).to(dev)
+        if host_hits:
+            # lanes the host expansion could not fit re-stage on the host
+            host_fb = (tot[:n] < 0).any(axis=1)
+            np.maximum(tot, 0, out=tot)
+            R, H = 2 * B, self._cfg.H
+            dargs = tuple(torch.from_numpy(x).to(dev) for x in (
+                k1.reshape(R, H), k2.reshape(R, H), tot.reshape(R))) + \
+                (codes_t, qlens_t, mincov_t)
+            if ks is not None:
+                dargs = (torch.from_numpy(ks.reshape(R, H)).to(dev),) + dargs
+        else:
+            # the device derives the hits: it takes the bases under the
+            # quality floor and the host's selected-seed mask
+            host_fb = None
+            minq = self.lane.engine.params.min_basq + 0x21
+            qbad = np.zeros((B, Qcap), bool)
+            for i in range(n):
+                o, e = int(read_offs[i]), int(read_offs[i + 1])
+                qbad[i, : e - o] = qarr[o:e] < minq
+            selm = np.zeros((B, 2, Qcap), np.uint8)
+            selm[:n] = selmask
+            dargs = (codes_t, torch.from_numpy(qbad).to(dev),
+                     torch.from_numpy(selm).to(dev), qlens_t, mincov_t)
         host = (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs,
                 pre, host_fb, codes_t, qlens_t)
         return host, dargs
@@ -1210,10 +1233,15 @@ class DeviceExact(DevicePass1):
         no pass-2 window prep: the C pair block runs pass 2)."""
         (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs, pre,
          host_fb, _, _) = host
-        pool, counts2, scores, fb = outs
-        cksum = np.ascontiguousarray(pre[:, 6:10].reshape(n, 2, 2), np.int32)
+        if len(outs) == 5:          # the device-hit step: its own checksum
+            pool, counts2, scores, cksum, fb = outs
+        else:
+            pool, counts2, scores, fb = outs
+            cksum = np.ascontiguousarray(pre[:, 6:10].reshape(n, 2, 2),
+                                         np.int32)
         fb = fb.copy()
-        fb[:n] |= host_fb
+        if host_fb is not None:
+            fb[:n] |= host_fb
         st = self._post(n, read_offs, pre, pool, counts2[:n], scores,
                         cksum[:n], fb[:n], pair=pair)
         if st is None:

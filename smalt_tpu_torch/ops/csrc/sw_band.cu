@@ -44,17 +44,18 @@
 // one multiply-add for the key), one shared-memory load, and ~25
 // instructions and 8 shuffles a thread and row that do not grow with C.
 //
-// Two kernels.  Bands up to 512 lanes (every band the mapping path makes
+// Three kernels.  Bands up to 512 lanes (every band the mapping path makes
 // for reads up to ~2.8 kb) run sw_band_warp_kernel: one warp a window, up
 // to four windows a block.  Wider bands run the several-warps kernel, one
 // window a block: sw_band_multi_kernel on NW = ceil(W/512) <= 6 warps up
 // to W = 3,072, and above that sw_band_many_kernel, the same code on up to
-// 32 warps (1,024 threads, W <= 16,384: reads up to ~87 kb).  In all of
+// 32 warps (1,024 threads, W <= 16,384: reads up to ~87 kb); wider bands
+// run sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
+// tiles of the band with the row's state in a global scratch.  In all of
 // them a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
 // registers; lanes at or past W are padding that never reaches a real
 // lane (E flows from the right, only through NEG, and F only to the
-// right).  A band wider than 16,384 lanes would need state outside
-// registers; ops/sw.py refuses it.
+// right).
 //
 // sw_band_warp_kernel, and what each part is for.
 //   - Hopper's 3-input integer instructions carry the recurrence, each
@@ -384,6 +385,7 @@ sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 #include "sw_band_multi.cuh"
 #undef SWB_MULTI_KERNEL
 #undef SWB_MULTI_NW
+#include "sw_band_tiled.cuh"                  // W > 16,384
 
 struct Args {
   const int *q, *subj, *slens, *matrix;
@@ -447,7 +449,7 @@ void launch_multi(bool track, int nw, const Args& a) {
 // extension with (S + 1) * ge >= 2^28 (the one-warp kernel's stand-in for
 // NEG).  W past 3,072 runs sw_band_many_kernel.  Returns the CUDA error
 // of the launch (0 on success), or -1 when an argument is out of range
-// (W outside 1..16384 included).
+// (W outside 1..16384 included: wider bands take sw_band_tiled_launch).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
@@ -485,4 +487,28 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
     case 12: return static_cast<int>(launch_warp<12>(tr, a));
     default: return static_cast<int>(launch_warp<16>(tr, a));
   }
+}
+
+// Scores B windows with the tiled kernel (sw_band_tiled.cuh), for bands
+// of any width; ops/sw.py routes W past TILED_BAND_W here.  The arguments
+// are sw_band_launch's less `wide` (the kernel looks its scores up in the
+// int32 matrix), and scratch, int32 [B, W, 2] on the device: each
+// window's row state, written before it is read.  Returns the CUDA error
+// of the launch (0 on success), or -1 when an argument is out of range.
+extern "C" int sw_band_tiled_launch(const void* q, const void* subj,
+                                    const void* slens, const void* matrix,
+                                    int B, int Q, int S, int W, int prepad,
+                                    int go, int ge, int track, void* best,
+                                    void* ti, void* tj, void* stream,
+                                    void* scratch) {
+  if (Q < 1 || S < 0 || B < 0 || W < 1 || ge < 0) return -1;
+  if (B == 0) return 0;
+  auto kernel = track ? sw_band_tiled_kernel<true>
+                      : sw_band_tiled_kernel<false>;
+  kernel<<<B, TILED_NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(q), static_cast<const int*>(subj),
+      static_cast<const int*>(slens), static_cast<const int*>(matrix), B, Q,
+      S, W, prepad, go, ge, static_cast<int2*>(scratch),
+      static_cast<int*>(best), static_cast<int*>(ti), static_cast<int*>(tj));
+  return static_cast<int>(cudaGetLastError());
 }

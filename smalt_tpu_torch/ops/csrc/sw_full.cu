@@ -139,7 +139,7 @@
 // memory rate against 5.8 ms of the bound's integer work, so it lives
 // in device memory at every S and not in shared memory.  The buffer
 // holds a window's carry for all of its rows (8 * S bytes), and the
-// wrapper (ops/sw.py strip_groups) keeps it within a fixed budget by
+// wrapper (ops/sw.py scratch_groups) keeps it within a fixed budget by
 // launching groups of windows; nothing in the kernel bounds Q (a window
 // of Q columns runs Q / 512 strips, every offset that can pass 2^31 in
 // size_t).

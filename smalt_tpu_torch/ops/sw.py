@@ -27,14 +27,17 @@ import torch
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 # Queries past MAX_Q run sw_full's strip path (one warp a window, strips
-# of MAX_Q columns), which has no limit on Q.  Its carry scratch, int32
-# [windows, S, 2], is kept within this many bytes by launching groups of
-# windows (strip_groups).
-STRIP_SCRATCH_BYTES = 1 << 30
+# of MAX_Q columns), which has no limit on Q, and bands past TILED_BAND_W
+# run sw_band's tiled kernel, which has no limit on W.  Their scratch
+# (int32 [windows, S, 2] of strip carry, int32 [windows, W, 2] of band row
+# state) is kept within this many bytes by launching groups of windows
+# (scratch_groups).
+SCRATCH_BYTES = 1 << 30
 MULTI_BAND_W = 3072  # widest band of sw_band_multi_kernel (6 warps)
-# widest band sw_band runs: sw_band_many_kernel, 32 warps of 16 lanes a
-# thread (reads up to ~87 kb); a wider band needs state outside registers
-MAX_BAND_W = 16384
+# widest band of the register-resident sw_band kernels (sw_band_many_kernel,
+# 32 warps of 16 lanes a thread); wider bands run sw_band_tiled_kernel,
+# which keeps the row's state in a global scratch
+TILED_BAND_W = 16384
 # The tracking key T * 256 + 255 - c (sw_full.cu, sw_band.cu's one-warp
 # kernel) holds |T| < 2^23; a window can score no more than max|entry| *
 # (query columns or subject rows, the fewer), and a tracked launch that
@@ -59,15 +62,17 @@ DP_CAP = 1 << 30
 # width up to MULTI_BAND_W); "_rec": a tracked sw_full window that could
 # score KEY_CAP (the WIDE instance of sw_full_rec_kernel or
 # sw_strip_rec_kernel); "_strip": sw_full's path for queries past MAX_Q;
-# "_many": sw_band_many_kernel, bands past MULTI_BAND_W.  The names are
-# what sw_full_instance and sw_band_instance return.
+# "_many": sw_band_many_kernel, bands past MULTI_BAND_W; "_tiled":
+# sw_band_tiled_kernel, bands past TILED_BAND_W.  The names are what
+# sw_full_instance and sw_band_instance return.
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
             "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0,
             "sw_full_track_strip": 0, "sw_full_strip": 0,
             "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0,
             "sw_band_track_many": 0, "sw_band_many": 0,
-            "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0}
+            "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0,
+            "sw_band_track_tiled": 0, "sw_band_tiled": 0}
 
 _libs: dict = {}
 
@@ -156,23 +161,27 @@ def _wide_code(name: str) -> int:
     return 2 if name.endswith("_rec") else int(name.endswith("_wide"))
 
 
-def strip_groups(B: int, S: int):
-    """[(first, end)) groups of windows whose strip-path carry scratch
-    (8 * S bytes a window) fits STRIP_SCRATCH_BYTES, at least one window
-    a group."""
-    per = max(1, STRIP_SCRATCH_BYTES // (8 * max(S, 1)))
+def scratch_groups(B: int, per_window: int):
+    """[(first, end)) groups of B windows whose scratch (`per_window`
+    bytes each: 8 * S for sw_full's strip carry, 8 * W for sw_band's
+    tiled row state) fits SCRATCH_BYTES, at least one window a group."""
+    per = max(1, SCRATCH_BYTES // max(per_window, 1))
     return [(g, min(B, g + per)) for g in range(0, B, per)]
 
 
 def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
                      track: bool) -> str:
     """The sw_band.cu instance a launch runs, by its name in `launches`:
-    "_many" (sw_band_many_kernel) past MULTI_BAND_W lanes; "_wide" (the
-    several-warps kernel, int32 lookups and no packed key) for a matrix
-    outside int8 or a tracked window that could score KEY_CAP; else the
-    int8 route (one warp a window to W = 512, sw_band_multi_kernel above,
-    or where the one-warp kernel's profile does not fit)."""
+    "_tiled" (sw_band_tiled_kernel: int32 lookups, no packed key, any
+    width) past TILED_BAND_W lanes; "_many" (sw_band_many_kernel) past
+    MULTI_BAND_W; "_wide" (the several-warps kernel, int32 lookups and no
+    packed key) for a matrix outside int8 or a tracked window that could
+    score KEY_CAP; else the int8 route (one warp a window to W = 512,
+    sw_band_multi_kernel above, or where the one-warp kernel's profile
+    does not fit)."""
     name = "sw_band_track" if track else "sw_band"
+    if W > TILED_BAND_W:
+        return name + "_tiled"
     if W > MULTI_BAND_W:
         return name + "_many"
     wide = matrix.wide or (track and key_over(matrix, Q, S))
@@ -320,9 +329,12 @@ def band_tie_windows(rng, B: int, Q: int):
 # by entry point less its "_launch"; sw_full's and sw_band's `wide` comes
 # last, so that earlier versions of those sources (which take none) can be
 # timed beside them (ops/time_sw.py).  sw_full_strip is sw_full.cu's entry
-# for queries past MAX_Q: sw_full's arguments and the carry scratch.
+# for queries past MAX_Q: sw_full's arguments and the carry scratch;
+# sw_band_tiled is sw_band.cu's entry for bands past TILED_BAND_W:
+# sw_band's arguments less `wide`, and the row-state scratch.
 _SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
-         "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppip"}
+         "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppip",
+         "sw_band_tiled": "ppppiiiiiiiippppp"}
 
 
 def bind(lib, entry: str):
@@ -372,7 +384,7 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     and results as sw_score_ref; every tensor contiguous int32 on one
     CUDA device, the matrix a DeviceMatrix; the instance as
     sw_full_instance names it.  A query past MAX_Q columns runs the strip
-    path (sw_full_strip_launch) over the groups of windows strip_groups
+    path (sw_full_strip_launch) over the groups of windows scratch_groups
     makes, one launch a group, with an int32 carry scratch for one group
     made here."""
     B, Q = qcodes.shape
@@ -387,7 +399,7 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     lib = _kernel_lib("sw_full")
     outs = [torch.empty(B, dtype=torch.int32, device=dev)
             for _ in range(3 if track else 1)]
-    groups = strip_groups(B, S) if strip else [(0, B)]
+    groups = scratch_groups(B, 8 * S) if strip else [(0, B)]
     carry = ()
     if strip and groups:
         g = groups[0][1] - groups[0][0]
@@ -509,12 +521,14 @@ def clamp_band_width(Q: int, pad: int, W: int = 0) -> int:
 def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                  gapext_pos: int, pad: int, W: int, track: bool = False):
     """Launch csrc/sw_band.cu on the current stream.  Same arguments
-    and results as sw_band_score_ref (W as given, 1..MAX_BAND_W); every
-    tensor contiguous int32 on one CUDA device, the matrix a DeviceMatrix;
-    the instance as sw_band_instance names it."""
-    if not 1 <= W <= MAX_BAND_W:
-        raise ValueError(f"sw_band: band width {W} outside 1..{MAX_BAND_W} "
-                         f"(the kernel's limit: reads up to ~87 kb)")
+    and results as sw_band_score_ref (W as given, >= 1); every tensor
+    contiguous int32 on one CUDA device, the matrix a DeviceMatrix; the
+    instance as sw_band_instance names it.  A band past TILED_BAND_W runs
+    the tiled kernel (sw_band_tiled_launch) over the groups of windows
+    scratch_groups makes, one launch a group, with an int32 row-state
+    scratch for one group made here."""
+    if W < 1:
+        raise ValueError(f"sw_band: band width {W} < 1")
     B, Q = qcodes.shape
     S = subj.shape[1]
     check_score_cap("sw_band", matrix, Q, S, gapopen_pos, gapext_pos, W)
@@ -524,22 +538,32 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     if Q < 1:
         raise ValueError("sw_band: empty query")
     lib = _kernel_lib("sw_band")
-    best = torch.empty(B, dtype=torch.int32, device=dev)
-    ti = torch.empty(B, dtype=torch.int32, device=dev) if track else None
-    tj = torch.empty(B, dtype=torch.int32, device=dev) if track else None
+    outs = [torch.empty(B, dtype=torch.int32, device=dev)
+            for _ in range(3 if track else 1)]
+    tiled = name.endswith("_tiled")
+    groups = scratch_groups(B, 8 * W) if tiled else [(0, B)]
+    scratch = ()
+    if tiled and groups:
+        g = groups[0][1] - groups[0][0]
+        scratch = (torch.empty((g, W, 2), dtype=torch.int32, device=dev),)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_band_launch(
-            qcodes.data_ptr(), subj.data_ptr(), slens.data_ptr(),
-            matrix.t.data_ptr(), B, Q, S, W, pad + W // 2, int(gapopen_pos),
-            int(gapext_pos), 1 if track else 0, best.data_ptr(),
-            ti.data_ptr() if track else None,
-            tj.data_ptr() if track else None, stream,
-            int(name.endswith("_wide")))
-    if rc != 0:
-        raise RuntimeError(f"sw_band launch failed (code {rc})")
-    launches[name] += 1
-    return (best, ti, tj) if track else best
+        for lo, hi in groups:          # pointers at the group's first window
+            outp = [o.data_ptr() + 4 * lo for o in outs] + \
+                [None] * (3 - len(outs))
+            args = (qcodes.data_ptr() + 4 * lo * Q,
+                    subj.data_ptr() + 4 * lo * S, slens.data_ptr() + 4 * lo,
+                    matrix.t.data_ptr(), hi - lo, Q, S, W, pad + W // 2,
+                    int(gapopen_pos), int(gapext_pos), 1 if track else 0,
+                    *outp, stream)
+            if tiled:
+                rc = lib.sw_band_tiled_launch(*args, scratch[0].data_ptr())
+            else:
+                rc = lib.sw_band_launch(*args, int(name.endswith("_wide")))
+            if rc != 0:
+                raise RuntimeError(f"sw_band launch failed (code {rc})")
+            launches[name] += 1
+    return tuple(outs) if track else outs[0]
 
 
 def sw_band_score_batch(qcodes, subj, slens, matrix, gapopen_pos: int,

@@ -1,17 +1,24 @@
 """Device-exact collation on one torch device: the exact engine's front
-half for a block of reads, after the host has expanded the hits.
+half for a block of reads.
 
-Counterpart of the host-hits step of smalt_tpu/parallel/exact_collate.py
-(`_step_hh`, :695).  Per block the host C pre block (fl_exact_pre_block)
-ships each (read, strand) lane's hit keys; the device sorts them, forms
-seeds, constant-shift segments, regions and candidates in one sequential
-scan (segment.c semantics), compacts the candidate rows into one pool in
-per-read (strand, interval, emission) order, computes each candidate's
-pass-1 window (mc_calc_seg_offsets) and scores the SIMD-eligible windows
-with the score-only full-matrix kernel (ops/sw.py `sw_score_batch`,
-`track=False`: csrc/sw_full.cu on CUDA).  The host then verifies and
-finishes byte-identically; any read the device cannot serve exactly is
-flagged and re-staged on the host.
+Counterpart of smalt_tpu/parallel/exact_collate.py's two steps.  In the
+host-hits step (`_step_hh`, :695) the host C pre block
+(fl_exact_pre_block) ships each (read, strand) lane's hit keys.  In the
+device-hit step (`_step`, :637; the regime where the host cannot expand
+the hits, e.g. nskip > wordlen) the host ships only the selected-seed
+mask, and the device re-derives the hit info from the resident index
+(rolling words, the ring repeat filter, the direct-table lookup, with a
+checksum the host verifies), then, for each of the V reference
+intervals, finds each seed's in-interval slice of its positions by binary
+search and expands it into hit keys.  Both steps then sort the keys,
+form seeds, constant-shift segments, regions and candidates in one
+sequential scan (segment.c semantics), compact the candidate rows into
+one pool in per-read (strand, interval, emission) order, compute each
+candidate's pass-1 window (mc_calc_seg_offsets) and score the
+SIMD-eligible windows with the score-only full-matrix kernel (ops/sw.py
+`sw_score_batch`, `track=False`: csrc/sw_full.cu on CUDA).  The host
+then verifies and finishes byte-identically; any read the device cannot
+serve exactly is flagged and re-staged on the host.
 
 Everything here is plain torch on int32 tensors, held to the JAX step
 value for value.  Where torch would drift from JAX: JAX's multi-key
@@ -20,10 +27,6 @@ cumulative sums and reductions name int32, which torch would otherwise
 widen to int64; the int32 shifts and the BIG-pad sums wrap as in JAX;
 every gather index is clipped as JAX clips it, since an out-of-range
 index is a device-side fault on CUDA; `.at[].max()` is `scatter_reduce`.
-
-Not ported yet: the device-side hit expansion (`_step`, reached only
-when nskip > wordlen), which raises NotImplementedError naming its
-ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..ops.sw import device_matrix, sw_score_batch
 
 # Re-declared from smalt_tpu/parallel/exact_collate.py (whose package
 # imports jax); a test holds them equal.
+NREPEATS = 4           # hashhit.c:42 ring size
 SEG_DIFFSHIFT = 3      # segment.c SEGMENTING_DIFFSHIFT
 EDGE_BAND_FACTOR = 4   # segment.c:137
 MAX_BANDEDGE_2POW = 4  # segment.c:142
@@ -71,6 +75,108 @@ class CollateCfg:
 def _shift_right(x, fill: int = 0):
     """x[:, :-1] moved one column right, column 0 = fill (jnp.pad)."""
     return torch.nn.functional.pad(x[:, :-1], (1, 0), value=fill)
+
+
+def _hitinfo_device(cfg: CollateCfg, codes, qbad, qlens, table):
+    """Per-strand device hit info (exact_collate.py:100, mc_hitinfo_collect
+    semantics): lane t = the k-mer starting at query position t.
+    codes [B, Q] mangled codes, qbad [B, Q] bool (quality below the
+    floor), qlens [B], table the [4^k, 2] direct offset table.  Returns
+    (is_seed [B, 2, Q] bool, cnt [B, 2, Q] int32, base [B, 2, Q] int32)."""
+    k = cfg.wordlen
+    B, Q = cfg.B, cfg.Q
+    dev = codes.device
+    c2 = (codes & 3).to(_I32)
+    bad = qbad | ((codes & 4) != 0)
+    t_iota = torch.arange(Q, dtype=_I32, device=dev)[None, :]
+
+    # rolling words, both strands (fwd: base j at bit 2*(k-1-j); rev: its
+    # complement at bit 2*j), over the lanes c2[t+j] (0 past the end)
+    wf = torch.zeros((B, Q), dtype=_I32, device=dev)
+    wr = torch.zeros((B, Q), dtype=_I32, device=dev)
+    for j in range(k):
+        col = torch.nn.functional.pad(c2[:, j:], (0, j))
+        wf = wf | (col << (2 * (k - 1 - j)))
+        wr = wr | ((col ^ 3) << (2 * j))
+
+    # window validity: t <= qlen-k and no bad base inside [t, t+k)
+    badc = torch.nn.functional.pad(torch.cumsum(bad.to(_I32), dim=1,
+                                                dtype=_I32), (1, 0))
+    hi = torch.clamp_max(t_iota + k, Q).expand(B, Q).long()
+    nbad = torch.gather(badc, 1, hi) - badc[:, :Q]
+    ok = (nbad == 0) & (t_iota <= (qlens[:, None] - k))
+
+    # ring repeat filter (hashhit.c:325-342): a word equal to one of the
+    # previous NREPEATS OK windows' words; okpos[r] = the r-th OK window
+    okrank = torch.cumsum(ok.to(_I32), dim=1, dtype=_I32) - 1
+    okpos = torch.sort(torch.where(ok, t_iota, BIG), dim=1).values
+    words2 = torch.stack([wf, wr], dim=1)              # [B, 2, Q]
+    rep = torch.zeros((B, 2, Q), dtype=torch.bool, device=dev)
+    for d in range(1, NREPEATS + 1):
+        r_prev = okrank - d
+        has = ok & (r_prev >= 0)
+        pidx = torch.gather(okpos, 1, torch.clamp_min(r_prev, 0).long())
+        pidx = torch.clamp_max(pidx, Q - 1).long()
+        pw = torch.gather(words2, 2, pidx[:, None, :].expand(B, 2, Q))
+        rep = rep | (has[:, None, :] & (pw == words2))
+
+    # direct-address lookup: the pair {starts[w], starts[w+1]}
+    keep = ok[:, None, :] & ~rep
+    pair = table[torch.where(keep, words2, 0).long()]  # [B, 2, Q, 2]
+    base = pair[..., 0]
+    cnt = pair[..., 1] - base
+    is_seed = keep & (cnt >= 1)
+    if cfg.maxhit > 0:
+        is_seed = is_seed & (cnt <= cfg.maxhit)
+    return is_seed, torch.where(is_seed, cnt, 0), torch.where(is_seed, base, 0)
+
+
+def _lower_bound(arr, lo0, hi0, target: int, steps: int):
+    """Lane-parallel lower_bound over slices [lo0, hi0) of the 1-D arr
+    (exact_collate.py:165): the smallest i with arr[i] >= target."""
+    n = arr.shape[0]
+    lo, hi = lo0, hi0
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        v = arr[mid.clamp(0, n - 1).long()]
+        go = active & (v < target)
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(active & ~go, mid, hi)
+    return lo
+
+
+def _expand_hits(cfg: CollateCfg, pos, a, nh, strand_is_rev):
+    """The selected seeds' in-interval hits as packed sort keys
+    (exact_collate.py:180): k1 = p -/+ q/nskip, k2 = q, the seed's query
+    offset, BIG past each lane's `total`.  a, nh [R, Q]: each seed's slice
+    start in pos and its length (0 for non-seeds).  Hit slot h belongs to
+    the smallest seed s with cum[s] > h (a 9-step binary search: 2^9 >
+    Q).  Returns (k1, k2, valid [R, H], total [R])."""
+    R = a.shape[0]
+    H, Q = cfg.H, cfg.Q
+    dev = a.device
+    npos = pos.shape[0]
+    cum = torch.cumsum(nh, dim=1, dtype=_I32)          # inclusive [R, Q]
+    total = cum[:, -1]
+    cum_ex = _shift_right(cum)                         # exclusive
+    h_iota = torch.arange(H, dtype=_I32, device=dev)[None, :]
+    lo = torch.zeros((R, H), dtype=_I32, device=dev)
+    hi = torch.full((R, H), Q - 1, dtype=_I32, device=dev)
+    for _ in range(9):
+        mid = (lo + hi) >> 1
+        go = torch.gather(cum, 1, mid.clamp(0, Q - 1).long()) <= h_iota
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(go, hi, mid)
+    sid = torch.clamp_max(lo, Q - 1)                   # [R, H]
+    valid = h_iota < total[:, None]
+    sidl = sid.long()
+    pidx = torch.gather(a, 1, sidl) + (h_iota - torch.gather(cum_ex, 1, sidl))
+    p = pos[pidx.clamp(0, npos - 1).long()]
+    qd = sid // cfg.nskip                              # lane t == qoffs
+    k1 = torch.where(strand_is_rev[:, None], p + qd, p - qd)
+    return (torch.where(valid, k1, BIG), torch.where(valid, sid, BIG), valid,
+            total)
 
 
 def lexsort_rows(keys):
@@ -294,35 +400,48 @@ def _compact_rows(cfg: CollateCfg, ef, er):
 
 def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
                         cfg: CollateCfg):
-    """The host-hits collation + pass-1 scoring step on di's device
-    (exact_collate.py:434 with cfg.host_hits).
+    """The collation + pass-1 scoring step on di's device
+    (exact_collate.py:434).
 
-    di: parallel.mesh.DeviceIndex (build_ref_only suffices)
+    di: parallel.mesh.DeviceIndex (build_ref_only suffices for
+    cfg.host_hits; the device-hit step needs the direct-address table)
     ivals_np: [V, 3] int64 {start, end, seqidx} global base intervals
     (the engine's seq-by-seq `_seq_ivals`).
 
-    step([ks,] k1 [R,H] i32, k2u8 [R,H] u8, tot [R] i32, codes [B,Q] u8
-         mangled, qlens [B] i32, min_cover [B] i32) ->
+    cfg.host_hits:
+      step([ks,] k1 [R,H] i32, k2u8 [R,H] u8, tot [R] i32, codes [B,Q]
+           u8 mangled, qlens [B] i32, min_cover [B] i32)
+    with ks [R,H] i32 the per-hit sequence ids, given only when
+    cfg.NS > 1; else the device-hit step:
+      step(codes [B,Q] u8 mangled, qbad [B,Q] bool, selmask [B,2,Q] u8,
+           qlens [B] i32, min_cover [B] i32)
+    R = 2B lanes (read-major, strand-minor).  Both return
       pool      [P, 6] i32  packed candidate rows, per-read contiguous
                             in (strand, interval, emission) order
       counts2   [B, 2] i32  rows per read per strand (F, R)
       scores    [P] i32     pass-1 window score, -1 = not SIMD-eligible
-      fallback  [B] bool    device-side per-read fallback flags
-    with R = 2B lanes (read-major, strand-minor) and ks [R,H] i32 the
-    per-hit sequence ids, given only when cfg.NS > 1."""
-    if not cfg.host_hits:
-        raise NotImplementedError(
-            "the device-side hit expansion of --device-exact (nskip > "
-            "wordlen) is not ported yet (ROADMAP.md Queue 1 #6b)")
+    then, from the device-hit step only,
+      cksum     [B, 2, 2]   the device's hit-info checksum per strand
+    and last
+      fallback  [B] bool    device-side per-read fallback flags."""
+    if not cfg.host_hits and di.table is None:
+        raise ValueError("device-exact hit expansion needs the "
+                         "direct-address table (host_hits does not)")
     dev = di.device
     k, nskip = cfg.wordlen, cfg.nskip
-    B, Q, H, C = cfg.B, cfg.Q, cfg.H, cfg.C
+    B, Q, H, C, V = cfg.B, cfg.Q, cfg.H, cfg.C, cfg.V
     P = cfg.pool
     R = 2 * B
+    if not cfg.host_hits and V != len(ivals_np):
+        raise ValueError(f"the device-hit step needs one interval slot a "
+                         f"sequence interval: V = {V}, {len(ivals_np)} "
+                         f"intervals")
     iv_lo = [int(x) for x in ivals_np[:, 0]]
     iv_hi = [int(x) for x in ivals_np[:, 1]]
-    if not (cfg.V == 1 and nskip <= k and iv_lo[0] == 0
-            and iv_hi[-1] >= int(di.ref_len)
+    ref_len = int(di.ref_len)
+    if cfg.host_hits and not (
+            V == 1 and nskip <= k and iv_lo[0] == 0
+            and iv_hi[-1] >= ref_len
             and all(iv_lo[v + 1] == iv_hi[v]
                     for v in range(len(iv_lo) - 1))):
         raise ValueError("host_hits needs contiguous full-cover "
@@ -343,21 +462,32 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
     h_iota = torch.arange(H, dtype=_I32, device=dev)[None, :]
     g_iota = torch.arange(P, dtype=_I32, device=dev)
     c_iota = torch.arange(C, dtype=_I32, device=dev)
-    S2 = 2 * C
+    # the pool's slots a read: (strand, interval slot, candidate)
+    S2 = 2 * V * C
     s2_iota = torch.arange(S2, dtype=_I32, device=dev)[None, :]
-    rev_slot = (s2_iota >= C).to(_I32).expand(B, S2)
+    rev_slot = (s2_iota >= V * C).to(_I32).expand(B, S2)
+    sq_arr = torch.tensor([int(x) for x in ivals_np[:, 2]], dtype=_I32,
+                          device=dev)
+    sq_slot = sq_arr[((s2_iota // C) % V).long()].expand(B, S2)
     q_iota = torch.arange(Q, dtype=_I32, device=dev)[None, :]
     w_iota = torch.arange(SPAD, dtype=_I32, device=dev)[None, :]
+    t1 = (torch.arange(Q, dtype=_I32, device=dev) + 1)[None, None, :]
 
-    def pool_geom_score(rows, counts, fallback, codes, qlens):
-        """exact_collate.py:497 with one interval slot and each
-        candidate's interval id from row field 6: global pool
-        compaction, geometry (mc_calc_seg_offsets) + is_simd, and the
-        pass-1 scores of the SIMD-eligible windows."""
+    def pool_geom_score(rows_v, counts_v, fallback, codes, qlens,
+                        sq_from_rows: bool):
+        """exact_collate.py:497: global pool compaction in per-read
+        (strand, interval, emission) order, geometry (mc_calc_seg_offsets)
+        + is_simd, and the pass-1 scores of the SIMD-eligible windows.
+        rows_v / counts_v: each interval slot's rows [B, 2, C, 7] and
+        counts [B, 2].  sq_from_rows: each candidate's interval id is its
+        row field 6 (the host-hits step's one combined slot), else its
+        slot's."""
         # ---- global pool compaction, (strand, interval, slot) order --
-        rows_flat = rows.reshape(B, S2, 7)
-        slot_ok = (c_iota[None, None, :] < counts[:, :, None]).reshape(B, S2)
-        read_counts = counts.sum(dim=1, dtype=_I32)
+        rows_flat = torch.stack(rows_v, dim=2).reshape(B, S2, 7)
+        cnts = torch.stack(counts_v, dim=2)                  # [B, 2, V]
+        slot_ok = (c_iota < cnts[..., None]).reshape(B, S2)
+        counts2 = cnts.sum(dim=2, dtype=_I32)                # [B, 2]
+        read_counts = counts2.sum(dim=1, dtype=_I32)
         cum_read = torch.cumsum(read_counts, dim=0, dtype=_I32)  # inclusive
         npool = cum_read[-1]
         lo = torch.zeros(P, dtype=_I32, device=dev)
@@ -376,7 +506,10 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
         pool_ok = g_iota < npool
         pool7 = torch.where(pool_ok[:, None], rows_flat[rd, fs], 0)
         pool_rev = torch.where(pool_ok, rev_slot[rd, fs], 0)
-        pool_sq = pool7[:, 6]
+        if sq_from_rows:
+            pool_sq = pool7[:, 6]
+        else:
+            pool_sq = torch.where(pool_ok, sq_slot[rd, fs], 0)
         pool_read = torch.where(pool_ok, rd, 0)
         pool = torch.cat([pool7[:, :5], (pool7[:, 5] | (pool_sq << 22))
                           [:, None]], dim=1)
@@ -451,12 +584,18 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
         sc = sw_score_batch(qcs, wins, slen_sc, matrix, go, ge, device=dev,
                             track=False)
         scores = torch.where(do_sc, sc, -1)
-        return pool, counts, scores, fallback
+        return pool, counts2, scores, fallback
 
-    def step_hh(ks, k1, k2u8, tot, codes, qlens, min_cover):
+    def lane_inputs(qlens, min_cover):
+        """Per-lane (read, strand) query length, cover floor and the
+        region-break shift limit."""
         qlenR = qlens.repeat_interleave(2)
         mincovR = min_cover.repeat_interleave(2)
         mdsh = torch.clamp_max((qlenR - k) // nskip + 1, mdsh_cap)
+        return mincovR, mdsh
+
+    def step_hh(ks, k1, k2u8, tot, codes, qlens, min_cover):
+        mincovR, mdsh = lane_inputs(qlens, min_cover)
         valid = h_iota < tot[:, None]
         k1v = torch.where(valid, k1, BIG)
         k2v = torch.where(valid, k2u8.to(_I32), BIG)
@@ -470,13 +609,63 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
                                         strand_is_rev, ivl=ivl)
         rows, counts, overC = _compact_rows(cfg, ef, er)
         fallback = (badscan | overC).reshape(B, 2).any(dim=1)
-        return pool_geom_score(rows.reshape(B, 2, C, 7),
-                               counts.reshape(B, 2), fallback, codes, qlens)
+        return pool_geom_score([rows.reshape(B, 2, C, 7)],
+                               [counts.reshape(B, 2)], fallback, codes,
+                               qlens, sq_from_rows=True)
 
-    if cfg.NS > 1:
-        return step_hh
+    if cfg.host_hits:
+        if cfg.NS > 1:
+            return step_hh
 
-    def step(k1, k2u8, tot, codes, qlens, min_cover):
-        return step_hh(None, k1, k2u8, tot, codes, qlens, min_cover)
+        def step(k1, k2u8, tot, codes, qlens, min_cover):
+            return step_hh(None, k1, k2u8, tot, codes, qlens, min_cover)
 
-    return step
+        return step
+
+    table, pos = di.table, di.pos
+    # the single interval spans every indexed position (max tuple serial
+    # = (ref_len-k)//nskip < hi//nskip when nskip <= wordlen): its
+    # in-range slice is the seed's whole position run
+    identity = V == 1 and iv_lo[0] == 0 and iv_hi[0] >= ref_len and \
+        nskip <= k
+
+    def step_dev(codes, qbad, selmask, qlens, min_cover):
+        """exact_collate.py:637 (_step): the device's own hit info and
+        its checksum, then one expansion, sort and scan a interval slot."""
+        is_seed, cnt, base = _hitinfo_device(cfg, codes, qbad, qlens, table)
+        # the checksum of the device's hit-info view, verified by the host
+        # post block: {n_seeds, sum cnt*(t+1) mod 2^31}
+        cksum = torch.stack(
+            [is_seed.sum(dim=2, dtype=_I32),
+             torch.where(is_seed, cnt * t1, 0).sum(dim=2, dtype=_I32)
+             & 0x7FFFFFFF], dim=2)                        # [B, 2, 2]
+        selR = (is_seed & (selmask > 0)).reshape(R, Q)
+        cntR = torch.where(selR, cnt.reshape(R, Q), 0)
+        baseR = base.reshape(R, Q)
+        mincovR, mdsh = lane_inputs(qlens, min_cover)
+        fallback = torch.zeros(B, dtype=torch.bool, device=dev)
+        rows_v, counts_v = [], []
+        for v in range(V):
+            if identity:
+                a, b = baseR, baseR + cntR
+            else:
+                a = _lower_bound(pos, baseR, baseR + cntR, iv_lo[v] // nskip,
+                                 31)
+                b = _lower_bound(pos, baseR, baseR + cntR, iv_hi[v] // nskip,
+                                 31)
+            nh = torch.where(selR, b - a, 0)
+            k1, k2, _, total = _expand_hits(cfg, pos, a, nh, strand_is_rev)
+            k1s, k2s = lexsort_rows([k1, k2])
+            validS = h_iota < total[:, None]
+            ef, er, badscan = _segcand_scan(cfg, k1s, k2s, validS, mdsh,
+                                            mincovR, strand_is_rev)
+            rows, counts, overC = _compact_rows(cfg, ef, er)
+            lane_bad = (total > H) | badscan | overC
+            fallback = fallback | lane_bad.reshape(B, 2).any(dim=1)
+            rows_v.append(rows.reshape(B, 2, C, 7))
+            counts_v.append(counts.reshape(B, 2))
+        pool, counts2, scores, fallback = pool_geom_score(
+            rows_v, counts_v, fallback, codes, qlens, sq_from_rows=False)
+        return pool, counts2, scores, cksum, fallback
+
+    return step_dev

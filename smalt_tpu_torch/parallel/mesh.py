@@ -17,8 +17,12 @@ shifts and sentinel subtractions stay in int32 so that they wrap as in
 JAX; every gather index is clipped as the JAX code clips it, since an
 out-of-range index is a device-side fault on CUDA.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the k = 16..20 hi/lo split-word index and the sharded steps.
+Word lengths up to 15 look words up in a direct-addressed offset table
+(k <= 14) or by binary search over the sorted words (k = 15); k = 16..20
+split each word into a 12-base prefix, direct-addressed, and a suffix
+found by a fixed number of binary-search steps in its prefix's bucket
+(`_lookup_hilo`), as the JAX index does.  The sharded steps are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -66,42 +70,64 @@ class DeviceIndex:
 
     With 2k <= DIRECT_BITS, `table` is the direct-addressed offset table
     int32 [4^k, 2] (table[w] = {starts[w], starts[w+1]}, 512 MiB at
-    k = 13) and a lookup is one gather.  Otherwise (k = 15) lookups
-    binary-search the sorted `words`."""
+    k = 13) and a lookup is one gather.  For k = 15 lookups binary-search
+    the sorted `words`.  For k = 16..20 (2k > 31: a packed word no longer
+    fits int32) the word splits into a HI_BASES-base prefix, whose
+    `hi_table` [4^12, 2] int32 holds the extent of its bucket in the
+    sorted word list (128 MiB), and a (k - 12)-base suffix in `words_lo`;
+    a lookup is one hi gather and `lo_steps` = ceil(log2(largest bucket +
+    1)) binary-search gathers (mesh.py:85-99)."""
     wordlen: int
     nskip: int
-    words: torch.Tensor      # [W] int32 packed 2k-bit words
+    words: torch.Tensor      # [W] int32 packed 2k-bit words (k <= 15)
     starts: torch.Tensor     # [W+1] int32 CSR offsets into pos
     pos: torch.Tensor        # [Npos] int32 tuple serial numbers
     ref_alpha: torch.Tensor  # [L] int32 3-bit reference codes
     ref_len: int
     table: Optional[torch.Tensor] = None  # [4^k, 2] int32 offset pairs
+    hi_table: Optional[torch.Tensor] = None  # [4^12, 2] int32 extents
+    words_lo: Optional[torch.Tensor] = None  # [W] int32 low suffixes
+    lo_steps: int = 0
 
     DIRECT_BITS = 28
+    HI_BASES = 12
 
     @classmethod
     def build(cls, refset: RefSet, idx: KmerIndex,
               device) -> "DeviceIndex":
         """Upload a host index (mesh.py:125) to `device`."""
         k = idx.wordlen
-        if 2 * k > 31:
-            raise NotImplementedError(
-                f"wordlen {k}: the k = 16..20 hi/lo split-word device "
-                "index is not ported yet (ROADMAP.md Queue 1 #10)")
+        if k > 20:
+            raise ValueError("device path supports wordlen<=20 "
+                             "(the reference's own max, menu.c:595)")
         arrays = {
-            "words": idx.words.astype(np.int64).astype(np.int32),
             "starts": idx.starts.astype(np.int32),
             "pos": idx.pos.astype(np.int32),
             "ref_alpha": codec.alpha(refset.codes).astype(np.int32),
         }
-        if 2 * k <= cls.DIRECT_BITS:
-            counts = np.zeros((1 << (2 * k)) + 1, np.int64)
-            counts[idx.words.astype(np.int64) + 1] = np.diff(idx.starts)
-            t32 = np.cumsum(counts).astype(np.int32)
-            del counts
-            arrays["table"] = np.stack([t32[:-1], t32[1:]], axis=1)
         meta = {"wordlen": k, "nskip": idx.nskip,
                 "ref_len": refset.total_len}
+        if 2 * k <= 31:
+            arrays["words"] = idx.words.astype(np.int64).astype(np.int32)
+            if 2 * k <= cls.DIRECT_BITS:
+                counts = np.zeros((1 << (2 * k)) + 1, np.int64)
+                counts[idx.words.astype(np.int64) + 1] = np.diff(idx.starts)
+                t32 = np.cumsum(counts).astype(np.int32)
+                del counts
+                arrays["table"] = np.stack([t32[:-1], t32[1:]], axis=1)
+        else:
+            lo_bits = 2 * (k - cls.HI_BASES)
+            w = idx.words.astype(np.int64)       # sorted ascending
+            hi = w >> lo_bits
+            nhi = np.arange(1 << (2 * cls.HI_BASES))
+            bstart = np.searchsorted(hi, nhi, side="left").astype(np.int32)
+            bend = np.searchsorted(hi, nhi, side="right").astype(np.int32)
+            del nhi, hi
+            arrays["hi_table"] = np.stack([bstart, bend], axis=1)
+            arrays["words_lo"] = (w & ((1 << lo_bits) - 1)).astype(np.int32)
+            arrays["words"] = np.zeros(1, np.int32)   # unused in hi/lo mode
+            big = int((bend.astype(np.int64) - bstart).max()) if len(w) else 1
+            meta["lo_steps"] = max(1, int(np.ceil(np.log2(max(big, 1) + 1))))
         return cls.from_numpy(arrays, meta, device)
 
     @classmethod
@@ -120,27 +146,25 @@ class DeviceIndex:
     @classmethod
     def from_numpy(cls, arrays: dict, meta: dict, device) -> "DeviceIndex":
         """Carry an index across from numpy arrays named after the
-        fields (words, starts, pos, ref_alpha, optional table) and
-        `meta` = {wordlen, nskip, ref_len} — e.g. the fields of the JAX
-        package's DeviceIndex."""
-        if arrays.get("hi_table") is not None or \
-                arrays.get("words_lo") is not None:
-            raise NotImplementedError(
-                "the k = 16..20 hi/lo split-word device index is not "
-                "ported yet (ROADMAP.md Queue 1 #10)")
+        fields (words, starts, pos, ref_alpha, optional table, hi_table
+        and words_lo) and `meta` = {wordlen, nskip, ref_len, lo_steps (0
+        if absent)} — e.g. the fields of the JAX package's DeviceIndex."""
 
-        def up(a):
+        def up(name):
+            a = arrays.get(name)
+            if a is None:
+                return None
             a = np.ascontiguousarray(a, dtype=np.int32)
             if not a.flags.writeable:     # e.g. a view of a JAX array
                 a = a.copy()
             return torch.from_numpy(a).to(device)
 
-        table = arrays.get("table")
         return cls(wordlen=int(meta["wordlen"]), nskip=int(meta["nskip"]),
-                   words=up(arrays["words"]), starts=up(arrays["starts"]),
-                   pos=up(arrays["pos"]), ref_alpha=up(arrays["ref_alpha"]),
-                   ref_len=int(meta["ref_len"]),
-                   table=None if table is None else up(table))
+                   words=up("words"), starts=up("starts"), pos=up("pos"),
+                   ref_alpha=up("ref_alpha"), ref_len=int(meta["ref_len"]),
+                   table=up("table"), hi_table=up("hi_table"),
+                   words_lo=up("words_lo"),
+                   lo_steps=int(meta.get("lo_steps", 0)))
 
     @property
     def device(self) -> torch.device:
@@ -174,6 +198,69 @@ def _query_words(reads, k: int):
     prev = torch.nn.functional.pad(cbad[:, : Q - k], (1, 0))
     nbad = cbad[:, k - 1 :] - prev
     return fwd, rc, nbad == 0
+
+
+def _pack_window(std, off: int, width: int, P_: int):
+    """Pack `width` 2-bit codes starting at query offset `off` for all P_
+    window positions: [B, P_] int32, MSB-first (mesh.py:228)."""
+    acc = torch.zeros((std.shape[0], P_), dtype=_I32, device=std.device)
+    for j in range(width):
+        acc = (acc << 2) | std[:, off + j : off + j + P_]
+    return acc
+
+
+def _rev_groups_w(x, w: int):
+    """Reverse the first w 2-bit groups of a packed value (width 2w)."""
+    return (_rev_groups2(x) >> (2 * (16 - w))) & ((1 << (2 * w)) - 1)
+
+
+def _query_words_hilo(reads, k: int):
+    """Query words for k in 16..20 as (hi, lo) int32 pairs per strand
+    (mesh.py:245): hi = the first HI_BASES bases (24 bits), lo = the
+    remaining k - 12.  Returns (fwd_hi, fwd_lo, rc_hi, rc_lo, valid),
+    each [B, P]."""
+    HB = DeviceIndex.HI_BASES
+    B, Q = reads.shape
+    P_ = Q - k + 1
+    wlo = k - HB
+    std = reads & 3
+    fwd_hi = _pack_window(std, 0, HB, P_)
+    fwd_lo = _pack_window(std, HB, wlo, P_)
+    # the rc word of window [p, p+k): its first 12 bases are the revcomp
+    # of the window's LAST 12, its low suffix the revcomp of the FIRST k-12
+    tail12 = _pack_window(std, k - HB, HB, P_)
+    head_lo = _pack_window(std, 0, wlo, P_)
+    rc_hi = _rev_groups_w(tail12 ^ ((1 << (2 * HB)) - 1), HB)
+    rc_lo = _rev_groups_w(head_lo ^ ((1 << (2 * wlo)) - 1), wlo)
+    bad = (reads & 4) >> 2
+    cbad = torch.cumsum(bad, dim=1, dtype=_I32)
+    prev = torch.nn.functional.pad(cbad[:, : Q - k], (1, 0))
+    nbad = cbad[:, k - 1 :] - prev
+    return fwd_hi, fwd_lo, rc_hi, rc_lo, nbad == 0
+
+
+def _lookup_hilo(di: DeviceIndex, qhi, qlo, valid):
+    """(counts, pos_base, hit) for the split-word index (mesh.py:270):
+    one hi-table gather for the bucket extent, then `lo_steps` unrolled
+    lower-bound gathers over the sorted low suffixes."""
+    ext = di.hi_table[qhi.long()]                # [..., 2]
+    lo_arr = di.words_lo
+    n_lo = lo_arr.shape[0]
+    lo_s = ext[..., 0]
+    hi_s = ext[..., 1]
+    end = ext[..., 1]
+    for _ in range(di.lo_steps):
+        active = lo_s < hi_s
+        mid = (lo_s + hi_s) >> 1
+        mv = lo_arr[mid.clamp(0, n_lo - 1).long()]
+        go_right = active & (mv < qlo)
+        lo_s = torch.where(go_right, mid + 1, lo_s)
+        hi_s = torch.where(active & ~go_right, mid, hi_s)
+    slot = lo_s.clamp(0, n_lo - 1).long()
+    hit = valid & (lo_s < end) & (lo_arr[slot] == qlo)
+    counts = torch.where(hit, di.starts[slot + 1] - di.starts[slot], 0)
+    base = di.starts[torch.where(hit, slot, 0)]
+    return counts, base, hit
 
 
 def _lookup(di: DeviceIndex, qwords, valid):
@@ -276,7 +363,13 @@ def device_seed_votes(di: DeviceIndex, reads):
     nc2) for fwd, rev]."""
     B, Q = reads.shape
     k = di.wordlen
-    fwd, rc, valid = _query_words(reads, k)
+    hilo = di.words_lo is not None
+    if hilo:
+        fh, fl, rh, rl, valid = _query_words_hilo(reads, k)
+        fwd = torch.stack([fh, fl])              # [2, B, P]
+        rc = torch.stack([rh, rl])
+    else:
+        fwd, rc, valid = _query_words(reads, k)
     stride = _seed_stride(valid.shape[1], di.nskip)
     if stride:
         # report the sensitivity trade once per process
@@ -288,8 +381,8 @@ def device_seed_votes(di: DeviceIndex, reads):
                   f">= {valid.shape[1] // (stride * di.nskip)} "
                   f"phase-matching seeds kept per read)",
                   file=sys.stderr)
-        fwd = fwd[:, ::stride]
-        rc = rc[:, ::stride]
+        fwd = fwd[..., ::stride]
+        rc = rc[..., ::stride]
         valid = valid[:, ::stride]
     qoffs = (max(stride, 1) * torch.arange(
         valid.shape[1], dtype=_I32, device=reads.device)).expand(
@@ -300,7 +393,10 @@ def device_seed_votes(di: DeviceIndex, reads):
     hits_used = torch.zeros(B, dtype=_I32, device=reads.device)
     hits_tot = torch.zeros(B, dtype=_I32, device=reads.device)
     for is_reverse, words in ((False, fwd), (True, rc)):
-        counts, base, hit = _lookup(di, words, valid)
+        if hilo:
+            counts, base, hit = _lookup_hilo(di, words[0], words[1], valid)
+        else:
+            counts, base, hit = _lookup(di, words, valid)
         P_avail = valid.shape[1]
         # rarest seeds first (0 = miss sorts last)
         sel = _topk_first(-torch.where(hit, counts, 1 << 30),

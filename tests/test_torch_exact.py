@@ -156,8 +156,9 @@ def test_pass2_step_matches_jax():
 
 def test_redeclared_constants_match_jax():
     """The port re-declares what it cannot import without jax."""
-    for name in ("SEG_DIFFSHIFT", "EDGE_BAND_FACTOR", "MAX_BANDEDGE_2POW",
-                 "MINLEN_QUERY_STRIPED", "BWSCAL_QLEN", "BIG", "MMALI_BIT"):
+    for name in ("NREPEATS", "SEG_DIFFSHIFT", "EDGE_BAND_FACTOR",
+                 "MAX_BANDEDGE_2POW", "MINLEN_QUERY_STRIPED", "BWSCAL_QLEN",
+                 "BIG", "MMALI_BIT"):
         assert int(getattr(tcol, name)) == int(getattr(jcol, name)), name
     assert tp2.NEG == jp2.NEG
     a = jcol.CollateCfg(wordlen=13, nskip=2, maxhit=9, B=4, Q=128)
@@ -185,10 +186,11 @@ def test_lexsort_matches_lax_sort():
             _assert_same(g, w_, f"{len(keys)} keys")
 
 
-def _corpus(tmp_path, kind):
+def _corpus(tmp_path, kind, nskip=2):
     """The three corpora of tests/test_device_exact.py:188-397 (two
     sequences with a heavy repeat; one sequence; many contigs), ~200
-    reads each plus repeat-unit reads the device must re-stage."""
+    reads each plus repeat-unit reads the device must re-stage, indexed
+    at step `nskip`."""
     rng = np.random.default_rng({"two_seq": 11, "one_seq": 23,
                                  "contigs": 31}[kind])
     bases = "ACGT"
@@ -217,7 +219,7 @@ def _corpus(tmp_path, kind):
     fa = tmp_path / "g.fa"
     fa.write_text("".join(f">c{i}\n{g}\n" for i, g in enumerate(seqs)))
     refset = RefSet.from_fasta(str(fa))
-    idx = build_index(refset, k, 2)
+    idx = build_index(refset, k, nskip)
     _ = idx.addrs
     recs = []
     for i in range(200):
@@ -276,18 +278,74 @@ def test_collate_matches_jax(tmp_path, kind):
     assert fb.any() and not fb.all()      # repeat reads flag, others pass
 
 
-def test_non_host_hits_raises(tmp_path):
-    """nskip > wordlen needs the device hit expansion: not ported."""
-    fa = tmp_path / "g.fa"
-    rng = np.random.default_rng(3)
-    fa.write_text(">c\n" + "".join(rng.choice(list("ACGT"), 5000)) + "\n")
-    refset = RefSet.from_fasta(str(fa))
-    eng, _ = _port_engine(refset, build_index(refset, 11, 12))
-    dev = DeviceExact.make(eng, "sam", True, False, False, False, batch=8,
-                           device="cpu")
-    assert dev is not None and not dev._host_hits
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
-        dev._collate_fn()
+def _device_hit_corpus(tmp_path, seed, k, nskip, nseq):
+    """tests/test_device_exact.py:28's corpus (sequences with planted
+    repeat units, 2% substitutions, N codes, qualities of 35-74) with
+    `nseq` sequences, as (refset, index, FASTQ path) of 32 reads."""
+    from test_device_exact import _corpus as dx_corpus
+    refset, idx, reads = dx_corpus(tmp_path, seed, k, nskip, nreads=32,
+                                   glen=12000 * nseq)
+    if nseq != 3:                 # the corpus writes three sequences
+        fa = tmp_path / "g.fa"
+        seqs = fa.read_text().split(">")[1:]
+        fa.write_text("".join(">" + x for x in seqs[:nseq]))
+        refset = RefSet.from_fasta(str(fa))
+        idx = build_index(refset, k, nskip)
+        _ = idx.addrs
+        g = "".join(x.split("\n", 1)[1].replace("\n", "") for x in seqs[:1])
+        rng = np.random.default_rng(seed)
+        reads = []
+        for i in range(32):
+            pos = int(rng.integers(0, len(g) - QLEN))
+            r = g[pos:pos + QLEN]
+            if i % 2:
+                r = r.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+            reads.append((r, rng.integers(35, 74, QLEN).astype(
+                np.uint8).tobytes()))
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{q.decode('latin-1')}\n"
+                          for i, (r, q) in enumerate(reads)))
+    return refset, idx, str(fq)
+
+
+@pytest.mark.parametrize("seed,k,nskip,nseq", [
+    (1, 11, 2, 3), (2, 13, 4, 3), (3, 12, 1, 3),
+    (4, 11, 12, 3),       # nskip > wordlen: the regime the lane runs it in
+    (5, 12, 2, 1),        # one sequence: the identity-slice shortcut
+])
+def test_device_hit_collate_matches_jax(tmp_path, monkeypatch, seed, k,
+                                        nskip, nseq):
+    """The device-hit collate step (hit info, checksum, the V interval
+    slots' expansion, sort and scan, the pool over V slots) on inputs made
+    by DeviceExact._prepare: its five outputs equal the JAX `_step`'s on
+    tests/test_device_exact.py's corpora, and its checksum the C pre
+    block's.  Where nskip <= wordlen the lane would expand the hits on the
+    host; both packages are told it cannot, as for nskip > wordlen."""
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    refset, idx, fq = _device_hit_corpus(tmp_path, seed, k, nskip, nseq)
+    for cls in (DeviceExact, jfl.DeviceExact):
+        monkeypatch.setattr(cls, "_host_hits_ok",
+                            staticmethod(lambda eng: False))
+    eng = MapEngine(refset, idx, MapParams())
+    port = DeviceExact.make(_port_engine(refset, idx)[0], "sam", True, False,
+                            False, False, batch=32, device="cpu")
+    assert port is not None and not port._host_hits
+    host, dargs = port._prepare(*_raw_batch(fq, 32))
+    assert len(dargs) == 5 and port._cfg.V == nseq
+    ref = jfl.DeviceExact.make(eng, "sam", True, False, False, False,
+                               batch=32, interpret=True)
+    want = ref._collate_fn()(*[jnp.asarray(x.numpy()) for x in dargs])
+    got = port._collate_outputs(dargs)
+    for g, w_, what in zip(got, want, ("pool", "counts2", "scores",
+                                       "cksum", "fallback")):
+        _assert_same(g, w_, what)
+    pool, counts2, scores, cksum, fb = got
+    pre = host[8]
+    np.testing.assert_array_equal(cksum[:32],
+                                  pre[:, 6:10].reshape(32, 2, 2))
+    assert counts2.sum() >= 32 and (scores > 0).sum() >= 16
+    assert not fb.all()
 
 
 @pytest.mark.parametrize("kind,p2", [("two_seq", "1"), ("one_seq", None),
@@ -330,6 +388,53 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
     assert counters[1] == counters[0], counters
     n_restaged, p2_used, _, p2_hit = counters[1]
     assert n_restaged > 0
+    assert (p2_used >= 50 and p2_hit >= 5) if p2 else p2_used == 0
+
+
+@pytest.mark.parametrize("kind,p2", [("two_seq", None), ("one_seq", "1")])
+def test_end_to_end_device_hits(tmp_path, monkeypatch, kind, p2):
+    """On an index with nskip > wordlen (k 11, step 12; two sequences, V =
+    2, and one) the lane runs the device hit expansion: SAM == the host C
+    lane == the JAX lane, byte for byte, with the JAX lane's counters,
+    device pass 2 off and on, and no batch rendered on the host.  (On the
+    two-sequence corpus most reads hold more candidate rows than the
+    pool's 6 a read and re-stage, in both lanes alike.)"""
+    if get_lib() is None:
+        pytest.skip("native lib required")
+    if p2 is None:
+        monkeypatch.delenv("SMALT_DX_P2", raising=False)
+    else:
+        monkeypatch.setenv("SMALT_DX_P2", p2)
+    refset, idx, fq = _corpus(tmp_path, kind, nskip=12)
+    outs, counters = [], []
+    for which in ("host", "jax", "port"):
+        rand.ranseed(1)
+        trand.ranseed(1)
+        eng = MapEngine(refset, idx, MapParams())
+        buf = io.StringIO()
+        if which == "host":
+            assert run_pipeline_raw_fastq(eng, fq, buf, refset)
+        elif which == "jax":
+            lane = FastLane.make(eng, "sam", True, False, False, False)
+            dev = jfl.DeviceExact.make(eng, "sam", True, False, False,
+                                       False, batch=64, interpret=True)
+            assert not dev._host_hits
+            dev.run_raw_fastq(fq, buf, lambda a, b, c:
+                              lane.render_raw_block(a, b, c))
+        else:
+            peng, prs = _port_engine(refset, idx)
+            dev = run_device_exact_fastq(peng, fq, buf, prs, batch=64,
+                                         device="cpu")
+            assert dev.host_batches == 0 and not dev._host_hits
+        if which != "host":
+            counters.append((dev.n_restaged, dev.p2_used, dev.p2_fb,
+                             dev.p2_hit))
+        outs.append(buf.getvalue())
+    assert len(outs[0].splitlines()) == 204
+    assert outs[2] == outs[0] and outs[1] == outs[0]
+    assert counters[1] == counters[0], counters
+    n_restaged, p2_used, _, p2_hit = counters[1]
+    assert n_restaged < 204
     assert (p2_used >= 50 and p2_hit >= 5) if p2 else p2_used == 0
 
 

@@ -91,6 +91,28 @@ def world42(tmp_path_factory):
     return (d, refset, idx, fq1, fq2) + _lanes(refset, idx, fq1, fq2)
 
 
+@pytest.fixture(scope="module")
+def world43(tmp_path_factory):
+    """Three contigs indexed at k 11, step 12 (nskip > wordlen): the lane
+    expands the hits on the device."""
+    d = tmp_path_factory.mktemp("pe43")
+    refset, idx, fq1, fq2 = _pe_world(d, seed=43, nctg=3, k=11, nskip=12)
+    return (d, refset, idx, fq1, fq2) + _lanes(refset, idx, fq1, fq2,
+                                               jax=True)
+
+
+def test_pairs_device_hits_match_host_and_jax(world43):
+    """nskip > wordlen: both mates' hits expanded on the device (the
+    collate step's own checksum): SAM == the host C pair lane == smalt_tpu's
+    paired lane, with its re-stage count, no batch rendered on the host."""
+    *_, outs, devs = world43
+    assert not devs["port"]._host_hits and not devs["jax"]._host_hits
+    assert len(outs["host"].splitlines()) == 600
+    assert outs["port"] == outs["jax"] == outs["host"]
+    assert devs["port"].host_batches == 0
+    assert devs["port"].n_restaged == devs["jax"].n_restaged < 600
+
+
 @pytest.mark.parametrize("world", ["world41", "world42"])
 def test_pairs_byte_identical_to_host_pair_lane(request, world):
     """Seed 41 (two contigs, k 11) and seed 42 (six contigs, k 13): the

@@ -521,3 +521,35 @@ def test_port_never_imports_jax(saved_index, kilobase, saved_pairs, what,
         "print('ok')\n")
     r = run_port_code(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_pipeline_sam_identical_k17(tmp_path):
+    """k = 17 (the split-word device index): run_fast_pipeline writes the
+    JAX pipeline's SAM byte for byte on tests/test_device_bigk.py's genome
+    and reads (40 reads of 90 bp, 1% substitutions, half reverse
+    complemented)."""
+    rng = np.random.default_rng(67)
+    g = rng.choice(list("ACGT"), 30000)
+    g = "".join(g)
+    fa = tmp_path / "g.fa"
+    fa.write_text(">g\n" + g + "\n")
+    refset = RefSet.from_fasta(str(fa))
+    idx = build_index(refset, 17, 2)
+    rng = np.random.default_rng(71)
+    qlen = 90
+    comp = str.maketrans("ACGT", "TGCA")
+    recs = []
+    for i in range(40):
+        st = int(rng.integers(0, len(g) - qlen))
+        s = list(g[st : st + qlen])
+        for j in np.flatnonzero(rng.random(qlen) < 0.01):
+            s[j] = "ACGT"[int(rng.integers(0, 4))]
+        s = "".join(s)
+        if i % 2:
+            s = s.translate(comp)[::-1]
+        recs.append(f"@k{i}\n{s}\n+\n{'I' * qlen}\n")
+    fq = tmp_path / "bigk.fq"
+    fq.write_text("".join(recs))
+    want, got = _both(refset, idx, str(fq), 32)
+    assert len(got.splitlines()) == 40
+    assert got == want

@@ -21,12 +21,15 @@ from test_torch_standalone import port_index, port_refset
 
 def _fields(jdi):
     """The JAX DeviceIndex's fields as numpy arrays + meta."""
-    arrays = {f: np.asarray(getattr(jdi, f))
-              for f in ("words", "starts", "pos", "ref_alpha", "table")
+    arrays = {f: np.asarray(getattr(jdi, f)) for f in _FIELDS
               if getattr(jdi, f) is not None}
     meta = {"wordlen": jdi.wordlen, "nskip": jdi.nskip,
-            "ref_len": jdi.ref_len}
+            "ref_len": jdi.ref_len, "lo_steps": jdi.lo_steps}
     return arrays, meta
+
+
+_FIELDS = ("words", "starts", "pos", "ref_alpha", "table", "hi_table",
+           "words_lo")
 
 
 @pytest.fixture(scope="module")
@@ -73,6 +76,7 @@ def test_constants_match_jax():
     for name in ("NSEED", "NSEED_COMMON", "MAXC", "WIN_PAD", "LONG_READ_Q"):
         assert getattr(tm, name) == getattr(jm, name), name
     assert tm.DeviceIndex.DIRECT_BITS == jm.DeviceIndex.DIRECT_BITS
+    assert tm.DeviceIndex.HI_BASES == jm.DeviceIndex.HI_BASES
     for Q in range(16, 1025, 16):
         assert tm.window_len(Q) == jm.window_len(Q), Q
         assert tm.window_pad(Q) == jm.window_pad(Q), Q
@@ -82,21 +86,98 @@ def test_constants_match_jax():
 def test_from_numpy_equals_build(which, request):
     refset, idx, jdi, tdi = request.getfixturevalue(which)
     arrays, meta = _fields(jdi)
-    got = tm.DeviceIndex.from_numpy(arrays, meta, "cpu")
-    assert (got.wordlen, got.nskip, got.ref_len) == \
-        (tdi.wordlen, tdi.nskip, tdi.ref_len)
-    for f in ("words", "starts", "pos", "ref_alpha", "table"):
+    _same_index(tm.DeviceIndex.from_numpy(arrays, meta, "cpu"), tdi)
+
+
+def _same_index(got, tdi):
+    assert (got.wordlen, got.nskip, got.ref_len, got.lo_steps) == \
+        (tdi.wordlen, tdi.nskip, tdi.ref_len, tdi.lo_steps)
+    for f in _FIELDS:
         a, b = getattr(got, f), getattr(tdi, f)
         assert (a is None) == (b is None), f
         if a is not None:
             assert a.dtype == torch.int32 and torch.equal(a, b), f
 
 
-def test_hilo_index_not_ported(indexed):
-    refset, _ = indexed
-    idx = build_index(refset, 16, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
+@pytest.fixture(scope="module")
+def bigk_genome():
+    """tests/test_device_bigk.py's genome: 30 kb of random bases, seed 67."""
+    from smalt_tpu.seq.refset import RefSet
+    rng = np.random.default_rng(67)
+    g = rng.choice(np.array(list(b"ACGT"), np.uint8), 30000)
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        fa = f"{d}/g.fa"
+        with open(fa, "w") as f:
+            f.write(">g\n" + g.tobytes().decode() + "\n")
+        return RefSet.from_fasta(fa)
+
+
+@pytest.fixture(scope="module", params=[(16, 2), (17, 2), (18, 3), (20, 13)],
+                ids=lambda p: f"k{p[0]}s{p[1]}")
+def bigk(request, bigk_genome):
+    """The split-word index (k = 16..20) on both sides."""
+    k, nskip = request.param
+    refset = bigk_genome
+    idx = build_index(refset, k, nskip)
+    jdi = jm.DeviceIndex.build(refset, idx)
+    tdi = tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
+    assert jdi.words_lo is not None and tdi.words_lo is not None
+    yield refset, idx, jdi, tdi
+    del jdi, tdi
+
+
+def test_hilo_index_matches_jax(bigk):
+    """DeviceIndex.build at k = 16..20 makes the JAX DeviceIndex's arrays
+    (hi_table bucket extents, words_lo, lo_steps and the rest), and
+    from_numpy of the JAX fields equals build."""
+    refset, idx, jdi, tdi = bigk
+    arrays, meta = _fields(jdi)
+    assert tdi.table is None and tdi.hi_table.shape == (1 << 24, 2)
+    assert "hi_table" in arrays and "table" not in arrays
+    for f, a in arrays.items():
+        np.testing.assert_array_equal(getattr(tdi, f).numpy(), a, err_msg=f)
+    assert tdi.lo_steps == jdi.lo_steps >= 1
+    _same_index(tm.DeviceIndex.from_numpy(arrays, meta, "cpu"), tdi)
+
+
+def test_build_refuses_past_k20(indexed):
+    """Past the reference's own word length (menu.c:595) build raises the
+    JAX DeviceIndex's ValueError."""
+    refset, idx = indexed
+    fake = port_index(idx)
+    fake.wordlen = 21
+    with pytest.raises(ValueError, match="wordlen<=20"):
+        tm.DeviceIndex.build(port_refset(refset), fake, "cpu")
+
+
+@pytest.mark.parametrize("k", [16, 17, 18, 20])
+def test_query_words_hilo(k):
+    rng = np.random.default_rng(k)
+    reads = rng.integers(0, 4, (16, 96)).astype(np.int32)
+    reads[rng.random(reads.shape) < 0.02] = 5
+    reads[3, 40:] = 7
+    want = jm._query_words_hilo(jnp.asarray(reads), k)
+    got = tm._query_words_hilo(torch.from_numpy(reads), k)
+    assert len(got) == 5
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_lookup_hilo(bigk):
+    """Counts, position bases and hits of both strands' split words equal
+    the JAX lookup on reads of the genome (hits and misses)."""
+    refset, idx, jdi, tdi = bigk
+    reads = _reads(refset, idx.wordlen, 24, 100)
+    parts = jm._query_words_hilo(jnp.asarray(reads), idx.wordlen)
+    valid = parts[4]
+    for hi, lo in ((parts[0], parts[1]), (parts[2], parts[3])):
+        want = jm._lookup_hilo(jdi, hi, lo, valid)
+        got = tm._lookup_hilo(tdi, *(torch.tensor(np.asarray(x))
+                                     for x in (hi, lo, valid)))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert np.asarray(want[2]).any() and not np.asarray(want[2]).all()
 
 
 @pytest.mark.parametrize("k", [11, 13, 15])
@@ -309,4 +390,29 @@ def test_device_map_step_long_reads(long_genome, jax_band_oracle, Q):
     refset, jdi, tdi = long_genome
     assert Q > tm.LONG_READ_Q
     got = _step_equal(jdi, tdi, _long_reads(refset, Q, 12, Q))
+    assert (got[0, :-1] > Q // 2).all() and got[0, -1] == 0
+
+
+@pytest.mark.parametrize("kn", [(16, 2), (20, 13)],
+                         ids=["k16s2", "k20s13"])
+def test_device_map_step_bigk(bigk_genome, kn):
+    """k = 16 and 20 (the split-word lookups): all 12 OUT_KEYS equal to
+    the JAX step, short reads and the padded pad rows."""
+    refset = bigk_genome
+    idx = build_index(refset, *kn)
+    jdi = jm.DeviceIndex.build(refset, idx)
+    tdi = tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
+    got = _step_equal(jdi, tdi, _reads(refset, kn[0], 32, 112, qlen=100))
+    assert (got[0, :-2] > 50).all()
+
+
+def test_device_map_step_bigk_long_reads(bigk_genome, jax_band_oracle):
+    """k = 16 on kilobase reads (Q > LONG_READ_Q: the banded branch), all
+    12 OUT_KEYS equal to the JAX step on its banded jnp oracle."""
+    refset = bigk_genome
+    idx = build_index(refset, 16, 4)
+    jdi = jm.DeviceIndex.build(refset, idx)
+    tdi = tm.DeviceIndex.build(port_refset(refset), port_index(idx), "cpu")
+    Q = 640
+    got = _step_equal(jdi, tdi, _long_reads(refset, 16, 8, Q))
     assert (got[0, :-1] > Q // 2).all() and got[0, -1] == 0

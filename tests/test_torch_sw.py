@@ -535,7 +535,8 @@ def test_band_query_cut_never_binds():
         Sp = -(-S // 128) * 128
         QB = -(-(Sp + W) // 128) * 128
         assert QB - prepad >= Q, Q
-        assert W <= tsw.MAX_BAND_W, Q
+        assert not tsw.sw_band_instance(Q, S, W, tsw.device_matrix(
+            np.eye(8, dtype=np.int32), "cpu"), True).endswith("_tiled"), Q
 
 
 def test_band_cpu_path_launches_no_kernel(scoring):
@@ -548,16 +549,19 @@ def test_band_cpu_path_launches_no_kernel(scoring):
 
 
 def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
-    """The kernel wrapper takes CUDA tensors only, and names its width
-    limit: it never runs the plain version in place of the kernel."""
+    """The kernel wrapper takes CUDA tensors only: it never runs the plain
+    version in place of the kernel.  A band past TILED_BAND_W is no longer
+    refused for its width (it runs the tiled kernel); a width below 1 is."""
     m, go, ge = scoring
     q, s, slens = _band_windows(3, 4, 128, 256, 16, 128)
     args = [torch.from_numpy(x) for x in (q, s, slens)]
     args.append(tsw.device_matrix(m, "cpu"))
     with pytest.raises(ValueError, match="cuda"):
         tsw.sw_band_cuda(*args, go, ge, 16, 128, track=True)
-    with pytest.raises(ValueError, match=str(tsw.MAX_BAND_W)):
-        tsw.sw_band_cuda(*args, go, ge, 16, tsw.MAX_BAND_W + 128)
+    with pytest.raises(ValueError, match="cuda"):
+        tsw.sw_band_cuda(*args, go, ge, 16, tsw.TILED_BAND_W + 128)
+    with pytest.raises(ValueError, match="band width 0"):
+        tsw.sw_band_cuda(*args, go, ge, 16, 0)
     # the int32 DP's bound (check_score_cap), before anything of the
     # card: an entry of 2^24 on a 64 x 64 window reaches 2^30
     big = m.copy()
@@ -746,34 +750,39 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     (3200, 18560, 3, True, "sw_band_track_many"),   # past 3,072 lanes
     (3840, 22528, 3, False, "sw_band_many"),   # 20 kb reads
     (16384, 97920, 200, True, "sw_band_track_many"),  # wide matrix: many
+    (16512, 98048, 3, True, "sw_band_track_tiled"),   # past 16,384 lanes
+    (18816, 112_512, 3, False, "sw_band_tiled"),      # 100 kb reads
+    (18816, 112_512, 200, True, "sw_band_track_tiled"),  # wide: tiled too
     (384, 1792, 200, True, "sw_band_track_wide"),
     (512, 70_000, 127, True, "sw_band_track_wide"),  # 2^23 on int8 entries
     (512, 70_000, 127, False, "sw_band"),
 ])
 def test_sw_band_instance_routing(W, S, entry, track, want):
-    """W > 3,072 (MULTI_BAND_W) runs sw_band_many_kernel, up to 32 warps a
-    window, whatever the matrix; below it a matrix past int8 or a tracked
-    window that could score 2^23 runs the several-warps kernel (the
-    `wide` flag of sw_band_launch)."""
+    """W > 16,384 (TILED_BAND_W) runs sw_band_tiled_kernel and W > 3,072
+    (MULTI_BAND_W) sw_band_many_kernel, up to 32 warps a window, whatever
+    the matrix; below it a matrix past int8 or a tracked window that could
+    score 2^23 runs the several-warps kernel (the `wide` flag of
+    sw_band_launch)."""
     m = np.zeros((8, 8), np.int32)
     m[0, 0] = entry
     mat = tsw.device_matrix(m, "cpu")
     Q = S if S == 70_000 else S * 8 // 9
     assert tsw.sw_band_instance(Q, S, W, mat, track) == want
     assert want in tsw.launches
-    assert tsw.MULTI_BAND_W == 3072 and tsw.MAX_BAND_W == 16384
+    assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 16384
 
 
 def test_band_width_of_long_reads_fits_the_many_kernel():
     """The band of a read padded to Q: past ~16 kb it is wider than the
-    6-warp kernel's 3,072 lanes, and up to ~87 kb within MAX_BAND_W."""
+    6-warp kernel's 3,072 lanes, up to ~87 kb within the 32-warp kernel's
+    TILED_BAND_W, and past that the tiled kernel's."""
     from smalt_tpu_torch.parallel.mesh import window_pad
     for Q, many in ((16384, False), (16400, True), (20000, True),
                     (87040, True)):
         W = tsw.clamp_band_width(Q, window_pad(Q))
-        assert (W > tsw.MULTI_BAND_W) == many and W <= tsw.MAX_BAND_W, Q
+        assert (W > tsw.MULTI_BAND_W) == many and W <= tsw.TILED_BAND_W, Q
     W = tsw.clamp_band_width(90000, window_pad(90000))
-    assert W > tsw.MAX_BAND_W
+    assert W > tsw.TILED_BAND_W
 
 
 @pytest.mark.parametrize("B,S,budget,want", [
@@ -784,14 +793,141 @@ def test_band_width_of_long_reads_fits_the_many_kernel():
 ])
 def test_strip_groups_split_the_scratch(B, S, budget, want, monkeypatch):
     """The strip path's carry (8 * S bytes a window) is launched in groups
-    that fit STRIP_SCRATCH_BYTES (set here as chip_smoke.py lowers it);
-    at the module's own budget, 40,000 windows of 32,768 rows need
-    several groups."""
-    groups = tsw.strip_groups(40_000, 32_768)
-    per = tsw.STRIP_SCRATCH_BYTES // (8 * 32_768)
+    that fit SCRATCH_BYTES (set here as chip_smoke.py lowers it); at the
+    module's own budget, 40,000 windows of 32,768 rows need several
+    groups."""
+    groups = tsw.scratch_groups(40_000, 8 * 32_768)
+    per = tsw.SCRATCH_BYTES // (8 * 32_768)
     assert len(groups) == -(-40_000 // per) > 1
-    assert all(8 * 32_768 * (hi - lo) <= tsw.STRIP_SCRATCH_BYTES
+    assert all(8 * 32_768 * (hi - lo) <= tsw.SCRATCH_BYTES
                for lo, hi in groups)
     assert groups[-1][1] == 40_000
-    monkeypatch.setattr(tsw, "STRIP_SCRATCH_BYTES", budget)
-    assert tsw.strip_groups(B, S) == want
+    monkeypatch.setattr(tsw, "SCRATCH_BYTES", budget)
+    assert tsw.scratch_groups(B, 8 * S) == want
+
+
+@pytest.mark.parametrize("thresh", [16384, 512])
+def test_tiled_route_follows_the_threshold(thresh, monkeypatch):
+    """sw_band_instance names the tiled kernel exactly when W passes
+    TILED_BAND_W, at the module's own value and at a lowered one (as
+    chip_smoke.py lowers it to hold the tiled kernel at small widths),
+    whatever the matrix and tracking."""
+    monkeypatch.setattr(tsw, "TILED_BAND_W", thresh)
+    for entry in (3, 200):
+        m = np.zeros((8, 8), np.int32)
+        m[0, 0] = entry
+        mat = tsw.device_matrix(m, "cpu")
+        for W in (thresh - 128, thresh - 1, thresh, thresh + 1, thresh + 128,
+                  4 * thresh):
+            for track in (True, False):
+                name = tsw.sw_band_instance(W * 5, W * 6, W, mat, track)
+                assert name.endswith("_tiled") == (W > thresh), (W, name)
+                assert name in tsw.launches
+
+
+def test_tiled_scratch_groups_fit_the_budget(monkeypatch):
+    """The tiled kernel's row state (8 * W bytes a window) goes in groups
+    of windows within SCRATCH_BYTES, the budget the strip path's carry
+    uses: one group for the 6 windows of 2 reads of ~100 kb at the
+    module's budget, and as many as the budget holds for the default
+    batch's 12,288 windows or once it is lowered, every group within it."""
+    from smalt_tpu_torch.parallel.mesh import window_pad
+    Q = 100_000
+    W = tsw.clamp_band_width(Q, window_pad(Q))
+    assert W > tsw.TILED_BAND_W
+    per = tsw.SCRATCH_BYTES // (8 * W)
+    assert tsw.scratch_groups(6, 8 * W) == [(0, 6)]
+    assert len(tsw.scratch_groups(3 * 4096, 8 * W)) == -(-3 * 4096 // per)
+    for budget in (8 * W * 5, 8 * W * 5 + 7, 8 * W - 1):
+        monkeypatch.setattr(tsw, "SCRATCH_BYTES", budget)
+        groups = tsw.scratch_groups(12, 8 * W)
+        assert groups[0][0] == 0 and groups[-1][1] == 12
+        assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+        assert all(8 * W * (hi - lo) <= max(budget, 8 * W)
+                   for lo, hi in groups)
+        assert len(groups) == (3 if budget >= 8 * W else 12)
+
+
+def test_band_past_16384_lanes_matches_jax(scoring):
+    """The band-width refusal is gone: a CPU call at W = 16,512 (the
+    plain version, a few subject rows) returns what smalt_tpu's
+    sw_band_score_ref returns, tracked and score-only."""
+    m, go, ge = scoring
+    Q, S, B, pad, W = 16_400, 6, 3, 40, 16_512
+    q, s, slens = _band_windows(12, B, Q, S, pad, W)
+    slens[1] = S
+    for track in (True, False):
+        got = tsw.sw_band_score_batch(q, s, slens, m, go, ge, pad, W,
+                                      device="cpu", track=track)
+        want = jsw.sw_band_score_ref(q, s, slens, m, go, ge, pad, W,
+                                     track=track)
+        for g, w in zip(got if track else [got], want if track else [want]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _tiled_model(q, s, slens, m, go, ge, pad, W, tw):
+    """A numpy rendering of sw_band_tiled_kernel's order of work
+    (csrc/sw_band_tiled.cuh) at a tile width of `tw` lanes: each subject
+    row is walked tile by tile, left to right, over a row state [W, 2] in
+    memory; a tile's last lane reads E of the next tile's first lane from
+    that state (still the previous row's), F's prefix max carries from
+    tile to tile, and the row's maximum and its lowest lane are taken
+    over the tiles (a later tile only when strictly greater) before the
+    running best.  Returns (best, ti, tj) and the score-only best."""
+    B, Q = q.shape
+    S = s.shape[1]
+    prepad = pad + W // 2
+    NEG = -(1 << 28)
+    out = np.zeros((4, B), np.int64)
+    for b in range(B):
+        st = np.zeros((W + 1, 2), np.int64)
+        st[:, 1] = NEG                  # st[W]: the lane past the band
+        best = bi = blane = acc = 0
+        for i in range(min(int(slens[b]), S)):
+            carry, rmax, rlane = NEG, None, 0
+            for t0 in range(0, W, tw):
+                t = np.arange(t0, min(t0 + tw, W))
+                H, E = st[t, 0].copy(), st[t, 1].copy()
+                ein = st[t + 1, 1]
+                j = i - prepad + t
+                qc = np.where((j >= 0) & (j < Q), q[b, j.clip(0, Q - 1)], 7)
+                T = H + m[s[b, i], qc]
+                H0 = np.maximum(np.maximum(T, ein), 0)
+                run = np.maximum.accumulate(H0 + t * ge)
+                excl = np.maximum(carry, np.concatenate([[NEG], run[:-1]]))
+                carry = max(carry, int(run[-1]))
+                Hn = np.maximum(H0, excl - go - (t - 1) * ge)
+                st[t, 0] = Hn
+                st[t, 1] = np.maximum(ein - ge, Hn - go)
+                tm = int(T.max())
+                if rmax is None or tm > rmax:
+                    rmax, rlane = tm, int(t[np.argmax(T == tm)])
+                acc = max(acc, tm)
+            if rmax > best:
+                best, bi, blane = rmax, i, rlane
+        out[:, b] = best, bi, bi + blane - prepad, acc
+    return out
+
+
+@pytest.mark.parametrize("seed,W,tw", [(1, 256, 64), (2, 200, 64),
+                                       (3, 330, 128), (4, 96, 96)])
+def test_tiled_order_matches_plain(scoring, seed, W, tw):
+    """The tiled kernel's order of work (_tiled_model, tiles much narrower
+    than the band so that every window crosses several tile edges, and
+    widths that end inside a tile) equals sw_band_score_ref exactly,
+    tracked and score-only, on planted and on tie-heavy windows."""
+    m, go, ge = scoring
+    rng = np.random.default_rng(seed)
+    Q, S, pad = 320, 448, 24
+    q, s, slens = _band_windows(seed, 6, Q, S, pad, W)
+    tq, ts, tsl = tsw.tie_windows(rng, 8, Q, S)
+    for q_, s_, sl_ in ((q, s, slens), (tq, ts, tsl)):
+        got = _tiled_model(q_, s_, sl_, m.astype(np.int64), go, ge, pad, W,
+                           tw)
+        args = [torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                for x in (q_, s_, sl_)]
+        want = tsw.sw_band_score_ref(*args, torch.from_numpy(m), go, ge,
+                                     pad, W, track=True)
+        for k in range(3):
+            np.testing.assert_array_equal(got[k], want[k].numpy())
+        np.testing.assert_array_equal(got[3], want[0].numpy())
