@@ -164,7 +164,33 @@
    host; n_restaged and p2_hit printed; the five collate outputs (the
    hit-info checksum included) of a first single-end batch of 1,024 reads
    equal to the port's CPU step's.
-14. Prints each kernel's launches by path (and per 4,096 reads), the
+14. `map --fast` over device meshes (smalt_tpu_torch/parallel/spmd.py),
+   every member on cuda:0 (a Mesh's explicit device list: one card holds
+   every shape; members that share it measure the cost of the replicated
+   work and of the collectives, not a scaling), on the same genome and
+   index: (a) the replicated-index step on 2x1, 4x1 and 1x2 and the
+   range-sharded one on 1x2, 2x2 and 1x3, on phase 4's first batch: all
+   12 OUT_KEYS equal to the single-device CUDA step and to the same
+   mesh's CPU step, each step's time beside the single device's (CUDA
+   events), the bytes its collectives moved, each member's resident
+   index and the card's peak; (b) run_fast_pipeline on 2x2 over phase
+   4's first 20,480 reads, on 1x2 over phase 6's first 4,096 pairs and
+   over phase 12's k16 s13 index: SAM byte-identical to those phases'
+   single-device runs; (c) 256 reads of 1,500 bp on 1x2, a quarter
+   starting within a window (1,792 bases) before the ip cut: SAM equal
+   to the same mesh's --device cpu run, through sw_full's strip path
+   (the range-sharded step scores full-matrix), the records that differ
+   from the single-device (banded) run counted, and on 2x1 (the index
+   replicated: sw_band) equal to the single device; sw_full's strips at Q =
+   1,504 (last strip 480 columns) held against the plain version and
+   timed beside their bound; (d) __graft_entry__.py's corpus oracle (1
+   Mb repeat-planted genome, 10,000 reads, k13 s2, batches of 1,024) on
+   4x1 and 2x2, byte-identical to the single device; (e) two processes
+   through the CLI under SMALT_TPU_COORD / _NPROCS / _PROCID (gloo on
+   127.0.0.1), each mapping its stripe on cuda:0, then merge-shards: the
+   single-host SAM; (f) --mesh 2,2 with fewer cards visible exits
+   non-zero naming their count.
+15. Prints each kernel's launches by path (and per 4,096 reads), the
    kernels' JSON line (time, plain version's time, bound; no PyTorch
    call computes a Smith-Waterman score, so library_ms is null), the
    card's name and power limit, and as the last line
@@ -172,8 +198,9 @@
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
 6 and their -n runs, 6b's, 7's three device runs, 8's three, 9's, 10's,
-11's, 12's and 13's device runs) and read just after it; the comparisons
-with the plain versions do not count.  Any failed check exits non-zero
+11's, 12's and 13's device runs, 14's mesh runs) and read just after it;
+the comparisons with the plain versions do not count (14(e)'s two host
+processes count their own).  Any failed check exits non-zero
 without the last line.  Data is made from a fixed seed under
 build/smoke/ and removed at the end.  Nothing of smalt_tpu or jax is
 imported: the script fails if either is in sys.modules at the end.
@@ -273,6 +300,22 @@ N_BIGK_LONG = 256
 # on a k13 s16 index of the phase-4 genome
 DXH_INDEX = (13, 16)
 DXH_CHECK_B = 1024    # reads in the batch held against the CPU step
+# phase 14: the device mesh of --fast, every member on cuda:0.  (a) the
+# mesh steps, (kind, dp, ip), on phase 4's first batch; (b) MESH_SE_READS
+# of phase 4's reads through run_fast_pipeline on MESH_SE; (c)
+# N_MESH_LONG reads of LONG_READLEN bp on 1 x 2, every MESH_CUT_EVERY-th
+# starting within window_len(1504) bases before the cut; (d) the corpus
+# oracle of __graft_entry__.py:149-234 (CORPUS: genome bp, reads, batch)
+# on CORPUS_MESHES; (e) MESH_HOSTS processes through the CLI
+MESH_STEPS = (("replicated", 2, 1), ("replicated", 4, 1),
+              ("replicated", 1, 2), ("range-sharded", 1, 2),
+              ("range-sharded", 2, 2), ("range-sharded", 1, 3))
+MESH_SE, MESH_SE_READS = (2, 2), 5 * BATCH
+N_MESH_LONG, MESH_CUT_EVERY = 256, 4
+STRIP_Q1504 = (1504, 1792, BATCH)     # sw_full's strips, last one 480 columns
+CORPUS = (1_000_000, 10_000, 1024)
+CORPUS_MESHES = ((4, 1), (2, 2))
+MESH_HOSTS = 2
 N_EXACT = 5 * BATCH               # phase 7: five batches of 100 bp reads
 N_PE_EXACT = 5 * BATCH // 2       # phase 9: five batches of 2,048 pairs
 PE_CHECK_B = 1024                 # phase 9: mate rows held against the CPU
@@ -352,13 +395,15 @@ def make_reads(rng, genome: np.ndarray, n: int, qlen: int):
     return ACGT[code], pos, rev
 
 
-def make_long_reads(rng, genome: np.ndarray, n: int, rl: int):
+def make_long_reads(rng, genome: np.ndarray, n: int, rl: int, pos=None):
     """bench.py:771's kilobase reads, vectorised: from a source of rl +
-    100 bases, each event deletes a base (0.75%), inserts a random one
-    (0.75%), substitutes (1%) or copies, until rl bases are out; half
-    reverse-complemented.  Returns (ASCII [n, rl], positions, is_reverse)."""
+    100 bases (at `pos`, or at random), each event deletes a base
+    (0.75%), inserts a random one (0.75%), substitutes (1%) or copies,
+    until rl bases are out; half reverse-complemented.  Returns (ASCII
+    [n, rl], positions, is_reverse)."""
     K = rl + max(200, rl // 100)     # deletions leave ~0.75% of events
-    pos = rng.integers(0, len(genome) - rl - 100, n)
+    if pos is None:
+        pos = rng.integers(0, len(genome) - rl - 100, n)
     src = np.searchsorted(ACGT, genome[pos[:, None] + np.arange(rl + 100)])
     r = rng.random((n, K))
     dele, ins, sub = r < 0.0075, (r >= 0.0075) & (r < 0.015), \
@@ -2662,6 +2707,357 @@ def run_exact_device_hits(d: str, genome, card: str):
             plaunch["--device-exact"])
 
 
+def mesh_pipe(what: str, mesh, refset, idx, reads, batch: int,
+              device: str = "cuda"):
+    """run_fast_pipeline over `mesh` (an spmd.Mesh, or None for one
+    device) on reads ([fq] or [fq, mates]), the launch counts set to 0
+    just before and read just after.  Returns (SAM records, launches,
+    wall seconds)."""
+    import torch
+    from smalt_tpu_torch.map.fastmode import run_fast_pipeline
+    from smalt_tpu_torch.ops import sw
+    for k in sw.launches:
+        sw.launches[k] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    run_fast_pipeline(refset, idx, reads[0], buf, batch=batch, device=device,
+                      mesh_spec=mesh, mates_path=(reads[1] if len(reads) > 1
+                                                  else None))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return buf.getvalue().splitlines(), dict(sw.launches), wall
+
+
+def make_corpus(d: str):
+    """__graft_entry__.py:149-234's corpus, made the same way (seed 11):
+    a 1 Mb genome with 40 dispersed near-identical copies of a 700 bp
+    unit, and 10,000 reads of 100 bp (1% substitutions, half
+    reverse-complemented).  Returns (fasta, fastq)."""
+    n_bp, n_reads, _ = CORPUS
+    rng = np.random.default_rng(11)
+    bases = np.array(list(b"ACGT"), np.uint8)
+    g = rng.choice(bases, n_bp)
+    unit = rng.choice(bases, 700)
+    for _ in range(40):
+        cp = unit.copy()
+        for j in rng.integers(0, 700, 7):
+            cp[j] = bases[int(rng.integers(0, 4))]
+        at = int(rng.integers(0, len(g) - 700))
+        g[at : at + 700] = cp
+    gtxt = g.tobytes().decode()
+    fa = os.path.join(d, "corpus.fa")
+    with open(fa, "w") as f:
+        f.write(">corpus\n")
+        for i in range(0, len(gtxt), 80):
+            f.write(gtxt[i : i + 80] + "\n")
+    comp = str.maketrans("ACGT", "TGCA")
+    recs = []
+    for i in range(n_reads):
+        st = int(rng.integers(0, len(gtxt) - 100))
+        seg = list(gtxt[st : st + 100])
+        for j in np.flatnonzero(rng.random(100) < 0.01):
+            seg[j] = "ACGT"[int(rng.integers(0, 4))]
+        seg = "".join(seg)
+        if rng.random() < 0.5:
+            seg = seg.translate(comp)[::-1]
+        recs.append(f"@e{i}\n{seg}\n+\n{'5' * 100}\n")
+    fq = os.path.join(d, "corpus.fq")
+    with open(fq, "w") as f:
+        f.write("".join(recs))
+    return fa, fq
+
+
+def mesh_steps(d: str, refset, idx, card: str):
+    """Phase 14 (a) and (g): each MESH_STEPS step on phase 4's first
+    batch, every member on cuda:0, all 12 OUT_KEYS equal to the
+    single-device CUDA step and to the same mesh's CPU step; its time
+    beside the single-device step's, the bytes its collectives moved and
+    the card's memory."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.map.fastmode import (RawBatch, encode_batch,
+                                              get_device_step,
+                                              iter_fastq_hybrid)
+    from smalt_tpu_torch.parallel import mesh as pm
+    from smalt_tpu_torch.parallel.spmd import Mesh
+    first = next(iter(iter_fastq_hybrid(os.path.join(d, "reads_head.fq"),
+                                        BATCH)))
+    Q = max(32, -(-READLEN // 16) * 16)
+    arr = torch.from_numpy(first.encode(Q) if isinstance(first, RawBatch)
+                           else encode_batch(first[1], Q))
+    reads = arr.cuda()
+    single = get_device_step(refset, idx, "cuda", (1, -2, -4, -3))
+    want = single(reads).cpu()
+    single_ms = time_ms(lambda: single(reads), 5)
+    m, go, ge = ali.make_score_matrix()
+    di = pm.DeviceIndex.build(refset, idx, "cpu")
+    sdis = {}
+    print(f"# phase 14 (a): members that share one card measure the cost of "
+          f"the replicated work and of the collectives, not a scaling; the "
+          f"single-device step {single_ms:.3f} ms a batch of {BATCH} reads "
+          f"(Q={Q}, CUDA events, 5 calls) | {card}", flush=True)
+    for kind, dp, ip in MESH_STEPS:
+        if kind == "replicated":
+            def make(mesh):
+                return pm.make_sharded_step(di, mesh, m, -go, -ge, pack=True)
+        else:
+            if ip not in sdis:
+                sdis[ip] = pm.ShardedDeviceIndex.build(refset, idx, ip)
+
+            def make(mesh):
+                return pm.make_index_sharded_step(sdis[ip], mesh, m, -go, -ge,
+                                                  pack=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        cu = Mesh(dp, ip, ["cuda:0"] * (dp * ip))
+        step = make(cu)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        got = pm.join_parts(step(reads))
+        moved = cu.moved
+        peak = torch.cuda.max_memory_allocated() - before
+        ms = time_ms(lambda: step(reads), 5)
+        t0 = time.perf_counter()
+        got_cpu = pm.join_parts(make(Mesh(dp, ip, ["cpu"] * (dp * ip)))(arr))
+        cpu_s = time.perf_counter() - t0
+        for what, x in (("the single-device CUDA step", want),
+                        ("the same mesh's CPU step", got_cpu)):
+            if not torch.equal(got, x):
+                bad = (got != x).any(dim=1).nonzero().flatten()
+                fail(f"{kind} step on {dp}x{ip}: packed output differs from "
+                     f"{what} in rows {bad.tolist()} (OUT_KEYS order)")
+        print(f"# mesh step {kind} {dp}x{ip} (members on cuda:0), one batch "
+              f"of {BATCH} reads: all 12 OUT_KEYS equal to the single-device "
+              f"CUDA step and to its CPU step ({cpu_s:.1f} s on the host); "
+              f"{ms:.3f} ms a batch (single device {single_ms:.3f} ms, "
+              f"{ms / single_ms:.2f}x); collectives moved {moved} bytes a "
+              f"batch; each member's index {resident // (dp * ip)} bytes "
+              f"resident; the card's peak over the step {peak} bytes above "
+              f"the resident ones | {card}", flush=True)
+        del step
+        torch.cuda.empty_cache()
+
+
+def run_mesh(d: str, genome, card: str):
+    """Phase 14: map --fast over device meshes with every member on cuda:0
+    (spmd.Mesh's device list), on phase 4's genome and index.  (a) and (g)
+    mesh_steps.  (b) MESH_SE_READS of phase 4's reads through
+    run_fast_pipeline on MESH_SE, SAM byte-identical to phase 4's (the
+    single device); phase 6's first 4,096 pairs on 1 x 2 == phase 6's
+    records; phase 12's k16 s13 index on 1 x 2 == phase 12's SAM.  (c)
+    N_MESH_LONG reads of LONG_READLEN bp on 1 x 2, every MESH_CUT_EVERY-th
+    starting within a window (1,792 bases) before the cut: the SAM equals
+    the same mesh's --device cpu run, sw_full's strip path launched
+    (the index-sharded step scores full-matrix, as smalt_tpu's does), the
+    records that differ from the single-device (banded) run counted; on
+    2 x 1 (replicated, banded: sw_band) == the single device; the
+    strip kernel at Q = 1,504 (STRIP_Q1504) held against its plain version
+    and timed beside its bound.  (d) the corpus oracle on CORPUS_MESHES ==
+    the single device.  (e) MESH_HOSTS processes through the CLI under
+    SMALT_TPU_* (gloo on 127.0.0.1), then merge-shards == phase 4's SAM.
+    (f) --mesh 2,2 with fewer than 4 cards visible exits non-zero naming
+    the count.  Returns the launches of the mapping runs by label."""
+    import torch
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.ops import bounds, sw
+    from smalt_tpu_torch.parallel.mesh import window_len
+    from smalt_tpu_torch.parallel.spmd import Mesh
+    from smalt_tpu_torch.seq.refset import RefSet
+    idx_name = os.path.join(d, "idx")
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    t0 = time.perf_counter()
+    mesh_steps(d, refset, idx, card)
+    print(f"# phase 14 (a): {time.perf_counter() - t0:.2f} s", flush=True)
+    runs = {}
+
+    def on_card(dp, ip):
+        return Mesh(dp, ip, ["cuda:0"] * (dp * ip))
+
+    # (b)
+    fq = os.path.join(d, "mesh_se.fq")
+    with open(os.path.join(d, "reads.fq"), "rb") as src, open(fq, "wb") as f:
+        for _ in range(4 * MESH_SE_READS):
+            f.write(src.readline())
+    head = sam_body(os.path.join(d, "out_cuda.sam"))[:MESH_SE_READS]
+    pairs = sam_body(os.path.join(d, "pairs_cuda.sam"))[: 2 * PAIR_HEAD]
+    k16 = sam_body(os.path.join(d, "bigk16_100_cuda.sam"))
+    idx16 = KmerIndex.load(os.path.join(d, "idx16"))
+    for label, (dp, ip), ix, reads, want in (
+            (f"{MESH_SE_READS} reads", MESH_SE, idx, [fq], head),
+            (f"{PAIR_HEAD} pairs", (1, 2), idx,
+             [os.path.join(d, f"pairs_{i}_head.fq") for i in (1, 2)], pairs),
+            ("k16 s13", (1, 2), idx16, [os.path.join(d, "bigk_short.fq")],
+             k16)):
+        got, launches, wall = mesh_pipe(label, on_card(dp, ip), refset, ix,
+                                        reads, BATCH)
+        if got != want:
+            fail(f"--fast over {dp}x{ip}, {label}: SAM differs from the "
+                 f"single-device run")
+        if launches["sw_full_track"] < 1:
+            fail(f"--fast over {dp}x{ip}, {label}: launched {launches}")
+        runs[f"--fast mesh {dp}x{ip} {label}"] = (launches, len(want))
+        print(f"# map --fast over {dp}x{ip} (members on cuda:0), {label}: "
+              f"SAM byte-identical to the single-device run; {len(want)} "
+              f"records in {wall:.2f} s; launches {launches} | {card}",
+              flush=True)
+
+    # (c)
+    L = refset.total_len
+    chunk = -(-L // 2)
+    cut = -(-chunk // NSKIP) * NSKIP
+    S = window_len(-(-LONG_READLEN // 16) * 16)
+    rng = np.random.default_rng(SEED + 14)
+    pos = rng.integers(0, len(genome) - LONG_READLEN - 100, N_MESH_LONG)
+    pos[::MESH_CUT_EVERY] = rng.integers(cut - S, cut,
+                                         len(pos[::MESH_CUT_EVERY]))
+    lreads, truth, rev = make_long_reads(rng, genome, N_MESH_LONG,
+                                         LONG_READLEN, pos)
+    lfq, _ = write_fastq(os.path.join(d, "mesh_long.fq"), lreads, b"x")
+    got, launches, wall = mesh_pipe("long", on_card(1, 2), refset, idx,
+                                    [lfq], N_MESH_LONG)
+    t0 = time.perf_counter()
+    cpu, _, _ = mesh_pipe("long cpu", Mesh(1, 2, ["cpu", "cpu"]), refset,
+                          idx, [lfq], N_MESH_LONG, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    one, _, _ = mesh_pipe("long single", None, refset, idx, [lfq],
+                          N_MESH_LONG)
+    dp_only, dl, dwall = mesh_pipe("long 2x1", on_card(2, 1), refset, idx,
+                                   [lfq], N_MESH_LONG)
+    if dp_only != one or dl["sw_band_track"] < 1:
+        fail(f"--fast over 2x1 on kilobase reads: SAM differs from the "
+             f"single-device run, or launched {dl}")
+    runs[f"--fast mesh 2x1 {LONG_READLEN} bp"] = (dl, N_MESH_LONG)
+    print(f"# map --fast over 2x1 (members on cuda:0, the index "
+          f"replicated: banded), the same {N_MESH_LONG} reads: SAM "
+          f"byte-identical to the single-device run; {dwall:.2f} s; "
+          f"launches {dl} | {card}", flush=True)
+    if got != cpu or len(got) != N_MESH_LONG:
+        fail("--fast over 1x2 on kilobase reads: SAM differs from the same "
+             "mesh's --device cpu run")
+    if launches["sw_full_track_strip"] < 1 or launches["sw_band_track"]:
+        fail(f"--fast over 1x2 on kilobase reads: launched {launches}")
+    runs[f"--fast mesh 1x2 {LONG_READLEN} bp"] = (launches, N_MESH_LONG)
+    differ = sum(a != b for a, b in zip(got, one))
+    near = sum(a != b for a, b in list(zip(got, one))[::MESH_CUT_EVERY])
+    print(f"# map --fast over 1x2 (members on cuda:0), {N_MESH_LONG} reads of "
+          f"{LONG_READLEN} bp ({len(pos[::MESH_CUT_EVERY])} starting within "
+          f"{S} bases before the cut at {cut}): SAM byte-identical to the "
+          f"same mesh's --device cpu run ({cpu_s:.1f} s on the host); "
+          f"{differ} of {N_MESH_LONG} records differ from the single-device "
+          f"(banded) run ({near} of the reads near the cut); placed "
+          f"{placement(got, truth, rev, LONG_TOL)}/{N_MESH_LONG} within "
+          f"{LONG_TOL} bp (single device "
+          f"{placement(one, truth, rev, LONG_TOL)}); {wall:.2f} s; launches "
+          f"{launches} | {card}", flush=True)
+    Q, S, B = STRIP_Q1504
+    m, go, ge = ali.make_score_matrix()
+    mat = sw.device_matrix(m, "cuda")
+    q, s, sl = (torch.from_numpy(x).cuda()
+                for x in kernel_windows(rng, B, Q, S))
+    got_k = sw.sw_full_cuda(q, s, sl, mat, -go, -ge, track=True)
+    want_k = sw.sw_score_ref(q, s, sl, mat.t, -go, -ge, track=True)
+    if any(not torch.equal(a, b) for a, b in zip(got_k, want_k)):
+        fail(f"sw_full strips at Q={Q} S={S}: differ from sw_score_ref")
+    k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, -go, -ge,
+                                           track=True), 5)
+    print(bound_line(f"sw_full_track_strip Q={Q} S={S} B={B} (planted "
+                     f"windows; 2 strips of 512 columns and a last one of "
+                     f"{Q - 2 * sw.MAX_Q}; equal to sw_score_ref)",
+                     bounds.sw_full_work(Q, S, sl, True), k_ms, card),
+          flush=True)
+
+    # (d)
+    t0 = time.perf_counter()
+    cfa, cfq = make_corpus(d)
+    cidx = os.path.join(d, "corpus_idx")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["index", "-k", "13", "-s", "2", cidx, cfa]) != 0:
+            fail("index of the corpus")
+    crs, cix = RefSet.load(cidx), KmerIndex.load(cidx)
+    batch = CORPUS[2]
+    single, _, wall1 = mesh_pipe("corpus", None, crs, cix, [cfq], batch)
+    for dp, ip in CORPUS_MESHES:
+        got, launches, wall = mesh_pipe("corpus", on_card(dp, ip), crs, cix,
+                                        [cfq], batch)
+        if got != single or len(got) != CORPUS[1]:
+            fail(f"the corpus oracle over {dp}x{ip}: SAM differs from the "
+                 f"single device")
+        runs[f"--fast mesh {dp}x{ip} corpus"] = (launches, CORPUS[1])
+        print(f"# the corpus oracle (__graft_entry__.py:149-234: {CORPUS[1]} "
+              f"reads, repeat-planted {CORPUS[0]} bp genome, k13 s2, batch "
+              f"{batch}) over {dp}x{ip} (members on cuda:0): SAM "
+              f"byte-identical to the single device ({wall:.2f} s against "
+              f"{wall1:.2f} s); {sum(1 for ln in got if int(ln.split(chr(9))[4]) > 6)}"
+              f" records at mapq > 6; launches {launches} | {card}",
+              flush=True)
+    print(f"# phase 14 (d): {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (e)
+    t0 = time.perf_counter()
+    out = os.path.join(d, "hosts.sam")
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for h in range(MESH_HOSTS):
+            env = dict(os.environ, PYTHONPATH=ROOT,
+                       SMALT_TPU_COORD=f"127.0.0.1:{port}",
+                       SMALT_TPU_NPROCS=str(MESH_HOSTS),
+                       SMALT_TPU_PROCID=str(h), SMALT_FAST_BATCH=str(BATCH))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "smalt_tpu_torch.cli", "map", "--fast",
+                 "-o", out, idx_name, fq], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for h, p in enumerate(procs):
+            _, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"host {h} of {MESH_HOSTS} exited {p.returncode}: "
+                     f"{err[-800:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    merged = os.path.join(d, "hosts_merged.sam")
+    rc, err, _, _ = cli_run(["merge-shards", merged] +
+                            [f"{out}.shard{h}" for h in range(MESH_HOSTS)])
+    if rc != 0:
+        fail(f"merge-shards exited {rc}: {err[-400:]}")
+
+    def lines(p, n=None):
+        with open(p) as f:
+            return [ln for ln in f.read().splitlines()
+                    if not ln.startswith("@PG")][:n]
+
+    want = lines(os.path.join(d, "out_cuda.sam"))
+    want = [ln for ln in want if ln.startswith("@")] + head
+    if lines(merged) != want:
+        fail(f"{MESH_HOSTS} hosts + merge-shards: SAM differs from the "
+             f"single-host run")
+    print(f"# {MESH_HOSTS} processes on cuda:0 through the CLI (SMALT_TPU_COORD"
+          f" 127.0.0.1:{port}, gloo), {MESH_SE_READS} reads in batches of "
+          f"{BATCH} striped over them, then merge-shards: {err.strip()}; SAM "
+          f"byte-identical to the single-host run (@PG aside); "
+          f"{time.perf_counter() - t0:.2f} s | {card}", flush=True)
+
+    # (f)
+    n_vis = torch.cuda.device_count()
+    if n_vis < 4:
+        rc, err, _, _ = cli_run(["map", "--fast", "--mesh", "2,2", "-o",
+                                 os.path.join(d, "refused.sam"), idx_name,
+                                 fq])
+        if rc == 0 or f"{n_vis} visible" not in err:
+            fail(f"--mesh 2,2 on {n_vis} visible cards: exit {rc}, {err!r}")
+        print(f"# --mesh 2,2 with {n_vis} card(s) visible: exit {rc}, "
+              f"{err.strip()}", flush=True)
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2766,6 +3162,10 @@ def main() -> int:
         dxh, dxh2, dxhp = run_exact_device_hits(d, genome, card)
         print(f"# phase 13 (device hit expansion): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        meshed = run_mesh(d, genome, card)
+        print(f"# phase 14 (the device mesh, several hosts): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     if se["sw_full_track"] < 1:
@@ -2806,7 +3206,8 @@ def main() -> int:
                else N_BIGK_LONG) for (k, rl), n in bk.items()) + \
         (("--device-exact k13 s16 (device hits)", dxh, BATCH),
          ("--device-exact k13 s16 SMALT_DX_P2=1", dxh2, BATCH),
-         ("--device-exact k13 s16 pairs", dxhp, BATCH))
+         ("--device-exact k13 s16 pairs", dxhp, BATCH)) + \
+        tuple((what, n, reads) for what, (n, reads) in meshed.items())
     for k in sw.launches:
         print(f"# launches {k}: " + "; ".join(
             f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"

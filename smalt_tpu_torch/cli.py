@@ -13,23 +13,26 @@ help.
     python -m smalt_tpu_torch.cli sample [options] <index_name> <reads1>
         <reads2>
     python -m smalt_tpu_torch.cli check <reads> [<mates>]
+    python -m smalt_tpu_torch.cli merge-shards <out.sam> <shard>...
 
 Counterpart of smalt_tpu/cli.py; the host subcommands are the
 reference's own code.  `map` without a device flag is the exact host
-lane.  `map --fast` runs the port's device pass (one device; single-end
-reads, or pairs with a mates file) and writes the same SAM as
-`smalt_tpu map --fast`.  `map --device-exact` runs the exact engine's
+lane.  `map --fast` runs the port's device pass (single-end reads, or pairs
+with a mates file; on one device, or over a device mesh with `--mesh
+DP,IP`, or striped over several hosts by the SMALT_TPU_COORD /
+SMALT_TPU_NPROCS / SMALT_TPU_PROCID variables, whose SAM shards
+`merge-shards` joins) and writes the same SAM as `smalt_tpu map
+--fast`.  `map --device-exact` runs the exact engine's
 front half (and, with SMALT_DX_P2=1, its pass 2) on one device for
 serial FASTQ, single-end or paired, and writes the output of the exact
 host lane, byte for byte, in any output format and with `--resume`.
 `--device` defaults to `cuda`; without a GPU that fails rather than
-running on the CPU, and `--device cpu` exists for the tests.  What the
-port does not take yet (a device mesh, merge-shards) exits 2 naming its
-ROADMAP.md item.
+running on the CPU, and `--device cpu` exists for the tests.
 """
 from __future__ import annotations
 
 import argparse
+import io
 import os
 import sys
 from typing import List, Optional
@@ -55,11 +58,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         _usage()
         return 1
     sub = argv[0]
-    if sub == "merge-shards":
-        return _unported("merge-shards (multi-host --fast)", "Queue 1 #8")
-    if sub in ("index", "map", "sample", "check"):
+    if sub in ("index", "map", "sample", "check", "merge-shards"):
         fn = {"index": cmd_index, "map": cmd_map, "sample": cmd_sample,
-              "check": cmd_check}[sub]
+              "check": cmd_check, "merge-shards": cmd_merge_shards}[sub]
         try:
             return fn(argv[1:])
         except SystemExit as e:     # argparse --help / -H exit
@@ -72,7 +73,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # smalt help <subprog> (menu.h:42-50)
         target = argv[1] if len(argv) > 1 else None
         cmds = {"index": cmd_index, "map": cmd_map,
-                "sample": cmd_sample, "check": cmd_check}
+                "sample": cmd_sample, "check": cmd_check,
+                "merge-shards": cmd_merge_shards}
         if target in cmds:
             try:
                 return cmds[target](["--help"])
@@ -86,12 +88,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _usage():
     print(__doc__, file=sys.stderr)
-
-
-def _unported(what: str, item: str) -> int:
-    print(f"smalt_tpu_torch: {what} is not ported yet (ROADMAP.md {item})",
-          file=sys.stderr)
-    return 2
 
 
 class _HelpAction(argparse.Action):
@@ -237,8 +233,9 @@ def _map_argparser(prog):
     ap.add_argument("--mesh", default=None, dest="mesh_spec",
                     metavar="DP,IP",
                     help="with --fast: run the mapping step over a "
-                         "device mesh (not ported: ROADMAP.md Queue 1 "
-                         "#8)")
+                         "device mesh (reads data-parallel over DP "
+                         "devices, index range-sharded over IP); "
+                         "default: all visible GPUs as pure dp")
     ap.add_argument("--fallback-exact", action="store_true",
                     dest="fallback_exact",
                     help="with --fast: reads whose seed search the "
@@ -589,18 +586,28 @@ def _run_device_lane(a, lane, engine, out, refset, fmt: str, mods, ihist,
 def _cmd_map_fast(a, argv: List[str], device: str) -> int:
     """map --fast: the port's device pass + the host traceback tail
     (with -n > 1 on that many worker processes, spawned: none of them
-    touches the device), checkpoints with --resume, a torch profiler
-    trace with --profile."""
-    from .map.fastmode import run_fast_pipeline
+    touches the device), over a device mesh with --mesh, checkpoints
+    with --resume, a torch profiler trace with --profile.  Under the
+    SMALT_TPU_* variables of a multi-host run each host maps its stripe
+    of batches into OUT.shard<host> (host 0 also writes OUT.header) for
+    merge-shards, and --resume is off."""
+    from .map.fastmode import mesh_shape, run_fast_pipeline
     if a.oformat.split(":")[0] != "sam":
         print("--fast emits SAM only", file=sys.stderr)
         return 1
-    if a.mesh_spec is not None:
-        return _unported("--mesh", "Queue 1 #8")
     if _score_cap_refused(a.scorspec, 32):
         return 2
     if _no_gpu(device):
         return 1
+    if a.mesh_spec is not None:
+        import torch
+        dev = torch.device(device)
+        try:
+            mesh_shape(a.mesh_spec, dev.type, torch.cuda.device_count()
+                       if dev.type == "cuda" else 0)
+        except ValueError as e:
+            print(f"smalt_tpu_torch: {e}", file=sys.stderr)
+            return 1
     refset = RefSet.load(a.index_name)
     idx = KmerIndex.load(a.index_name)
     exact_engine = None
@@ -615,34 +622,84 @@ def _cmd_map_fast(a, argv: List[str], device: str) -> int:
     if ihist is not None:
         insert_min = min(insert_min, ihist.insizlo)
         insert_max = max(insert_max, ihist.insizhi)
-    resume_log = resume_state = None
-    if a.resume and a.oufilnam and a.nthreads <= 1:
-        from .resume import ResumeLog
-        resume_log = ResumeLog(a.oufilnam, ["map-fast"] + argv)
-        resume_state = resume_log.load()   # truncates OUT if found
-    elif a.resume:
-        print("# --resume needs -o and -n 1; ignored", file=sys.stderr)
-    if resume_state:
-        out = open(a.oufilnam, "a")        # header already present
-    else:
-        out = _open_out(a)
-        _writer(a, refset, argv, out)      # emits the SAM header
-    batch = int(os.environ.get("SMALT_FAST_BATCH", "4096"))
+    from .parallel.distributed import (ShardWriter, end_distributed,
+                                       maybe_init_distributed)
+    host_id, n_hosts = maybe_init_distributed()
+    shard_writer = resume_log = None
     try:
-        with _profiled(a.profdir, device):
-            run_fast_pipeline(
-                refset, idx, a.reads, out, batch=batch,
-                penalties=_parse_penalties(a.scorspec),
-                minscor=(a.minscor if a.minscor is not None else 18),
-                nthreads=a.nthreads, device=device, mates_path=a.mates,
-                insert_min=insert_min, insert_max=insert_max,
-                exact_engine=exact_engine,
-                seed=(a.randseed if a.randseed is not None else 1),
-                libcode=libcode, ihist=ihist, resume_log=resume_log,
-                index_name=a.index_name)
+        if n_hosts > 1:
+            # per-host SAM shard + batch sidecar; `merge-shards` restores
+            # the single-host byte order afterwards
+            base = a.oufilnam or "out.sam"
+            shard_writer = ShardWriter(f"{base}.shard{host_id}", host_id,
+                                       n_hosts)
+            out = io.StringIO()     # header captured for the merge step
+            _writer(a, refset, argv, out)
+            if host_id == 0:
+                with open(f"{base}.header", "w") as hf:
+                    hf.write(out.getvalue())
+        else:
+            resume_state = None
+            if a.resume and a.oufilnam and a.nthreads <= 1:
+                from .resume import ResumeLog
+                resume_log = ResumeLog(a.oufilnam, ["map-fast"] + argv)
+                resume_state = resume_log.load()   # truncates OUT if found
+            elif a.resume:
+                print("# --resume needs -o and -n 1; ignored",
+                      file=sys.stderr)
+            if resume_state:
+                out = open(a.oufilnam, "a")        # header already present
+            else:
+                out = _open_out(a)
+                _writer(a, refset, argv, out)      # emits the SAM header
+        batch = int(os.environ.get("SMALT_FAST_BATCH", "4096"))
+        try:
+            with _profiled(a.profdir, device):
+                run_fast_pipeline(
+                    refset, idx, a.reads, out, batch=batch,
+                    penalties=_parse_penalties(a.scorspec),
+                    minscor=(a.minscor if a.minscor is not None else 18),
+                    nthreads=a.nthreads, device=device, mates_path=a.mates,
+                    insert_min=insert_min, insert_max=insert_max,
+                    exact_engine=exact_engine,
+                    seed=(a.randseed if a.randseed is not None else 1),
+                    mesh_spec=a.mesh_spec, libcode=libcode, ihist=ihist,
+                    host_id=host_id, n_hosts=n_hosts,
+                    shard_writer=shard_writer, resume_log=resume_log,
+                    index_name=a.index_name)
+        finally:
+            if shard_writer is not None:
+                shard_writer.close()
+            elif out is not sys.stdout:
+                out.close()
     finally:
-        if out is not sys.stdout:
-            out.close()
+        end_distributed()
+    return 0
+
+
+def cmd_merge_shards(argv: List[str]) -> int:
+    """merge-shards OUT SHARD [SHARD...] (smalt_tpu/cli.py:520): join the
+    per-host SAM shards of a multi-host `map --fast` run in global batch
+    order (byte-identical to a single-host run), behind the OUT.header
+    that host 0 wrote beside them."""
+    ap = argparse.ArgumentParser(prog="smalt_tpu_torch merge-shards")
+    ap.add_argument("-H", action=_HelpAction, dest="printhelp",
+                    help="print these instructions")
+    ap.add_argument("output")
+    ap.add_argument("shards", nargs="+")
+    a = ap.parse_args(argv)
+    from .parallel.distributed import merge_shards
+    header = None
+    for s in a.shards:
+        hdr_path = s.rsplit(".shard", 1)[0] + ".header"
+        if os.path.exists(hdr_path):
+            with open(hdr_path) as f:
+                header = f.read()
+            break
+    with open(a.output, "w") as out:
+        n = merge_shards(a.shards, out, header)
+    print(f"# merged {n} batches from {len(a.shards)} shards",
+          file=sys.stderr)
     return 0
 
 

@@ -30,6 +30,14 @@ packed [12, B] result into pinned host memory behind a CUDA event.  Up
 to PREFETCH batches are in flight; the tail waits on a batch's event
 only when it renders that batch.  On the CPU the same code runs
 synchronously (the tests' path).
+
+Over a device mesh (`mesh_spec` "DP,IP", or all visible GPUs as pure dp
+when there are several) the step is parallel/mesh.py's sharded step: the
+batch pads to a multiple of dp, each dp row's part of the packed result
+comes back behind an event of its own device.  With n_hosts > 1 the
+input stripes by batch (batch b maps on host b % n_hosts), read serials
+stay global, and each host writes its batches through a ShardWriter
+(parallel/distributed.py) for merge_shards.
 """
 from __future__ import annotations
 
@@ -1293,20 +1301,30 @@ class TailPool:
         return text
 
     def render(self, batches, write) -> None:
-        """write(_tail_render(args)) for every args of `batches`, in
-        order, the rendering on the workers."""
-        pending = deque()
-        for args in batches:
+        """write(key, _tail_render(args)) for every (key, args) of
+        `batches`, in order, the rendering on the workers: one write a
+        batch, its chunks' texts joined."""
+        pending = deque()    # (key on a batch's last chunk else None, future)
+        done = []            # the texts of the batch being written
+        for key, args in batches:
             n = len(args[1][0]) // 2 if args[0] else _nreads(args[1])
             step = max(self.CHUNK_MIN, -(-n // self.n))
             for a in range(0, n, step):
-                pending.append(self.pool.submit(
-                    _tail_render, _chunk(args, a, min(n, a + step))))
+                pending.append((key if a + step >= n else None,
+                                self.pool.submit(_tail_render, _chunk(
+                                    args, a, min(n, a + step)))))
                 self.chunks += 1
                 if len(pending) >= 2 * self.n:
-                    write(self._take(pending.popleft()))
+                    self._land(pending.popleft(), done, write)
         while pending:
-            write(self._take(pending.popleft()))
+            self._land(pending.popleft(), done, write)
+
+    def _land(self, item, done: list, write) -> None:
+        key, fut = item
+        done.append(self._take(fut))
+        if key is not None:
+            write(key, "".join(done))
+            done.clear()
 
 
 # ------------------------------------------------------------------
@@ -1317,28 +1335,35 @@ PREFETCH = 4   # batches in flight on the device
 
 
 class _InFlight:
-    """One batch's packed step output on its way to the host."""
+    """One batch's packed step output on its way to the host.  The step
+    takes the reads on the host (pinned on a card) and returns its packed
+    [12, B] tensor, or a mesh step's list of dp row parts; each part is
+    copied into pinned host memory behind an event recorded on its own
+    device's stream (an event of one card does not order another's)."""
 
     def __init__(self, step, arr: np.ndarray, device):
         import torch
         reads = torch.from_numpy(arr)
         if device.type == "cuda":
-            reads = reads.pin_memory().to(device, non_blocking=True)
-        packed = step(reads)
-        self.event = None
+            reads = reads.pin_memory()
+        out = step(reads)
+        self.parts = out if isinstance(out, list) else [out]
+        self.events = []
         if device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=packed.dtype,
-                                    pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = packed
+            host = []
+            for p in self.parts:
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                h.copy_(p, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(p.device))
+                host.append(h)
+                self.events.append(ev)
+            self.parts = host
 
     def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        for ev in self.events:
+            ev.synchronize()
+        return np.concatenate([p.numpy() for p in self.parts], axis=1)
 
 
 def _nreads(item) -> int:
@@ -1347,19 +1372,25 @@ def _nreads(item) -> int:
     return item.n if isinstance(item, RawBatch) else len(item[0])
 
 
-_step_cache: dict = {}   # id(index) -> {(device, penalties): step}
+_step_cache: dict = {}   # id(index) -> {key: step}
 
 
-def get_device_step(refset: RefSet, idx: KmerIndex, device, penalties):
-    """The packed mapping step for (device, penalties), cached for the
-    life of `idx`: repeated runs in one process upload the index once.
-    The cache is kept beside the index, not on it, so that an index (or
-    an exact engine holding it) pickles to a tail worker without it."""
+def _index_cache(idx: KmerIndex) -> dict:
+    """The steps built for `idx`, kept for its life beside it, not on
+    it, so that an index (or an exact engine holding it) pickles to a
+    tail worker without them."""
     cache = _step_cache.get(id(idx))
     if cache is None:
         cache = _step_cache[id(idx)] = {}
         weakref.finalize(idx, _step_cache.pop, id(idx), None)
+    return cache
+
+
+def get_device_step(refset: RefSet, idx: KmerIndex, device, penalties):
+    """The packed mapping step for (device, penalties), cached for the
+    life of `idx`: repeated runs in one process upload the index once."""
     from ..parallel.mesh import DeviceIndex, make_device_step
+    cache = _index_cache(idx)
     key = (str(device), tuple(penalties))
     step = cache.get(key)
     if step is None:
@@ -1369,13 +1400,83 @@ def get_device_step(refset: RefSet, idx: KmerIndex, device, penalties):
     return step
 
 
+def mesh_shape(mesh_spec: Optional[str], device_type: str,
+               n_visible: int) -> Tuple[int, int]:
+    """(dp, ip) of a run: the "DP,IP" spec if given; else, on GPUs, all
+    `n_visible` cards of this host as pure dp when there are more than
+    one; else 1 x 1.  A spec needing more GPUs than are visible raises;
+    on the CPU any shape runs, every member on the CPU."""
+    if mesh_spec:
+        try:
+            dp, ip = (int(x) for x in mesh_spec.split(","))
+        except ValueError:
+            raise ValueError(f"--mesh takes DP,IP (two integers), got "
+                             f"{mesh_spec!r}") from None
+        if dp < 1 or ip < 1:
+            raise ValueError(f"--mesh {mesh_spec}: DP and IP must be >= 1")
+        if device_type == "cuda" and dp * ip > n_visible:
+            raise ValueError(f"--mesh {dp},{ip} needs {dp * ip} GPUs; "
+                             f"{n_visible} visible")
+        return dp, ip
+    if device_type == "cuda" and n_visible > 1:
+        return n_visible, 1
+    return 1, 1
+
+
+def get_mesh_step(refset: RefSet, idx: KmerIndex, mesh, penalties,
+                  Q: int):
+    """The packed step over `mesh` (an spmd.Mesh) for reads padded to Q,
+    cached for the life of `idx` on the mesh's devices and penalties:
+    the replicated-index step for ip = 1, else the index-sharded step
+    over a ShardedDeviceIndex whose halo covers Q's windows (at least
+    DEFAULT_HALO), which the cache key also holds."""
+    from ..parallel.mesh import (DeviceIndex, ShardedDeviceIndex,
+                                 make_index_sharded_step, make_sharded_step,
+                                 window_len)
+    halo = 0
+    if mesh.ip > 1:
+        halo = max(ShardedDeviceIndex.DEFAULT_HALO, window_len(Q))
+    cache = _index_cache(idx)
+    key = ("mesh", mesh.key(), tuple(penalties), halo)
+    step = cache.get(key)
+    if step is None:
+        m, go, ge = ali_mod.make_score_matrix(*penalties)
+        if mesh.ip > 1:
+            sdi = ShardedDeviceIndex.build(refset, idx, mesh.ip, halo=halo)
+            step = make_index_sharded_step(sdi, mesh, m, -go, -ge, pack=True)
+        else:
+            # built on the host; every member takes a copy of its own
+            di = DeviceIndex.build(refset, idx, "cpu")
+            step = make_sharded_step(di, mesh, m, -go, -ge, pack=True)
+        cache[key] = step
+    return step
+
+
+def resolve_mesh(mesh_spec, device):
+    """The spmd.Mesh of a run on `device` (torch.device), or None for
+    one device: `mesh_spec` as it is when it is a Mesh already, else
+    mesh_shape's (dp, ip) over cuda:0.. (this host's cards) or the CPU."""
+    import torch
+    from ..parallel.spmd import Mesh
+    if isinstance(mesh_spec, Mesh):
+        return mesh_spec
+    cuda = device.type == "cuda"
+    dp, ip = mesh_shape(mesh_spec, device.type,
+                        torch.cuda.device_count() if cuda else 0)
+    if dp * ip == 1:
+        return None
+    devs = [torch.device("cuda", i) if cuda else device
+            for i in range(dp * ip)]
+    return Mesh(dp, ip, devs)
+
+
 def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                       out, penalties=(1, -2, -4, -3), minscor: int = 18,
                       nthreads: int = 1, batch: int = 4096,
                       device="cuda", mates_path: Optional[str] = None,
                       insert_min: int = 0, insert_max: int = 500,
                       exact_engine=None, seed: int = 1,
-                      mesh_spec: Optional[str] = None,
+                      mesh_spec=None,
                       libcode=None, ihist=None,
                       host_id: int = 0, n_hosts: int = 1,
                       shard_writer=None, resume_log=None,
@@ -1388,23 +1489,31 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
     truncated are remapped through the exact host lane
     (--fallback-exact).
 
+    mesh_spec: "DP,IP" (mesh_shape; or an spmd.Mesh, an explicit device
+    grid) runs the step over a device mesh; the output is the
+    single-device run's for any shape (reads padded past LONG_READ_Q
+    aside when IP > 1: that step scores them full-matrix, as smalt_tpu's
+    does).  host_id / n_hosts / shard_writer: a multi-host run maps the
+    batches b with b % n_hosts == host_id and writes them through the
+    shard writer (no resume then).
+
     nthreads > 1 renders on a TailPool of that many processes, which
     load the reference and index saved under `index_name` (required
     then: `refset` and `idx` must be what it holds) and rebuild the
-    exact engine from its engine_recipe.  resume_log (a ResumeLog; nthreads = 1 only, as in
-    the reference) skips the batches a checkpoint recorded and ticks
-    after each batch written."""
+    exact engine from its engine_recipe.  resume_log (a ResumeLog;
+    nthreads = 1 only, as in the reference) skips the batches a
+    checkpoint recorded and ticks after each batch written."""
     import torch
     from ..parallel.mesh import OUT_KEYS, window_len, window_pad
-    if mesh_spec is not None or n_hosts > 1 or shard_writer is not None:
-        raise NotImplementedError(
-            "a device mesh or several hosts in the torch fast path is not "
-            "ported yet (ROADMAP.md Queue 1 #8)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but no GPU is visible")
+    mesh = resolve_mesh(mesh_spec, device)
+    dp = mesh.dp if mesh is not None else 1
     writer_args = (True, False)   # soft_clip, x_mismatch
     inserts = (insert_min, insert_max)
+    if shard_writer is not None:
+        resume_log = None
     pool = None
     if nthreads > 1:
         if not index_name:
@@ -1423,8 +1532,15 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
         st = resume_log.load()
         if st:
             skip_reads = st["reads_done"]
+
+    def step_for(Q: int):
+        if mesh is None:
+            return get_device_step(refset, idx, device, penalties)
+        return get_mesh_step(refset, idx, mesh, penalties, Q)
+
     try:
-        step = get_device_step(refset, idx, device, penalties)
+        if mesh is None:     # the index goes up while the workers start
+            step_for(0)
     except BaseException:
         if pool is not None:
             pool.__exit__(*sys.exc_info())
@@ -1443,16 +1559,21 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
             yield n1 + n2, s1 + s2, q1 + q2
 
     def force(work):
-        item, pend, wl, wp, Q, base = work
+        bno, item, pend, wl, wp, Q, base = work
         arr = pend.result()
         outs = {k: arr[i, : _nreads(item)] for i, k in enumerate(OUT_KEYS)}
-        return (paired, item, outs, wl, wp, Q, base)
+        return bno, (paired, item, outs, wl, wp, Q, base)
 
     def batches():
+        """(global batch number, render args) of the batches this host
+        maps, in order; read serials (`base`) stay global."""
         pending = deque()
         base = 0
         want = batch * (2 if paired else 1)   # PE: both mates
-        for item in raw_batches():
+        for bno, item in enumerate(raw_batches()):
+            if n_hosts > 1 and bno % n_hosts != host_id:
+                base += _nreads(item)   # another host's stripe
+                continue
             if base + _nreads(item) <= skip_reads:
                 base += _nreads(item)   # checkpointed: already written
                 continue
@@ -1467,12 +1588,14 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                 arr = item.encode(Q)
             else:
                 arr = encode_batch(item[1], Q)
-            if arr.shape[0] < want:
-                # keep ONE batch shape for the whole run; pad rows are
-                # all-7 (no seeds -> score 0) and force() drops them
-                arr = np.pad(arr, ((0, want - arr.shape[0]), (0, 0)),
+            # keep ONE batch shape for the whole run, a multiple of dp;
+            # pad rows are all-7 (no seeds -> score 0), force() drops them
+            rows = max(want, arr.shape[0])
+            rows += -rows % dp
+            if arr.shape[0] < rows:
+                arr = np.pad(arr, ((0, rows - arr.shape[0]), (0, 0)),
                              constant_values=7)
-            pending.append((item, _InFlight(step, arr, device),
+            pending.append((bno, item, _InFlight(step_for(Q), arr, device),
                             window_len(Q), window_pad(Q), Q, base))
             base += _nreads(item)
             if len(pending) >= PREFETCH:
@@ -1480,20 +1603,26 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
         while pending:
             yield force(pending.popleft())
 
+    def emit(bno, text):
+        if shard_writer is not None:
+            shard_writer.write_batch(bno, text)
+        else:
+            out.write(text)
+
     timing = os.environ.get("SMALT_TIMING")
     t_start = time.time()
     n_done = n_batches = 0
 
     def counted():
         nonlocal n_done, n_batches
-        for args in batches():
+        for bno, args in batches():
             n_done += _nreads(args[1])
             n_batches += 1
-            yield args
+            yield bno, args
 
     if pool is not None:
         with pool:
-            pool.render(counted(), out.write)
+            pool.render(counted(), emit)
         if timing:
             print(f"# SMALT_TIMING tail pool: {nthreads} workers "
                   f"({TAIL_START_METHOD}), {pool.chunks} chunks, first text "
@@ -1503,8 +1632,8 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
     else:
         _tail_init(refset, penalties, minscor, writer_args, inserts,
                    exact_engine, seed, libcode, ihist)
-        for args in counted():
-            out.write(_tail_render(args))
+        for bno, args in counted():
+            emit(bno, _tail_render(args))
             if resume_log is not None:
                 out.flush()
                 resume_log.tick(args[6] + _nreads(args[1]), out.tell(), 0)

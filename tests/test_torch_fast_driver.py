@@ -275,12 +275,12 @@ def test_profile_writes_a_trace(world, tmp_path, capsys):
 
 def test_help_describes_device_pass1_and_profile(capsys):
     """`map --help` describes --device-pass1 (the lane, as smalt_tpu's
-    help does) and --profile; no option says it is not ported but
-    --mesh."""
+    help does), --profile and --mesh; no option says it is not ported."""
     assert cli.main(["map", "--help"]) == 0
     text = " ".join(capsys.readouterr().out.split())
     assert "--device-pass1 score the exact pass-1 candidate windows on " \
         "the device" in text and "output stays bit-identical" in text
     assert "torch profiler trace of the device mapping loop" in text
-    assert text.count("not ported") == 1
-    assert "(not ported: ROADMAP.md Queue 1 #8)" in text
+    assert "--mesh DP,IP with --fast: run the mapping step over a device " \
+        "mesh" in text
+    assert "not ported" not in text

@@ -124,21 +124,37 @@ def test_contig_boundary_identical(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"n_hosts": 2}, "Queue 1 #8"),
-    ({"mesh_spec": "2,1"}, "Queue 1 #8"),
-    # explicit ids: the cases keep their names.  The tail pool and
-    # --resume are ported (item None): each run writes the SAM of the
-    # plain run (tests/test_torch_fast_driver.py has the rest)
+    # explicit ids: the cases keep their names.  Every option is ported
+    # (item None): two hosts (their shards merged), a mesh, the tail pool
+    # and --resume each write the SAM of the plain run
+    # (tests/test_torch_mesh_sharded.py, tests/test_torch_multihost.py and
+    # tests/test_torch_fast_driver.py have the rest)
+    pytest.param({"n_hosts": 2}, None, id="kw0-Queue 1 #8"),
+    pytest.param({"mesh_spec": "2,1"}, None, id="kw1-Queue 1 #8"),
     pytest.param({"nthreads": 2}, None, id="kw2-Queue 1 #11"),
     pytest.param({"resume_log": "-o"}, None, id="kw3-Queue 1 #13"),
 ])
 def test_pipeline_unported_options_raise(simulated, kw, item, tmp_path):
     refset, idx, fq, _ = simulated
+    if "n_hosts" in kw:
+        from smalt_tpu_torch.parallel.distributed import (ShardWriter,
+                                                          merge_shards)
+        want, got = io.StringIO(), io.StringIO()
+        _port_run(refset, idx, fq, want, batch=64)
+        paths = [str(tmp_path / f"o.sam.shard{h}") for h in range(2)]
+        for h, p in enumerate(paths):
+            sw = ShardWriter(p, h, 2)
+            _port_run(refset, idx, fq, None, batch=64, host_id=h, n_hosts=2,
+                      shard_writer=sw)
+            sw.close()
+        assert merge_shards(paths, got) == 4
+        assert got.getvalue() == want.getvalue()
+        return
     if item is None:
         if "resume_log" in kw:
             from smalt_tpu_torch.resume import ResumeLog
             kw = {"resume_log": ResumeLog(str(tmp_path / "o.sam"), ["map"])}
-        else:                  # the pool's workers load the index by name
+        elif "nthreads" in kw:  # the pool's workers load the index by name
             name = str(tmp_path / "idx")
             refset.save(name)
             idx.save(name)
@@ -326,14 +342,15 @@ def test_cli_pairs_match_jax_cli(saved_pairs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--fast", "--mesh", "2,1"], "Queue 1 #8"),
     # explicit ids: a case keeps its name when cases are added or removed
     # (--device-exact with mates maps: tests/test_torch_exact_pe.py).
-    # Ported options map (item None): --profile and -n 2 with --fast write
-    # the SAM of `map --fast` without them (tests/test_torch_fast_driver.py
-    # has the rest; the trace goes to a directory of the test's), and
+    # Ported options map (item None): --mesh, --profile and -n 2 with
+    # --fast write the SAM of `map --fast` without them
+    # (tests/test_torch_mesh_sharded.py and tests/test_torch_fast_driver.py
+    # have the rest; the trace goes to a directory of the test's), and
     # --device-pass1 the SAM of `map` without the flag
     # (tests/test_torch_pass1.py has the rest)
+    pytest.param(["--fast", "--mesh", "2,1"], None, id="extra0-Queue 1 #8"),
     pytest.param(["--fast", "--profile", "PROFDIR"], None,
                  id="extra1-Queue 1 #12"),
     pytest.param(["--fast", "-n", "2"], None, id="extra2-Queue 1 #11"),

@@ -183,9 +183,15 @@ CHANGED = {
         "host halves only; DeviceExact runs the port's torch steps",
         ("class FastLane:", "class DevicePass1:")),
     "cli.py": (
-        "--device, the port's --fast, --device-exact and --device-pass1 "
-        "lanes, the program's name, unported options exit 2",
+        "--device, the port's --fast (over a mesh, over several hosts), "
+        "--device-exact and --device-pass1 lanes, the program's name",
         ("def _parse_penalties(", "def _sam_is_paired(")),
+    "parallel/distributed.py": (
+        "the rendezvous of a multi-host run joins a torch.distributed "
+        "group (gloo) on the reference's SMALT_TPU_* variables in place "
+        "of jax.distributed; the shard writer and the merge are the "
+        "reference's",
+        ("class ShardWriter:", "    return len(merged)")),
 }
 
 
@@ -340,11 +346,27 @@ def test_port_cli_sample_and_check(port_index_prefix, tmp_path):
     assert r.returncode == 0 and r.stdout.strip() == "# 120 read pairs ok"
 
 
-def test_port_cli_version_and_merge_shards():
+def test_port_cli_version_and_merge_shards(tmp_path):
+    """`version`, and `merge-shards` joining two hosts' shards behind the
+    header host 0 wrote, in a process that cannot import smalt_tpu."""
     r = run_port_cli(["version"])
     assert r.returncode == 0 and r.stdout.startswith("smalt_tpu_torch ")
-    r = run_port_cli(["merge-shards", "out.sam", "a.shard0"])
-    assert r.returncode == 2 and "ROADMAP.md Queue 1 #8)" in r.stderr
+    from smalt_tpu_torch.parallel.distributed import ShardWriter
+    paths = []
+    for h in range(2):
+        paths.append(str(tmp_path / f"o.sam.shard{h}"))
+        sw = ShardWriter(paths[-1], h, 2)
+        for b in range(h, 5, 2):
+            sw.write_batch(b, f"r{b}\n")
+        sw.close()
+    (tmp_path / "o.sam.header").write_text("@HD\tVN:1.4\n")
+    out = str(tmp_path / "merged.sam")
+    r = run_port_cli(["merge-shards", out] + paths)
+    assert r.returncode == 0, r.stderr
+    assert "# merged 5 batches from 2 shards" in r.stderr
+    with open(out) as f:
+        assert f.read() == "@HD\tVN:1.4\n" + "".join(
+            f"r{b}\n" for b in range(5))
 
 
 def test_native_library_is_the_ports_own():
