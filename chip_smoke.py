@@ -53,14 +53,20 @@
    lanes, up to 32 warps a window): the band of 20 kb reads (Q = 20,000,
    W = 3,840, S = 22,528) on 12 windows (the plain version timed there),
    then timed on 1,024 copies of them (12,288 windows, the default
-   batch's), and the widest band, W = 16,384 (Q = 87,040), on 4 windows
-   of 8,192 subject rows.  Then sw_band_tiled_kernel (bands past 16,384
-   lanes): with ops/sw.py TILED_BAND_W lowered to 0, so that every band
-   takes it, at W = 768 (Q = 4,096, 512 windows) and W = 3,840 (Q =
-   20,000, 12 windows) on the first 4,096 subject rows of planted and
-   tie-heavy windows, and at W = 200
-   and 330 (Q = 640); then at its own route the 6 windows of 2 reads of
-   100 kb (W = 18,816, S = 112,512), timed, with its bound.
+   batch's), and its widest routed band, W = 12,288 (Q = 65,280), on 4
+   windows of 8,192 subject rows.  Then the kernels of bands past 12,288
+   lanes (ops/sw.py TILED_BAND_W):
+   sw_band_cluster_kernel with ops/sw.py TILED_BAND_W lowered to 0, so
+   that every band takes it, and sw_band_tiled_kernel with CLUSTER_BAND_W
+   lowered to 0 too, at W = 768 (Q = 4,096, 512 windows) and W = 3,840
+   (Q = 20,000, 12 windows) on the first 4,096 subject rows of planted
+   and tie-heavy windows (a seventh of them with slen 0; the cluster
+   kernel also with the matrix outside int8), and at W = 200 and 330 (Q =
+   640); the cluster kernel at its own route on 7 CTAs (W = 12,416, the
+   first width past the many kernel's) and 16 CTAs (W = 32,768, 40,000
+   and 131,072, its widest), on their first rows; then both on the
+   6 windows of 2 reads of 100 kb (W = 18,816, S = 112,512: the cluster
+   kernel at its route, 10 CTAs), timed, with their bound.
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -149,10 +155,14 @@
    way; then 4,096 reads of 100 bp through `map --fast -S
    KEY_SHORT_SPEC` (the penalties times 40,000: sw_full's two-part
    record), SAM byte-identical to --device cpu; then 2 reads of 100 kb
-   through `map --fast` on the card in a batch of 2 (sw_band_tiled_kernel),
-   both placed within 150 bp.  Reads this long are not mapped with `--device cpu`:
-   its plain versions take minutes a batch (phase 3b holds the kernel
-   against its plain version on windows of this shape instead).
+   through `map --fast` on the card at the default batch
+   (sw_band_cluster_kernel; the batch's 4,094 pad reads give their
+   windows no rows), both placed within 150 bp, and that batch's device
+   step timed on the 2 reads and padded to 4,096 rows (the real reads'
+   output unchanged by the padding) beside its host tail.  Reads this
+   long are not mapped with `--device cpu`: its plain versions take
+   minutes a batch (phase 3b holds the kernel against its plain version
+   on windows of this shape instead).
 12. `map --fast` on split-word indexes (k16 s13 and k20 s13) of the same
    genome: 4,096 reads of 100 bp and 256 of 1,500 bp, SAM byte-identical
    to `--device cpu`, placement printed.
@@ -277,19 +287,28 @@ KEY_SHAPE = (16384, 16384, 16)
 KEY_FULL_B = 66 * 16                  # 8 warps a SM
 # sw_band_many_kernel (W > 3,072): the band of 20 kb reads (phase 11's
 # shape, 3 windows a read), checked on BAND_MANY_B windows and timed on
-# BAND_MANY_FULL_B, and the widest band, W = 16,384 (Q = 87,040), on its
-# first BAND_WIDEST[1] subject rows
+# BAND_MANY_FULL_B, and the widest band ops/sw.py routes to it, W =
+# TILED_BAND_W = 12,288 (Q = 65,280), on its first BAND_WIDEST[1] subject
+# rows
 BAND_MANY_Q, BAND_MANY_B = 20000, 12
 BAND_MANY_FULL_B = 3 * BATCH          # timed: the default batch's windows
-BAND_WIDEST = (87040, 8192, 4)        # Q, subject rows, windows
-# sw_band_tiled_kernel (bands past 16,384 lanes): with ops/sw.py
-# TILED_BAND_W lowered to 0 (every band tiled), held at the band geometry
-# of TILED_SMALL (Q, windows: W = 768 and 3,840, one tile and two) on
-# planted and tie-heavy windows and at ODD_BAND_WIDTHS; then at its own
-# route on the windows of TILED_READS reads of TILED_READLEN bp (W past
-# 16,384, three windows a read), timed there
+BAND_WIDEST = (65280, 8192, 4)        # Q, subject rows, windows
+# bands past TILED_BAND_W: sw_band_cluster_kernel (to 131,072 lanes) with
+# ops/sw.py TILED_BAND_W lowered to 0 (every band on it), and
+# sw_band_tiled_kernel (past that) with CLUSTER_BAND_W lowered too, held
+# at the band geometry of TILED_SMALL (Q, windows: W = 768 and 3,840: the
+# cluster kernel on 1 and 2 CTAs, the tiled one on one tile and two) on
+# planted and tie-heavy windows, a seventh of them with slen 0, and at
+# ODD_BAND_WIDTHS; the cluster kernel also with WIDE_PEN, and at its own
+# route on CLUSTER_WIDE (W, windows, subject rows: 7 CTAs at the first
+# width past the many kernel's, then 16 CTAs of 128, 160 and 512
+# threads); then both at the windows of TILED_READS reads of
+# TILED_READLEN bp (W = 18,816, three windows a read: the cluster kernel
+# on 10 CTAs), timed there
 TILED_SMALL = [(4096, 512), (20000, 12)]
 TILED_SMALL_ROWS = 4096               # subject rows held at those widths
+CLUSTER_WIDE = [(12416, 8, 2048), (32768, 2, 384), (40000, 2, 256),
+                (131072, 2, 128)]
 TILED_READLEN, TILED_READS = 100_000, 2
 WIDE_SPEC = "match=200,subst=-2"
 # phase 12: the split-word index, (k, step) each, on the phase-4 genome:
@@ -934,7 +953,8 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     20 kb reads) on BAND_MANY_B windows (the plain version timed there),
     then those windows repeated to BAND_MANY_FULL_B (the default batch's
     windows: the card filled), each copy's result equal to its original's,
-    timed; and at the widest band, W = 16,384, on BAND_WIDEST.  Returns
+    timed; and at the widest band routed to it, W = TILED_BAND_W, on
+    BAND_WIDEST.  Returns
     (max_abs_err, tracked, score-only) as check_band_kernel does, the
     kernel's times those of the full batch."""
     import torch
@@ -992,7 +1012,8 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
         fail(f"the band at Q={Qw} is {W} lanes, not {sw.TILED_BAND_W}")
     err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
                               f"Q={Qw} W={W} S={Sw} (32 warps)")[0])
-    print(f"# sw_band Q={Qw} W={W} (the widest band, 32 warps of 16 lanes a "
+    print(f"# sw_band Q={Qw} W={W} (the widest band routed to it, 32 warps "
+          f"of {-(-W // 1024)} lanes a "
           f"thread), first {Sw} subject rows, B={Bw}: equal to "
           f"sw_band_score_ref (best, ti, tj and score-only) | {card}",
           flush=True)
@@ -1004,103 +1025,172 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
                  plain_rows=rows))
 
 
-def check_band_tiled(rng, mat, go: int, ge: int, card: str):
-    """Phase 3b, bands past 16,384 lanes: sw_band_tiled_kernel (one block a
-    window over tiles of 2,048 lanes, the row's state in a global scratch)
-    against sw_band_score_ref.  First with ops/sw.py TILED_BAND_W lowered
-    to 0, so that every band takes the tiled route: the geometry of
-    TILED_SMALL on planted and on tie-heavy windows (on their first
-    TILED_SMALL_ROWS subject rows), and ODD_BAND_WIDTHS
-    (a tile that ends past W).  Then at the module's threshold the
-    windows of TILED_READS reads of TILED_READLEN bp (band_windows: the
-    mapping path's geometry, three windows a read), timed beside the plain
-    version (the score-only plain version on its first S / 16 rows: a
-    minute a call at the full shape).  Returns (max_abs_err, tracked,
-    score-only) as check_band_many does, at that real shape."""
+def band_launched(before, names, what: str):
+    """Fail unless the sw_band launches since `before` are exactly one of
+    each name in `names`."""
+    from smalt_tpu_torch.ops import sw
+    n = {k: sw.launches[k] - before[k] for k in sw.launches
+         if sw.launches[k] != before[k]}
+    if n != {k: 1 for k in names}:
+        fail(f"sw_band {what}: launches {n}")
+
+
+def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, bands past TILED_BAND_W: sw_band_cluster_kernel (a
+    cluster of up to 16 CTAs a window, the row exchanged in distributed
+    shared memory) and sw_band_tiled_kernel (one block a window over tiles
+    of 2,048 lanes, the row's state in a global scratch) against
+    sw_band_score_ref.  First with ops/sw.py TILED_BAND_W lowered to 0, so
+    that every band takes the cluster route, and then with CLUSTER_BAND_W
+    lowered to 0 too, so that every band takes the tiled one: the
+    geometry of TILED_SMALL on planted and on tie-heavy windows (on their
+    first TILED_SMALL_ROWS subject rows, a seventh of the windows with
+    slen 0), and ODD_BAND_WIDTHS (a thread's or a tile's lanes past W);
+    the cluster kernel also with the WIDE_PEN matrix, and on CLUSTER_WIDE
+    at its own route (16 CTAs, up to 512 threads).  Then at the module's
+    thresholds the windows of TILED_READS reads of TILED_READLEN bp
+    (band_windows: the mapping path's geometry, three windows a read),
+    the cluster kernel at its route and the tiled one with CLUSTER_BAND_W
+    lowered, both timed beside the plain version (the score-only plain
+    version on its first S / 16 rows: a minute a call at the full shape)
+    and their bound.  Returns (max_abs_err, cluster tracked, cluster
+    score-only, tiled tracked, tiled score-only) as check_band_many
+    returns its kernel's, at that real shape."""
     import torch
+    from smalt_tpu_torch.align import core as ali
     from smalt_tpu_torch.ops import bounds, sw
     err = 0
-    thresh = sw.TILED_BAND_W
-    sw.TILED_BAND_W = 0
+    thresh, cap = sw.TILED_BAND_W, sw.CLUSTER_BAND_W
+    wm, wgo, wge = ali.make_score_matrix(*WIDE_PEN)
+    wmat = sw.device_matrix(wm, "cuda")
     try:
-        for Q, B in TILED_SMALL:
+        sw.TILED_BAND_W = 0
+        for route, lowered in (("cluster", "TILED_BAND_W"),
+                               ("tiled", "TILED_BAND_W and CLUSTER_BAND_W")):
+            names = ("sw_band_track_" + route, "sw_band_" + route)
+            if route == "tiled":
+                sw.CLUSTER_BAND_W = 0
+            for Q, B in TILED_SMALL:
+                kinds = (("planted", sw.band_windows, mat, go, ge),
+                         ("tie-heavy", sw.band_tie_windows, mat, go, ge))
+                if route == "cluster":
+                    kinds += (("wide matrix", sw.band_windows, wmat, -wgo,
+                               -wge),)
+                for kind, gen, m, g_, e_ in kinds:
+                    q, s, sl, pad, W, S = gen(rng, B, Q)
+                    if S > TILED_SMALL_ROWS:  # the plain version: a row a step
+                        S = TILED_SMALL_ROWS
+                        s = np.ascontiguousarray(s[:, :S])
+                        sl = np.minimum(sl, S).astype(np.int32)
+                    sl[::7] = 0
+                    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+                    before = dict(sw.launches)
+                    e, want = band_equal(q, s, sl, m, g_, e_, pad, W,
+                                         f"Q={Q} W={W} S={S}, {kind} "
+                                         f"({route})")
+                    band_launched(before, names, f"with {lowered} lowered")
+                    if int(want[0].max()) <= 0:
+                        fail(f"degenerate {kind} windows at Q={Q} ({route})")
+                    err = max(err, e)
+                    shape = (f"{sw.cluster_shape(W)} (CTAs, threads)"
+                             if route == "cluster"
+                             else f"{-(-W // 2048)} tiles a row")
+                    print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} "
+                          f"windows, {B // 7 + 1} with slen 0, {lowered} "
+                          f"lowered to 0, {shape}: sw_band_{route}_kernel "
+                          f"equal to sw_band_score_ref (best, ti, tj and "
+                          f"score-only) | {card}", flush=True)
+            Q, B = ODD_BAND_Q, 256
             for kind, gen in (("planted", sw.band_windows),
                               ("tie-heavy", sw.band_tie_windows)):
-                q, s, sl, pad, W, S = gen(rng, B, Q)
-                if S > TILED_SMALL_ROWS:      # the plain version: a row a step
-                    S = TILED_SMALL_ROWS
-                    s = np.ascontiguousarray(s[:, :S])
-                    sl = np.minimum(sl, S).astype(np.int32)
+                q, s, sl, pad, _, S = gen(rng, B, Q)
                 q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-                before = dict(sw.launches)
-                e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
-                                     f"Q={Q} W={W} S={S}, {kind} (tiled)")
-                n = {k: sw.launches[k] - before[k] for k in sw.launches
-                     if sw.launches[k] != before[k]}
-                if n != {"sw_band_track_tiled": 1, "sw_band_tiled": 1}:
-                    fail(f"sw_band with TILED_BAND_W = 0: launches {n}")
-                if int(want[0].max()) <= 0:
-                    fail(f"degenerate {kind} windows at Q={Q} (tiled)")
-                err = max(err, e)
-                print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows, "
-                      f"TILED_BAND_W lowered to 0 ({-(-W // 2048)} tiles a "
-                      f"row): sw_band_tiled_kernel equal to sw_band_score_ref "
-                      f"(best, ti, tj and score-only) | {card}", flush=True)
-        Q, B = ODD_BAND_Q, 256
-        for kind, gen in (("planted", sw.band_windows),
-                          ("tie-heavy", sw.band_tie_windows)):
-            q, s, sl, pad, _, S = gen(rng, B, Q)
-            q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-            for W in ODD_BAND_WIDTHS:
-                err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
-                                          f"Q={Q} W={W} S={S}, {kind} "
-                                          f"(tiled)")[0])
-                print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows, "
-                      f"TILED_BAND_W lowered to 0: sw_band_tiled_kernel "
-                      f"equal to sw_band_score_ref | {card}", flush=True)
+                for W in ODD_BAND_WIDTHS:
+                    err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                                              f"Q={Q} W={W} S={S}, {kind} "
+                                              f"({route})")[0])
+                    print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} "
+                          f"windows, {lowered} lowered to 0: "
+                          f"sw_band_{route}_kernel equal to sw_band_score_ref"
+                          f" | {card}", flush=True)
     finally:
-        sw.TILED_BAND_W = thresh
+        sw.TILED_BAND_W, sw.CLUSTER_BAND_W = thresh, cap
+    for W, B, rows in CLUSTER_WIDE:
+        q, s, sl, pad, _, S = sw.band_windows(rng, B, W * 16 // 3)
+        s = np.ascontiguousarray(s[:, :rows])
+        sl = np.minimum(sl, rows).astype(np.int32)
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        before = dict(sw.launches)
+        err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                                  f"W={W}, first {rows} rows (cluster)")[0])
+        band_launched(before, ("sw_band_track_cluster", "sw_band_cluster"),
+                      f"at W={W}")
+        print(f"# sw_band Q={q.shape[1]} W={W} B={B}, first {rows} subject "
+              f"rows, {sw.cluster_shape(W)} (CTAs, threads): "
+              f"sw_band_cluster_kernel equal to sw_band_score_ref | {card}",
+              flush=True)
     Q = -(-TILED_READLEN // 16) * 16
     B = 3 * TILED_READS
     q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
-    if W <= sw.TILED_BAND_W:
+    if not sw.TILED_BAND_W < W <= sw.CLUSTER_BAND_W:
         fail(f"the band of {TILED_READLEN} bp reads is {W} lanes")
     q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
     before = dict(sw.launches)
     times = {}
     e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
-                         f"Q={Q} W={W} S={S} (tiled)", times)
-    n = {k: sw.launches[k] - before[k] for k in sw.launches
-         if sw.launches[k] != before[k]}
-    if n != {"sw_band_track_tiled": 1, "sw_band_tiled": 1}:
-        fail(f"sw_band at W={W}: launches {n}")
+                         f"Q={Q} W={W} S={S} (cluster)", times)
+    band_launched(before, ("sw_band_track_cluster", "sw_band_cluster"),
+                  f"at W={W}")
     if int(want[0].max()) <= Q // 4:
         fail(f"degenerate band windows at Q={Q}")
     err = max(err, e)
-    # each kernel's one call in the check is its timing, as the plain
-    # version's (a minute at this shape); the score-only plain version on
-    # the windows' first S / 16 rows
-    k_ms, k0_ms, p_ms = times["track"], times["score"], times["plain"]
+    c_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                           track=True), 3, warm=1)
+    c0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                            track=False), 3, warm=1)
+    sw.CLUSTER_BAND_W = sw.TILED_BAND_W
+    try:                      # the tiled kernel on the same windows, once
+        before = dict(sw.launches)
+        got, k_ms = timed(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad,
+                                                  W, track=True))
+        got0, k0_ms = timed(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge,
+                                                    pad, W, track=False))
+        band_launched(before, ("sw_band_track_tiled", "sw_band_tiled"),
+                      f"with CLUSTER_BAND_W lowered at W={W}")
+    finally:
+        sw.CLUSTER_BAND_W = cap
+    if not all(torch.equal(g, w) for g, w in zip(got, want)) or \
+            not torch.equal(got0, want[0]):
+        fail(f"sw_band_tiled_kernel differs from sw_band_score_ref at Q={Q} "
+             f"W={W}")
+    p_ms = times["plain"]
     rows = S // 16
     p0_ms = time_ms(lambda: sw.sw_band_score_ref(
         q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t, go,
         ge, pad, W), 1, warm=0)
-    print(f"# sw_band Q={Q} W={W} S={S} B={B} (sw_band_tiled_kernel, "
-          f"{-(-W // 2048)} tiles of 2,048 lanes a row; the windows of "
-          f"{TILED_READS} reads of {TILED_READLEN} bp): equal to "
-          f"sw_band_score_ref (best, ti, tj and score-only); track "
-          f"{k_ms:.1f} ms, score-only {k0_ms:.1f} ms; plain {p_ms:.1f} ms "
-          f"tracked, {p0_ms:.1f} ms score-only on the first {rows} rows | "
-          f"{card}", flush=True)
+    print(f"# sw_band Q={Q} W={W} S={S} B={B} (the windows of {TILED_READS} "
+          f"reads of {TILED_READLEN} bp): sw_band_cluster_kernel "
+          f"{sw.cluster_shape(W)} (CTAs, threads) and sw_band_tiled_kernel "
+          f"({-(-W // 2048)} tiles of 2,048 lanes a row) equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only); cluster track "
+          f"{c_ms:.1f} ms, score-only {c0_ms:.1f} ms (3 calls); tiled track "
+          f"{k_ms:.1f} ms, score-only {k0_ms:.1f} ms (1 call); plain "
+          f"{p_ms:.1f} ms tracked, {p0_ms:.1f} ms score-only on the first "
+          f"{rows} rows | {card}", flush=True)
     wt, w0 = (bounds.sw_band_work(Q, S, W, pad, sl, t) for t in (True, False))
-    print(bound_line(f"sw_band_track_tiled Q={Q} W={W} S={S} B={B}", wt, k_ms,
-                     card))
-    print(bound_line(f"sw_band_tiled Q={Q} W={W} S={S} B={B}", w0, k0_ms,
-                     card), flush=True)
-    return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
-                      bound_by=wt["bound_by"], windows=B),
-            dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
-                 bound_by=w0["bound_by"], windows=B, plain_rows=rows))
+    recs = []
+    for name, ms, w in (("sw_band_track_cluster", c_ms, wt),
+                        ("sw_band_cluster", c0_ms, w0),
+                        ("sw_band_track_tiled", k_ms, wt),
+                        ("sw_band_tiled", k0_ms, w0)):
+        print(bound_line(f"{name} Q={Q} W={W} S={S} B={B}", w, ms, card),
+              flush=True)
+        rec = dict(ms=ms, plain_ms=p_ms, bound_ms=w["bound_ms"],
+                   bound_by=w["bound_by"], windows=B)
+        if "track" not in name:
+            rec.update(plain_ms=p0_ms, plain_rows=rows)
+        recs.append(rec)
+    return (err, *recs)
 
 
 def check_wide_band(rng, card: str):
@@ -1533,12 +1623,15 @@ def map_cli(device: str, idx_name: str, sam: str, reads, batch: int,
 
 
 def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
-                card: str, check_cpu: bool = False):
+                card: str, check_cpu: bool = False, pad_to: int = 0,
+                reps: int = 5):
     """One batch of a mapping phase, outside the CLI run (so its launches
-    are not counted there): the device step's time (CUDA events over 5
-    calls) against the host tail's (one call of the pipeline's tail).
-    With check_cpu, the packed step output must also equal the CPU
-    step's on the same batch."""
+    are not counted there): the device step's time (CUDA events over
+    `reps` calls) against the host tail's (one call of the pipeline's
+    tail).  With check_cpu, the packed step output must also equal the CPU
+    step's on the same batch.  pad_to: the step also timed on the batch
+    padded to that many rows with all-7 pad reads, as the pipeline pads
+    its last batch.  Returns (step ms, padded step ms or None, tail ms)."""
     import torch
     from smalt_tpu_torch.index.table import KmerIndex
     from smalt_tpu_torch.map.fastmode import (RawBatch, _tail_init,
@@ -1555,7 +1648,16 @@ def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
     arr = torch.from_numpy(item.encode(Q) if raw
                            else encode_batch(item[1], Q)).to(device)
     step = get_device_step(refset, idx, device, (1, -2, -4, -3))
-    step_ms = time_ms(lambda: step(arr), 5)
+    step_ms = time_ms(lambda: step(arr), reps)
+    pad_ms = None
+    if pad_to > n:
+        padded = torch.full((pad_to, Q), 7, dtype=arr.dtype, device=device)
+        padded[:n] = arr
+        pad_ms = time_ms(lambda: step(padded), reps, warm=1)
+        if not torch.equal(step(padded)[:, :n].cpu(), step(arr).cpu()):
+            fail(f"{what}: the step's output on the real reads changes with "
+                 f"{pad_to - n} pad reads in the batch")
+        del padded
     packed = step(arr).cpu()
     if check_cpu:
         packed_cpu = get_device_step(refset, idx, "cpu", (1, -2, -4, -3))(
@@ -1572,9 +1674,12 @@ def batch_split(what: str, idx_name: str, item, paired: bool, device: str,
     t0 = time.perf_counter()
     _tail_render((paired, item, outs, window_len(Q), window_pad(Q), Q, 0))
     tail_ms = 1e3 * (time.perf_counter() - t0)
+    padded = "" if pad_ms is None else \
+        f", {pad_ms:.3f} ms padded to {pad_to} rows"
     print(f"# {what}, one batch of {n} reads (Q={Q}): device step "
-          f"{step_ms:.3f} ms (CUDA events, 5 calls), host tail "
+          f"{step_ms:.3f} ms{padded} (CUDA events, {reps} calls), host tail "
           f"{tail_ms:.1f} ms (one call) | {card}", flush=True)
+    return step_ms, pad_ms, tail_ms
 
 
 def import_seconds(module: str) -> float:
@@ -2475,7 +2580,8 @@ def run_very_long(d: str, genome, card: str):
     against the host C lane; (e) BATCH reads of READLEN bp through `map
     --fast -S KEY_SHORT_SPEC` (sw_full's two-part record) against --device
     cpu; (f) TILED_READS reads of TILED_READLEN bp through `map --fast` on
-    the card (sw_band_tiled_kernel), placed within LONG_TOL bp: reads
+    the card at the default batch (sw_band_cluster_kernel; the batch's pad
+    reads take no rows), placed within LONG_TOL bp: reads
     this long take the plain versions minutes a batch on the CPU, so they
     are not compared with `--device cpu` (phase 3b holds the kernel
     against its plain version on windows of this shape).  Returns the
@@ -2564,26 +2670,34 @@ def run_very_long(d: str, genome, card: str):
           f"bp: SAM byte-identical to --device cpu, {wall:.3f} s on the card; "
           f"placed {placement(body, truth, rev)}/{BATCH} within {PLACE_TOL} "
           f"bp; launches {runs['fast key short']} | {card}", flush=True)
-    # (f) reads whose band passes 16,384 lanes: sw_band_tiled_kernel
+    # (f) reads whose band passes 16,384 lanes: sw_band_cluster_kernel,
+    # at the default batch: the pipeline pads the batch to its size, and
+    # the pad reads' windows take no rows (mesh.py pad_read_slens)
     reads, truth, rev = make_long_reads(rng, genome, TILED_READS,
                                         TILED_READLEN)
     fq, _ = write_fastq(os.path.join(d, "vlong100k.fq"), reads, b"t")
     sam = os.path.join(d, "vlong100k.sam")
-    # a batch of these reads alone: the pipeline pads a batch to its size,
-    # and every pad row's three windows would run the whole band
-    runs["fast 100 kb"], wall, _ = map_cli("cuda", idx_name, sam, [fq],
-                                           TILED_READS)
+    runs["fast 100 kb"], wall, m = map_cli("cuda", idx_name, sam, [fq],
+                                           BATCH)
     body = sam_body(sam)
     placed = placement(body, truth, rev, LONG_TOL)
     if len(body) != TILED_READS or placed != TILED_READS or \
-            runs["fast 100 kb"]["sw_band_track_tiled"] < 1:
+            runs["fast 100 kb"]["sw_band_track_cluster"] < 1:
         fail(f"--fast on {TILED_READS} reads of {TILED_READLEN} bp: "
              f"{len(body)} records, {placed} placed, launches "
              f"{runs['fast 100 kb']}")
     print(f"# map --fast on {TILED_READS} reads of {TILED_READLEN} bp (bands "
-          f"past 16,384 lanes): {wall:.1f} s on the card, placed "
-          f"{placed}/{TILED_READS} within {LONG_TOL} bp; launches "
-          f"{runs['fast 100 kb']} | {card}", flush=True)
+          f"past 16,384 lanes) at the default batch ({BATCH}): {wall:.1f} s "
+          f"on the card, pipeline {m.group(3) if m else '?'} s (the tiled "
+          f"kernel, PERF.md: 344.3 s at this batch, 10.1 s at a batch of "
+          f"{TILED_READS}), placed {placed}/{TILED_READS} within {LONG_TOL} "
+          f"bp; launches {runs['fast 100 kb']} | {card}", flush=True)
+    # where that run's time goes: the step on the 2 reads alone and
+    # padded to the batch, and the host tail
+    from smalt_tpu_torch.map.fastmode import iter_fastq_hybrid
+    batch_split(f"--fast {TILED_READS} x {TILED_READLEN} bp", idx_name,
+                next(iter(iter_fastq_hybrid(fq, BATCH))), False, "cuda", card,
+                pad_to=BATCH, reps=3)
     return runs
 
 
@@ -3098,7 +3212,7 @@ def main() -> int:
     berr, k_band_t, k_band, k_many_t, k_many = check_band_kernel(rng, card)
     wberr, k_wband_t, k_wband = check_wide_band(rng, card)
     m_, go_, ge_ = ali.make_score_matrix()
-    terr, k_tiled_t, k_tiled = check_band_tiled(
+    terr, k_clu_t, k_clu, k_tiled_t, k_tiled = check_band_past_16384(
         rng, sw.device_matrix(m_, "cuda"), -go_, -ge_, card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3246,7 +3360,9 @@ def main() -> int:
             ("sw_full_track_strip_rec", full, serr,
              k_rec["sw_full_track_strip_rec"]),
             ("sw_band_track_tiled", band, terr, k_tiled_t),
-            ("sw_band_tiled", band, terr, k_tiled))]}))
+            ("sw_band_tiled", band, terr, k_tiled),
+            ("sw_band_track_cluster", band, terr, k_clu_t),
+            ("sw_band_cluster", band, terr, k_clu))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,13 +44,17 @@
 // one multiply-add for the key), one shared-memory load, and ~25
 // instructions and 8 shuffles a thread and row that do not grow with C.
 //
-// Three kernels.  Bands up to 512 lanes (every band the mapping path makes
+// Five kernels.  Bands up to 512 lanes (every band the mapping path makes
 // for reads up to ~2.8 kb) run sw_band_warp_kernel: one warp a window, up
 // to four windows a block.  Wider bands run the several-warps kernel, one
 // window a block: sw_band_multi_kernel on NW = ceil(W/512) <= 6 warps up
 // to W = 3,072, and above that sw_band_many_kernel, the same code on up to
-// 32 warps (1,024 threads, W <= 16,384: reads up to ~87 kb); wider bands
-// run sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
+// 32 warps (1,024 threads of 12 lanes, W <= 12,288: reads up to ~65 kb);
+// wider bands run sw_band_cluster_kernel
+// (sw_band_cluster.cuh), one thread-block
+// cluster of up to 16 CTAs a window with the row exchanged in distributed
+// shared memory (W <= 131,072: reads up to ~700 kb), and past that
+// sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
 // tiles of the band with the row's state in a global scratch.  In all of
 // them a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
 // registers; lanes at or past W are padding that never reaches a real
@@ -175,8 +179,8 @@ constexpr int NEG = -(1 << 28);
 constexpr int HPAD = -(1 << 22);       // H of a padding lane (one warp)
 constexpr int WARPS = 4;               // windows (warps) per block, W <= 512
 constexpr int MAX_NW = 6;              // sw_band_multi_kernel, W <= 3072
-constexpr int MANY_NW = 32;            // sw_band_many_kernel, W <= 16384
-constexpr int MAX_W = 32 * 16 * MANY_NW;
+constexpr int MANY_NW = 32;            // sw_band_many_kernel, W <= 12288
+constexpr int MAX_W = 32 * 12 * MANY_NW;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int addmax(int a, int b, int c) {
@@ -380,12 +384,13 @@ sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 #include "sw_band_multi.cuh"
 #undef SWB_MULTI_KERNEL
 #undef SWB_MULTI_NW
-#define SWB_MULTI_KERNEL sw_band_many_kernel    // W <= 16,384
+#define SWB_MULTI_KERNEL sw_band_many_kernel    // W <= 12,288
 #define SWB_MULTI_NW 32
 #include "sw_band_multi.cuh"
 #undef SWB_MULTI_KERNEL
 #undef SWB_MULTI_NW
-#include "sw_band_tiled.cuh"                  // W > 16,384
+#include "sw_band_tiled.cuh"                  // W > CLUSTER_BAND_W
+#include "sw_band_cluster.cuh"                // 12,288 < W <= 131,072
 
 struct Args {
   const int *q, *subj, *slens, *matrix;
@@ -425,17 +430,51 @@ cudaError_t launch_warp(bool track, const Args& a) {
   return cudaGetLastError();
 }
 
+// sw_band_multi_kernel on nw <= MAX_NW warps of C lanes a thread, else
+// sw_band_many_kernel on 12 (past 12,288 lanes the cluster kernel is
+// faster, tracked and score-only: PERF.md).
 template <int C>
 void launch_multi(bool track, int nw, const Args& a) {
   const dim3 grid(a.B), block(nw * 32);
   auto kernel = nw > MAX_NW
-                    ? (track ? sw_band_many_kernel<C, true>
-                             : sw_band_many_kernel<C, false>)
+                    ? (track ? sw_band_many_kernel<12, true>
+                             : sw_band_many_kernel<12, false>)
                     : (track ? sw_band_multi_kernel<C, true>
                              : sw_band_multi_kernel<C, false>);
   kernel<<<grid, block, 0, a.stream>>>(a.q, a.subj, a.slens, a.matrix, a.B,
                                        a.Q, a.S, a.W, a.prepad, a.go, a.ge,
                                        a.best, a.ti, a.tj);
+}
+
+cudaError_t launch_cluster(bool track, int ncta, int nthreads,
+                           const Args& a) {
+  auto kernel = track ? sw_band_cluster_kernel<true>
+                      : sw_band_cluster_kernel<false>;
+  if (ncta > 8) {                      // past the portable cluster size
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return rc;
+  }
+  LaneConsts lc;
+  for (int c = 0; c < 16; ++c) {
+    lc.cge[c] = c * a.ge;
+    lc.fk[c] = -(a.go + (c - 1) * a.ge);
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ncta;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * ncta);
+  cfg.blockDim = dim3(nthreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a.q, a.subj, a.slens, a.matrix,
+                            a.Q, a.S, a.W, a.prepad, a.go, a.ge, lc, a.best,
+                            a.ti, a.tj);
 }
 
 }  // namespace
@@ -449,7 +488,8 @@ void launch_multi(bool track, int nw, const Args& a) {
 // extension with (S + 1) * ge >= 2^28 (the one-warp kernel's stand-in for
 // NEG).  W past 3,072 runs sw_band_many_kernel.  Returns the CUDA error
 // of the launch (0 on success), or -1 when an argument is out of range
-// (W outside 1..16384 included: wider bands take sw_band_tiled_launch).
+// (W outside 1..12288 included: wider bands take sw_band_cluster_launch
+// or sw_band_tiled_launch).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
@@ -473,8 +513,7 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
   if (wide) nw = max(nw, 2);           // no int8 profile: int32 lookups
   if (ge < 0) return -1;
   if (nw == 1 && (long long)(S + 1) * ge >= (1 << 28)) nw = 2;
-  if (nw > MAX_NW && W <= 32 * 12 * MANY_NW)
-    nw = (W + 383) / 384;              // 12 lanes a thread: fewer registers
+  if (nw > MAX_NW) nw = (W + 383) / 384;   // 12 lanes a thread
   if (nw > 1) {
     if ((W + 32 * nw - 1) / (32 * nw) <= 12) launch_multi<12>(tr, nw, a);
     else launch_multi<16>(tr, nw, a);
@@ -489,8 +528,37 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
   }
 }
 
+// Scores B windows with the cluster kernel (sw_band_cluster.cuh): a
+// cluster of ncta CTAs a window (1..CLUSTER_MAX), nthreads threads a CTA
+// (a multiple of 32, at most CLUSTER_NT), CLUSTER_C band lanes a thread,
+// ncta * nthreads * CLUSTER_C >= W (ops/sw.py cluster_shape chooses them;
+// it routes TILED_BAND_W < W <= CLUSTER_BAND_W here).  The other
+// arguments are sw_band_launch's less `wide` (int32 lookups, no packed
+// key).  Returns the CUDA error of the launch (0 on
+// success), or -1 when an argument is out of range.
+extern "C" int sw_band_cluster_launch(const void* q, const void* subj,
+                                      const void* slens, const void* matrix,
+                                      int B, int Q, int S, int W, int prepad,
+                                      int go, int ge, int track, void* best,
+                                      void* ti, void* tj, void* stream,
+                                      int ncta, int nthreads) {
+  if (Q < 1 || S < 0 || B < 0 || W < 1 || ge < 0) return -1;
+  if (ncta < 1 || ncta > CLUSTER_MAX || nthreads < 32 || nthreads % 32 ||
+      nthreads > CLUSTER_NT ||
+      (long long)ncta * nthreads * CLUSTER_C < W ||
+      (long long)B * ncta > INT_MAX)
+    return -1;
+  if (B == 0) return 0;
+  const Args a = {static_cast<const int*>(q), static_cast<const int*>(subj),
+                  static_cast<const int*>(slens),
+                  static_cast<const int*>(matrix), B, Q, S, W, prepad, go, ge,
+                  static_cast<int*>(best), static_cast<int*>(ti),
+                  static_cast<int*>(tj), static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_cluster(track != 0, ncta, nthreads, a));
+}
+
 // Scores B windows with the tiled kernel (sw_band_tiled.cuh), for bands
-// of any width; ops/sw.py routes W past TILED_BAND_W here.  The arguments
+// of any width; ops/sw.py routes W past CLUSTER_BAND_W here.  The arguments
 // are sw_band_launch's less `wide` (the kernel looks its scores up in the
 // int32 matrix), and scratch, int32 [B, W, 2] on the device: each
 // window's row state, written before it is read.  Returns the CUDA error

@@ -1,5 +1,6 @@
-// The tiled kernel of sw_band.cu: bands wider than 16,384 lanes (reads
-// past ~87 kb), which the register-resident kernels cannot hold.  It
+// The tiled kernel of sw_band.cu: bands wider than ops/sw.py
+// CLUSTER_BAND_W = 131,072 lanes (reads past ~700 kb), which the
+// register-resident kernels cannot hold.  It
 // computes _make_swb_kernel's function (smalt_tpu/ops/sw.py:269), the
 // recurrence at the top of sw_band.cu, with the same tracking rule.
 //

@@ -27,17 +27,26 @@ import torch
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 # Queries past MAX_Q run sw_full's strip path (one warp a window, strips
-# of MAX_Q columns), which has no limit on Q, and bands past TILED_BAND_W
+# of MAX_Q columns), which has no limit on Q, and bands past CLUSTER_BAND_W
 # run sw_band's tiled kernel, which has no limit on W.  Their scratch
 # (int32 [windows, S, 2] of strip carry, int32 [windows, W, 2] of band row
 # state) is kept within this many bytes by launching groups of windows
 # (scratch_groups).
 SCRATCH_BYTES = 1 << 30
 MULTI_BAND_W = 3072  # widest band of sw_band_multi_kernel (6 warps)
-# widest band of the register-resident sw_band kernels (sw_band_many_kernel,
-# 32 warps of 16 lanes a thread); wider bands run sw_band_tiled_kernel,
-# which keeps the row's state in a global scratch
-TILED_BAND_W = 16384
+# widest band of the one-block sw_band kernels (sw_band_launch; past 3,072
+# lanes sw_band_many_kernel, 32 warps of 12 lanes a thread: reads up to
+# ~65 kb; past 12,288 lanes the cluster kernel is faster than it on 16
+# lanes, tracked and score-only: PERF.md); wider bands run
+# sw_band_cluster_kernel, a thread-block cluster a window, up to
+# CLUSTER_BAND_W (CLUSTER_MAX CTAs of 512 threads of 16 lanes: reads up to
+# ~700 kb), and past that sw_band_tiled_kernel, which keeps the row's
+# state in a global scratch
+TILED_BAND_W = 12288
+CLUSTER_MAX = 16            # CTAs a cluster (past 8: a non-portable size)
+CLUSTER_C = 16              # band lanes a thread
+CLUSTER_BAND_W = CLUSTER_MAX * 512 * CLUSTER_C
+CLUSTER_CTA_LANES = 2048    # band lanes a CTA holds where the band allows
 # The tracking key T * 256 + 255 - c (sw_full.cu, sw_band.cu's one-warp
 # kernel) holds |T| < 2^23; a window can score no more than max|entry| *
 # (query columns or subject rows, the fewer), and a tracked launch that
@@ -62,8 +71,9 @@ DP_CAP = 1 << 30
 # width up to MULTI_BAND_W); "_rec": a tracked sw_full window that could
 # score KEY_CAP (the WIDE instance of sw_full_rec_kernel or
 # sw_strip_rec_kernel); "_strip": sw_full's path for queries past MAX_Q;
-# "_many": sw_band_many_kernel, bands past MULTI_BAND_W; "_tiled":
-# sw_band_tiled_kernel, bands past TILED_BAND_W.  The names are what
+# "_many": sw_band_many_kernel, bands past MULTI_BAND_W; "_cluster":
+# sw_band_cluster_kernel, bands past TILED_BAND_W; "_tiled":
+# sw_band_tiled_kernel, bands past CLUSTER_BAND_W.  The names are what
 # sw_full_instance and sw_band_instance return.
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
@@ -72,7 +82,8 @@ launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0,
             "sw_band_track_many": 0, "sw_band_many": 0,
             "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0,
-            "sw_band_track_tiled": 0, "sw_band_tiled": 0}
+            "sw_band_track_tiled": 0, "sw_band_tiled": 0,
+            "sw_band_track_cluster": 0, "sw_band_cluster": 0}
 
 _libs: dict = {}
 
@@ -173,19 +184,35 @@ def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
                      track: bool) -> str:
     """The sw_band.cu instance a launch runs, by its name in `launches`:
     "_tiled" (sw_band_tiled_kernel: int32 lookups, no packed key, any
-    width) past TILED_BAND_W lanes; "_many" (sw_band_many_kernel) past
-    MULTI_BAND_W; "_wide" (the several-warps kernel, int32 lookups and no
-    packed key) for a matrix outside int8 or a tracked window that could
-    score KEY_CAP; else the int8 route (one warp a window to W = 512,
-    sw_band_multi_kernel above, or where the one-warp kernel's profile
-    does not fit)."""
+    width) past CLUSTER_BAND_W lanes; "_cluster" (sw_band_cluster_kernel:
+    the same lookups and record) past TILED_BAND_W; "_many"
+    (sw_band_many_kernel) past MULTI_BAND_W; "_wide" (the several-warps
+    kernel, int32 lookups and no packed key) for a matrix outside int8 or
+    a tracked window that could score KEY_CAP; else the int8 route (one
+    warp a window to W = 512, sw_band_multi_kernel above, or where the
+    one-warp kernel's profile does not fit)."""
     name = "sw_band_track" if track else "sw_band"
-    if W > TILED_BAND_W:
+    if W > CLUSTER_BAND_W:
         return name + "_tiled"
+    if W > TILED_BAND_W:
+        return name + "_cluster"
     if W > MULTI_BAND_W:
         return name + "_many"
     wide = matrix.wide or (track and key_over(matrix, Q, S))
     return name + ("_wide" if wide else "")
+
+
+def cluster_shape(W: int):
+    """(CTAs, threads a CTA) of sw_band_cluster_kernel for a band of W <=
+    CLUSTER_BAND_W lanes, CLUSTER_C a thread: CTAs of about
+    CLUSTER_CTA_LANES lanes, so that a few windows spread over many SMs,
+    up to CLUSTER_MAX of them (then up to 512 threads a CTA), in whole
+    warps."""
+    if not 1 <= W <= CLUSTER_BAND_W:
+        raise ValueError(f"sw_band_cluster: band width {W} outside "
+                         f"1..{CLUSTER_BAND_W}")
+    ncta = min(CLUSTER_MAX, -(-W // CLUSTER_CTA_LANES))
+    return ncta, 32 * -(-W // (32 * ncta * CLUSTER_C))
 
 
 def _matrix_on(matrix, device) -> DeviceMatrix:
@@ -330,11 +357,13 @@ def band_tie_windows(rng, B: int, Q: int):
 # last, so that earlier versions of those sources (which take none) can be
 # timed beside them (ops/time_sw.py).  sw_full_strip is sw_full.cu's entry
 # for queries past MAX_Q: sw_full's arguments and the carry scratch;
-# sw_band_tiled is sw_band.cu's entry for bands past TILED_BAND_W:
-# sw_band's arguments less `wide`, and the row-state scratch.
+# sw_band_cluster and sw_band_tiled are sw_band.cu's entries for bands
+# past TILED_BAND_W and CLUSTER_BAND_W: sw_band's arguments less `wide`,
+# then the cluster's shape (cluster_shape) or the row-state scratch.
 _SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
          "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppip",
-         "sw_band_tiled": "ppppiiiiiiiippppp"}
+         "sw_band_tiled": "ppppiiiiiiiippppp",
+         "sw_band_cluster": "ppppiiiiiiiippppii"}
 
 
 def bind(lib, entry: str):
@@ -524,9 +553,11 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     and results as sw_band_score_ref (W as given, >= 1); every tensor
     contiguous int32 on one CUDA device, the matrix a DeviceMatrix; the
     instance as sw_band_instance names it.  A band past TILED_BAND_W runs
-    the tiled kernel (sw_band_tiled_launch) over the groups of windows
-    scratch_groups makes, one launch a group, with an int32 row-state
-    scratch for one group made here."""
+    the cluster kernel (sw_band_cluster_launch, one launch in the shape
+    cluster_shape gives), and one past CLUSTER_BAND_W the tiled kernel
+    (sw_band_tiled_launch) over the groups of windows scratch_groups
+    makes, one launch a group, with an int32 row-state scratch for one
+    group made here."""
     if W < 1:
         raise ValueError(f"sw_band: band width {W} < 1")
     B, Q = qcodes.shape
@@ -558,6 +589,8 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                     *outp, stream)
             if tiled:
                 rc = lib.sw_band_tiled_launch(*args, scratch[0].data_ptr())
+            elif name.endswith("_cluster"):
+                rc = lib.sw_band_cluster_launch(*args, *cluster_shape(W))
             else:
                 rc = lib.sw_band_launch(*args, int(name.endswith("_wide")))
             if rc != 0:

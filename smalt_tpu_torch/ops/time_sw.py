@@ -11,7 +11,12 @@ which takes a (W, Sp, 32) int16 scratch; labelled by its file name) side
 by side.  Each must equal the kernel's plain version (sw_score_ref,
 sw_band_score_ref, swq_fill_walk_ref) exactly on a head of every input
 (all of it for swq), and every baseline must equal the shipped kernel on
-all of it, before anything is timed.
+all of it, before anything is timed.  sw_band's bands past 512 lanes
+(BAND_WIDE) are timed through each entry point a version has and the
+shape names (sw_band_launch's one-block kernels, "many"; the cluster and
+the tiled kernel), each labelled "<version> <route>", with one launch a
+timing and at most 3 rounds; there the plain version holds every route
+on the windows' first rows and the routes hold each other on all.
 The versions are then timed in turns (CUDA events over --reps launches,
 --rounds rounds, each round in the opposite order of the last), at the
 shapes the mapping paths use, on random windows and on tie-heavy ones
@@ -58,6 +63,20 @@ FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
 # 1,500 bp reads (the long-read path of `map --fast`) and 640 bp reads
 # (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
 BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
+# sw_band past 512 lanes, (Q, B, subject rows kept or 0 for all, routes):
+# 20 kb reads (W = 3,840) at the default batch's 12,288 windows; W =
+# 3,840, 6,144, 8,192, 12,288 (the one-block kernels' widest), 12,416,
+# 14,336 and 16,384 (87 kb reads) on 132 windows of 4,096 rows, where the
+# one-block kernels (a baseline's, past 12,288) and the cluster kernel
+# meet; the 6 windows of 2 reads of 100 kb (W = 18,816), where the
+# cluster and the tiled kernel meet
+BAND_WIDE = [(20000, 12288, 0, ("many", "cluster"))] + \
+    [(Q, 132, 4096, ("many", "cluster"))
+     for Q in (20000, 32768, 43520, 65280, 65552, 75792, 87040)] + \
+    [(100_000, 6, 0, ("cluster", "tiled"))]
+WIDE_HEAD_ROWS = 2048      # subject rows the plain version holds there
+ENTRY = {"many": "sw_band_launch", "cluster": "sw_band_cluster_launch",
+         "tiled": "sw_band_tiled_launch"}
 # swq, (Qp, Sp, W): chip_smoke.py phase 3c's synth_windows (bands 8-64
 # columns wide) at the 100 bp lane's shape and at Qp256; then bands of
 # 70-250 columns (3-8 tiles a row)
@@ -103,8 +122,9 @@ def load(kernel: str, src: str = ""):
         sig = "ppppiiiiipppppp"
     fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
                    for c in sig]
-    if hasattr(lib, "sw_full_strip_launch"):
-        sw.bind(lib, "sw_full_strip")
+    for entry in ("sw_full_strip", "sw_band_tiled", "sw_band_cluster"):
+        if hasattr(lib, entry + "_launch"):
+            sw.bind(lib, entry)
     return lib
 
 
@@ -113,6 +133,13 @@ def takes(kernel: str, lib, Q: int) -> bool:
     the strip path stops at sw.MAX_Q)."""
     return kernel != "sw_full" or Q <= sw.MAX_Q or \
         hasattr(lib, "sw_full_strip_launch")
+
+
+def takes_band(lib, W: int) -> bool:
+    """Whether `lib`'s sw_band_launch takes a band of W lanes: on 0
+    windows it returns 0, or -1 past its widest band."""
+    return lib.sw_band_launch(None, None, None, None, 0, 1, 0, W, 0, 0, 0,
+                              0, None, None, None, None, 0) == 0
 
 
 def swq_launcher(lib, qa, sj, par, mat, go: int, ge: int, tiles: int):
@@ -141,10 +168,12 @@ def swq_launcher(lib, qa, sj, par, mat, go: int, ge: int, tiles: int):
 
 
 def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
-             band=()):
+             band=(), route: str = ""):
     """fn() launches `lib`'s kernel on these tensors into outputs made
     once, and returns them: (best, ti, tj), or (best,) without track.
-    band = (W, prepad) for sw_band."""
+    band = (W, prepad) for sw_band; route "cluster" or "tiled" takes that
+    entry point of sw_band.cu (its shape, or its row-state scratch, made
+    here), any other sw_band_launch."""
     if kernel == "swq":
         return swq_launcher(lib, q, s, sl, mat, go, ge, *band)
     B, Q = q.shape
@@ -159,12 +188,21 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
         launch = lib.sw_full_strip_launch
         scratch.append(torch.empty((B, s.shape[1], 2), dtype=torch.int32,
                                    device=q.device))
+    tail = [wide]
+    if route == "tiled":
+        launch = lib.sw_band_tiled_launch
+        scratch.append(torch.empty((B, band[0], 2), dtype=torch.int32,
+                                   device=q.device))
+        tail = []
+    elif route == "cluster":
+        launch = lib.sw_band_cluster_launch
+        tail = list(sw.cluster_shape(band[0]))
     carry = [x.data_ptr() for x in scratch]
 
     def fn(scratch=scratch):                     # holds the carry buffer
         rc = launch(q.data_ptr(), s.data_ptr(), sl.data_ptr(),
                     mat.t.data_ptr(), B, Q, s.shape[1], *band, go, ge,
-                    int(track), *ptrs, stream, wide, *carry)
+                    int(track), *ptrs, stream, *tail, *carry)
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed (code {rc})")
         return out
@@ -224,7 +262,9 @@ def must_equal(got, want, label: str, what: str, where: str, sl,
 class Case(NamedTuple):
     """One input of a kernel: its label, the windows on the card, what the
     launch adds for a band (W, prepad), the plain version on a head of n
-    windows, the roofline work, and whether it is timed or only checked."""
+    windows, the roofline work, and whether it is timed or only checked;
+    for sw_band past 512 lanes the routes timed and the subject rows
+    (head_rows, 0 for all) on which the plain version holds them."""
     shape: str
     kind: str
     tensors: tuple
@@ -232,6 +272,8 @@ class Case(NamedTuple):
     plain: Callable
     work: Callable
     timed: bool
+    routes: tuple = ("",)
+    head_rows: int = 0
 
 
 def cases(kernel: str, rng, dev, mat, go: int, ge: int):
@@ -280,6 +322,25 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
                 lambda track, a=(Q, S, W, pad, t[2]): bounds.sw_band_work(
                     *a, track),
                 kind == "random" or Q <= 1504)
+    for Q, B, rows, routes in BAND_WIDE:
+        # planted windows, their first WIDE_HEAD_ROWS rows held by the
+        # plain version (a row a step: a minute for all of 100 kb)
+        q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
+        if rows:
+            S = rows
+            s = np.ascontiguousarray(s[:, :S])
+            sl = np.minimum(sl, S).astype(np.int32)
+        t = cuda(q, s, sl)
+        h = min(S, WIDE_HEAD_ROWS)
+        yield Case(
+            f"Q={Q} W={W} S={S} B={B}", "random", t, (W, pad + W // 2),
+            lambda n, t=t, g=(pad, W), h=h: sw.sw_band_score_ref(
+                t[0][:n], t[1][:n, :h].contiguous(),
+                torch.clamp_max(t[2][:n], h), mat.t, go, ge, *g,
+                track=True),
+            lambda track, a=(Q, S, W, pad, t[2]): bounds.sw_band_work(
+                *a, track),
+            True, routes, h)
 
 
 def main(argv=None) -> int:
@@ -346,30 +407,56 @@ def main(argv=None) -> int:
     results = []
     names = OUTS[a.kernel]
     tracks = (True,) if a.kernel == "swq" else (True, False)
+    last = None
     for case, track in ((c, t) for c in cases(a.kernel, rng, dev, mat, go, ge)
                         for t in tracks):
         q, s, sl = case.tensors
         where = f"{case.shape} track={track} ({case.kind})"
-        want = case.plain(head)
-        fns = {label: launcher(a.kernel, lib, q, s, sl, mat, go, ge, track,
-                               case.band) for label, lib in libs.items()
-               if takes(a.kernel, lib, q.shape[1])}
-        ship = [o.clone() for o in fns["shipped"]()]
+        if case is not last:          # the plain version once a case
+            want, last = case.plain(head), case
+        wide_band = case.routes != ("",)
+        fns = {}
+        for label, lib in libs.items():
+            for route in case.routes:
+                if not takes(a.kernel, lib, q.shape[1]) or \
+                        not hasattr(lib, ENTRY.get(route, a.kernel +
+                                                   "_launch")):
+                    continue
+                if route == "many" and not takes_band(lib, case.band[0]):
+                    print(f"# {where}: {label} has no one-block kernel for "
+                          f"W={case.band[0]}", flush=True)
+                    continue
+                fns[f"{label} {route}" if wide_band else label] = \
+                    launcher(a.kernel, lib, q, s, sl, mat, go, ge, track,
+                             case.band, route)
+        first = next(iter(fns))
+        ship = [o.clone() for o in fns[first]()]
         for label, fn in fns.items():
             got = fn()
-            must_equal([g[:head] for g in got], want, label,
-                       "the plain version", where, sl, names)
-            must_equal(got, ship, label, "the shipped kernel", where, sl,
-                       names)
+            if case.head_rows:        # the plain version on the first rows
+                h = case.head_rows
+                cut = [q[:head], s[:head, :h].contiguous(),
+                       torch.clamp_max(sl[:head], h)]
+                got_h = launcher(a.kernel, libs[label.split()[0]], *cut,
+                                 mat, go, ge, track, case.band,
+                                 label.split()[1])()
+                must_equal(got_h, want, label, "the plain version",
+                           where + f" (first {h} rows)", cut[2], names)
+            else:
+                must_equal([g[:head] for g in got], want, label,
+                           "the plain version", where, sl, names)
+            must_equal(got, ship, label, first, where, sl, names)
         if not case.timed:
             continue                  # checked; timed on random only
         work = case.work(track)
         times = {label: [] for label in fns}
         order = list(fns)
-        for r in range(a.rounds):
+        rounds, reps = (min(a.rounds, 3), 1) if wide_band else \
+            (a.rounds, a.reps)
+        for r in range(rounds):
             for label in (order if r % 2 == 0 else order[::-1]):
                 fns[label]()
-                times[label].append(event_ms(fns[label], a.reps))
+                times[label].append(event_ms(fns[label], reps))
         for label in fns:
             med = statistics.median(times[label])
             row = {"kernel": a.kernel, "version": label, "shape": case.shape,
@@ -383,7 +470,7 @@ def main(argv=None) -> int:
             results.append(row)
             print(f"# {a.kernel} {case.shape} "
                   f"{'track' if track else 'score'} {case.kind:6s} "
-                  f"{label:11s} median {med:.4f} ms, min "
+                  f"{label:19s} median {med:.4f} ms, min "
                   f"{row['min_ms']:.4f} ms, {work['cells'] / med / 1e6:.0f} "
                   f"GCUPS, bound {work['bound_ms']:.4f} ms "
                   f"({work['bound_by']}), share "

@@ -462,6 +462,16 @@ def device_seed_votes(di: DeviceIndex, reads):
     return outs, hits_used, hits_tot
 
 
+def pad_read_slens(reads, S: int):
+    """Subject lengths of the three windows of each read, [3B] int32: 0
+    for a pad read (a row that is all code 7, as a batch pads its last
+    rows), else S.  Code 7 scores 0, so such a window returns (0, 0,
+    -prepad) over any number of rows, and at 0 rows no kernel runs its
+    band."""
+    pad = (reads == 7).all(dim=1).repeat(3)
+    return torch.where(pad, 0, S).to(_I32)
+
+
 def _revcomp_batch(reads):
     """Reverse complement [B, Q] alpha codes (nonstd codes unchanged)."""
     rev = torch.flip(reads, dims=[1])
@@ -512,7 +522,9 @@ def device_map_step(di: DeviceIndex, reads, matrix, gapopen_pos: int,
     if Q > LONG_READ_Q:
         # kilobase reads: banded scoring around the seed diagonal, which
         # the window gather placed `pad` columns in; the tracked anchor
-        # centres the host tail's narrow traceback band (mesh.py:663)
+        # centres the host tail's narrow traceback band (mesh.py:663).
+        # Pad reads' windows take no rows (the reference runs them all).
+        slens = pad_read_slens(reads, S)
         scores, tis, tjs = sw_band_score_batch(
             qcs, wins, slens, matrix, gapopen_pos, gapext_pos, pad=pad,
             W=band_width_for(Q, pad), device=reads.device, track=True)
@@ -973,7 +985,7 @@ def make_index_sharded_step(sdi: ShardedDeviceIndex, mesh: Mesh, matrix,
             ridx = torch.arange(NR, dtype=_I32, device=d) * ip + j
             pad_row = ridx >= N3
             rows = torch.clamp_max(ridx, N3 - 1).long()
-            slens = torch.where(pad_row, 0, S).to(_I32)
+            slens = torch.where(pad_row, 0, pad_read_slens(reads[j], S)[rows])
             sc, ti, tj = sw_score_batch(qc3[rows], contents[j][rows], slens,
                                         mats[str(d)], gapopen_pos,
                                         gapext_pos, device=d, track=True)

@@ -416,3 +416,42 @@ def test_device_map_step_bigk_long_reads(bigk_genome, jax_band_oracle):
     Q = 640
     got = _step_equal(jdi, tdi, _long_reads(refset, 16, 8, Q))
     assert (got[0, :-1] > Q // 2).all() and got[0, -1] == 0
+
+
+@pytest.mark.parametrize("pen", [(), (200, -2)], ids=["default", "match200"])
+def test_device_map_step_pad_reads_take_no_rows(long_genome, jax_band_oracle,
+                                                monkeypatch, pen):
+    """Q > LONG_READ_Q with pad reads (all code 7) amid the batch and at
+    its end, also under -S match=200,subst=-2: the banded scoring gives
+    each pad read's three windows slen 0 and every other window S, and all
+    12 OUT_KEYS still equal the JAX step, which scores every window over
+    its S rows (code 7 scores 0, so a pad read's window returns (0, 0,
+    -prepad) over any number of rows)."""
+    refset, jdi, tdi = long_genome
+    Q = 528
+    reads = _long_reads(refset, 21, 10, Q)
+    reads[[2, 5]] = 7
+    seen = []
+    band = tm.sw_band_score_batch
+
+    def spy(q, s, slens, *a, **k):
+        seen.append(slens.clone())
+        return band(q, s, slens, *a, **k)
+
+    monkeypatch.setattr(tm, "sw_band_score_batch", spy)
+    m, go, ge = ali.make_score_matrix(*pen)
+    want = jm.device_map_step(jdi, jnp.asarray(reads), m, -go, -ge,
+                              interpret=True)
+    tmat, tgo, tge = tali.make_score_matrix(*pen)
+    step = tm.make_device_step(tdi, tmat, -tgo, -tge, pack=True)
+    got = step(torch.from_numpy(reads.astype(np.uint8)))
+    for i, key in enumerate(tm.OUT_KEYS):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    pad = (reads == 7).all(axis=1)
+    assert pad.tolist() == [i in (2, 5, 9) for i in range(10)]
+    (slens,) = seen
+    assert slens.dtype == torch.int32
+    assert slens.tolist() == np.where(np.tile(pad, 3), 0,
+                                      tm.window_len(Q)).tolist()
+    assert (got[0][pad] == 0).all() and (got[0][~pad] > Q // 2).all()

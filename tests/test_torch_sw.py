@@ -551,7 +551,8 @@ def test_band_cpu_path_launches_no_kernel(scoring):
 def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
     """The kernel wrapper takes CUDA tensors only: it never runs the plain
     version in place of the kernel.  A band past TILED_BAND_W is no longer
-    refused for its width (it runs the tiled kernel); a width below 1 is."""
+    refused for its width (it runs the cluster kernel, and past
+    CLUSTER_BAND_W the tiled one); a width below 1 is."""
     m, go, ge = scoring
     q, s, slens = _band_windows(3, 4, 128, 256, 16, 128)
     args = [torch.from_numpy(x) for x in (q, s, slens)]
@@ -681,9 +682,25 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
     m, go, ge = scoring
     monkeypatch.setattr(time_sw, "FULL_SHAPES" if kernel == "sw_full"
                         else "BAND_SHAPES", shapes)
+    monkeypatch.setattr(time_sw, "BAND_WIDE", [(640, 3, 200,
+                                                ("many", "cluster"))])
+    monkeypatch.setattr(time_sw, "WIDE_HEAD_ROWS", 96)
     mat = tsw.device_matrix(m, "cpu")
     got = list(time_sw.cases(kernel, np.random.default_rng(3), "cpu", mat,
                              go, ge))
+    if kernel == "sw_band":
+        # past 512 lanes: the routes, the subject cut to its rows, and
+        # the plain version on the first WIDE_HEAD_ROWS of them
+        wide = got.pop()
+        q, s, sl = wide.tensors
+        S, pad, W = tsw.band_geometry(640)
+        assert wide.routes == ("many", "cluster") and wide.head_rows == 96
+        assert s.shape == (3, 200) and int(sl.max()) <= 200 and wide.timed
+        want = tsw.sw_band_score_ref(q[:2], s[:2, :96].contiguous(),
+                                     torch.clamp_max(sl[:2], 96), mat.t, go,
+                                     ge, pad, W, track=True)
+        assert all(torch.equal(a, b) for a, b in zip(wide.plain(2), want))
+        assert all(r in time_sw.ENTRY for r in wide.routes)
     assert [c.kind for c in got] == ["random", "ties"]
     for c in got:
         q, s, sl = c.tensors
@@ -749,40 +766,47 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     (3072, 18432, 3, True, "sw_band_track"),   # the 6-warp kernel's widest
     (3200, 18560, 3, True, "sw_band_track_many"),   # past 3,072 lanes
     (3840, 22528, 3, False, "sw_band_many"),   # 20 kb reads
-    (16384, 97920, 200, True, "sw_band_track_many"),  # wide matrix: many
-    (16512, 98048, 3, True, "sw_band_track_tiled"),   # past 16,384 lanes
-    (18816, 112_512, 3, False, "sw_band_tiled"),      # 100 kb reads
-    (18816, 112_512, 200, True, "sw_band_track_tiled"),  # wide: tiled too
+    (12288, 73472, 200, True, "sw_band_track_many"),  # wide matrix: many
+    (12416, 73728, 3, False, "sw_band_cluster"),      # past 12,288 lanes
+    (16384, 97920, 200, True, "sw_band_track_cluster"),  # wide matrix too
+    (16512, 98048, 3, True, "sw_band_track_cluster"),   # past 16,384 lanes
+    (18816, 112_512, 3, False, "sw_band_cluster"),      # 100 kb reads
+    (18816, 112_512, 200, True, "sw_band_track_cluster"),  # wide too
+    (131072, 700_000, 3, True, "sw_band_track_cluster"),  # its widest
+    (131200, 700_000, 3, False, "sw_band_tiled"),       # past 131,072
+    (131200, 700_000, 200, True, "sw_band_track_tiled"),
     (384, 1792, 200, True, "sw_band_track_wide"),
     (512, 70_000, 127, True, "sw_band_track_wide"),  # 2^23 on int8 entries
     (512, 70_000, 127, False, "sw_band"),
 ])
 def test_sw_band_instance_routing(W, S, entry, track, want):
-    """W > 16,384 (TILED_BAND_W) runs sw_band_tiled_kernel and W > 3,072
-    (MULTI_BAND_W) sw_band_many_kernel, up to 32 warps a window, whatever
-    the matrix; below it a matrix past int8 or a tracked window that could
-    score 2^23 runs the several-warps kernel (the `wide` flag of
-    sw_band_launch)."""
+    """W > 131,072 (CLUSTER_BAND_W) runs sw_band_tiled_kernel, W > 12,288
+    (TILED_BAND_W) sw_band_cluster_kernel and W > 3,072 (MULTI_BAND_W)
+    sw_band_many_kernel, up to 32 warps a window, whatever the matrix;
+    below it a matrix past int8 or a tracked window that could score 2^23
+    runs the several-warps kernel (the `wide` flag of sw_band_launch)."""
     m = np.zeros((8, 8), np.int32)
     m[0, 0] = entry
     mat = tsw.device_matrix(m, "cpu")
-    Q = S if S == 70_000 else S * 8 // 9
+    Q = S if S in (70_000, 700_000) else S * 8 // 9
     assert tsw.sw_band_instance(Q, S, W, mat, track) == want
     assert want in tsw.launches
-    assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 16384
+    assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 12288
+    assert tsw.CLUSTER_BAND_W == 131072
 
 
 def test_band_width_of_long_reads_fits_the_many_kernel():
     """The band of a read padded to Q: past ~16 kb it is wider than the
-    6-warp kernel's 3,072 lanes, up to ~87 kb within the 32-warp kernel's
-    TILED_BAND_W, and past that the tiled kernel's."""
+    6-warp kernel's 3,072 lanes, up to ~65 kb within the 32-warp kernel's
+    TILED_BAND_W, and past that the cluster kernel's."""
     from smalt_tpu_torch.parallel.mesh import window_pad
     for Q, many in ((16384, False), (16400, True), (20000, True),
-                    (87040, True)):
+                    (65280, True)):
         W = tsw.clamp_band_width(Q, window_pad(Q))
         assert (W > tsw.MULTI_BAND_W) == many and W <= tsw.TILED_BAND_W, Q
-    W = tsw.clamp_band_width(90000, window_pad(90000))
-    assert W > tsw.TILED_BAND_W
+    for Q in (65552, 87040, 90000):
+        W = tsw.clamp_band_width(Q, window_pad(Q))
+        assert W > tsw.TILED_BAND_W
 
 
 @pytest.mark.parametrize("B,S,budget,want", [
@@ -808,21 +832,27 @@ def test_strip_groups_split_the_scratch(B, S, budget, want, monkeypatch):
 
 @pytest.mark.parametrize("thresh", [16384, 512])
 def test_tiled_route_follows_the_threshold(thresh, monkeypatch):
-    """sw_band_instance names the tiled kernel exactly when W passes
-    TILED_BAND_W, at the module's own value and at a lowered one (as
-    chip_smoke.py lowers it to hold the tiled kernel at small widths),
+    """Past TILED_BAND_W sw_band_instance names the cluster kernel, and
+    the tiled kernel exactly when W passes CLUSTER_BAND_W too: with
+    TILED_BAND_W at the module's own value and at a lowered one (as
+    chip_smoke.py lowers it to hold these kernels at small widths), and
+    CLUSTER_BAND_W at its own value and lowered to twice TILED_BAND_W,
     whatever the matrix and tracking."""
     monkeypatch.setattr(tsw, "TILED_BAND_W", thresh)
-    for entry in (3, 200):
-        m = np.zeros((8, 8), np.int32)
-        m[0, 0] = entry
-        mat = tsw.device_matrix(m, "cpu")
-        for W in (thresh - 128, thresh - 1, thresh, thresh + 1, thresh + 128,
-                  4 * thresh):
-            for track in (True, False):
-                name = tsw.sw_band_instance(W * 5, W * 6, W, mat, track)
-                assert name.endswith("_tiled") == (W > thresh), (W, name)
-                assert name in tsw.launches
+    for cap in (tsw.CLUSTER_BAND_W, 2 * thresh):
+        monkeypatch.setattr(tsw, "CLUSTER_BAND_W", cap)
+        for entry in (3, 200):
+            m = np.zeros((8, 8), np.int32)
+            m[0, 0] = entry
+            mat = tsw.device_matrix(m, "cpu")
+            for W in (thresh - 128, thresh - 1, thresh, thresh + 1,
+                      thresh + 128, 2 * thresh, 2 * thresh + 1, 4 * thresh):
+                for track in (True, False):
+                    name = tsw.sw_band_instance(W * 5, W * 6, W, mat, track)
+                    assert name.endswith("_tiled") == (W > cap), (W, name)
+                    assert name.endswith("_cluster") == \
+                        (thresh < W <= cap), (W, name)
+                    assert name in tsw.launches
 
 
 def test_tiled_scratch_groups_fit_the_budget(monkeypatch):
