@@ -37,7 +37,8 @@
 3b. Holds sw_band (tracked and score-only) against sw_band_score_ref
    the same way, at the long-read windows of Q = 640, 1504 (the main
    path) on 12,288 windows each, 4096 (W = 768, two warps a window) on
-   4,096 and Q = 16,384 (W = 3,072, the kernel's widest band) on 32;
+   4,096 and Q = 16,384 (W = 3,072, 12 lanes a thread's widest band) on
+   32;
    times both (the plain version over 2 calls after one warm-up, one
    call at the two widest shapes) and prints GCUPS over the band's
    cells.  Then
@@ -47,23 +48,34 @@
    W = 200 and 330 at Q = 640 on 1,024 windows of both kinds (no
    multiple of 32: threads hold padding lanes past W), and 8 windows
    with a subject of 26,000 rows at W = 256 (no room for the one-warp
-   kernel's shared-memory profile).  Then Q = 1504 / W = 384 on 4,096
-   windows with the matrix outside int8 of phase 3, which runs the
-   several-warps kernel.  Then sw_band_many_kernel (bands past 3,072
-   lanes, up to 32 warps a window): the band of 20 kb reads (Q = 20,000,
-   W = 3,840, S = 22,528) on 12 windows (the plain version timed there),
-   then timed on 1,024 copies of them (12,288 windows, the default
-   batch's), and its widest routed band, W = 12,288 (Q = 65,280), on 4
-   windows of 8,192 subject rows.  Then the kernels of bands past 12,288
-   lanes (ops/sw.py TILED_BAND_W):
+   kernel's shared-memory profile), and 16 windows of Q = 256 / S =
+   2,048 / W = 256 with gap penalties of 140,000 ((S + 1) * ge >= 2^28,
+   past the one-warp kernel's stand-in for NEG): both run the
+   several-warps kernel.  Then Q = 1504 / W = 384
+   on 4,096 windows with the matrix outside int8 of phase 3, which runs
+   the several-warps kernel's int16 profile.  Then the several-warps
+   kernel, sw_band_multi_kernel (bands past 512 lanes; 12 lanes a thread
+   to 3,072, 20 above), at the bands of reads of 4, 10 and 20 kb (Q =
+   4,096, 10,000 and 20,000: W = 768, 1,920 and 3,840) on 12 planted and
+   12 tie-heavy windows each, a seventh of them with slen 0 (the plain
+   version timed on the planted ones), then timed on copies of the
+   planted windows (4,096 windows at W = 768, 12,288, the default
+   batch's, at 1,920 and 3,840; each copy equal to its original), with
+   the bound; at W = 1,000 and 3,100 (Q = 4,096, 64 windows of each kind:
+   a thread's and a warp's lanes past W); and at its widest routed band,
+   W = TILED_BAND_W = 12,800 (Q = 67,600), on 4 windows of 8,192
+   subject rows.
+   Every sw_band call of phase 3b must launch exactly the instance
+   ops/sw.py sw_band_instance names.  Then the kernels of bands past
+   12,800 lanes (ops/sw.py TILED_BAND_W):
    sw_band_cluster_kernel with ops/sw.py TILED_BAND_W lowered to 0, so
    that every band takes it, and sw_band_tiled_kernel with CLUSTER_BAND_W
    lowered to 0 too, at W = 768 (Q = 4,096, 512 windows) and W = 3,840
    (Q = 20,000, 12 windows) on the first 4,096 subject rows of planted
    and tie-heavy windows (a seventh of them with slen 0; the cluster
    kernel also with the matrix outside int8), and at W = 200 and 330 (Q =
-   640); the cluster kernel at its own route on 7 CTAs (W = 12,416, the
-   first width past the many kernel's) and 16 CTAs (W = 32,768, 40,000
+   640); the cluster kernel at its own route on 7 CTAs (W = 12,928, the
+   first width past TILED_BAND_W) and 16 CTAs (W = 32,768, 40,000
    and 131,072, its widest), on their first rows; then both on the
    6 windows of 2 reads of 100 kb (W = 18,816, S = 112,512: the cluster
    kernel at its route, 10 CTAs), timed, with their bound.
@@ -87,6 +99,13 @@
    the device step's and the host tail's time for one batch.  Then the
    same reads with the tail pool (-n min(8, cores), spawned workers): SAM
    byte-identical to -n 1, both rates and their ratio.
+5b. Reads whose band passes 512 lanes, on the same genome and index:
+   256 reads of 10 kb (phase 5's generator; W = 1,920: the several-warps
+   kernel on 12 lanes a thread) through `map --fast -n 8` on the card at
+   the default batch, the first 4 records byte-identical to `--device
+   cpu` on those 4 reads, placement within 150 bp printed, the batch's
+   device step (on the 256 reads and padded to 4,096 rows) beside its
+   host tail.
 6. Pairs on the same genome and index: 50,000 pairs of 2 x 150 bp,
    inserts 300 +- 30 in FR orientation, 1% substitutions, batch 4,096
    pairs: one record per mate, >= 95% of mates within 8 bp on the right
@@ -145,7 +164,8 @@
    int64 gather.
 11. Reads over 16 kb on the same genome and index: 512 reads of 20
    kb (phase 5's generator) through `map --fast -n 8` on the card at the
-   default batch (1,536 windows through sw_band_many_kernel), the first
+   default batch (1,536 windows through the several-warps kernel on 20
+   lanes a thread), the first
    2 records byte-identical to --device cpu on those 2 reads; the 2
    through `map --device-pass1` against the host C lane (SAM
    byte-identical, the strip path at Q = 32,768), again with the strip
@@ -256,6 +276,8 @@ ODD_BAND_Q, ODD_BAND_B, ODD_BAND_WIDTHS = 640, 1024, (200, 330)
 LONG_SUBJ_S, LONG_SUBJ_B = 26_000, 8   # 8 * (S + W) bytes > 200 KB
 LONG_READLEN, N_LONG, LONG_HEAD = 1500, 8192, 256
 LONG_TOL, MIN_LONG = 150, 0.85    # tests/test_longread_concordance.py:110
+# phase 5b: reads whose band (W = 1,920) takes the several-warps kernel
+N_MID, MID_READLEN, MID_HEAD = 256, 10_000, 4
 PAIR_READLEN, N_PAIRS, PAIR_HEAD = 150, 50_000, 4096
 INSERT_MEAN, INSERT_SD = 300, 30
 # device pass 2: (Qp, Sp, windows); the first is the 100 bp lane's shape;
@@ -285,14 +307,21 @@ STRIP_FAR_GROUPS = 4
 KEY_PEN, KEY_REG_PEN = (1000, -1000), (24000, -24000)
 KEY_SHAPE = (16384, 16384, 16)
 KEY_FULL_B = 66 * 16                  # 8 warps a SM
-# sw_band_many_kernel (W > 3,072): the band of 20 kb reads (phase 11's
-# shape, 3 windows a read), checked on BAND_MANY_B windows and timed on
-# BAND_MANY_FULL_B, and the widest band ops/sw.py routes to it, W =
-# TILED_BAND_W = 12,288 (Q = 65,280), on its first BAND_WIDEST[1] subject
-# rows
-BAND_MANY_Q, BAND_MANY_B = 20000, 12
-BAND_MANY_FULL_B = 3 * BATCH          # timed: the default batch's windows
-BAND_WIDEST = (65280, 8192, 4)        # Q, subject rows, windows
+# the several-warps kernel (W > 512): (Q, windows timed) at the bands of
+# 4, 10 and 20 kb reads (W = 768, 1,920, 3,840; 3 windows a read), each
+# checked on BAND_MULTI_B planted and BAND_MULTI_B tie-heavy windows
+# (every seventh with slen 0) and timed on copies of the planted ones; the
+# band widths BAND_MULTI_ODD at BAND_MULTI_ODD_Q on 64 windows of each
+# kind; the widest band ops/sw.py routes to it, W = TILED_BAND_W = 12,800
+# (Q = 67,600), on its first BAND_WIDEST[1] subject rows; and
+# BAND_BIG_GE windows with a gap extension past (S + 1) * ge >= 2^28
+BAND_MULTI = [(4096, BATCH), (10000, 3 * BATCH), (20000, 3 * BATCH)]
+BAND_MULTI_B = 12
+BAND_MANY_Q = 20000                   # the "_many" line of the JSON
+BAND_MULTI_ODD_Q, BAND_MULTI_ODD = 4096, (1000, 3100)
+BAND_WIDEST = (67600, 8192, 4)        # Q, subject rows, windows
+# Q, S, W, pad, gap open = extension, windows
+BAND_BIG_GE = (256, 2048, 256, 128, 140_000, 16)
 # bands past TILED_BAND_W: sw_band_cluster_kernel (to 131,072 lanes) with
 # ops/sw.py TILED_BAND_W lowered to 0 (every band on it), and
 # sw_band_tiled_kernel (past that) with CLUSTER_BAND_W lowered too, held
@@ -301,13 +330,13 @@ BAND_WIDEST = (65280, 8192, 4)        # Q, subject rows, windows
 # planted and tie-heavy windows, a seventh of them with slen 0, and at
 # ODD_BAND_WIDTHS; the cluster kernel also with WIDE_PEN, and at its own
 # route on CLUSTER_WIDE (W, windows, subject rows: 7 CTAs at the first
-# width past the many kernel's, then 16 CTAs of 128, 160 and 512
+# width past TILED_BAND_W, then 16 CTAs of 128, 160 and 512
 # threads); then both at the windows of TILED_READS reads of
 # TILED_READLEN bp (W = 18,816, three windows a read: the cluster kernel
 # on 10 CTAs), timed there
 TILED_SMALL = [(4096, 512), (20000, 12)]
 TILED_SMALL_ROWS = 4096               # subject rows held at those widths
-CLUSTER_WIDE = [(12416, 8, 2048), (32768, 2, 384), (40000, 2, 256),
+CLUSTER_WIDE = [(12928, 8, 2048), (32768, 2, 384), (40000, 2, 256),
                 (131072, 2, 128)]
 TILED_READLEN, TILED_READS = 100_000, 2
 WIDE_SPEC = "match=200,subst=-2"
@@ -947,62 +976,87 @@ def check_strip_far(rng, card: str):
     return 0, recs
 
 
-def check_band_many(rng, mat, go: int, ge: int, card: str):
-    """Phase 3b, bands past 3,072 lanes: sw_band_many_kernel (up to 32
-    warps a window) against sw_band_score_ref at BAND_MANY_Q (the band of
-    20 kb reads) on BAND_MANY_B windows (the plain version timed there),
-    then those windows repeated to BAND_MANY_FULL_B (the default batch's
-    windows: the card filled), each copy's result equal to its original's,
-    timed; and at the widest band routed to it, W = TILED_BAND_W, on
-    BAND_WIDEST.  Returns
-    (max_abs_err, tracked, score-only) as check_band_kernel does, the
-    kernel's times those of the full batch."""
+def check_band_multi(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, bands past 512 lanes: sw_band_multi_kernel against
+    sw_band_score_ref at each BAND_MULTI band on BAND_MULTI_B planted and
+    BAND_MULTI_B tie-heavy windows (every seventh with slen 0; the plain
+    version timed on the planted ones), then those planted windows
+    repeated to the shape's timed count, each copy's result equal to its
+    original's, timed tracked and score-only beside the bound; the band
+    widths BAND_MULTI_ODD; and the widest band routed to the kernel, W =
+    TILED_BAND_W, on BAND_WIDEST.  Returns (max_abs_err, {W: (tracked,
+    score-only)}) with dicts as check_band_kernel's, the kernel's times
+    those of the timed batch."""
     import torch
     from smalt_tpu_torch.ops import bounds, sw
-    Q, B = BAND_MANY_Q, BAND_MANY_B
-    q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
-    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-    before = dict(sw.launches)
-    times = {}
-    err, want = band_equal(q, s, sl, mat, go, ge, pad, W,
-                           f"Q={Q} W={W} S={S} (many warps)", times)
-    n = {k: sw.launches[k] - before[k] for k in sw.launches
-         if sw.launches[k] != before[k]}
-    if n != {"sw_band_track_many": 1, "sw_band_many": 1}:
-        fail(f"sw_band at W={W}: launches {n}")
-    if int(want[0].max()) <= Q // 4:
-        fail(f"degenerate band windows at Q={Q}")
-    p_ms = times["plain"]
-    rows = S // 8              # the score-only plain version on these rows
-    p0_ms = time_ms(lambda: sw.sw_band_score_ref(
-        q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t, go,
-        ge, pad, W), 1, warm=0)
-    rep = BAND_MANY_FULL_B // B
-    qf, sf, slf = q.repeat(rep, 1), s.repeat(rep, 1), sl.repeat(rep)
-    got = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=True)
-    got0 = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=False)
-    if not all(torch.equal(g, w.repeat(rep)) for g, w in zip(got, want)) or \
-            not torch.equal(got0, want[0].repeat(rep)):
-        fail(f"sw_band at Q={Q} W={W}: the {rep} copies of {B} windows "
-             f"differ from the plain version's result")
-    k_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W,
-                                           track=True), 2, warm=1)
-    k0_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W,
-                                            track=False), 2, warm=1)
-    Bf = B * rep
-    print(f"# sw_band Q={Q} W={W} S={S} B={B} (sw_band_many_kernel, "
-          f"{-(-W // 384)} warps a window): equal to sw_band_score_ref "
-          f"(best, ti, tj and score-only), plain {p_ms:.1f} ms tracked, "
-          f"{p0_ms:.1f} ms score-only on the first {rows} rows; repeated to "
-          f"B={Bf}: each copy equal, "
-          f"track {k_ms:.4f} ms, score-only {k0_ms:.4f} ms | {card}",
-          flush=True)
-    wt, w0 = (bounds.sw_band_work(Q, S, W, pad, slf, t) for t in (True, False))
-    print(bound_line(f"sw_band_track_many Q={Q} W={W} S={S} B={Bf}", wt, k_ms,
-                     card))
-    print(bound_line(f"sw_band_many Q={Q} W={W} S={S} B={Bf}", w0, k0_ms,
-                     card), flush=True)
-    del qf, sf, slf, got, got0
+    err, recs = 0, {}
+    for Q, Bt in BAND_MULTI:
+        B = BAND_MULTI_B
+        for kind, gen in (("tie-heavy", sw.band_tie_windows),
+                          ("planted", sw.band_windows)):
+            q, s, sl, pad, W, S = gen(rng, B, Q)
+            sl[::7] = 0
+            q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+            times = {}
+            e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                                 f"Q={Q} W={W} S={S}, {kind}", times)
+            err = max(err, e)
+            if int(want[0].max()) <= (0 if kind == "tie-heavy" else Q // 4):
+                fail(f"degenerate {kind} band windows at Q={Q}")
+            print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} windows, "
+                  f"{(B + 6) // 7} with slen 0 "
+                  f"({sw.sw_band_instance(Q, S, W, mat, True)}): equal to "
+                  f"sw_band_score_ref (best, ti, tj and score-only); plain "
+                  f"{times['plain']:.1f} ms tracked | {card}", flush=True)
+        p_ms = times["plain"]
+        rows = S // 8          # the score-only plain version on these rows
+        p0_ms = time_ms(lambda: sw.sw_band_score_ref(
+            q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t,
+            go, ge, pad, W), 1, warm=0)
+        rep = Bt // B
+        qf, sf, slf = q.repeat(rep, 1), s.repeat(rep, 1), sl.repeat(rep)
+        got = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=True)
+        got0 = sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad, W, track=False)
+        if not all(torch.equal(g, w.repeat(rep)) for g, w in zip(got, want)) \
+                or not torch.equal(got0, want[0].repeat(rep)):
+            fail(f"sw_band at Q={Q} W={W}: the {rep} copies of {B} windows "
+                 f"differ from the plain version's result")
+        k_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge, pad,
+                                               W, track=True), 2, warm=1)
+        k0_ms = time_ms(lambda: sw.sw_band_cuda(qf, sf, slf, mat, go, ge,
+                                                pad, W, track=False), 2,
+                        warm=1)
+        Bf = B * rep
+        print(f"# sw_band Q={Q} W={W} S={S}, the {B} planted windows repeated "
+              f"to B={Bf}: each copy equal; track {k_ms:.4f} ms, score-only "
+              f"{k0_ms:.4f} ms (tracked / score-only {k_ms / k0_ms:.3f}); "
+              f"plain {p_ms:.1f} ms tracked on {B}, {p0_ms:.1f} ms "
+              f"score-only on their first {rows} rows | {card}", flush=True)
+        wt, w0 = (bounds.sw_band_work(Q, S, W, pad, slf, t)
+                  for t in (True, False))
+        names = [sw.sw_band_instance(Q, S, W, mat, t) for t in (True, False)]
+        print(bound_line(f"{names[0]} Q={Q} W={W} S={S} B={Bf}", wt, k_ms,
+                         card))
+        print(bound_line(f"{names[1]} Q={Q} W={W} S={S} B={Bf}", w0, k0_ms,
+                         card), flush=True)
+        recs[W] = (dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
+                        bound_by=wt["bound_by"], windows=Bf, plain_windows=B),
+                   dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
+                        bound_by=w0["bound_by"], windows=Bf, plain_windows=B,
+                        plain_rows=rows))
+        del qf, sf, slf, got, got0
+    Q = BAND_MULTI_ODD_Q
+    for kind, gen in (("planted", sw.band_windows),
+                      ("tie-heavy", sw.band_tie_windows)):
+        q, s, sl, pad, _, S = gen(rng, 64, Q)
+        sl[::7] = 0
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        for W in BAND_MULTI_ODD:
+            err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                                      f"Q={Q} W={W} S={S}, {kind}")[0])
+            print(f"# sw_band Q={Q} W={W} S={S} B=64, {kind} windows "
+                  f"({sw.sw_band_instance(Q, S, W, mat, True)}): equal to "
+                  f"sw_band_score_ref | {card}", flush=True)
     Qw, Sw, Bw = BAND_WIDEST
     q, s, sl, pad, W, _ = sw.band_windows(rng, Bw, Qw)
     s = np.ascontiguousarray(s[:, :Sw])
@@ -1011,18 +1065,13 @@ def check_band_many(rng, mat, go: int, ge: int, card: str):
     if W != sw.TILED_BAND_W:
         fail(f"the band at Q={Qw} is {W} lanes, not {sw.TILED_BAND_W}")
     err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
-                              f"Q={Qw} W={W} S={Sw} (32 warps)")[0])
-    print(f"# sw_band Q={Qw} W={W} (the widest band routed to it, 32 warps "
-          f"of {-(-W // 1024)} lanes a "
+                              f"Q={Qw} W={W} S={Sw} (widest)")[0])
+    print(f"# sw_band Q={Qw} W={W} (the widest band routed to the "
+          f"several-warps kernel, {-(-W // 640)} warps of 20 lanes a "
           f"thread), first {Sw} subject rows, B={Bw}: equal to "
           f"sw_band_score_ref (best, ti, tj and score-only) | {card}",
           flush=True)
-    # ms and bound_ms on the full batch, plain_ms on its first B windows
-    return (err, dict(ms=k_ms, plain_ms=p_ms, bound_ms=wt["bound_ms"],
-                      bound_by=wt["bound_by"], windows=Bf, plain_windows=B),
-            dict(ms=k0_ms, plain_ms=p0_ms, bound_ms=w0["bound_ms"],
-                 bound_by=w0["bound_by"], windows=Bf, plain_windows=B,
-                 plain_rows=rows))
+    return err, recs
 
 
 def band_launched(before, names, what: str):
@@ -1054,7 +1103,7 @@ def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
     lowered, both timed beside the plain version (the score-only plain
     version on its first S / 16 rows: a minute a call at the full shape)
     and their bound.  Returns (max_abs_err, cluster tracked, cluster
-    score-only, tiled tracked, tiled score-only) as check_band_many
+    score-only, tiled tracked, tiled score-only) as check_band_kernel
     returns its kernel's, at that real shape."""
     import torch
     from smalt_tpu_torch.align import core as ali
@@ -1321,16 +1370,21 @@ def timed(fn):
 def band_equal(q, s, sl, mat, go: int, ge: int, pad: int, W: int,
                what: str, times=None):
     """sw_band_cuda, tracked and score-only, against sw_band_score_ref on
-    the same windows, exactly.  Returns (the max |difference| over best,
+    the same windows, exactly; the two calls must launch one each of the
+    instances sw_band_instance names, and nothing else.  Returns (the max |difference| over best,
     ti, tj and the score-only best (0), the plain version's result).
     `times`, a dict, takes each call's ms ("track", "score", "plain"):
     where the plain version takes a minute, its one call is its timing."""
     from smalt_tpu_torch.ops import sw
     ms = {}
+    before = dict(sw.launches)
     got, ms["track"] = timed(lambda: sw.sw_band_cuda(
         q, s, sl, mat, go, ge, pad, W, track=True))
     got0, ms["score"] = timed(lambda: sw.sw_band_cuda(
         q, s, sl, mat, go, ge, pad, W, track=False))
+    band_launched(before, {sw.sw_band_instance(q.shape[1], s.shape[1], W,
+                                               mat, t) for t in (True, False)},
+                  f"at {what}")
     want, ms["plain"] = timed(lambda: sw.sw_band_score_ref(
         q, s, sl, mat.t, go, ge, pad, W, track=True))
     if times is not None:
@@ -1398,7 +1452,9 @@ def check_band_odd_widths(rng, mat, go: int, ge: int, card: str):
 def check_band_long_subject(rng, mat, go: int, ge: int, card: str):
     """Phase 3b, a subject too long for the one-warp kernel's
     shared-memory profile (8 * (S + W) bytes a window): sw_band_launch
-    hands such windows to the several-warps kernel on two warps."""
+    hands such windows to the several-warps kernel, whose rolling profile
+    does not grow with S; then a gap extension with (S + 1) * ge >= 2^28
+    (BAND_BIG_GE), which it hands there too."""
     import torch
     from smalt_tpu_torch.ops import sw
     Q = ODD_BAND_Q
@@ -1413,17 +1469,40 @@ def check_band_long_subject(rng, mat, go: int, ge: int, card: str):
     if int(want[0].max()) <= Q // 4:
         fail(f"degenerate windows at Q={Q} S={LONG_SUBJ_S}")
     print(f"# sw_band Q={Q} W={W} S={LONG_SUBJ_S} B={LONG_SUBJ_B} (no room "
-          f"for the profile: two warps of the several-warps kernel): equal to "
-          f"sw_band_score_ref (best, ti, tj and score-only) | {card}",
-          flush=True)
-    return err
+          f"for the one-warp kernel's profile: the several-warps kernel): "
+          f"equal to sw_band_score_ref (best, ti, tj and score-only) | "
+          f"{card}", flush=True)
+    Q, S, W, pad, bge, B = BAND_BIG_GE
+    bgo = bge
+    # each query a stretch of its subject (2% substituted) on a diagonal
+    # inside the band (prepad - W < row - column <= prepad)
+    s = rng.integers(0, 4, (B, S), dtype=np.int32)
+    off = rng.integers(pad + W // 2 - W + 16, pad + W // 2 - 16, B)
+    q = np.stack([s[b, off[b]:off[b] + Q] for b in range(B)])
+    q = np.where(rng.random((B, Q)) < 0.02, rng.integers(0, 4, (B, Q)), q)
+    sl = np.full(B, S, np.int32)
+    sl[1::2] = rng.integers(Q, S, B // 2)
+    if (S + 1) * bge < 1 << 28:
+        fail(f"(S + 1) * ge = {(S + 1) * bge} is below 2^28")
+    q, s, sl = (torch.from_numpy(np.ascontiguousarray(x, np.int32)).cuda()
+                for x in (q, s, sl))
+    e, want = band_equal(q, s, sl, mat, bgo, bge, pad, W,
+                         f"Q={Q} W={W} S={S}, go {bgo} ge {bge}")
+    if int(want[0].max()) <= Q // 4:
+        fail(f"degenerate windows at Q={Q} with ge {bge}")
+    print(f"# sw_band Q={Q} W={W} S={S} B={B}, gap open {bgo}, extension "
+          f"{bge} ((S + 1) * ge = {(S + 1) * bge} >= 2^28: the several-warps "
+          f"kernel): equal to sw_band_score_ref (best, ti, tj and "
+          f"score-only) | {card}", flush=True)
+    return max(err, e)
 
 
 def check_band_kernel(rng, card: str):
     """Phase 3b: sw_band (tracked and score-only) against its plain
     version sw_band_score_ref, on the card.  Returns (max_abs_err,
-    tracked, score-only): dicts of ms, plain_ms, bound_ms and bound_by
-    at the main-path shape Q = BAND_MAIN_Q."""
+    tracked, score-only, many tracked, many score-only): dicts of ms,
+    plain_ms, bound_ms and bound_by at the main-path shape Q =
+    BAND_MAIN_Q, and at BAND_MANY_Q's band (check_band_multi)."""
     import torch
     from smalt_tpu_torch.align import core as ali
     from smalt_tpu_torch.ops import bounds, sw
@@ -1474,8 +1553,9 @@ def check_band_kernel(rng, card: str):
     worst = max(worst, check_band_ties(rng, mat, go, ge, card),
                 check_band_odd_widths(rng, mat, go, ge, card),
                 check_band_long_subject(rng, mat, go, ge, card))
-    many = check_band_many(rng, mat, go, ge, card)
-    return (max(worst, many[0]),) + main + many[1:]
+    merr, multi = check_band_multi(rng, mat, go, ge, card)
+    W = sw.band_geometry(BAND_MANY_Q)[2]
+    return (max(worst, merr),) + main + multi[W]
 
 
 def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
@@ -1557,16 +1637,18 @@ def run_main_path(d: str, device: str, n_reads: int, genome_len: int,
     return launches
 
 
-def ptxas_summary(log: str) -> str:
+def ptxas_summary(log: str, kernel: str = "") -> str:
     """ptxas -v output as 'registers per instance <template args>' and the
-    spill bytes over all instances."""
+    spill bytes over all instances (of `kernel` alone, where given)."""
     regs, spills, cur = [], 0, "?"
     for ln in log.splitlines():
         m = re.search(r"\d([a-z_]+)_kernelI(\w+?)EEv", ln)
-        if "Compiling entry function" in ln and m:
+        if "Compiling entry function" in ln:
             cur = m.group(1) + " " + ",".join(
-                re.findall(r"L[ib](\d+)", m.group(2)))
-        elif "registers" in ln:
+                re.findall(r"L[ib](\d+)", m.group(2))) if m else "?"
+        if not cur.startswith(kernel):
+            continue
+        if "registers" in ln:
             regs.append(f"<{cur}>:{re.search(r'Used (\d+) reg', ln).group(1)}")
         elif "spill" in ln:
             spills += sum(int(x) for x in re.findall(r"(\d+) bytes spill", ln))
@@ -1767,6 +1849,54 @@ def run_long_reads(d: str, genome, card: str, device: str = "cuda"):
           f"--device cpu ({time.perf_counter() - t0:.1f} s on the CPU)",
           flush=True)
     return launches, pooled
+
+
+def run_mid_reads(d: str, genome, card: str):
+    """Phase 5b, on the phase-4 genome and index: N_MID reads of
+    MID_READLEN bp (phase 5's generator; the several-warps kernel's band)
+    through `map --fast -n POOL_N` on the card at the default batch, the
+    first MID_HEAD records byte-identical to `--device cpu` on those reads,
+    placement printed, and that batch's device step (on the reads and
+    padded to BATCH rows) beside its host tail.  Returns the launches of
+    the card's run."""
+    from smalt_tpu_torch.map.fastmode import iter_fastq_hybrid
+    from smalt_tpu_torch.ops import sw
+    idx_name = os.path.join(d, "idx")
+    rng = np.random.default_rng(SEED + 5)
+    reads, truth, rev = make_long_reads(rng, genome, N_MID, MID_READLEN)
+    fq, fq_head = write_fastq(os.path.join(d, "mid.fq"), reads, b"m",
+                              MID_HEAD)
+    del reads
+    sams = [os.path.join(d, f"mid_{dev}.sam") for dev in ("cuda", "cpu")]
+    t0 = time.perf_counter()
+    launches, wall, m = map_cli("cuda", idx_name, sams[0], [fq], BATCH,
+                                ["-n", str(POOL_N)])
+    t1 = time.perf_counter()
+    map_cli("cpu", idx_name, sams[1], [fq_head], MID_HEAD)
+    body = sam_body(sams[0])
+    if len(body) != N_MID or body[:MID_HEAD] != sam_body(sams[1]):
+        fail(f"--fast on {MID_READLEN} bp reads: SAM differs from --device "
+             f"cpu")
+    Q = -(-MID_READLEN // 16) * 16
+    W = sw.band_geometry(Q)[2]
+    if not sw.WARP_BAND_W < W <= sw.MULTI_BAND_W or \
+            launches["sw_band_track"] < 1 or \
+            sum(launches.values()) != launches["sw_band_track"]:
+        fail(f"--fast on {MID_READLEN} bp reads (W = {W}) launched "
+             f"{launches}")
+    placed = placement(body, truth, rev, LONG_TOL)
+    print(f"# map --fast -n {POOL_N} on {N_MID} reads of {MID_READLEN} bp "
+          f"(W = {W}, batch {BATCH}): the first {MID_HEAD} records "
+          f"byte-identical to --device cpu ({t1 - t0:.1f} s on the card, "
+          f"{N_MID / wall:.1f} CLI reads/s, pipeline "
+          f"{m.group(4) if m else '?'} reads/s; "
+          f"{time.perf_counter() - t1:.1f} s on the CPU for {MID_HEAD}); "
+          f"placed {placed}/{N_MID} within {LONG_TOL} bp; launches "
+          f"{launches} | {card}", flush=True)
+    batch_split(f"--fast {N_MID} x {MID_READLEN} bp", idx_name,
+                next(iter(iter_fastq_hybrid(fq, BATCH))), False, "cuda", card,
+                pad_to=BATCH, reps=3)
+    return launches
 
 
 def run_pairs(d: str, genome, card: str, device: str = "cuda"):
@@ -3196,6 +3326,10 @@ def main() -> int:
         info = build.build_info[name]
         print(f"# build {name}.cu: nvcc {info['seconds']:.2f} s; "
               f"{ptxas_summary(info['log'])}", flush=True)
+    spilled = ptxas_summary(build.build_info["sw_band"]["log"],
+                            "sw_band_multi")
+    if not spilled.endswith("spill bytes 0"):
+        fail(f"the several-warps kernel spills: {spilled}")
     print(f"# phase 2 (build, side by side): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -3234,6 +3368,10 @@ def main() -> int:
         lr, lrn = run_long_reads(d, genome, card)
         print(f"# phase 5 (long reads): {time.perf_counter() - t0:.2f} s",
               flush=True)
+        t0 = time.perf_counter()
+        mid = run_mid_reads(d, genome, card)
+        print(f"# phase 5b (reads of {MID_READLEN} bp): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         t0 = time.perf_counter()
         pe, pen = run_pairs(d, genome, card)
         print(f"# phase 6 (pairs): {time.perf_counter() - t0:.2f} s",
@@ -3292,6 +3430,7 @@ def main() -> int:
     paths = (("single-end --fast", se, N_READS), ("long reads --fast", lr,
              N_LONG), (f"long reads --fast -n {POOL_N}", lrn, N_LONG),
              ("pairs --fast", pe, 2 * N_PAIRS),
+             (f"{MID_READLEN} bp --fast -n {POOL_N}", mid, N_MID),
              (f"pairs --fast -n {POOL_N}", pen, 2 * N_PAIRS),
              ("--fast --resume (restarted)", rs, BATCH),
              ("--fast --profile", pf, BATCH),

@@ -46,21 +46,20 @@
 //
 // Five kernels.  Bands up to 512 lanes (every band the mapping path makes
 // for reads up to ~2.8 kb) run sw_band_warp_kernel: one warp a window, up
-// to four windows a block.  Wider bands run the several-warps kernel, one
-// window a block: sw_band_multi_kernel on NW = ceil(W/512) <= 6 warps up
-// to W = 3,072, and above that sw_band_many_kernel, the same code on up to
-// 32 warps (1,024 threads of 12 lanes, W <= 12,288: reads up to ~65 kb);
-// wider bands run sw_band_cluster_kernel
-// (sw_band_cluster.cuh), one thread-block
-// cluster of up to 16 CTAs a window with the row exchanged in distributed
-// shared memory (W <= 131,072: reads up to ~700 kb), and past that
-// sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
+// to four windows a block.  Wider bands run the several-warps kernel,
+// sw_band_multi_kernel (sw_band_multi.cuh), one window a block on up to 8
+// warps of 12 lanes a thread or up to 20 warps of 20 lanes (W <= 12,800:
+// reads up to ~68 kb); bands past ops/sw.py TILED_BAND_W = 12,800 run
+// sw_band_cluster_kernel (sw_band_cluster.cuh), one
+// thread-block cluster of up to 16 CTAs a window with the row exchanged in
+// distributed shared memory (W <= 131,072: reads up to ~700 kb), and past
+// that sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
 // tiles of the band with the row's state in a global scratch.  In all of
 // them a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
 // registers; lanes at or past W are padding that never reaches a real
 // lane (E flows from the right, only through NEG, and F only to the
 // right).
-//
+
 // sw_band_warp_kernel, and what each part is for.
 //   - Hopper's 3-input integer instructions carry the recurrence, each
 //     exact in int32: H0 = max(Ein, T, 0) is one __viaddmax_s32_relu, the
@@ -98,11 +97,11 @@
 //     integer rate is the limit.  The profile is what bounds occupancy at
 //     the main shape (17 KB a window, 12 warps a SM) and what sets the
 //     kernel's limit on S: a window whose profile passes 200 KB runs
-//     sw_band_multi_kernel on two warps instead.  The profile needs
-//     matrix entries in int8: a matrix outside int8 (`wide`, decided by
-//     ops/sw.py on the host from the range device_matrix recorded) runs
-//     sw_band_multi_kernel on two warps or more, whatever W, since that
-//     kernel looks its scores up in the int32 matrix.
+//     sw_band_multi_kernel instead.  The profile needs matrix entries in
+//     int8: a matrix outside int8 (`wide`, decided by ops/sw.py on the
+//     host from the range device_matrix recorded) runs
+//     sw_band_multi_kernel, whatever W, on its int16 profile or its int32
+//     lookups.
 //   - Tracking without a warp reduction in the row loop.  Each thread
 //     keeps its own first-best cell over its own band lanes:
 //     key = T*256 + 255 - c orders a row's cells by T and then by lowest
@@ -127,7 +126,7 @@
 //     one.  The key holds |T| < 2^23 and C < 256, so c is recovered from
 //     its low byte; with int8 entries that holds while 128 * min(Q, S)
 //     < 2^23, and ops/sw.py (sw_band_instance) sends a tracked launch
-//     past it to the several-warps kernel, whose record keeps the value
+//     past it to the several-warps kernel, whose records keep the value
 //     and the lane apart.
 //   - Padding lanes (band lanes at or past W, where 32 * C > W; the PAD
 //     instances, so that the widths the mapping path makes, multiples of
@@ -147,27 +146,13 @@
 //
 // The several-warps kernel (W > 512, a profile too large for shared
 // memory, a matrix outside int8, a tracked window that could score 2^23,
-// or (S + 1) * ge >= 2^28): C = 12 or 16, 2-input max and add, one
-// lookup in the 8x8 int32 matrix a cell, the query codes in registers and
-// shifted down one register a row (a thread takes the next thread's first
-// code by __shfl_down_sync, the warp's last thread the one new code), and
-// a warp reduction of the row max on every row.  One __syncthreads a row.
-// Each warp publishes its scan total and its row max in shared memory
-// before the barrier and reads the other warps' after it.  A warp's last
-// lane needs E from the next warp's first lane: that is the next warp's
-// state from the previous row, published at the end of that row, so it is
-// read after this row's barrier.  Until then the last lane's H0 is
-// max(T, 0); it feeds no F inside its warp, and a reader corrects the
-// published total of warp w' as max(total, Ein_last + L*ge), which is the
-// same max.  The shared buffers alternate with the row's parity, so one
-// barrier a row orders every write before its reads and every read before
-// the next write to the same buffer.  Tracking keeps the window's best
-// value and its row in registers (the row max is window-uniform) and
-// looks for the lowest lane only on a row that beats it: no packed key,
-// so any int32 score.  Its text is csrc/sw_band_multi.cuh, included
-// once for each of its two instances.  At 1,024 threads a block a thread
-// may hold 64 registers: ptxas's spills are printed by chip_smoke.py
-// phase 2.
+// or (S + 1) * ge >= 2^28) has this kernel's cell, a rolling query
+// profile in shared memory (int8, int16 for a matrix outside int8, or
+// query codes and int32 lookups past int16), per-thread tracking records
+// reduced after the loop (no packed key: any int32 score), and one
+// __syncthreads a row for the exchange between its warps: its header,
+// sw_band_multi.cuh, says how.  ptxas's registers and spills of every
+// instance are printed by chip_smoke.py phase 2.
 
 #include <climits>
 
@@ -178,9 +163,6 @@ namespace {
 constexpr int NEG = -(1 << 28);
 constexpr int HPAD = -(1 << 22);       // H of a padding lane (one warp)
 constexpr int WARPS = 4;               // windows (warps) per block, W <= 512
-constexpr int MAX_NW = 6;              // sw_band_multi_kernel, W <= 3072
-constexpr int MANY_NW = 32;            // sw_band_many_kernel, W <= 12288
-constexpr int MAX_W = 32 * 12 * MANY_NW;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int addmax(int a, int b, int c) {
@@ -379,18 +361,9 @@ sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
   }
 }
 
-#define SWB_MULTI_KERNEL sw_band_multi_kernel   // W <= 3,072
-#define SWB_MULTI_NW 6
-#include "sw_band_multi.cuh"
-#undef SWB_MULTI_KERNEL
-#undef SWB_MULTI_NW
-#define SWB_MULTI_KERNEL sw_band_many_kernel    // W <= 12,288
-#define SWB_MULTI_NW 32
-#include "sw_band_multi.cuh"
-#undef SWB_MULTI_KERNEL
-#undef SWB_MULTI_NW
+#include "sw_band_multi.cuh"                  // 512 < W <= 12,800
 #include "sw_band_tiled.cuh"                  // W > CLUSTER_BAND_W
-#include "sw_band_cluster.cuh"                // 12,288 < W <= 131,072
+#include "sw_band_cluster.cuh"                // 12,800 < W <= 131,072
 
 struct Args {
   const int *q, *subj, *slens, *matrix;
@@ -401,7 +374,7 @@ struct Args {
 
 // Dynamic shared memory a block may ask for (of the SM's 227 KB), and the
 // room a profile needs: a window whose profile does not fit runs
-// sw_band_multi_kernel on two warps.
+// sw_band_multi_kernel, whose rolling profile does not grow with S.
 constexpr int MAX_SMEM = 200 * 1024;
 
 inline int profile_pitch(int S, int C) { return (S + 32 * C + 3) / 4 * 4; }
@@ -430,20 +403,41 @@ cudaError_t launch_warp(bool track, const Args& a) {
   return cudaGetLastError();
 }
 
-// sw_band_multi_kernel on nw <= MAX_NW warps of C lanes a thread, else
-// sw_band_many_kernel on 12 (past 12,288 lanes the cluster kernel is
-// faster, tracked and score-only: PERF.md).
-template <int C>
-void launch_multi(bool track, int nw, const Args& a) {
-  const dim3 grid(a.B), block(nw * 32);
-  auto kernel = nw > MAX_NW
-                    ? (track ? sw_band_many_kernel<12, true>
-                             : sw_band_many_kernel<12, false>)
-                    : (track ? sw_band_multi_kernel<C, true>
-                             : sw_band_multi_kernel<C, false>);
-  kernel<<<grid, block, 0, a.stream>>>(a.q, a.subj, a.slens, a.matrix, a.B,
-                                       a.Q, a.S, a.W, a.prepad, a.go, a.ge,
-                                       a.best, a.ti, a.tj);
+// sw_band_multi_kernel<C, PT> on the warps the band needs: its rolling
+// profile (PT 2: one row of query codes) of R = 32 * C * nw + 32 columns
+// and a mirror of at least C - 1, in a pitch of 16 entries.
+template <int C, int PT>
+cudaError_t launch_multi(bool track, const Args& a) {
+  using P = typename ProfEntry<PT>::T;
+  const int nw = (a.W + 32 * C - 1) / (32 * C);
+  const int RP = (32 * C * nw + 32 + C - 1 + 15) / 16 * 16;
+  const int smem = (PT == 2 ? 1 : 8) * RP * static_cast<int>(sizeof(P));
+  auto kernel = track ? sw_band_multi_kernel<C, PT, true>
+                      : sw_band_multi_kernel<C, PT, false>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  LaneK<C> lc;
+  for (int c = 0; c < C; ++c) {
+    lc.cge[c] = c * a.ge;
+    lc.fk[c] = -(a.go + (c - 1) * a.ge);
+  }
+  kernel<<<a.B, nw * 32, smem, a.stream>>>(
+      a.q, a.subj, a.slens, a.matrix, a.Q, a.S, a.W, a.prepad, a.go, a.ge,
+      RP, lc, a.best, a.ti, a.tj);
+  return cudaGetLastError();
+}
+
+// C = 20 where its warps (640 lanes each) pad the band no wider than
+// C = 12's (384 lanes, up to MULTI_W): fewer threads a row and the same
+// cells, 12% faster at W = 1,920; else 12 (7% faster at W = 3,072, where
+// 20 lanes a thread pad 3,200).  The profile's entries by `wide`.
+template <int PT>
+cudaError_t launch_multi_pt(bool track, const Args& a) {
+  const int pad12 = (a.W + 383) / 384 * 384, pad20 = (a.W + 639) / 640 * 640;
+  return a.W <= MULTI_W && pad12 < pad20
+             ? launch_multi<MULTI_C, PT>(track, a)
+             : launch_multi<MANY_C, PT>(track, a);
 }
 
 cudaError_t launch_cluster(bool track, int ncta, int nthreads,
@@ -482,20 +476,25 @@ cudaError_t launch_cluster(bool track, int ncta, int nthreads,
 // Scores B windows on `stream`.  q [B,Q], subj [B,S], slens [B] and
 // matrix [8,8] are contiguous int32 device arrays; best (and, with
 // track, ti and tj) are int32 [B] outputs.  The band has W lanes and
-// sits prepad columns left of the window start.  wide != 0 (a matrix
-// entry outside -128..127, or a tracked window that could score 2^23:
-// ops/sw.py sw_band_instance) runs the several-warps kernel, as does a gap
-// extension with (S + 1) * ge >= 2^28 (the one-warp kernel's stand-in for
-// NEG).  W past 3,072 runs sw_band_many_kernel.  Returns the CUDA error
-// of the launch (0 on success), or -1 when an argument is out of range
-// (W outside 1..12288 included: wider bands take sw_band_cluster_launch
-// or sw_band_tiled_launch).
+// sits prepad columns left of the window start.  wide (ops/sw.py
+// sw_band_instance and _band_wide_code) names the several-warps kernel's
+// profile: 0 int8 entries, 1 int8 entries and the several-warps kernel at
+// any width (a tracked window that could score 2^23), 2 int16 entries, 3
+// entries outside int16 (int32 lookups); any wide != 0 runs the
+// several-warps kernel, as does W > 512, a one-warp profile past MAX_SMEM
+// and a gap extension with (S + 1) * ge >= 2^28 (the one-warp kernel's
+// stand-in for NEG).  Returns the CUDA error of the launch (0 on
+// success), or -1 when an argument is out of range (W outside 1..MANY_W
+// included: wider bands take sw_band_cluster_launch or
+// sw_band_tiled_launch).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
                               int ge, int track, void* best, void* ti,
                               void* tj, void* stream, int wide) {
-  if (Q < 1 || S < 0 || B < 0 || W < 1 || W > MAX_W) return -1;
+  if (Q < 1 || S < 0 || B < 0 || W < 1 || W > MANY_W || ge < 0 ||
+      wide < 0 || wide > 3)
+    return -1;
   if (B == 0) return 0;
   const Args a = {static_cast<const int*>(q), static_cast<const int*>(subj),
                   static_cast<const int*>(slens),
@@ -506,18 +505,13 @@ extern "C" int sw_band_launch(const void* q, const void* subj,
   const int need = (W + 31) / 32;      // band lanes a thread on one warp
   const int C1 = need <= 4 ? 4 : need <= 6 ? 6 : need <= 8 ? 8
                  : need <= 12 ? 12 : 16;
-  int nw = (W + 511) / 512;
-  // no room for the profile: two warps of the several-warps kernel (its
-  // block loads the matrix with 64 threads)
-  if (nw == 1 && 8 * profile_pitch(S, C1) > MAX_SMEM) nw = 2;
-  if (wide) nw = max(nw, 2);           // no int8 profile: int32 lookups
-  if (ge < 0) return -1;
-  if (nw == 1 && (long long)(S + 1) * ge >= (1 << 28)) nw = 2;
-  if (nw > MAX_NW) nw = (W + 383) / 384;   // 12 lanes a thread
-  if (nw > 1) {
-    if ((W + 32 * nw - 1) / (32 * nw) <= 12) launch_multi<12>(tr, nw, a);
-    else launch_multi<16>(tr, nw, a);
-    return static_cast<int>(cudaGetLastError());
+  if (W > 512 || wide != 0 || 8 * profile_pitch(S, C1) > MAX_SMEM ||
+      (long long)(S + 1) * ge >= (1 << 28)) {
+    switch (wide) {
+      case 2: return static_cast<int>(launch_multi_pt<1>(tr, a));
+      case 3: return static_cast<int>(launch_multi_pt<2>(tr, a));
+      default: return static_cast<int>(launch_multi_pt<0>(tr, a));
+    }
   }
   switch (C1) {
     case 4: return static_cast<int>(launch_warp<4>(tr, a));

@@ -1,5 +1,5 @@
 // The cluster kernel of sw_band.cu: bands wider than ops/sw.py
-// TILED_BAND_W = 12,288 lanes (reads past ~65 kb) up to CLUSTER_MAX CTAs x
+// TILED_BAND_W = 12,800 lanes (reads past ~68 kb) up to CLUSTER_MAX CTAs x
 // 512 threads x 16 lanes = 131,072 lanes (reads up to ~700 kb).  It
 // computes _make_swb_kernel's function (smalt_tpu/ops/sw.py:269), the
 // recurrence at the top of sw_band.cu, with the same tracking rule;

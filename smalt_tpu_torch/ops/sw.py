@@ -33,16 +33,18 @@ MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 # state) is kept within this many bytes by launching groups of windows
 # (scratch_groups).
 SCRATCH_BYTES = 1 << 30
-MULTI_BAND_W = 3072  # widest band of sw_band_multi_kernel (6 warps)
-# widest band of the one-block sw_band kernels (sw_band_launch; past 3,072
-# lanes sw_band_many_kernel, 32 warps of 12 lanes a thread: reads up to
-# ~65 kb; past 12,288 lanes the cluster kernel is faster than it on 16
-# lanes, tracked and score-only: PERF.md); wider bands run
-# sw_band_cluster_kernel, a thread-block cluster a window, up to
-# CLUSTER_BAND_W (CLUSTER_MAX CTAs of 512 threads of 16 lanes: reads up to
-# ~700 kb), and past that sw_band_tiled_kernel, which keeps the row's
-# state in a global scratch
-TILED_BAND_W = 12288
+WARP_BAND_W = 512    # widest band of sw_band_warp_kernel (one warp a window)
+# sw_band_multi_kernel, the several-warps kernel, runs every wider band up
+# to TILED_BAND_W: on 12 or 20 lanes a thread (whichever pads the band
+# less) up to MULTI_BAND_W, on 20 ("_many") past it
+MULTI_BAND_W = 3072
+# widest band of the several-warps kernel (20 warps of 20 lanes: reads up
+# to ~68 kb), which beats the cluster kernel there 2.5x, tracked and
+# score-only (PERF.md); wider bands run sw_band_cluster_kernel, a
+# thread-block cluster a window, up to CLUSTER_BAND_W (CLUSTER_MAX CTAs of
+# 512 threads of 16 lanes: reads up to ~700 kb), and past that
+# sw_band_tiled_kernel, which keeps the row's state in a global scratch
+TILED_BAND_W = 12800
 CLUSTER_MAX = 16            # CTAs a cluster (past 8: a non-portable size)
 CLUSTER_C = 16              # band lanes a thread
 CLUSTER_BAND_W = CLUSTER_MAX * 512 * CLUSTER_C
@@ -51,8 +53,9 @@ CLUSTER_CTA_LANES = 2048    # band lanes a CTA holds where the band allows
 # kernel) holds |T| < 2^23; a window can score no more than max|entry| *
 # (query columns or subject rows, the fewer), and a tracked launch that
 # reaches KEY_CAP that way runs the instances whose record keeps the
-# value and the column apart (sw_full's _rec kernels, sw_band's
-# several-warps kernel).
+# value and the column apart (sw_full's _rec kernels; for bands up to
+# WARP_BAND_W, sw_band's several-warps kernel, which serves every wider
+# band anyway).
 KEY_CAP = 1 << 23
 # What every kernel, and the Pallas kernels whose arithmetic they share,
 # holds in int32: H and E up to the window's best score plus a gap
@@ -67,11 +70,13 @@ DP_CAP = 1 << 30
 # launches of the CUDA kernels by instance; each wrapper adds one per
 # launch and nowhere else (callers reset and read these).  "_wide": a
 # matrix outside int8 (sw_full's WIDE instances), or that or a tracked
-# window that could score KEY_CAP (sw_band's several-warps kernel at any
+# band of up to WARP_BAND_W lanes that could score KEY_CAP (sw_band's
+# several-warps kernel, int16 or int32 scores for such a matrix, at any
 # width up to MULTI_BAND_W); "_rec": a tracked sw_full window that could
 # score KEY_CAP (the WIDE instance of sw_full_rec_kernel or
 # sw_strip_rec_kernel); "_strip": sw_full's path for queries past MAX_Q;
-# "_many": sw_band_many_kernel, bands past MULTI_BAND_W; "_cluster":
+# "_many": sw_band_multi_kernel past MULTI_BAND_W (20 lanes a thread);
+# "_cluster":
 # sw_band_cluster_kernel, bands past TILED_BAND_W; "_tiled":
 # sw_band_tiled_kernel, bands past CLUSTER_BAND_W.  The names are what
 # sw_full_instance and sw_band_instance return.
@@ -104,7 +109,7 @@ class DeviceMatrix(NamedTuple):
     def wide(self) -> bool:
         """An entry outside int8: sw_full.cu then runs its WIDE instance (a
         lookup a cell, no int8 profile) and sw_band.cu its several-warps
-        kernel (int32 lookups)."""
+        kernel (an int16 profile, or int32 lookups past int16)."""
         return self.lo < -128 or self.hi > 127
 
     @property
@@ -185,12 +190,15 @@ def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
     """The sw_band.cu instance a launch runs, by its name in `launches`:
     "_tiled" (sw_band_tiled_kernel: int32 lookups, no packed key, any
     width) past CLUSTER_BAND_W lanes; "_cluster" (sw_band_cluster_kernel:
-    the same lookups and record) past TILED_BAND_W; "_many"
-    (sw_band_many_kernel) past MULTI_BAND_W; "_wide" (the several-warps
-    kernel, int32 lookups and no packed key) for a matrix outside int8 or
-    a tracked window that could score KEY_CAP; else the int8 route (one
-    warp a window to W = 512, sw_band_multi_kernel above, or where the
-    one-warp kernel's profile does not fit)."""
+    the same lookups and record) past TILED_BAND_W; "_many" (the
+    several-warps kernel on 20 lanes a thread) past MULTI_BAND_W; "_wide"
+    (the several-warps kernel, on its int16 profile or int32 lookups) for
+    a matrix outside int8, or a tracked band of up to WARP_BAND_W lanes
+    that could score KEY_CAP (the one-warp kernel's key does not hold
+    it); else the int8 route (one warp a window to WARP_BAND_W lanes,
+    sw_band_multi_kernel above, or where the one-warp kernel's profile
+    does not fit).  No several-warps instance keeps a key: KEY_CAP names
+    nothing past WARP_BAND_W."""
     name = "sw_band_track" if track else "sw_band"
     if W > CLUSTER_BAND_W:
         return name + "_tiled"
@@ -198,8 +206,20 @@ def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
         return name + "_cluster"
     if W > MULTI_BAND_W:
         return name + "_many"
-    wide = matrix.wide or (track and key_over(matrix, Q, S))
+    wide = matrix.wide or (track and W <= WARP_BAND_W and
+                           key_over(matrix, Q, S))
     return name + ("_wide" if wide else "")
+
+
+def band_wide_code(matrix: DeviceMatrix, several: bool = False) -> int:
+    """The `wide` argument of sw_band_launch: the several-warps kernel's
+    score entries, 2 int16 and 3 int32 for a matrix outside int8 (either
+    runs that kernel at any width); else 1 where `several` (a tracked
+    band that could score KEY_CAP: that kernel, int8) and 0 (int8, the
+    one-warp kernel where it takes the band)."""
+    if not matrix.wide:
+        return int(several)
+    return 2 if matrix.lo >= -(1 << 15) and matrix.hi < 1 << 15 else 3
 
 
 def cluster_shape(W: int):
@@ -592,7 +612,8 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
             elif name.endswith("_cluster"):
                 rc = lib.sw_band_cluster_launch(*args, *cluster_shape(W))
             else:
-                rc = lib.sw_band_launch(*args, int(name.endswith("_wide")))
+                rc = lib.sw_band_launch(*args, band_wide_code(
+                    matrix, name.endswith("_wide")))
             if rc != 0:
                 raise RuntimeError(f"sw_band launch failed (code {rc})")
             launches[name] += 1

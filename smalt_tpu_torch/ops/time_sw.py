@@ -64,15 +64,17 @@ FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
 # (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
 BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
 # sw_band past 512 lanes, (Q, B, subject rows kept or 0 for all, routes):
-# 20 kb reads (W = 3,840) at the default batch's 12,288 windows; W =
-# 3,840, 6,144, 8,192, 12,288 (the one-block kernels' widest), 12,416,
-# 14,336 and 16,384 (87 kb reads) on 132 windows of 4,096 rows, where the
-# one-block kernels (a baseline's, past 12,288) and the cluster kernel
-# meet; the 6 windows of 2 reads of 100 kb (W = 18,816), where the
-# cluster and the tiled kernel meet
-BAND_WIDE = [(20000, 12288, 0, ("many", "cluster"))] + \
+# the several-warps kernel at the default batch's 12,288 windows for reads
+# of 4, 10 and 16 kb (W = 768, 1,920, 3,072); 20 kb reads (W = 3,840)
+# there too, beside the cluster kernel; W = 3,840, 6,144, 8,192, 12,288,
+# 12,416, 12,800 (the one-block kernels' widest), 14,336 and 16,384 (87
+# kb reads) on 132 windows of 4,096 rows, where the one-block kernels and
+# the cluster kernel meet; the 6 windows of 2 reads of 100 kb (W =
+# 18,816), where the cluster and the tiled kernel meet
+BAND_WIDE = [(Q, 12288, 0, ("many",)) for Q in (4096, 10000, 16384)] + \
+    [(20000, 12288, 0, ("many", "cluster"))] + \
     [(Q, 132, 4096, ("many", "cluster"))
-     for Q in (20000, 32768, 43520, 65280, 65552, 75792, 87040)] + \
+     for Q in (20000, 32768, 43520, 65280, 65552, 67600, 75792, 87040)] + \
     [(100_000, 6, 0, ("cluster", "tiled"))]
 WIDE_HEAD_ROWS = 2048      # subject rows the plain version holds there
 ENTRY = {"many": "sw_band_launch", "cluster": "sw_band_cluster_launch",
@@ -182,7 +184,9 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     ptrs = [o.data_ptr() for o in out] + [None] * (3 - len(out))
     stream = torch.cuda.current_stream().cuda_stream
     launch = getattr(lib, kernel + "_launch")
-    wide = int(mat.wide)
+    # sw_band's `wide` names its several-warps profile (an earlier source
+    # takes any value but 0 as a matrix outside int8)
+    wide = sw.band_wide_code(mat) if kernel == "sw_band" else int(mat.wide)
     scratch = []
     if kernel == "sw_full" and Q > sw.MAX_Q:     # the strip path
         launch = lib.sw_full_strip_launch

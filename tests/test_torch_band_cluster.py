@@ -205,7 +205,7 @@ def test_cluster_shape_of_100kb_reads():
             tsw.cluster_shape(bad)
 
 
-@pytest.mark.parametrize("tiled,cluster", [(12288, 131072), (512, 4096),
+@pytest.mark.parametrize("tiled,cluster", [(12800, 131072), (512, 4096),
                                            (0, 768)])
 def test_band_routes_across_both_thresholds(tiled, cluster, monkeypatch):
     """sw_band_instance names the cluster kernel for TILED_BAND_W < W <=
@@ -213,7 +213,7 @@ def test_band_routes_across_both_thresholds(tiled, cluster, monkeypatch):
     matrix and tracking, at the module's values and lowered ones (as
     chip_smoke.py lowers them to hold both kernels at small widths); every
     name is a launch counter."""
-    assert (tsw.TILED_BAND_W, tsw.CLUSTER_BAND_W) == (12288, 131072)
+    assert (tsw.TILED_BAND_W, tsw.CLUSTER_BAND_W) == (12800, 131072)
     monkeypatch.setattr(tsw, "TILED_BAND_W", tiled)
     monkeypatch.setattr(tsw, "CLUSTER_BAND_W", cluster)
     for entry in (3, 200):

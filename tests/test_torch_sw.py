@@ -767,7 +767,9 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     (3200, 18560, 3, True, "sw_band_track_many"),   # past 3,072 lanes
     (3840, 22528, 3, False, "sw_band_many"),   # 20 kb reads
     (12288, 73472, 200, True, "sw_band_track_many"),  # wide matrix: many
-    (12416, 73728, 3, False, "sw_band_cluster"),      # past 12,288 lanes
+    (12416, 73728, 3, False, "sw_band_many"),         # past 12,288 lanes
+    (12800, 76160, 3, True, "sw_band_track_many"),    # the kernel's widest
+    (12928, 76928, 3, False, "sw_band_cluster"),      # past 12,800 lanes
     (16384, 97920, 200, True, "sw_band_track_cluster"),  # wide matrix too
     (16512, 98048, 3, True, "sw_band_track_cluster"),   # past 16,384 lanes
     (18816, 112_512, 3, False, "sw_band_cluster"),      # 100 kb reads
@@ -780,31 +782,33 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     (512, 70_000, 127, False, "sw_band"),
 ])
 def test_sw_band_instance_routing(W, S, entry, track, want):
-    """W > 131,072 (CLUSTER_BAND_W) runs sw_band_tiled_kernel, W > 12,288
+    """W > 131,072 (CLUSTER_BAND_W) runs sw_band_tiled_kernel, W > 12,800
     (TILED_BAND_W) sw_band_cluster_kernel and W > 3,072 (MULTI_BAND_W)
-    sw_band_many_kernel, up to 32 warps a window, whatever the matrix;
-    below it a matrix past int8 or a tracked window that could score 2^23
-    runs the several-warps kernel (the `wide` flag of sw_band_launch)."""
+    the several-warps kernel on 20 lanes a thread ("_many"), whatever the
+    matrix; below it a matrix past int8, or a tracked band of up to 512
+    lanes that could score 2^23, runs the several-warps kernel ("_wide":
+    the `wide` code of sw_band_launch, band_wide_code)."""
     m = np.zeros((8, 8), np.int32)
     m[0, 0] = entry
     mat = tsw.device_matrix(m, "cpu")
     Q = S if S in (70_000, 700_000) else S * 8 // 9
     assert tsw.sw_band_instance(Q, S, W, mat, track) == want
     assert want in tsw.launches
-    assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 12288
+    assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 12800
     assert tsw.CLUSTER_BAND_W == 131072
 
 
 def test_band_width_of_long_reads_fits_the_many_kernel():
     """The band of a read padded to Q: past ~16 kb it is wider than the
-    6-warp kernel's 3,072 lanes, up to ~65 kb within the 32-warp kernel's
-    TILED_BAND_W, and past that the cluster kernel's."""
+    several-warps kernel's 3,072 lanes of 12 a thread, up to ~68 kb within
+    TILED_BAND_W (20 lanes a thread), and past that the cluster
+    kernel's."""
     from smalt_tpu_torch.parallel.mesh import window_pad
     for Q, many in ((16384, False), (16400, True), (20000, True),
-                    (65280, True)):
+                    (65280, True), (65552, True), (67600, True)):
         W = tsw.clamp_band_width(Q, window_pad(Q))
         assert (W > tsw.MULTI_BAND_W) == many and W <= tsw.TILED_BAND_W, Q
-    for Q in (65552, 87040, 90000):
+    for Q in (68288, 87040, 90000):
         W = tsw.clamp_band_width(Q, window_pad(Q))
         assert W > tsw.TILED_BAND_W
 
