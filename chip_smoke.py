@@ -6,7 +6,10 @@
 1. Prints the toolchain (card, power limit, CUDA, nvcc); fails without
    a GPU.
 2. Builds the CUDA kernels ops/csrc/sw_full.cu, ops/csrc/sw_band.cu and
-   ops/csrc/swq.cu from the checkout, one nvcc each, side by side.
+   ops/csrc/swq.cu from the checkout, one nvcc each, side by side; fails
+   if ptxas reports a spill in sw_band's several-warps kernel or in
+   sw_full's strip kernels.  The --device-pass1 runs of phases 10 and 11
+   print the time of the lane's strip calls on the card (CUDA events).
 3. Holds sw_full against its plain torch version (sw_score_ref) on
    the card: exact equality of (best, ti, tj) and of the score-only
    instance at the single-end shape Q=112 / S=128 / B=12,288, the
@@ -21,13 +24,24 @@
    planted and tie-heavy windows.  Then the strip path (queries past 512
    columns), tracked and score-only, int8 and WIDE, at Q=640 / S=768,
    Q=1,024 / S=1,152, Q=2,048 / S=2,304 and Q=4,096 / S=4,352 on 64
-   planted and 64 tie-heavy windows each, and timed at Q=2,048 /
-   S=2,304 on 4,096 tie-heavy windows (the plain version once).  Then
+   planted and 64 tie-heavy windows each, through both of its kernels
+   (the wavefront at its route, the one-warp kernel with ops/sw.py
+   STRIP_ONE_WARP_B lowered to 0), every call launching the instance
+   sw_full_instance names ("_strip" the wavefront, "_warp" the one-warp
+   kernel, int8 only), and timed at Q=2,048 / S=2,304 on 4,096 tie-heavy
+   windows (the one-warp kernel's route on int8, the wavefront beside it;
+   WIDE and the two-part record on the wavefront; the plain version once);
+   a batch of 64 windows whose query ends
+   cycle over STRIP_QENDS (512 k and 512 k + 1, a window of pad code
+   only), int8, WIDE and the two-part record, both kernels; 1,500 bp
+   reads in Q=2,048 (4,096 windows) and 20 kb reads in Q=32,768 (64)
+   timed, with the bound over the cells inside the query.  Then
    the strip path past 16,384 columns: Q=32,768 / S=2,048 on 64 windows
    planted past column 16,384 and 64 tie-heavy ones, int8 and WIDE, with
    the carry scratch budget (ops/sw.py SCRATCH_BYTES) lowered so
-   that each call runs in 4 launches; and the two-part record (the _rec
-   kernels) on 16 windows that score past 2^23 (S = 16,384; Q = 16,384
+   that each call runs in 4 launches, then every wavefront instance but
+   the record's timed there in one launch; and the two-part record (the
+   _rec kernels) on 16 windows that score past 2^23 (S = 16,384; Q = 16,384
    with entries of +-1,000, and their first 512 columns with entries of
    +-24,000), timed on 1,056 copies of them.
    Phases 3, 3b and 3c print each kernel's roofline bound at each shape
@@ -78,7 +92,14 @@
    first width past TILED_BAND_W) and 16 CTAs (W = 32,768, 40,000
    and 131,072, its widest), on their first rows; then both on the
    6 windows of 2 reads of 100 kb (W = 18,816, S = 112,512: the cluster
-   kernel at its route, 10 CTAs), timed, with their bound.
+   kernel at its route, 10 CTAs), timed, with their bound.  Then the
+   one-row-old E term: ops/sw.py eterm_windows (the best path takes a
+   vertical gap into a warp's or a CTA's last lane and a horizontal gap
+   from it) through the several-warps kernel at W = 768 and 3,840 and
+   the cluster kernel (TILED_BAND_W lowered to 0) at the same widths,
+   against the plain version; and cudaOccupancyMaxActiveClusters for
+   every shape cluster_shape returns (fails where the card cannot place
+   one).
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -300,6 +321,17 @@ STRIP_TIME = (2048, 2304, BATCH)
 # STRIP_FAR_GROUPS launches by a lowered ops/sw.py SCRATCH_BYTES
 STRIP_FAR = (32768, 2048, 64)
 STRIP_FAR_GROUPS = 4
+# the strip path skips strips of pad code alone: (Q, S, windows) of a batch
+# whose query ends (qend: one past the last column not of code 7) cycle
+# over STRIP_QENDS, checked on int8, WIDE and the two-part record (entries
+# of +-STRIP_REC_ENTRY: Q * entry >= 2^23); then timed on reads shorter than
+# their bucket, (Q, S, windows, qend): 1,500 bp reads in Q 2,048 and 20 kb
+# reads in Q 32,768, as the pass-1 lane pads them
+STRIP_QEND_SHAPE = (2048, 2304, 64)
+STRIP_QENDS = (512, 513, 1024, 1025, 1536, 1537, 2048, 0, 511, 700, 1500,
+               1999)
+STRIP_REC_ENTRY = 5000
+STRIP_QEND_TIME = [(2048, 2304, BATCH, 1500), (32768, 2048, 64, 20000)]
 # scores past 2^23 (the tracking key's limit): the two-part record (the
 # _rec kernels) on planted Q = S = 16,384 windows with entries of +-1000,
 # and on their first 512 columns with entries of +-24,000 (in registers),
@@ -322,6 +354,17 @@ BAND_MULTI_ODD_Q, BAND_MULTI_ODD = 4096, (1000, 3100)
 BAND_WIDEST = (67600, 8192, 4)        # Q, subject rows, windows
 # Q, S, W, pad, gap open = extension, windows
 BAND_BIG_GE = (256, 2048, 256, 128, 140_000, 16)
+# the one-row-old E term of the several-warps and the cluster kernel's row
+# exchange: ops/sw.py eterm_windows under ETERM_PEN (match, mismatch, gap
+# open, gap extension), ETERM_B windows a case, at the band geometry of
+# Q (subject rows cut to the first `rows`), planted at the first lanes of
+# warps (the several-warps kernel: 384 and 640 lanes a warp at W 768 and
+# 3,840) and of warps and CTAs (the cluster kernel, TILED_BAND_W lowered
+# to 0: warps of 512 lanes, CTAs of 2,048 at W 3,840)
+ETERM_PEN = (1, -6, -8, -1)
+ETERM = [(4096, 4608, (384,), (512,)),
+         (20000, 5120, (3200, 2560), (3584, 2048))]
+ETERM_B = 8
 # bands past TILED_BAND_W: sw_band_cluster_kernel (to 131,072 lanes) with
 # ops/sw.py TILED_BAND_W lowered to 0 (every band on it), and
 # sw_band_tiled_kernel (past that) with CLUSTER_BAND_W lowered too, held
@@ -609,7 +652,12 @@ def bound_line(what: str, work: dict, ms: float, card: str) -> str:
             f" bytes {work['bytes_ms']:.4f} ms at "
             f"{bounds.MEM_BYTES_PER_S / 1e12:.2f} TB/s); kernel {ms:.4f} ms, "
             f"bound / kernel = {100 * sh:.1f}%, "
-            f"{work['cells'] / ms / 1e6:.0f} GCUPS over these cells | {card}")
+            f"{work['cells'] / ms / 1e6:.0f} GCUPS over these cells" +
+            (f"; over every query column ({work['cells_all']} cells) bound "
+             f"{work['bound_all_ms']:.4f} ms, "
+             f"{100 * bounds.share(work['bound_all_ms'], ms):.1f}%"
+             if work.get("cells_all", work["cells"]) != work["cells"]
+             else "") + f" | {card}")
 
 
 TIE_SHAPES = [(112, 128, 3 * BATCH), (128, 128, 6 * BATCH),
@@ -774,23 +822,81 @@ def check_wide_full(rng, card: str):
     return (worst,) + main
 
 
-def check_strip(rng, card: str):
-    """Phase 3, queries past 512 columns: sw_full's strip path, tracked
-    and score-only, int8 and WIDE (WIDE_PEN), against sw_score_ref,
-    exactly, at STRIP_SHAPES on STRIP_CHECK_B planted and tie-heavy
-    windows; then timed at STRIP_TIME (a full batch), the plain version
-    once on the same windows.  Returns (max_abs_err, {instance: dict of
-    ms, plain_ms, bound_ms, bound_by at STRIP_TIME})."""
-    import torch
+def strip_mats():
+    """{instance tag: (DeviceMatrix, go, ge)} of the strip path's matrices:
+    int8, WIDE_PEN (WIDE)."""
     from smalt_tpu_torch.align import core as ali
-    from smalt_tpu_torch.ops import bounds, sw
+    from smalt_tpu_torch.ops import sw
     mats = {}
     for tag, pen in (("", ()), ("_wide", WIDE_PEN)):
         m, go, ge = ali.make_score_matrix(*pen)
         mats[tag] = (sw.device_matrix(m, "cuda"), -go, -ge)
     if not mats["_wide"][0].wide:
         fail(f"the matrix of {WIDE_PEN} fits int8")
-    worst = 0
+    return mats
+
+
+@contextlib.contextmanager
+def strip_route(one_warp_b: int):
+    """ops/sw.py STRIP_ONE_WARP_B set to one_warp_b while open: 0 sends
+    every strip call to the one-warp kernel, a number past any batch to the
+    wavefront."""
+    from smalt_tpu_torch.ops import sw
+    kept = sw.STRIP_ONE_WARP_B
+    sw.STRIP_ONE_WARP_B = one_warp_b
+    try:
+        yield
+    finally:
+        sw.STRIP_ONE_WARP_B = kept
+
+
+STRIP_KERNELS = (("the wavefront", 1 << 40), ("the one-warp kernel", 0))
+
+
+def strip_equal(q, s, sl, mat, go: int, ge: int, what: str):
+    """full_equal on a strip call: the two calls must launch, once each,
+    exactly the instances sw_full_instance names.  Returns the plain
+    version's result."""
+    from smalt_tpu_torch.ops import sw
+    B, Q = q.shape
+    S = s.shape[1]
+    n, want, _ = full_equal(q, s, sl, mat, go, ge, what)
+    names = {sw.sw_full_instance(B, Q, S, mat, t) for t in (True, False)}
+    if n != {k: 1 for k in names}:
+        fail(f"sw_full strips at {what}: launches {n}, one each of "
+             f"{sorted(names)} expected")
+    return want
+
+
+def strip_launched(n: dict, want: str, what: str, least: int = 1) -> None:
+    """Fail unless the launch counts n hold at least `least` launches of
+    the strip instance `want` ("_strip" the wavefront, "_warp" the
+    one-warp kernel, as sw_full_instance names them) and none of another
+    strip instance."""
+    other = {k: v for k, v in n.items()
+             if v and k != want and ("_strip" in k or "_warp" in k)}
+    if n[want] < least or other:
+        fail(f"{what}: launched {n}; {least} or more of {want} and no other "
+             f"strip instance expected")
+
+
+def check_strip(rng, card: str):
+    """Phase 3, queries past 512 columns: sw_full's strip wavefront,
+    tracked and score-only, int8 and WIDE (WIDE_PEN), against
+    sw_score_ref, exactly, at STRIP_SHAPES on STRIP_CHECK_B planted and
+    tie-heavy windows, through the wavefront (its route at these batches)
+    and, int8, the one-warp kernel (ops/sw.py STRIP_ONE_WARP_B lowered to
+    0), each call launching the instance sw_full_instance names; then
+    timed at STRIP_TIME (a full batch: the one-warp kernel's route on
+    int8, the wavefront timed beside it; the wavefront's on WIDE and on
+    the two-part record, entries of +-STRIP_REC_ENTRY, held equal to the
+    plain version there), the plain version once on the same windows.
+    Returns (max_abs_err, {instance: dict of ms, plain_ms, bound_ms,
+    bound_by at STRIP_TIME, as routed})."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    mats = strip_mats()
     for Q, S in STRIP_SHAPES:
         past = 0                      # best cells past the first strip
         for tag, (mat, go, ge) in mats.items():
@@ -798,43 +904,142 @@ def check_strip(rng, card: str):
                               ("tie-heavy", sw.tie_windows)):
                 q, s, sl = (torch.from_numpy(x).cuda()
                             for x in gen(rng, STRIP_CHECK_B, Q, S))
-                got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=True)
-                got0 = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=False)
-                want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
-                torch.cuda.synchronize()
-                errs = [int((g - w).abs().max()) for g, w in zip(got, want)]
-                err0 = int((got0 - want[0]).abs().max())
-                worst = max(worst, *errs, err0)
-                if max(errs + [err0]) != 0:
-                    fail(f"sw_full{tag} (strips) differs from sw_score_ref "
-                         f"at Q={Q} S={S} ({kind}): max |diff| best/ti/tj "
-                         f"{errs}, score-only {err0}")
+                # the one-warp kernel is int8 only
+                for kernel, one_warp_b in STRIP_KERNELS[:1 + (not tag)]:
+                    with strip_route(one_warp_b):
+                        want = strip_equal(q, s, sl, mat, go, ge,
+                                           f"Q={Q} S={S} ({kind}{tag}, "
+                                           f"{kernel})")
                 past += int((want[2] >= sw.MAX_Q).sum())
         if past == 0:
             fail(f"degenerate strip windows at Q={Q} S={S}: no best cell "
                  f"past the first strip")
         print(f"# sw_full strips Q={Q} S={S}, {STRIP_CHECK_B} windows each "
-              f"of planted and tie-heavy, int8 and entries of {WIDE_PEN}: "
-              f"equal to sw_score_ref (best, ti, tj and score-only; {past} "
-              f"best cells past column 512) | {card}", flush=True)
+              f"of planted and tie-heavy, int8 and entries of {WIDE_PEN}, "
+              f"the wavefront on {sw.strip_warps(STRIP_CHECK_B, Q, S)} warps "
+              f"a window and the one-warp kernel (int8): equal to "
+              f"sw_score_ref "
+              f"(best, ti, tj and score-only; {past} best cells past column "
+              f"512) | {card}", flush=True)
     Q, S, B = STRIP_TIME
     q, s, sl = (torch.from_numpy(x).cuda() for x in sw.tie_windows(rng, B, Q,
                                                                    S))
     out = {}
+    m, go, ge = ali.make_score_matrix(STRIP_REC_ENTRY, -STRIP_REC_ENTRY)
+    mats["_rec"] = (sw.device_matrix(m, "cuda"), -go, -ge)
     for tag, (mat, go, ge) in mats.items():
-        for track in (True, False):
-            name = "sw_full" + ("_track" if track else "") + "_strip" + tag
+        for track in (True, False) if tag != "_rec" else (True,):
+            name = sw.sw_full_instance(B, Q, S, mat, track)
+            suffix = "_warp" if not tag else "_strip" + tag
+            if name != "sw_full" + ("_track" if track else "") + suffix:
+                fail(f"a batch of {B} windows at Q={Q} routed to {name}")
+            if tag:
+                got = sw.sw_full_cuda(q, s, sl, mat, go, ge, track=track)
+                want = sw.sw_score_ref(q, s, sl, mat.t, go, ge, track=True)
+                if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                        if track else torch.equal(got, want[0])):
+                    fail(f"{name} Q={Q} S={S} B={B}: differs from "
+                         f"sw_score_ref")
             k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
                                                    track=track), 5)
+            beside = ""
+            if not tag:                 # the wavefront, not routed here
+                with strip_route(1 << 40):
+                    w_ms = time_ms(lambda: sw.sw_full_cuda(
+                        q, s, sl, mat, go, ge, track=track), 5)
+                beside = (f"; the wavefront on {sw.strip_warps(1, Q, S)} "
+                          f"warps, not routed here, {w_ms:.4f} ms")
             p_ms = time_ms(lambda: sw.sw_score_ref(q, s, sl, mat.t, go, ge,
                                                    track=track), 1, warm=0)
-            work = bounds.sw_full_work(Q, S, sl, track)
-            print(bound_line(f"{name} Q={Q} S={S} B={B} (tie-heavy windows; "
-                             f"plain {p_ms:.1f} ms)", work, k_ms, card),
+            work = bounds.sw_full_work(Q, S, sl, track, q)
+            print(bound_line(f"{name} Q={Q} S={S} B={B}, "
+                             f"{sw.strip_warps(B, Q, S, bool(tag))} warp(s) "
+                             f"a window (tie-heavy windows; plain "
+                             f"{p_ms:.1f} ms{beside})", work, k_ms, card),
                   flush=True)
-            out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=work["bound_ms"],
+            out[name] = dict(shape=f"Q={Q} S={S} B={B}", ms=k_ms,
+                             plain_ms=p_ms, bound_ms=work["bound_ms"],
                              bound_by=work["bound_by"])
-    return worst, out
+    return 0, out
+
+
+def qend_windows(rng, B: int, Q: int, S: int):
+    """kernel_windows whose query ends (qend) cycle over STRIP_QENDS (pad
+    code 7 from there on), each subject holding the query's last 3/4 of
+    min(S, qend) real columns (the best cells near qend)."""
+    q, s, sl = kernel_windows(rng, B, Q, S)
+    ends = np.resize(np.minimum(STRIP_QENDS, Q), B)
+    for b, e in enumerate(ends):
+        q[b, e:] = 7
+        q[b, :e][q[b, :e] == 7] = 1
+        n = min(S, int(e)) * 3 // 4
+        s[b, :n] = np.where(q[b, e - n: e] < 4, q[b, e - n: e], 2)
+    sl = np.maximum(sl, np.minimum(S, ends * 3 // 4)).astype(np.int32)
+    return q, s, sl, ends
+
+
+def check_strip_qend(rng, card: str):
+    """Phase 3, the strips of pad code alone: a batch of STRIP_QEND_SHAPE
+    whose query ends cycle over STRIP_QENDS (512 k and 512 k + 1 among
+    them, a window of pad code only), tracked and score-only, int8, WIDE
+    (WIDE_PEN) and the two-part record (entries of +-STRIP_REC_ENTRY),
+    against sw_score_ref exactly, each call launching the instance
+    sw_full_instance names; then the int8 instances timed at
+    STRIP_QEND_TIME, where the bound counts the cells inside the query
+    (and the share over every column is printed beside it).  Returns (the
+    max |diff| (0), {instance: dict of ms and bound_ms, bound_by over the
+    cells inside the query, of the wavefront on 20 kb reads in Q 32,768})."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    mats = strip_mats()
+    m, go, ge = ali.make_score_matrix(STRIP_REC_ENTRY, -STRIP_REC_ENTRY)
+    mats["_rec"] = (sw.device_matrix(m, "cuda"), -go, -ge)
+    Q, S, B = STRIP_QEND_SHAPE
+    if sw.sw_full_instance(B, Q, S, mats["_rec"][0], True) != \
+            "sw_full_track_strip_rec":
+        fail(f"entries of {STRIP_REC_ENTRY} at Q={Q} B={B} do not route to "
+             f"the wavefront's _rec")
+    q, s, sl, ends = qend_windows(rng, B, Q, S)
+    if not np.array_equal(bounds.query_ends(q), ends):
+        fail("qend_windows: the query ends are not the ones asked for")
+    q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+    for tag, (mat, go, ge) in mats.items():
+        # the one-warp kernel is int8 only
+        for kernel, one_warp_b in STRIP_KERNELS[:1 + (not tag)]:
+            with strip_route(one_warp_b):
+                want = strip_equal(q, s, sl, mat, go, ge,
+                                   f"Q={Q} S={S}, mixed query ends "
+                                   f"({tag or 'int8'}, {kernel})")
+        empty = want[0].cpu().numpy()[ends == 0]
+        if empty.any():
+            fail(f"a window of pad code only scored {empty}")
+    print(f"# sw_full strips Q={Q} S={S} B={B}, query ends {STRIP_QENDS} "
+          f"(a window runs ceil(qend / 512) strips): equal to sw_score_ref "
+          f"(best, ti, tj and score-only), int8, entries of {WIDE_PEN} and "
+          f"the two-part record (entries of +-{STRIP_REC_ENTRY}), the "
+          f"wavefront, and the one-warp kernel on int8 | {card}", flush=True)
+    mat, go, ge = mats[""]
+    out = {}
+    for Q, S, B, qend in STRIP_QEND_TIME:
+        q, s, sl = kernel_windows(rng, B, Q, S)
+        q[:, qend:] = 7
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        for track in (True, False):
+            k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
+                                                   track=track), 3)
+            name = sw.sw_full_instance(B, Q, S, mat, track)
+            work = bounds.sw_full_work(Q, S, sl, track, q)
+            print(bound_line(f"{name} Q={Q} S={S} B={B}, reads of {qend} "
+                             f"bp ({-(-qend // sw.MAX_Q)} of "
+                             f"{-(-Q // sw.MAX_Q)} strips), "
+                             f"{sw.strip_warps(B, Q, S)} warp(s) a window",
+                             work, k_ms, card), flush=True)
+            if name.endswith("_strip"):
+                out[name] = dict(shape=f"Q={Q} S={S} B={B} qend={qend}",
+                                 ms=k_ms, bound_ms=work["bound_ms"],
+                                 bound_by=work["bound_by"])
+    return 0, out
 
 
 def far_windows(rng, B: int, Q: int, S: int):
@@ -887,8 +1092,9 @@ def check_strip_far(rng, card: str):
     """Phase 3, past 16,384 columns and past 2^23: the strip path at
     STRIP_FAR (int8 and WIDE_PEN, tracked and score-only, far-planted and
     tie-heavy windows) with ops/sw.py SCRATCH_BYTES lowered so that
-    a call runs STRIP_FAR_GROUPS launches, then timed with the module's
-    budget (one launch); then the two-part record (sw_full_track_rec,
+    a call runs STRIP_FAR_GROUPS launches, then each instance timed with
+    the module's budget (one launch) on the far-planted windows, the
+    plain version once; then the two-part record (sw_full_track_rec,
     sw_full_track_strip_rec) at KEY_SHAPE, whose best scores pass 2^23,
     in registers (Q <= 512 windows cut from the same, under KEY_REG_PEN)
     and in strips (under KEY_PEN), timed on KEY_FULL_B copies of the
@@ -900,6 +1106,7 @@ def check_strip_far(rng, card: str):
     from smalt_tpu_torch.ops import bounds, sw
     Q, S, B = STRIP_FAR
     budget = sw.SCRATCH_BYTES
+    recs = {}
     for tag, pen in (("", ()), ("_wide", WIDE_PEN)):
         m, go, ge = ali.make_score_matrix(*pen)
         mat, go, ge = sw.device_matrix(m, "cuda"), -go, -ge
@@ -926,18 +1133,26 @@ def check_strip_far(rng, card: str):
                   f"cells past column 16,384) in {STRIP_FAR_GROUPS} launches "
                   f"of {B // STRIP_FAR_GROUPS} windows each | {card}",
                   flush=True)
-            if kind == "far-planted" and not tag:
+            if kind != "far-planted":
+                continue
+            for track in (True, False):
+                name = sw.sw_full_instance(B, Q, S, mat, track)
                 k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, go, ge,
-                                                       track=False), 3)
-                print(bound_line(f"sw_full_strip Q={Q} S={S} B={B} (one "
-                                 f"launch)", bounds.sw_full_work(
-                                     Q, S, sl, False), k_ms, card),
-                      flush=True)
+                                                       track=track), 3)
+                p_ms = time_ms(lambda: sw.sw_score_ref(
+                    q, s, sl, mat.t, go, ge, track=track), 1, warm=0)
+                work = bounds.sw_full_work(Q, S, sl, track, q)
+                print(bound_line(f"{name} Q={Q} S={S} B={B} (one launch, "
+                                 f"{sw.strip_warps(B, Q, S)} warps a "
+                                 f"window; plain {p_ms:.1f} ms)", work,
+                                 k_ms, card), flush=True)
+                recs[name] = dict(shape=f"Q={Q} S={S} B={B}", ms=k_ms,
+                                  plain_ms=p_ms, bound_ms=work["bound_ms"],
+                                  bound_by=work["bound_by"])
     Q, S, B = KEY_SHAPE
     q, s, sl = (torch.from_numpy(x).cuda() for x in
                 kernel_windows(rng, B, Q, S))
     sl.fill_(S)
-    recs = {}
     for cut, pen in ((sw.MAX_Q, KEY_REG_PEN), (Q, KEY_PEN)):
         m, go, ge = ali.make_score_matrix(*pen)   # in registers, in strips
         mat, go, ge = sw.device_matrix(m, "cuda"), -go, -ge
@@ -961,7 +1176,8 @@ def check_strip_far(rng, card: str):
                  f"from the plain version's result")
         k_ms = time_ms(lambda: sw.sw_full_cuda(qf, sf, slf, mat, go, ge,
                                                track=True), 2, warm=1)
-        work = bounds.sw_full_work(cut, S, slf, True)
+        work = bounds.sw_full_work(cut, S, slf, True,
+                                   qf if cut > sw.MAX_Q else None)
         print(f"# {name} Q={cut} S={S} B={B}, entries {pen}: equal to "
               f"sw_score_ref (best, ti, tj and score-only; best up to "
               f"{best}, 2^23 = {sw.KEY_CAP}), plain {p_ms:.1f} ms; repeated "
@@ -1082,6 +1298,70 @@ def band_launched(before, names, what: str):
          if sw.launches[k] != before[k]}
     if n != {k: 1 for k in names}:
         fail(f"sw_band {what}: launches {n}")
+
+
+def check_eterm(rng, card: str):
+    """Phase 3b, the one-row-old E term of the band kernels' row exchange
+    (a warp's posted total lacks its last lane's Ein; the E of the next
+    warp's first lane from the row before corrects it): ops/sw.py
+    eterm_windows at ETERM, whose best path takes a vertical gap into a
+    warp's (or CTA's) last lane and a horizontal gap from it into the next
+    warp, through sw_band_multi_kernel (its own route) and
+    sw_band_cluster_kernel (TILED_BAND_W lowered to 0), tracked and
+    score-only, against sw_band_score_ref, exactly; each window reaches
+    its planted score.  Returns the max |diff| (0)."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import sw
+    m, go, ge = ali.make_score_matrix(*ETERM_PEN)
+    go, ge = -go, -ge
+    mat = sw.device_matrix(m, "cuda")
+    tiled = sw.TILED_BAND_W
+    for Q, rows, medges, cedges in ETERM:
+        _, pad, W = sw.band_geometry(Q)
+        for kernel, edges in (("sw_band_multi_kernel", medges),
+                              ("sw_band_cluster_kernel", cedges)):
+            q, s, sl, planted = sw.eterm_windows(
+                rng, ETERM_B, Q, rows, pad, W, edges, ETERM_PEN[0], go, ge)
+            t = [torch.from_numpy(x).cuda() for x in (q, s, sl)]
+            if kernel == "sw_band_cluster_kernel":
+                sw.TILED_BAND_W = 0
+            try:
+                _, want = band_equal(*t, mat, go, ge, pad, W,
+                                     f"W={W}, E-term windows ({kernel})")
+            finally:
+                sw.TILED_BAND_W = tiled
+            low = int((want[0].cpu().numpy() < planted).sum())
+            if low:
+                fail(f"E-term windows at W={W}: {low} below the planted "
+                     f"score")
+            print(f"# {kernel} W={W}, {ETERM_B} E-term windows (first lanes "
+                  f"{edges}, penalties {ETERM_PEN}, {rows} rows): equal to "
+                  f"sw_band_score_ref (best, ti, tj and score-only; best "
+                  f"{want[0].min().item()}..{want[0].max().item()}, each at "
+                  f"least its planted path's) | {card}", flush=True)
+    return 0
+
+
+def check_cluster_occupancy(card: str):
+    """Phase 3b: cudaOccupancyMaxActiveClusters for every (CTAs, threads)
+    shape ops/sw.py cluster_shape returns up to CLUSTER_BAND_W, tracked
+    and score-only; fails where the card cannot place one."""
+    from smalt_tpu_torch.ops import sw
+    shapes = sorted({sw.cluster_shape(W)
+                     for W in range(1, sw.CLUSTER_BAND_W + 1)})
+    fewest = {}
+    for ncta, nt in shapes:
+        for track in (True, False):
+            n = sw.cluster_occupancy(ncta, nt, track)
+            if n < 1:
+                fail(f"the card cannot place a cluster of {ncta} CTAs of "
+                     f"{nt} threads (track {track})")
+            fewest[ncta] = min(fewest.get(ncta, n), n)
+    print(f"# sw_band_cluster_kernel: cudaOccupancyMaxActiveClusters over "
+          f"the {len(shapes)} shapes cluster_shape returns, tracked and "
+          f"score-only: every one placed; fewest clusters at once by CTAs "
+          f"a cluster {fewest} | {card}", flush=True)
 
 
 def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
@@ -2425,19 +2705,49 @@ def run_exact_pairs(d: str, genome, card: str):
     return launches["--device-exact"]
 
 
+@contextlib.contextmanager
+def strip_timer(spans: list):
+    """While open, every sw_full_cuda call on a query past MAX_Q (the strip
+    path) records CUDA events before and after it, on the calling thread's
+    stream, into `spans`."""
+    import torch
+    from smalt_tpu_torch.ops import sw
+    real = sw.sw_full_cuda
+
+    def timed_call(qcodes, *a, **k):
+        if qcodes.shape[1] <= sw.MAX_Q:
+            return real(qcodes, *a, **k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(qcodes, *a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    sw.sw_full_cuda = timed_call
+    try:
+        yield
+    finally:
+        sw.sw_full_cuda = real
+
+
 def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str, **env):
     """`map -r 1` through the port's CLI for each (label, flags) of cases,
     the launch counts set to 0 just before each run and read just after;
     every device run's SAM must equal the first (the host C lane's, the
     @PG line aside) with no batch rendered on the host (# dp1-total).
+    The strip path's calls are timed on the card (strip_timer).
     `env`: more variables for the runs.  Returns {label: (launches, CLI
     wall s, lane s or None, stderr)}."""
+    import torch
     bodies, runs = {}, {}
     for label, flags in cases:
         sam = os.path.join(os.path.dirname(fq), f"dp1_{len(bodies)}.sam")
-        rc, err, launches, wall = cli_run(
-            ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
-            [idx_name, fq], SMALT_DP1_TIMING="1", **env)
+        spans = []
+        with strip_timer(spans):
+            rc, err, launches, wall = cli_run(
+                ["map", "-r", "1", "-f", "sam", "-o", sam] + flags +
+                [idx_name, fq], SMALT_DP1_TIMING="1", **env)
         if rc != 0:
             sys.stderr.write(err)
             fail(f"map {' '.join(flags)} on {fq} exited {rc}")
@@ -2464,11 +2774,15 @@ def pass1_runs(cases, idx_name: str, fq: str, n: int, card: str, **env):
         for sec in re.findall(r"# dp1-main stall=([\d.]+)", err):
             stages["stall"] = stages.get("stall", 0.0) + float(sec)
         lane = float(m.group(1)) if m else None
+        torch.cuda.synchronize()
+        strip_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
         print(f"# map {label}: {n} reads in {wall:.3f} s through the CLI "
               f"({n / wall:.1f} reads/s incl. index load)" +
               (f"; lane {lane:.3f} s ({n / lane:.1f} reads/s, # dp1-total), "
                f"main thread stalled on the device {stages.get('stall', 0):.3f}"
                f" s" if lane else "") +
+              (f"; the strip path's {len(spans)} calls {strip_ms:.3f} ms on "
+               f"the card (CUDA events)" if spans else "") +
               f"; launches {launches} | {card}", flush=True)
         runs[label] = (launches, wall, lane, err)
     return runs
@@ -2583,7 +2897,8 @@ def run_pass1(d: str, genome, card: str, host):
           f"byte-identical to the host C lane; lane {N_EXACT / lane_a:.1f} "
           f"reads/s against the host C lane's {N_EXACT / host[1]:.1f} CLI "
           f"reads/s (phase 7) | {card}", flush=True)
-    if la["sw_full"] < 1 or la["sw_full_strip"] or la["swq"]:
+    if la["sw_full"] < 1 or la["swq"] or \
+            any(v for k, v in la.items() if "_strip" in k or "_warp" in k):
         fail(f"--device-pass1 on 100 bp reads launched {la}")
     # (b) kilobase reads: the strip path
     rng = np.random.default_rng(SEED + 8)
@@ -2593,11 +2908,15 @@ def run_pass1(d: str, genome, card: str, host):
                        ("--device-pass1, 1,500 bp", ["--device-pass1"])],
                       idx_name, fq, N_DP1_LONG, card)
     lb = runs["--device-pass1, 1,500 bp"][0]
-    if lb["sw_full_strip"] < 1 or lb["sw_full"] or lb["sw_full_track_strip"]:
+    # the lane's window batch (4 x SMALT_DP1_BATCH) fills the card: the
+    # one-warp kernel
+    if lb["sw_full"]:
         fail(f"--device-pass1 on 1,500 bp reads launched {lb}")
+    strip_launched(lb, "sw_full_warp", "--device-pass1 on 1,500 bp reads")
     print(f"# --device-pass1 on {N_DP1_LONG} reads of {LONG_READLEN} bp "
           f"(1.5% indels): SAM byte-identical to the host C lane, through "
-          f"sw_full's strip path", flush=True)
+          f"sw_full's strip path (sw_full_warp, the one-warp kernel)",
+          flush=True)
     # (c) an index DeviceExact.make refuses: k15 s16 (nskip > wordlen, k >
     # 14) on the same genome
     from smalt_tpu_torch import cli
@@ -2754,10 +3073,10 @@ def run_very_long(d: str, genome, card: str):
         got = pass1_runs(cases, idx_name, fq_head, N_VLONG, card,
                          SMALT_DP1_BATCH=str(VLONG_DP1_BATCH))
         runs["dp1" + tag] = got[cases[1][0]][0]
+        # 4 x VLONG_DP1_BATCH windows: the wavefront
         want = "sw_full_strip" + ("_wide" if tag else "")
-        if runs["dp1" + tag][want] < 1:
-            fail(f"--device-pass1 on {rl} bp reads launched "
-                 f"{runs['dp1' + tag]}")
+        strip_launched(runs["dp1" + tag], want,
+                       f"--device-pass1 on {rl} bp reads")
         print(f"# --device-pass1 {' '.join(spec)} on {N_VLONG} reads of {rl} "
               f"bp: SAM byte-identical to the host C lane, through {want}",
               flush=True)
@@ -2777,13 +3096,15 @@ def run_very_long(d: str, genome, card: str):
         same = sam_body(os.path.join(d, "dp1_0.sam")) == \
             sam_body(os.path.join(d, "dp1_1.sam"))
         runs["dp1 groups"] = next(iter(got.values()))[0]
-        if not same or runs["dp1 groups"]["sw_full_strip"] < 2:
-            fail(f"--device-pass1 with the scratch in groups: launches "
-                 f"{runs['dp1 groups']}, SAM equal to the first run {same}")
+        if not same:
+            fail("--device-pass1 with the scratch in groups: SAM differs "
+                 "from the first run")
+        strip_launched(runs["dp1 groups"], "sw_full_strip",
+                       "--device-pass1 with the scratch in groups", 2)
         print(f"# --device-pass1 on {rl} bp reads with the strip scratch "
               f"budget at {8 * 32768 * VLONG_DP1_BATCH} bytes: "
-              f"{runs['dp1 groups']['sw_full_strip']} strip launches, SAM "
-              f"byte-identical | {card}", flush=True)
+              f"{runs['dp1 groups']['sw_full_strip']} strip launches "
+              f"(sw_full_strip), SAM byte-identical | {card}", flush=True)
     reads, truth, rev = make_reads(rng, genome, BATCH, READLEN)
     fq, _ = write_fastq(os.path.join(d, "keyshort.fq"), reads, b"k")
     spec = ["-S", KEY_SHORT_SPEC]
@@ -3182,8 +3503,11 @@ def run_mesh(d: str, genome, card: str):
     if got != cpu or len(got) != N_MESH_LONG:
         fail("--fast over 1x2 on kilobase reads: SAM differs from the same "
              "mesh's --device cpu run")
-    if launches["sw_full_track_strip"] < 1 or launches["sw_band_track"]:
+    # 3 x 256 windows over 2 members: the wavefront
+    if launches["sw_band_track"]:
         fail(f"--fast over 1x2 on kilobase reads: launched {launches}")
+    strip_launched(launches, "sw_full_track_strip",
+                   "--fast over 1x2 on kilobase reads")
     runs[f"--fast mesh 1x2 {LONG_READLEN} bp"] = (launches, N_MESH_LONG)
     differ = sum(a != b for a, b in zip(got, one))
     near = sum(a != b for a, b in list(zip(got, one))[::MESH_CUT_EVERY])
@@ -3208,10 +3532,12 @@ def run_mesh(d: str, genome, card: str):
         fail(f"sw_full strips at Q={Q} S={S}: differ from sw_score_ref")
     k_ms = time_ms(lambda: sw.sw_full_cuda(q, s, sl, mat, -go, -ge,
                                            track=True), 5)
-    print(bound_line(f"sw_full_track_strip Q={Q} S={S} B={B} (planted "
+    print(bound_line(f"{sw.sw_full_instance(B, Q, S, mat, True)} Q={Q} "
+                     f"S={S} B={B} (planted "
                      f"windows; 2 strips of 512 columns and a last one of "
-                     f"{Q - 2 * sw.MAX_Q}; equal to sw_score_ref)",
-                     bounds.sw_full_work(Q, S, sl, True), k_ms, card),
+                     f"{Q - 2 * sw.MAX_Q}, {sw.strip_warps(B, Q, S)} warp(s) "
+                     f"a window; equal to sw_score_ref)",
+                     bounds.sw_full_work(Q, S, sl, True, q), k_ms, card),
           flush=True)
 
     # (d)
@@ -3326,10 +3652,14 @@ def main() -> int:
         info = build.build_info[name]
         print(f"# build {name}.cu: nvcc {info['seconds']:.2f} s; "
               f"{ptxas_summary(info['log'])}", flush=True)
-    spilled = ptxas_summary(build.build_info["sw_band"]["log"],
-                            "sw_band_multi")
-    if not spilled.endswith("spill bytes 0"):
-        fail(f"the several-warps kernel spills: {spilled}")
+    for src, kernel, what in (("sw_band", "sw_band_multi",
+                               "the several-warps kernel"),
+                              ("sw_full", "sw_strip", "the one-warp strip "
+                               "kernel"),
+                              ("sw_full", "sw_wave", "the strip wavefront")):
+        spilled = ptxas_summary(build.build_info[src]["log"], kernel)
+        if not spilled.endswith("spill bytes 0"):
+            fail(f"{what} spills: {spilled}")
     print(f"# phase 2 (build, side by side): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -3338,8 +3668,16 @@ def main() -> int:
     err, k_full_t, k_full = check_kernel(rng, card)
     werr, k_wfull_t, k_wfull = check_wide_full(rng, card)
     serr, k_strip = check_strip(rng, card)
-    ferr, k_rec = check_strip_far(rng, card)
-    serr = max(serr, ferr)
+    ferr, k_far = check_strip_far(rng, card)
+    qend_err, k_qend = check_strip_qend(rng, card)
+    serr = max(serr, ferr, qend_err)
+    # the wavefront's entries: at STRIP_FAR (the record at KEY_SHAPE), its
+    # times on 20 kb reads and on a full batch (STRIP_TIME) beside them
+    for name, at in k_qend.items():
+        k_far[name]["qend"] = at
+    for name, at in k_strip.items():
+        if name in k_far:
+            k_far[name]["full_batch"] = at
     print(f"# phase 3 (sw_full against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -3348,6 +3686,9 @@ def main() -> int:
     m_, go_, ge_ = ali.make_score_matrix()
     terr, k_clu_t, k_clu, k_tiled_t, k_tiled = check_band_past_16384(
         rng, sw.device_matrix(m_, "cuda"), -go_, -ge_, card)
+    eerr = check_eterm(rng, card)
+    berr, terr = max(berr, eerr), max(terr, eerr)
+    check_cluster_occupancy(card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -3489,15 +3830,16 @@ def main() -> int:
             ("sw_band_track_many", band, berr, k_many_t),
             ("sw_band_many", band, berr, k_many),
             ("swq", swq, qerr, k_swq),
-            ("sw_full_track_strip", full, serr, k_strip["sw_full_track_strip"]),
-            ("sw_full_strip", full, serr, k_strip["sw_full_strip"]),
+            ("sw_full_track_warp", full, serr, k_strip["sw_full_track_warp"]),
+            ("sw_full_warp", full, serr, k_strip["sw_full_warp"]),
+            ("sw_full_track_strip", full, serr, k_far["sw_full_track_strip"]),
+            ("sw_full_strip", full, serr, k_far["sw_full_strip"]),
             ("sw_full_track_strip_wide", full, serr,
-             k_strip["sw_full_track_strip_wide"]),
-            ("sw_full_strip_wide", full, serr,
-             k_strip["sw_full_strip_wide"]),
-            ("sw_full_track_rec", full, serr, k_rec["sw_full_track_rec"]),
+             k_far["sw_full_track_strip_wide"]),
+            ("sw_full_strip_wide", full, serr, k_far["sw_full_strip_wide"]),
+            ("sw_full_track_rec", full, serr, k_far["sw_full_track_rec"]),
             ("sw_full_track_strip_rec", full, serr,
-             k_rec["sw_full_track_strip_rec"]),
+             k_far["sw_full_track_strip_rec"]),
             ("sw_band_track_tiled", band, terr, k_tiled_t),
             ("sw_band_tiled", band, terr, k_tiled),
             ("sw_band_track_cluster", band, terr, k_clu_t),

@@ -71,15 +71,34 @@ def share(bound_ms: float, measured_ms: float) -> float:
     return bound_ms / measured_ms
 
 
-def sw_full_work(Q: int, S: int, slens, track: bool) -> dict:
+def query_ends(q) -> np.ndarray:
+    """Each window's qend: one past its last query column whose code is
+    not 7 (the pad code, which scores 0 against every code), 0 for a
+    window of pad code only.  sw_full's strip path runs only the columns
+    below it."""
+    real = (_np(q) & 7) != 7
+    if real.shape[1] == 0:
+        return np.zeros(len(real), np.int64)
+    return np.where(real.any(axis=1),
+                    real.shape[1] - np.argmax(real[:, ::-1], axis=1), 0)
+
+
+def sw_full_work(Q: int, S: int, slens, track: bool, q=None) -> dict:
     """sw_score_batch on q [B, Q], subj [B, S], slens [B] (int32 in,
-    int32 out): every query column of every subject row below slen."""
+    int32 out): every query column of every subject row below slen, or,
+    given the query codes `q`, only the columns below each window's qend
+    (query_ends: the cells inside the query, which the strip path runs);
+    then "cells_all" and "bound_all_ms" keep the count over every column."""
     rows = np.minimum(_np(slens), S).clip(min=0)
     B = len(rows)
     cells = int(rows.sum()) * Q
     nbytes = 4 * (B * Q + int(rows.sum()) + B + 64) + \
         4 * B * (3 if track else 1)
-    return bound(cells, nbytes)
+    if q is None:
+        return bound(cells, nbytes)
+    out = bound(int((rows * query_ends(q)).sum()), nbytes)
+    out.update(cells_all=cells, bound_all_ms=bound(cells, nbytes)["bound_ms"])
+    return out
 
 
 def band_cells(Q: int, S: int, W: int, prepad: int, rows) -> int:

@@ -551,6 +551,37 @@ extern "C" int sw_band_cluster_launch(const void* q, const void* subj,
   return static_cast<int>(launch_cluster(track != 0, ncta, nthreads, a));
 }
 
+// How many clusters of ncta CTAs of nthreads threads of the tracked (or
+// score-only) cluster kernel the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot place one), through
+// *count.  Returns the CUDA error of the query, or -1 when the shape is
+// out of range.
+extern "C" int sw_band_cluster_occupancy(int ncta, int nthreads, int track,
+                                         void* count) {
+  if (ncta < 1 || ncta > CLUSTER_MAX || nthreads < 32 || nthreads % 32 ||
+      nthreads > CLUSTER_NT)
+    return -1;
+  auto kernel = track ? sw_band_cluster_kernel<true>
+                      : sw_band_cluster_kernel<false>;
+  if (ncta > 8) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ncta;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ncta);
+  cfg.blockDim = dim3(nthreads);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      static_cast<int*>(count), kernel, &cfg));
+}
+
 // Scores B windows with the tiled kernel (sw_band_tiled.cuh), for bands
 // of any width; ops/sw.py routes W past CLUSTER_BAND_W here.  The arguments
 // are sw_band_launch's less `wide` (the kernel looks its scores up in the

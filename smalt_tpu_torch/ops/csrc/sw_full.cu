@@ -91,7 +91,7 @@
 //     min(Q, S) < 2^23: an int8 matrix below 65,536 columns.)
 //   - A tracked launch past that, int8 matrix or not, runs the WIDE
 //     instance of the _rec kernels (sw_full_rec_kernel,
-//     sw_strip_rec_kernel: the same text, sw_full_kernels.cuh, included
+//     sw_wave_rec_kernel: the same text, sw_full_kernels.cuh, included
 //     twice), which tracks without the key.  Its record has two parts,
 //     the value and its column: a lane takes the row's max of T (3-input
 //     max), and only when that beats its best so far (strictly, rows
@@ -114,13 +114,11 @@
 //
 // Queries longer than 512 columns (sw_full_strip_launch): column strips.
 // The (C, L) instances above keep a window's whole query in one warp's
-// registers, 16 columns a lane at most.  Past that, one warp runs the
-// window's query in strips of STRIP_W = 32 * 16 columns, lane l holding
-// columns k*STRIP_W + l*16 + [0, 16) of strip k: strip 0 over all of the
-// window's rows, then strip 1 over all of them, and so on, with the row
-// loop of the 32-lane instance inside.  Only two values a row cross a
-// strip boundary, and strip k leaves them for strip k + 1 in a scratch
-// buffer carry[b][i] = {x, y} of the wrapper's:
+// registers, 16 columns a lane at most.  Past that the query runs in
+// strips of STRIP_W = 32 * 16 columns, lane l of a warp holding columns
+// k*STRIP_W + l*16 + [0, 16) of strip k, with the row loop of the 32-lane
+// instance inside.  Only two values a row cross a strip boundary, which
+// strip k hands to strip k + 1:
 //   x = H[i, j0 - 1], the last column's H, from which the next strip's
 //       first column takes T[i + 1, j0] = H[i, j0 - 1] + w;
 //   y = max over j' < j0 of (H0[i, j'] + j' * ge), the running prefix max
@@ -130,27 +128,80 @@
 // column offset j0 enters the lane's offset j0 * ge of the prefix max's
 // lane-local coordinates; lane 0 folds y into its total before the scan
 // (so lane 31's inclusive total is the next strip's y) and starts its
-// exclusive value from y, where strip 0 starts from NEG.  Padded columns
-// (code 7) exist only in the last strip, right of every real column.
-// The carry is 8 bytes a row and strip, read 32 rows at a time (one
-// coalesced load a lane, broadcast by shuffle as the subject codes are)
-// and written by lane 31 a row: at Q = 2,048, S = 2,304 and B = 4,096
-// that is 453 MB over three strip boundaries, 0.14 ms at the card's
-// memory rate against 5.8 ms of the bound's integer work, so it lives
-// in device memory at every S and not in shared memory.  The buffer
-// holds a window's carry for all of its rows (8 * S bytes), and the
-// wrapper (ops/sw.py scratch_groups) keeps it within a fixed budget by
-// launching groups of windows; nothing in the kernel bounds Q (a window
-// of Q columns runs Q / 512 strips, every offset that can pass 2^31 in
-// size_t).
+// exclusive value from y, where strip 0 starts from NEG.  The first row
+// of a run of rows takes the x of the row before, kept in a register.
+//
+// The wavefront (sw_wave_kernel, NW = 2..16 warps a window, one window a
+// block).  Strip k runs on warp k % NW; its chunk c (subject rows [32c,
+// 32c + 32), the last one shorter) runs at step (k / NW) * M + k % NW + c,
+// with Cr = ceil(rows / 32) chunks and M = max(Cr, NW), and one block
+// barrier ends each step.  A warp's strips never overlap (its next one
+// starts M >= Cr steps later), and every chunk's left neighbour, the same
+// rows of strip k - 1, ran at least one step earlier: on warp w - 1 one
+// step earlier, or, across the wrap from warp NW - 1 to warp 0 of the next
+// round, M - NW + 1 >= 1 steps earlier (M >= NW).  So the carry goes:
+//   - to the next warp through a ring in shared memory, 2 (the step's
+//     parity) x 32 rows x 8 bytes a warp: written at step t, read at
+//     t + 1, written again at t + 2, each after a barrier;
+//   - across the wrap through device memory, carry[b][i] (8 * S bytes a
+//     window, ops/sw.py scratch_groups bounds it): warp NW - 1 writes a
+//     chunk's rows at step t, warp 0 reads them at least one barrier later
+//     and before warp NW - 1 writes them again (NW - 1 >= 1 steps after
+//     that read).
+// Device-memory carry traffic falls NW-fold against the one-warp path.
+// Each warp builds the int8 profile of its strip in its own slice of the
+// block's dynamic shared memory (8 * 512 + 128 bytes a warp).  Every warp
+// runs every step and every barrier; a window whose rows or strips are
+// none runs no step.  The number of steps, (nstrip - 1) / NW * M +
+// (nstrip - 1) % NW + Cr, is the block's own, so no warp leaves early.
+// The one-warp path (sw_strip_kernel, NW = 1, int8 only): a warp a
+// window, four windows a block, strip 0 over all of the window's rows,
+// then strip 1, and so on, the carry through carry[b][i] (read 32 rows at
+// a time, one coalesced load a lane, broadcast by shuffle; written by lane
+// 31 a row).
+// Route (ops/sw.py strip_warps, from (B, Q, S) and the matrix;
+// sw_full_instance names the launch "_strip" on the wavefront and "_warp"
+// on the one-warp path), from the two kernels timed side by side
+// (PERF.md): the one-warp path for an int8 matrix from B = 1,536 windows
+// on, where it runs without barriers and measured faster; the wavefront
+// below that and for every WIDE launch (the one-warp kernel's WIDE and
+// _rec instances measured slower at Q 2,048 and 4,096 at every batch to
+// 4,096, and faster only at Q 1,024 tracked on 1,536-2,112 windows; they
+// are not built): a warp a strip up to 16 and no more warps than chunks (more
+// would idle), built twice, for launches of up to 4 warps (up to 255
+// registers a thread, measured faster there) and of up to 16 (512
+// threads: ptxas holds it to 128, and past that would cap them below what
+// a lane's 16 columns take).  Never one warp: there the wavefront's
+// schedule is the one-warp path's, with a barrier a chunk and a block a
+// window besides.  On Q32768 /
+// S2048 / B64, 64 windows of the pass-1 lane's reads over 16 kb, the
+// one-warp path filled 64 warps of the card; the wavefront fills 1,024.
+// Nothing bounds Q: a window of Q columns runs up to Q / 512 strips,
+// every offset that can pass 2^31 in size_t.
+//
+// Strips of pad code alone are not run.  Each window first finds qend,
+// one past its last column whose code is not 7 (from the end, a block's
+// or a warp's width of columns at a time), and runs ceil(qend / 512)
+// strips; a window of pad code alone runs none and returns (0, 0, 0) or
+// 0.  This is exact because code 7 scores 0 against every code, the
+// contract of sw_score_batch (ops/sw.py sw_score_batch; the 8 x 8 matrix
+// of align/core.py make_score_matrix is 0 on rows and columns >= 6): the
+// columns at or past qend lie to the right of every real column, so they
+// feed no cell of a real one, and by the argument above (query columns
+// past Q) none of them is the first to reach the maximum of T, nor raises
+// it.  A skipped strip also hands no carry, since no strip follows it.
+//
 // Tracking: a lane's strict-greater record is the first of its best
 // cells in the order it visits them, which is row-major within a strip
 // but not across strips.  So a lane keeps one record a strip (the proof
 // above holds strip by strip, over the lane's columns in that strip) and
-// merges it into its running record by the same rule the reduction
-// after the loop applies: highest T, then lowest row, then lowest
-// (global) column.  The lexicographic minimum over the lanes' records of
-// the cells with T = M is then the reference's cell, as above.
+// merges it into its running record by the rule the reductions after the
+// loop apply: highest T, then lowest row, then lowest (global) column.
+// A warp's lanes reduce by that rule, and (the wavefront) warp 0 then
+// reduces the warps' records by it, through shared memory.  The rule is
+// a total order on (T, row, column), so the order of merging does not
+// matter, and the lexicographic minimum over all records of the cells
+// with T = M is the reference's cell, as above.
 
 #include <cuda_runtime.h>
 
@@ -201,23 +252,38 @@ __device__ __forceinline__ int first_col(const int (&T)[C], int m) {
 
 constexpr int STRIP_C = 16;                 // columns a lane in a strip
 constexpr int STRIP_W = 32 * STRIP_C;       // columns a strip
+constexpr int STRIP_WARPS = 16;             // most warps a window (NW)
+constexpr int STRIP_WSTRIDE = 8 * STRIP_W + 128;   // a warp's int8 profile
 
-// sw_full_kernel and sw_strip_kernel track with the key; the _rec
-// kernels (tracked WIDE instances only) with the two-part record.
+// sw_full_kernel, sw_strip_kernel (int8 only) and sw_wave_kernel track
+// with the key; the _rec kernels (tracked WIDE instances only) with the
+// two-part record.
 #define SWF_KERNEL sw_full_kernel
 #define SWF_STRIP_KERNEL sw_strip_kernel
+#define SWF_WAVE_KERNEL sw_wave_kernel
 #define SWF_REC false
 #include "sw_full_kernels.cuh"
 #undef SWF_KERNEL
 #undef SWF_STRIP_KERNEL
+#undef SWF_WAVE_KERNEL
 #undef SWF_REC
 #define SWF_KERNEL sw_full_rec_kernel
-#define SWF_STRIP_KERNEL sw_strip_rec_kernel
+#define SWF_WAVE_KERNEL sw_wave_rec_kernel
 #define SWF_REC true
 #include "sw_full_kernels.cuh"
 #undef SWF_KERNEL
-#undef SWF_STRIP_KERNEL
+#undef SWF_WAVE_KERNEL
 #undef SWF_REC
+
+// The strip wavefront's instance for a launch of up to MAXW warps a block.
+template <int MAXW>
+auto wave_kernel(bool track, int wide) {
+  return track ? (wide == 2 ? sw_wave_rec_kernel<true, true, MAXW>
+                  : wide ? sw_wave_kernel<true, true, MAXW>
+                         : sw_wave_kernel<true, false, MAXW>)
+               : (wide ? sw_wave_kernel<false, true, MAXW>
+                       : sw_wave_kernel<false, false, MAXW>);
+}
 
 template <int C, int L>
 int launch(bool track, int wide, const int* q, const int* subj,
@@ -276,29 +342,52 @@ extern "C" int sw_full_launch(const void* q, const void* subj,
 }
 
 // The same for a query of more than STRIP_W columns, in column strips
-// (header).  carry is an int32 [B, S, 2] device scratch buffer the kernel
-// writes before it reads (the caller need not clear it); ops/sw.py bounds
-// it by launching groups of windows (their pointers offset to the group's
-// first window).  wide as above.  Returns the CUDA error of the launch,
-// or -1 when Q is out of range.
+// (header): nw = 1 runs the one-warp kernel (a warp a window, four
+// windows a block; wide = 0 only), nw >= 2 the wavefront of nw warps a
+// window, one window a block (ops/sw.py strip_warps chooses).  carry is an int32
+// [B, S, 2] device scratch buffer the kernels write before they read (the
+// caller need not clear it); ops/sw.py bounds it by launching groups of
+// windows (their pointers offset to the group's first window).  wide as
+// above.  Returns the CUDA error of setting the wavefront's shared memory
+// or of the launch, or -1 when Q or nw is out of range (or nw = 1 with a
+// wide matrix).
 extern "C" int sw_full_strip_launch(const void* q, const void* subj,
                                     const void* slens, const void* matrix,
                                     int B, int Q, int S, int go, int ge,
                                     int track, void* best, void* ti, void* tj,
-                                    void* stream, int wide, void* carry) {
-  if (Q <= STRIP_W || S < 0 || B < 0) return -1;
+                                    void* stream, int wide, void* carry,
+                                    int nw) {
+  if (Q <= STRIP_W || S < 0 || B < 0 || nw < 1 || nw > STRIP_WARPS)
+    return -1;
   if (B == 0) return 0;
-  const dim3 grid((B + WARPS - 1) / WARPS), block(WARPS * 32);
-  auto kernel = track ? (wide == 2 ? sw_strip_rec_kernel<true, true>
-                         : wide ? sw_strip_kernel<true, true>
-                                : sw_strip_kernel<true, false>)
-                      : (wide ? sw_strip_kernel<false, true>
-                              : sw_strip_kernel<false, false>);
   auto st = static_cast<cudaStream_t>(stream);
-  kernel<<<grid, block, 0, st>>>(
-      static_cast<const int*>(q), static_cast<const int*>(subj),
-      static_cast<const int*>(slens), static_cast<const int*>(matrix), B, Q,
-      S, go, ge, 256, static_cast<int2*>(carry), static_cast<int*>(best),
-      static_cast<int*>(ti), static_cast<int*>(tj));
+  auto* qp = static_cast<const int*>(q);
+  auto* sp = static_cast<const int*>(subj);
+  auto* lp = static_cast<const int*>(slens);
+  auto* mp = static_cast<const int*>(matrix);
+  auto* cp = static_cast<int2*>(carry);
+  auto* bp = static_cast<int*>(best);
+  auto* ip = static_cast<int*>(ti);
+  auto* jp = static_cast<int*>(tj);
+  if (nw == 1) {                       // int8 only
+    if (wide) return -1;
+    auto kernel = track ? sw_strip_kernel<true> : sw_strip_kernel<false>;
+    kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, st>>>(
+        qp, sp, lp, mp, B, Q, S, go, ge, 256, cp, bp, ip, jp);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // a launch of up to 4 warps a block lets ptxas take up to 255 registers
+  // a thread; one of up to STRIP_WARPS holds it to 128 (PERF.md: the first
+  // build measured faster at nw <= 4)
+  auto kernel = nw <= 4 ? wave_kernel<4>(track != 0, wide)
+                        : wave_kernel<STRIP_WARPS>(track != 0, wide);
+  // the carry ring, then (int8) a profile a warp
+  const int smem = nw * 2 * 32 * static_cast<int>(sizeof(int2)) +
+                   (wide ? 0 : nw * STRIP_WSTRIDE);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, nw * 32, smem, st>>>(qp, sp, lp, mp, Q, S, go, ge, 256, cp, bp,
+                                   ip, jp);
   return static_cast<int>(cudaGetLastError());
 }

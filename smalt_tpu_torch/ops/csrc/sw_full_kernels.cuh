@@ -1,11 +1,13 @@
-// The two kernels of sw_full.cu, included there once for each way of
-// tracking: SWF_KERNEL names the in-register kernel (Q <= 512),
-// SWF_STRIP_KERNEL the strip kernel (Q > 512), and SWF_REC (a literal)
+// The kernels of sw_full.cu, included there once for each way of
+// tracking: SWF_KERNEL names the in-register kernel (Q <= 512) and
+// SWF_WAVE_KERNEL the strip wavefront (Q > 512), and SWF_REC (a literal)
 // says whether their tracked WIDE instances keep the two-part record
 // (value, then column) in place of the packed key T * 256 + 255 - c.
-// sw_full.cu's header describes both kernels and both records.  (One
-// text for both, so that the instances that keep the key compile to the
-// code they had before the record was added.)
+// SWF_STRIP_KERNEL, defined for the key's include alone, names the
+// one-warp strip kernel (int8 only).  sw_full.cu's header describes the
+// kernels and both records.  (One text for all, so that the instances
+// that keep the key compile to the code they had before the record was
+// added.)
 
 // The second launch bound (one block a SM at least) lets ptxas take the
 // registers it asks for: without it the build spilled 8 bytes.  WIDE:
@@ -173,8 +175,11 @@ SWF_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
   }
 }
 
-// One warp a window, the query in strips of STRIP_W columns (header).
-template <bool TRACK, bool WIDE>
+#ifdef SWF_STRIP_KERNEL
+// One warp a window, four windows a block, the query in strips of STRIP_W
+// columns one after another (header: the one-warp path), strips of pad
+// code alone skipped.  int8 scores from a profile a warp, the key's record.
+template <bool TRACK>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
                 const int* __restrict__ slens,
@@ -183,7 +188,6 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
                 int* __restrict__ best_out, int* __restrict__ ti_out,
                 int* __restrict__ tj_out) {
   constexpr int C = STRIP_C, L = 32;
-  constexpr bool REC = TRACK && WIDE && SWF_REC;   // the two-part record
   __shared__ int smat[64];
   if (threadIdx.x < 64) smat[threadIdx.x] = matrix[threadIdx.x];
   __syncthreads();
@@ -196,13 +200,26 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
   // byte s * PITCH + k * 128 + l * 4, read back by lane l alone
   constexpr int PITCH = L * C;
   constexpr int WSTRIDE = 8 * PITCH + 128;
-  __shared__ __align__(16) signed char prof[WIDE ? 16 : WARPS * WSTRIDE];
-  signed char* pbase = prof + (WIDE ? 0 : wib * WSTRIDE + lane * 4);
+  __shared__ __align__(16) signed char prof[WARPS * WSTRIDE];
+  signed char* pbase = prof + wib * WSTRIDE + lane * 4;
 
   const int* srow = subj + (size_t)b * S;
   int2* crow = carry + (size_t)b * S;
   const int rows = min(slens[b], S);
-  const int nstrip = (Q + STRIP_W - 1) / STRIP_W;
+  // qend: one past the window's last column whose code is not 7 (pad),
+  // sought from the end, 32 columns at a time
+  int qend = 0;
+  for (int base = Q - 32;; base -= 32) {
+    const int j = base + lane;
+    const unsigned real =
+        __ballot_sync(FULL, j >= 0 && (q[(size_t)b * Q + j] & 7) != 7);
+    if (real) {
+      qend = base + 32 - __clz(real);
+      break;
+    }
+    if (base <= 0) break;
+  }
+  const int nstrip = (qend + STRIP_W - 1) / STRIP_W;
   int bt = 0, bi = 0, bj = 0;          // TRACK: the lane's record so far
   int acc = 0;                         // !TRACK: the lane's max of T
   for (int k = 0; k < nstrip; ++k) {
@@ -215,18 +232,16 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
       const int j = j0 + c;
       qc[c] = j < Q ? q[(size_t)b * Q + j] & 7 : 7;
     }
-    if (!WIDE) {
 #pragma unroll
-      for (int s = 0; s < 8; ++s)
+    for (int s = 0; s < 8; ++s)
 #pragma unroll
-        for (int w4 = 0; w4 < C / 4; ++w4) {
-          const unsigned w = (smat[8 * s + qc[4 * w4]] & 0xff) |
-                             (smat[8 * s + qc[4 * w4 + 1]] & 0xff) << 8 |
-                             (smat[8 * s + qc[4 * w4 + 2]] & 0xff) << 16 |
-                             (unsigned)smat[8 * s + qc[4 * w4 + 3]] << 24;
-          *reinterpret_cast<unsigned*>(pbase + s * PITCH + w4 * (L * 4)) = w;
-        }
-    }
+      for (int w4 = 0; w4 < C / 4; ++w4) {
+        const unsigned w = (smat[8 * s + qc[4 * w4]] & 0xff) |
+                           (smat[8 * s + qc[4 * w4 + 1]] & 0xff) << 8 |
+                           (smat[8 * s + qc[4 * w4 + 2]] & 0xff) << 16 |
+                           (unsigned)smat[8 * s + qc[4 * w4 + 3]] << 24;
+        *reinterpret_cast<unsigned*>(pbase + s * PITCH + w4 * (L * 4)) = w;
+      }
     int H[C], Eh[C];                   // Eh = E + i*ge
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -236,7 +251,6 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
     // strip k - 1's carry stores (lane 31) are seen by every lane
     __syncwarp();
     int lthr = 255, lkey = 255, li = 0;  // TRACK: this strip's record
-    int lbest = 0, lcol = 0;           // REC: (T, column) of it
     int scode = 7;
     int2 cv = make_int2(0, NEG);       // strip 0: H = 0 left, no prefix
     int hprev = 0;                     // x of the row above (lane 0 reads)
@@ -248,7 +262,6 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
       }
       const int sc = __shfl_sync(FULL, scode, i & 31);
       const signed char* prow = pbase + sc * PITCH;
-      const int* mrow = smat + 8 * sc;   // WIDE
       const int nige = -i * ge;          // E = Eh + nige
       const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
 
@@ -260,7 +273,7 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
       int r = NEG;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const int w = WIDE ? mrow[qc[c]] : prow[(c / 4) * (L * 4) + c % 4];
+        const int w = prow[(c / 4) * (L * 4) + c % 4];
         T[c] = (c == 0 ? hleft : H[c - 1]) + w;
         H0[c] = addmax_relu(Eh[c], nige, T[c]);
         r = addmax(H0[c], c * ge, r);    // prefix max within the lane
@@ -284,27 +297,20 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
       }
       if (!last && lane == 31) crow[i] = make_int2(H[C - 1], incl);
 
-      if (TRACK && !REC) {
+      if (TRACK) {
         const int m = row_key<C>(T, kmul);
         if (m > lthr) {                  // T strictly above the strip's best
           lkey = m;
           li = i;
           lthr = m | 255;
         }
-      } else if (TRACK) {                // the two-part record
-        const int m = row_max<C>(T);
-        if (m > lbest) {
-          lcol = first_col<C>(T, m);
-          lbest = m;
-          li = i;
-        }
       } else {
         acc = max(acc, row_max<C>(T));
       }
     }
     if (TRACK) {
-      const int st = REC ? lbest : lkey >> 8;
-      const int sj = REC ? j0 + lcol : j0 + 255 - (lkey & 255);
+      const int st = lkey >> 8;
+      const int sj = j0 + 255 - (lkey & 255);
       if (st > bt || (st == bt && (li < bi || (li == bi && sj < bj)))) {
         bt = st;
         bi = li;
@@ -336,5 +342,246 @@ SWF_STRIP_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
     for (int d = 16; d > 0; d >>= 1)
       acc = max(acc, __shfl_xor_sync(FULL, acc, d));
     if (lane == 0) best_out[b] = acc;
+  }
+}
+#endif  // SWF_STRIP_KERNEL
+
+// One window a block of NW = blockDim.x / 32 warps, the query in strips
+// of STRIP_W columns run as a wavefront (header): strip k on warp k % NW,
+// its chunk c (subject rows [32c, 32c + 32)) at step (k / NW) * M +
+// k % NW + c, M = max(Cr, NW), one block barrier a step.  Dynamic shared
+// memory: the carry ring, NW x 2 x 32 int2, then (int8 instances) a
+// profile of STRIP_WSTRIDE bytes a warp.  Every warp runs every step, so every
+// warp reaches every barrier.  Built for launches of up to MAXW warps.
+template <bool TRACK, bool WIDE, int MAXW>
+__global__ void __launch_bounds__(MAXW * 32, 1)
+SWF_WAVE_KERNEL(const int* __restrict__ q, const int* __restrict__ subj,
+                const int* __restrict__ slens,
+                const int* __restrict__ matrix, int Q, int S, int go,
+                int ge, int kmul, int2* carry,
+                int* __restrict__ best_out, int* __restrict__ ti_out,
+                int* __restrict__ tj_out) {
+  // carry is written and read again in the kernel: no __restrict__, so
+  // that no load of it takes the read-only (non-coherent) path
+  constexpr int C = STRIP_C, L = 32;
+  constexpr bool REC = TRACK && WIDE && SWF_REC;   // the two-part record
+  // the 32-lane instance's profile layout: lane l's word k of row s at
+  // byte s * PITCH + k * 128 + l * 4, read back by lane l alone
+  constexpr int PITCH = L * C;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ int smat[64];
+  __shared__ int red[STRIP_WARPS][3];  // the warps' records (or maxima)
+  __shared__ int qlast;
+  const int NW = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int* qrow = q + (size_t)b * Q;
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) smat[i] = matrix[i];
+  if (threadIdx.x == 0) qlast = 0;
+  __syncthreads();
+  // qend: one past the window's last column whose code is not 7 (pad),
+  // sought from the end, the block's width of columns at a time
+  for (int base = Q - static_cast<int>(blockDim.x);; base -= blockDim.x) {
+    const int j = base + threadIdx.x;
+    const bool real = j >= 0 && (qrow[j] & 7) != 7;
+    const int hit = __reduce_max_sync(FULL, real ? j + 1 : 0);
+    if (lane == 0 && hit) atomicMax(&qlast, hit);
+    if (__syncthreads_or(real) || base <= 0) break;
+  }
+  const int nstrip = (qlast + STRIP_W - 1) / STRIP_W;
+  const int rows = min(slens[b], S);
+  const int Cr = rows > 0 ? (rows + 31) >> 5 : 0;
+  const int M = max(Cr, NW);
+  const int nsteps = nstrip == 0 || Cr == 0 ? 0 :
+      (nstrip - 1) / NW * M + (nstrip - 1) % NW + Cr;
+
+  int2* ring = reinterpret_cast<int2*>(dyn);       // [NW][2][32]
+  signed char* pbase = reinterpret_cast<signed char*>(dyn) +
+      NW * 2 * 32 * sizeof(int2) + (WIDE ? 0 : w * STRIP_WSTRIDE + lane * 4);
+  const int* srow = subj + (size_t)b * S;
+  int2* crow = carry + (size_t)b * S;
+  int bt = 0, bi = 0, bj = 0;          // TRACK: the lane's record so far
+  int acc = 0;                         // !TRACK: the lane's max of T
+  int H[C], Eh[C], qc[C];              // Eh = E + i*ge
+  int lthr = 255, lkey = 255, li = 0;  // TRACK: this strip's record
+  int lbest = 0, lcol = 0;             // REC: (T, column) of it
+  int hprev = 0;                       // x of the row above (lane 0 reads)
+  for (int t = 0; t < nsteps; ++t) {
+    const int u = t - w;               // this warp's chunk at step t
+    const int rnd = u >= 0 ? u / M : 0;
+    const int c = u - rnd * M;
+    const int k = rnd * NW + w;        // its strip
+    if (u >= 0 && c < Cr && k < nstrip) {
+      const int j0 = k * STRIP_W + lane * C;   // the lane's first column
+      const int j0ge = j0 * ge;
+      if (c == 0) {                    // a new strip
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int j = j0 + cc;
+          qc[cc] = j < Q ? qrow[j] & 7 : 7;
+          H[cc] = 0;
+          Eh[cc] = 0;
+        }
+        if (!WIDE) {
+#pragma unroll
+          for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int w4 = 0; w4 < C / 4; ++w4) {
+              const unsigned x = (smat[8 * s + qc[4 * w4]] & 0xff) |
+                                 (smat[8 * s + qc[4 * w4 + 1]] & 0xff) << 8 |
+                                 (smat[8 * s + qc[4 * w4 + 2]] & 0xff) << 16 |
+                                 (unsigned)smat[8 * s + qc[4 * w4 + 3]] << 24;
+              *reinterpret_cast<unsigned*>(pbase + s * PITCH +
+                                           w4 * (L * 4)) = x;
+            }
+          __syncwarp();
+        }
+        lthr = 255;
+        lkey = 255;
+        li = 0;
+        lbest = 0;
+        lcol = 0;
+        hprev = 0;                     // H[-1, *] = 0
+      }
+      // this chunk's carry from strip k - 1: warp w - 1 left it in the ring
+      // one step ago, warp NW - 1 (the round before) in device memory at
+      // least one barrier ago; strip 0 starts from H = 0, no prefix
+      const int rb = c * 32;
+      int2 cv = make_int2(0, NEG);
+      if (k > 0 && rb + lane < rows)
+        cv = w > 0 ? ring[((w - 1) * 2 + ((t - 1) & 1)) * 32 + lane]
+                   : crow[rb + lane];
+      const int scode = rb + lane < S ? srow[rb + lane] & 7 : 7;
+      int2* rring = ring + (w * 2 + (t & 1)) * 32;   // to warp w + 1
+      const bool out = k + 1 < nstrip && lane == 31;
+      const int nrow = min(32, rows - rb);
+      for (int ii = 0; ii < nrow; ++ii) {
+        const int i = rb + ii;
+        const int sc = __shfl_sync(FULL, scode, ii);
+        const signed char* prow = pbase + sc * PITCH;
+        const int* mrow = smat + 8 * sc;   // WIDE
+        const int nige = -i * ge;          // E = Eh + nige
+        const int ci = (i + 1) * ge - go;  // Eh' = max(Eh, H + ci)
+
+        int hleft = __shfl_up_sync(FULL, H[C - 1], 1);
+        if (lane == 0) hleft = hprev;      // H[i-1, j0-1] of the last strip
+        hprev = __shfl_sync(FULL, cv.x, ii);
+        const int pmc = __shfl_sync(FULL, cv.y, ii);
+        int T[C], H0[C], run[C];
+        int r = NEG;
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int x = WIDE ? mrow[qc[cc]]
+                             : prow[(cc / 4) * (L * 4) + cc % 4];
+          T[cc] = (cc == 0 ? hleft : H[cc - 1]) + x;
+          H0[cc] = addmax_relu(Eh[cc], nige, T[cc]);
+          r = addmax(H0[cc], cc * ge, r);  // prefix max within the lane
+          run[cc] = r;
+        }
+        // inclusive prefix max of the lane totals, in window coordinates,
+        // the strips to the left folded in at lane 0
+        int incl = r + j0ge;
+        if (lane == 0) incl = max(incl, pmc);
+#pragma unroll
+        for (int d = 1; d < L; d <<= 1)
+          incl = max(incl, __shfl_up_sync(FULL, incl, d));
+        int excl = __shfl_up_sync(FULL, incl, 1);
+        excl = (lane == 0 ? pmc : excl) - j0ge;
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const int cm = cc == 0 ? excl : max(excl, run[cc - 1]);
+          const int hn = addmax(cm, -(go + (cc - 1) * ge), H0[cc]);
+          Eh[cc] = addmax(hn, ci, Eh[cc]);
+          H[cc] = hn;
+        }
+        if (out) {                         // the carry to strip k + 1
+          const int2 v = make_int2(H[C - 1], incl);
+          if (w + 1 < NW)
+            rring[ii] = v;
+          else
+            crow[i] = v;
+        }
+
+        if (TRACK && !REC) {
+          const int m = row_key<C>(T, kmul);
+          if (m > lthr) {                  // T strictly above the strip's best
+            lkey = m;
+            li = i;
+            lthr = m | 255;
+          }
+        } else if (TRACK) {                // the two-part record
+          const int m = row_max<C>(T);
+          if (m > lbest) {
+            lcol = first_col<C>(T, m);
+            lbest = m;
+            li = i;
+          }
+        } else {
+          acc = max(acc, row_max<C>(T));
+        }
+      }
+      if (TRACK && c + 1 == Cr) {          // the strip's record, merged
+        const int st = REC ? lbest : lkey >> 8;
+        const int sj = REC ? j0 + lcol : j0 + 255 - (lkey & 255);
+        if (st > bt || (st == bt && (li < bi || (li == bi && sj < bj)))) {
+          bt = st;
+          bi = li;
+          bj = sj;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (TRACK) {
+    // highest T, then lowest row, then lowest column: over the warp, then
+    // over the block's warps
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const int ot = __shfl_xor_sync(FULL, bt, d);
+      const int oi = __shfl_xor_sync(FULL, bi, d);
+      const int oj = __shfl_xor_sync(FULL, bj, d);
+      if (ot > bt || (ot == bt && (oi < bi || (oi == bi && oj < bj)))) {
+        bt = ot;
+        bi = oi;
+        bj = oj;
+      }
+    }
+    if (lane == 0) {
+      red[w][0] = bt;
+      red[w][1] = bi;
+      red[w][2] = bj;
+    }
+    __syncthreads();
+    if (w == 0) {
+      bt = lane < NW ? red[lane][0] : -1;
+      bi = lane < NW ? red[lane][1] : 0;
+      bj = lane < NW ? red[lane][2] : 0;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const int ot = __shfl_xor_sync(FULL, bt, d);
+        const int oi = __shfl_xor_sync(FULL, bi, d);
+        const int oj = __shfl_xor_sync(FULL, bj, d);
+        if (ot > bt || (ot == bt && (oi < bi || (oi == bi && oj < bj)))) {
+          bt = ot;
+          bi = oi;
+          bj = oj;
+        }
+      }
+      if (lane == 0) {
+        const bool hit = bt > 0;       // else no row beat the initial 0
+        best_out[b] = hit ? bt : 0;
+        ti_out[b] = hit ? bi : 0;
+        tj_out[b] = hit ? bj : 0;
+      }
+    }
+  } else {
+    acc = __reduce_max_sync(FULL, acc);
+    if (lane == 0) red[w][0] = acc;
+    __syncthreads();
+    if (w == 0) {
+      acc = __reduce_max_sync(FULL, lane < NW ? red[lane][0] : 0);
+      if (lane == 0) best_out[b] = acc;
+    }
   }
 }

@@ -26,13 +26,19 @@ import torch
 
 NEG = -(1 << 28)
 MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
-# Queries past MAX_Q run sw_full's strip path (one warp a window, strips
-# of MAX_Q columns), which has no limit on Q, and bands past CLUSTER_BAND_W
-# run sw_band's tiled kernel, which has no limit on W.  Their scratch
+# Queries past MAX_Q run sw_full's strip path (strips of MAX_Q columns on
+# a wavefront of warps a window, or a warp a window for a large int8
+# batch: strip_warps), which has no limit on Q, and bands past
+# CLUSTER_BAND_W run sw_band's tiled kernel, which has no limit on W.  Their scratch
 # (int32 [windows, S, 2] of strip carry, int32 [windows, W, 2] of band row
 # state) is kept within this many bytes by launching groups of windows
 # (scratch_groups).
 SCRATCH_BYTES = 1 << 30
+STRIP_WARPS = 16     # most warps a window of sw_full's strip wavefront
+# windows from which sw_full's strip path runs a warp a window on an int8
+# matrix (strip_warps): where the one-warp kernel measured faster than the
+# wavefront (PERF.md: both timed at 1,024, 1,536, 2,112 and 3,072 windows)
+STRIP_ONE_WARP_B = 1536
 WARP_BAND_W = 512    # widest band of sw_band_warp_kernel (one warp a window)
 # sw_band_multi_kernel, the several-warps kernel, runs every wider band up
 # to TILED_BAND_W: on 12 or 20 lanes a thread (whichever pads the band
@@ -74,7 +80,9 @@ DP_CAP = 1 << 30
 # several-warps kernel, int16 or int32 scores for such a matrix, at any
 # width up to MULTI_BAND_W); "_rec": a tracked sw_full window that could
 # score KEY_CAP (the WIDE instance of sw_full_rec_kernel or
-# sw_strip_rec_kernel); "_strip": sw_full's path for queries past MAX_Q;
+# sw_wave_rec_kernel); "_strip": sw_full's path for queries past MAX_Q on
+# the wavefront (sw_wave_kernel), "_warp": that path on the one-warp
+# kernel (sw_strip_kernel, int8 only), as strip_warps chooses;
 # "_many": sw_band_multi_kernel past MULTI_BAND_W (20 lanes a thread);
 # "_cluster":
 # sw_band_cluster_kernel, bands past TILED_BAND_W; "_tiled":
@@ -85,6 +93,7 @@ launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band_track_wide": 0, "sw_band_wide": 0, "swq": 0,
             "sw_full_track_strip": 0, "sw_full_strip": 0,
             "sw_full_track_strip_wide": 0, "sw_full_strip_wide": 0,
+            "sw_full_track_warp": 0, "sw_full_warp": 0,
             "sw_band_track_many": 0, "sw_band_many": 0,
             "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0,
             "sw_band_track_tiled": 0, "sw_band_tiled": 0,
@@ -158,17 +167,37 @@ def key_over(matrix: DeviceMatrix, Q: int, S: int) -> bool:
     return matrix.amax * min(Q, S) >= KEY_CAP
 
 
-def sw_full_instance(Q: int, S: int, matrix: DeviceMatrix,
+def sw_full_instance(B: int, Q: int, S: int, matrix: DeviceMatrix,
                      track: bool) -> str:
-    """The sw_full.cu instance a launch runs, by its name in `launches`:
-    the strip path past MAX_Q columns; "_rec", the two-part record, for a
-    tracked window that could score KEY_CAP, whatever the matrix (the
-    score-only instances keep no key); else "_wide" for a matrix outside
-    int8.  Only "_rec" launches pay for the record's longer row."""
+    """The sw_full.cu instance a launch of B windows of Q x S runs, by its
+    name in `launches`: past MAX_Q columns the strip path, "_strip" on the
+    wavefront and "_warp" on the one-warp kernel (strip_warps); "_rec",
+    the two-part record, for a tracked window that could score KEY_CAP,
+    whatever the matrix (the score-only instances keep no key); else
+    "_wide" for a matrix outside int8.  Only "_rec" launches pay for the
+    record's longer row."""
     rec = track and key_over(matrix, Q, S)
-    return ("sw_full_track" if track else "sw_full") + \
-        ("_strip" if Q > MAX_Q else "") + \
+    strip = "" if Q <= MAX_Q else \
+        "_warp" if strip_warps(B, Q, S, rec or matrix.wide) == 1 else "_strip"
+    return ("sw_full_track" if track else "sw_full") + strip + \
         ("_rec" if rec else "_wide" if matrix.wide else "")
+
+
+def strip_warps(B: int, Q: int, S: int, wide: bool = False) -> int:
+    """The warps a window of sw_full.cu's strip path (Q > MAX_Q) for B
+    windows of Q x S, on a WIDE instance (a matrix outside int8 or the
+    two-part record) or not.  1 runs the one-warp kernel, a warp a window
+    and its strips one after another: from B = STRIP_ONE_WARP_B windows
+    on an int8 matrix it beats the wavefront (PERF.md), and it has no
+    WIDE instance.  Else NW >= 2 runs the wavefront: a warp a strip of
+    MAX_Q columns and a chunk of 32 subject rows at most (more would
+    idle), up to STRIP_WARPS.  Never one warp there: on one warp the
+    wavefront's schedule is the one-warp kernel's (each strip over all
+    rows, one after another), paying a block barrier a chunk and a block
+    a window, which the one-warp kernel runs without."""
+    if B >= STRIP_ONE_WARP_B and not wide:
+        return 1
+    return max(2, min(STRIP_WARPS, -(-Q // MAX_Q), -(-S // 32)))
 
 
 def _wide_code(name: str) -> int:
@@ -233,6 +262,22 @@ def cluster_shape(W: int):
                          f"1..{CLUSTER_BAND_W}")
     ncta = min(CLUSTER_MAX, -(-W // CLUSTER_CTA_LANES))
     return ncta, 32 * -(-W // (32 * ncta * CLUSTER_C))
+
+
+def cluster_occupancy(ncta: int, nthreads: int, track: bool) -> int:
+    """How many clusters of sw_band_cluster_kernel in this shape the card
+    holds at once (cudaOccupancyMaxActiveClusters, through sw_band.cu's
+    sw_band_cluster_occupancy): 0 where it cannot place one.  Needs the
+    card; raises on an error of the query."""
+    fn = _kernel_lib("sw_band").sw_band_cluster_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    n = ctypes.c_int(-1)
+    rc = fn(ncta, nthreads, int(track), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"sw_band_cluster_occupancy({ncta}, {nthreads}) "
+                           f"failed (code {rc})")
+    return n.value
 
 
 def _matrix_on(matrix, device) -> DeviceMatrix:
@@ -372,16 +417,64 @@ def band_tie_windows(rng, B: int, Q: int):
     return tie_windows(rng, B, Q, S) + (pad, W, S)
 
 
+def eterm_windows(rng, B: int, Q: int, S: int, pad: int, W: int, edges,
+                  match: int, go: int, ge: int):
+    """B band windows whose best path crosses a band kernel's boundary
+    lane on the E of the row before (for holding the several-warps and
+    the cluster kernel's exchange: a warp's posted total lacks its last
+    lane's Ein, and the E of the next warp's first lane from the row
+    before corrects it).  `edges` are first lanes a of warps or CTAs (0 <
+    a < W), cycled over the windows.  Each window holds two runs of n
+    matches on band lane l = a - 1 + k, k subject rows of X between
+    them: the best path leaves the first run down a vertical gap of k rows
+    into lane a - 1, the warp's last lane, and takes a horizontal gap of
+    k columns from there back to lane l.  The other two-gap path, right
+    first, would pass lane l + k >= W, outside the band; every other path
+    opens a third gap or scores X, and costs more when go > ge and X
+    (mismatch - match) costs more than 2 * ge.  So the best score is 2 * n *
+    match - 2 * go - 2 * (k - 1) * ge (or a little more, from the random
+    bases around the runs), and a kernel that drops the correction scores
+    less: its best path avoids the boundary and opens a third gap.
+    Returns int32 numpy (q [B, Q], subj [B, S], slens [B]) and the planted
+    scores [B]."""
+    prepad = pad + W // 2
+    q = rng.integers(0, 4, (B, Q)).astype(np.int32)
+    s = rng.integers(0, 4, (B, S)).astype(np.int32)
+    want = np.zeros(B, np.int64)
+    for b in range(B):
+        a = int(edges[b % len(edges)])
+        kmin = (W - a + 2) // 2          # lane + k >= W
+        k = kmin + int(rng.integers(0, max(0, min(8, W - a - kmin)) + 1))
+        lane = a - 1 + k
+        n = -(-2 * (go + k * ge) // match) + 32   # a run outscores it
+        r0 = max(1, prepad - lane + 1) + int(rng.integers(0, 8))
+        rows = np.arange(r0 - 1, r0 + 2 * n + k + 1)
+        cols = rows + lane - prepad
+        if not 0 < a < lane < W or rows[-1] >= S or cols[0] < 0 or \
+                cols[-1] >= Q:
+            raise ValueError(f"eterm_windows: no room for edge {a}, k {k} "
+                             f"at Q={Q} S={S} W={W}")
+        mid = (rows >= r0 + n) & (rows < r0 + n + k)
+        run = (rows >= r0) & ~mid
+        # a mismatch before and after the runs; between them X (4), which
+        # scores mismatch - match against every code but N
+        s[b, rows] = np.where(run, q[b, cols], np.where(
+            mid, 4, (q[b, cols] + 1) % 4))
+        want[b] = 2 * n * match - 2 * go - 2 * (k - 1) * ge
+    return q, s, np.full(B, S, np.int32), want
+
+
 # ctypes signatures of the kernels' plain C entry points (p pointer, i int),
 # by entry point less its "_launch"; sw_full's and sw_band's `wide` comes
 # last, so that earlier versions of those sources (which take none) can be
 # timed beside them (ops/time_sw.py).  sw_full_strip is sw_full.cu's entry
-# for queries past MAX_Q: sw_full's arguments and the carry scratch;
+# for queries past MAX_Q: sw_full's arguments, the carry scratch and the
+# warps a window (strip_warps; last, as `wide` is, for the same reason);
 # sw_band_cluster and sw_band_tiled are sw_band.cu's entries for bands
 # past TILED_BAND_W and CLUSTER_BAND_W: sw_band's arguments less `wide`,
 # then the cluster's shape (cluster_shape) or the row-state scratch.
 _SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
-         "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppip",
+         "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppipi",
          "sw_band_tiled": "ppppiiiiiiiippppp",
          "sw_band_cluster": "ppppiiiiiiiippppii"}
 
@@ -433,9 +526,9 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     and results as sw_score_ref; every tensor contiguous int32 on one
     CUDA device, the matrix a DeviceMatrix; the instance as
     sw_full_instance names it.  A query past MAX_Q columns runs the strip
-    path (sw_full_strip_launch) over the groups of windows scratch_groups
-    makes, one launch a group, with an int32 carry scratch for one group
-    made here."""
+    path (sw_full_strip_launch, strip_warps(B, Q, S) warps a window) over
+    the groups of windows scratch_groups makes, one launch a group, with an
+    int32 carry scratch for one group made here."""
     B, Q = qcodes.shape
     if Q < 1:
         raise ValueError("sw_full: empty query")
@@ -443,16 +536,17 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     check_score_cap("sw_full", matrix, Q, S, gapopen_pos, gapext_pos)
     _check_args("sw_full", qcodes, subj, slens, matrix.t)
     dev = qcodes.device
-    name = sw_full_instance(Q, S, matrix, track)
+    name = sw_full_instance(B, Q, S, matrix, track)
     strip = Q > MAX_Q
     lib = _kernel_lib("sw_full")
     outs = [torch.empty(B, dtype=torch.int32, device=dev)
             for _ in range(3 if track else 1)]
     groups = scratch_groups(B, 8 * S) if strip else [(0, B)]
-    carry = ()
+    tail = ()                          # the strip path's carry and warps
     if strip and groups:
         g = groups[0][1] - groups[0][0]
-        carry = (torch.empty((g, S, 2), dtype=torch.int32, device=dev),)
+        carry = torch.empty((g, S, 2), dtype=torch.int32, device=dev)
+        tail = (carry.data_ptr(), strip_warps(B, Q, S, _wide_code(name) > 0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch = lib.sw_full_strip_launch if strip else lib.sw_full_launch
@@ -463,7 +557,7 @@ def sw_full_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                 qcodes.data_ptr() + 4 * lo * Q, subj.data_ptr() + 4 * lo * S,
                 slens.data_ptr() + 4 * lo, matrix.t.data_ptr(), hi - lo, Q, S,
                 int(gapopen_pos), int(gapext_pos), 1 if track else 0, *outp,
-                stream, _wide_code(name), *(c.data_ptr() for c in carry))
+                stream, _wide_code(name), *tail)
             if rc != 0:
                 raise RuntimeError(f"sw_full launch failed (code {rc})")
             launches[name] += 1

@@ -3,7 +3,7 @@ earlier versions of the source.
 
     python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band|swq]
         [--baseline old.cu]... [--rounds 5] [--reps 20] [--wide]
-        [--out build/time_sw.json]
+        [--shapes REGEX] [--out build/time_sw.json]
 
 Builds the kernel as shipped and, for each --baseline, another version of
 the source (same C interface, or for swq the earlier full-frame one,
@@ -23,7 +23,15 @@ shapes the mapping paths use, on random windows and on tie-heavy ones
 (swq: chip_smoke.py phase 3c's windows; the lane's own pass-2 windows
 are timed by chip_smoke.py phase 7).  --wide scores with a matrix outside
 int8 (WIDE_PEN: sw_full's WIDE instances, sw_band's several-warps
-kernel) in place of the default one.
+kernel) in place of the default one.  sw_full's strip shapes run as
+routed (ops/sw.py strip_warps: the one-warp kernel for a large int8
+batch, else the wavefront; a baseline from before the wavefront ignores
+the warps argument), their bound over the cells inside
+the query with the share over every column beside it; at STRIP_ROUTES,
+batches around ops/sw.py STRIP_ONE_WARP_B, both kernels run, labelled
+"<version> wave" and "<version> warp" (int8 alone: the one-warp kernel
+has no WIDE instance).  --shapes times only the shapes
+whose label (as printed, e.g. "Q=2048 S=2304 B=1536") the pattern finds.
 Prints, for each baseline, how many of the kernels it shares with the
 shipped source compile to the same SASS (cuobjdump), then one line a
 version and shape with the median and the minimum over the rounds, the
@@ -53,12 +61,23 @@ from . import bounds, build, sw
 # sw_full, (Q, S, B): single-end and paired `map --fast`; the pass-1
 # pools of `map --device-exact` for 100 bp and 150 bp reads; the widest
 # query in registers; then the strip path (Q > 512): `map --device-pass1`
-# on reads of 513-1,024 bp, up to 2 kb and up to 4 kb.  Every shape runs
+# on reads of 513-1,024 bp, up to 2 kb and up to 4 kb, and past 16 kb (Q
+# 32,768 on a batch of 64, the lane's batch there).  Every shape runs
 # tracked and score-only; a baseline source without the strip path skips
 # the strip shapes.
 FULL_SHAPES = [(112, 128, 12288), (160, 256, 24576), (128, 128, 24576),
                (256, 384, 24576), (512, 640, 1024), (1024, 1152, 4096),
-               (2048, 2304, 4096), (4096, 4352, 1024)]
+               (2048, 2304, 4096), (4096, 4352, 1024), (32768, 2048, 64)]
+# the strip path on reads shorter than their bucket, (Q, S, B, qend): every
+# column from qend on is pad code 7 (20 kb reads in Q 32,768, 1,500 bp
+# reads in Q 2,048), which the strip path does not run
+FULL_QEND = [(32768, 2048, 64, 20000), (2048, 2304, 4096, 1500)]
+# the strip path's two kernels side by side, (Q, S, B), on batches around
+# the one where strip_warps turns from the wavefront ("wave", on the warps
+# it gives a small batch) to the one-warp kernel ("warp", int8 only)
+STRIP_ROUTES = [(Q, S, B) for Q, S in ((1024, 1152), (2048, 2304),
+                                       (4096, 4352))
+                for B in (1024, 1536, 2112, 3072)]
 # sw_band, (Q, B); S, pad and W follow from Q (sw.band_geometry):
 # 1,500 bp reads (the long-read path of `map --fast`) and 640 bp reads
 # (W = 384, 256); 2,560 bp (W = 512, the widest band of the one-warp kernel)
@@ -175,7 +194,8 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     once, and returns them: (best, ti, tj), or (best,) without track.
     band = (W, prepad) for sw_band; route "cluster" or "tiled" takes that
     entry point of sw_band.cu (its shape, or its row-state scratch, made
-    here), any other sw_band_launch."""
+    here), any other sw_band_launch; sw_full's strip path runs as routed,
+    or on route "wave" the wavefront, on "warp" the one-warp kernel."""
     if kernel == "swq":
         return swq_launcher(lib, q, s, sl, mat, go, ge, *band)
     B, Q = q.shape
@@ -187,11 +207,15 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     # sw_band's `wide` names its several-warps profile (an earlier source
     # takes any value but 0 as a matrix outside int8)
     wide = sw.band_wide_code(mat) if kernel == "sw_band" else int(mat.wide)
-    scratch = []
+    scratch, nw = [], []
     if kernel == "sw_full" and Q > sw.MAX_Q:     # the strip path
         launch = lib.sw_full_strip_launch
         scratch.append(torch.empty((B, s.shape[1], 2), dtype=torch.int32,
                                    device=q.device))
+        # the warps a window (a source from before the wavefront takes none)
+        nw = [1 if route == "warp" else
+              sw.strip_warps(1 if route == "wave" else B, Q, s.shape[1],
+                             wide > 0)]
     tail = [wide]
     if route == "tiled":
         launch = lib.sw_band_tiled_launch
@@ -206,7 +230,7 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     def fn(scratch=scratch):                     # holds the carry buffer
         rc = launch(q.data_ptr(), s.data_ptr(), sl.data_ptr(),
                     mat.t.data_ptr(), B, Q, s.shape[1], *band, go, ge,
-                    int(track), *ptrs, stream, *tail, *carry)
+                    int(track), *ptrs, stream, *tail, *carry, *nw)
         if rc != 0:
             raise RuntimeError(f"{kernel} launch failed (code {rc})")
         return out
@@ -302,17 +326,26 @@ def cases(kernel: str, rng, dev, mat, go: int, ge: int):
                 lambda track, a=(Qp, Sp, t[2]): bounds.swq_work(*a), True)
         return
     if kernel == "sw_full":
-        for Q, S, B in FULL_SHAPES:
+        for Q, S, B, qend, routes in \
+                [x + (0, ("",)) for x in FULL_SHAPES] + \
+                [x + (("",),) for x in FULL_QEND] + \
+                [x + (0, ("wave", "warp")) for x in STRIP_ROUTES]:
             for kind, gen in (("random", random_windows),
                               ("ties", sw.tie_windows)):
-                t = cuda(*gen(rng, B, Q, S))
+                q, s, sl = gen(rng, B, Q, S)
+                if qend:
+                    q[:, qend:] = 7
+                t = cuda(q, s, sl)
+                # the strip path's bound counts the cells inside the query
                 yield Case(
-                    f"Q={Q} S={S} B={B}", kind, t, (),
+                    f"Q={Q} S={S} B={B}" + (f" qend={qend}" if qend else ""),
+                    kind, t, (),
                     lambda n, t=t: sw.sw_score_ref(
                         *(x[:n] for x in t), mat.t, go, ge, track=True),
-                    lambda track, a=(Q, S, t[2]): bounds.sw_full_work(
-                        *a, track),
-                    kind == "random" or Q <= 160)
+                    lambda track, a=(Q, S, t[2], t[0] if Q > sw.MAX_Q
+                                     else None): bounds.sw_full_work(
+                        *a[:3], track, a[3]),
+                    kind == "random" or Q <= 160, routes)
         return
     for Q, B in BAND_SHAPES:
         for kind, gen in (("random", sw.band_windows),
@@ -359,6 +392,9 @@ def main(argv=None) -> int:
     ap.add_argument("--wide", action="store_true",
                     help="score with a matrix outside int8 (match 200, "
                          "mismatch -200)")
+    ap.add_argument("--shapes", default="",
+                    help="time only the shapes whose label this regular "
+                         "expression finds")
     ap.add_argument("--out", default="build/time_sw.json")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -413,15 +449,18 @@ def main(argv=None) -> int:
     tracks = (True,) if a.kernel == "swq" else (True, False)
     last = None
     for case, track in ((c, t) for c in cases(a.kernel, rng, dev, mat, go, ge)
-                        for t in tracks):
+                        for t in tracks if re.search(a.shapes, c.shape)):
         q, s, sl = case.tensors
         where = f"{case.shape} track={track} ({case.kind})"
         if case is not last:          # the plain version once a case
             want, last = case.plain(head), case
-        wide_band = case.routes != ("",)
+        routed = case.routes != ("",)
+        wide_band = routed and a.kernel == "sw_band"
         fns = {}
         for label, lib in libs.items():
             for route in case.routes:
+                if route == "warp" and mat.wide:
+                    continue          # the one-warp kernel is int8 only
                 if not takes(a.kernel, lib, q.shape[1]) or \
                         not hasattr(lib, ENTRY.get(route, a.kernel +
                                                    "_launch")):
@@ -430,7 +469,7 @@ def main(argv=None) -> int:
                     print(f"# {where}: {label} has no one-block kernel for "
                           f"W={case.band[0]}", flush=True)
                     continue
-                fns[f"{label} {route}" if wide_band else label] = \
+                fns[f"{label} {route}" if routed else label] = \
                     launcher(a.kernel, lib, q, s, sl, mat, go, ge, track,
                              case.band, route)
         first = next(iter(fns))
@@ -471,6 +510,10 @@ def main(argv=None) -> int:
                    "bound_by": work["bound_by"], "cells": work["cells"],
                    "share_of_bound": bounds.share(work["bound_ms"], med),
                    "card": card}
+            if "bound_all_ms" in work:    # the strip path: every column too
+                row["bound_all_ms"] = work["bound_all_ms"]
+                row["share_of_bound_all"] = bounds.share(
+                    work["bound_all_ms"], med)
             results.append(row)
             print(f"# {a.kernel} {case.shape} "
                   f"{'track' if track else 'score'} {case.kind:6s} "
@@ -478,8 +521,12 @@ def main(argv=None) -> int:
                   f"{row['min_ms']:.4f} ms, {work['cells'] / med / 1e6:.0f} "
                   f"GCUPS, bound {work['bound_ms']:.4f} ms "
                   f"({work['bound_by']}), share "
-                  f"{100 * row['share_of_bound']:.1f}% | {card}",
-                  flush=True)
+                  f"{100 * row['share_of_bound']:.1f}%" +
+                  (f" (every column {work['bound_all_ms']:.4f} ms, "
+                   f"{100 * row['share_of_bound_all']:.1f}%)"
+                   if "bound_all_ms" in work and
+                   work["cells_all"] != work["cells"] else "") +
+                  f" | {card}", flush=True)
     os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
     with open(a.out, "w") as f:
         json.dump(results, f, indent=1)

@@ -150,6 +150,38 @@ def test_cluster_order_matches_plain(scoring, seed, W, C, NW):
         assert int(want[0].max()) > 0
 
 
+# the one-row-old E term: (W, C, NW, K, first lanes of warps to plant at);
+# W 96 on three CTAs of one warp (its CTA edges), W 200 on CTAs of two
+# warps of 64 lanes (a warp edge inside a CTA and the CTA edge)
+@pytest.mark.parametrize("W,C,NW,K,edges", [(96, 1, 1, 3, (32, 64)),
+                                            (200, 2, 2, 2, (128, 192))])
+def test_cluster_order_eterm_binds(W, C, NW, K, edges):
+    """Windows whose best path takes a vertical gap into a warp's (and a
+    CTA's) last lane and a horizontal gap from there into the next warp
+    (tsw.eterm_windows, gaps of 8 + 1 a base): the warp's posted total
+    lacks that lane's Ein, so only the correction by the next warp's
+    first E of the row before (`eb` in the model) carries the path; the
+    model equals the port's and smalt_tpu's sw_band_score_ref, which
+    reach at least the planted score.  (Without the term the model
+    scores 3 less on 4 of the 6 windows at W 96 and on all 6 at W 200.)"""
+    m, go, ge = ali.make_score_matrix(1, -6, -8, -1)
+    go, ge = -go, -ge
+    Q, S, pad = 448, 512, 24
+    q, s, sl, planted = tsw.eterm_windows(np.random.default_rng(W), 6, Q, S,
+                                          pad, W, edges, 1, go, ge)
+    got = _cluster_model(q, s, sl, m.astype(np.int64), go, ge, pad, W, C,
+                         NW, K)
+    want = tsw.sw_band_score_ref(*(torch.from_numpy(x) for x in (q, s, sl)),
+                                 torch.from_numpy(m), go, ge, pad, W,
+                                 track=True)
+    jwant = jsw.sw_band_score_ref(q, s, sl, m, go, ge, pad, W, track=True)
+    for k in range(3):
+        np.testing.assert_array_equal(got[k], want[k].numpy())
+        np.testing.assert_array_equal(got[k], np.asarray(jwant[k]))
+    np.testing.assert_array_equal(got[3], want[0].numpy())
+    assert (got[0] >= planted).all()
+
+
 def test_cluster_order_wide_matrix_and_nothing_scores(scoring):
     """A matrix outside int8 (match 200, mismatch -200, X -400) and
     windows in which nothing scores ((0, 0, -prepad), as a slen-0

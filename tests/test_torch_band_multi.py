@@ -226,6 +226,28 @@ def test_multi_order_matches_plain(scoring, seed, W, C):
     assert got[0, :5].max() > Q // 4 and got[0, 5:].max() > 0
 
 
+# the one-row-old E term: (W, C, first lanes of warps to plant at); W 96 on
+# three warps of 32 lanes, W 200 on four warps of 64 (the last one partial)
+@pytest.mark.parametrize("W,C,edges", [(96, 1, (32, 64)),
+                                       (200, 2, (128, 192))])
+def test_multi_order_eterm_binds(W, C, edges):
+    """Windows whose best path takes a vertical gap into a warp's last
+    lane and a horizontal gap from there into the next warp
+    (tsw.eterm_windows, gaps of 8 + 1 a base): the warp's posted total
+    lacks that lane's Ein, so only the correction by the next warp's
+    first Eh of the row before (`xe` in the model) carries the path; the
+    model equals the port's and smalt_tpu's sw_band_score_ref, which
+    reach at least the planted score.  (Without the term the model
+    scores 3 less on 4 of the 6 windows at W 96 and on all 6 at W 200.)"""
+    m, go, ge = ali.make_score_matrix(1, -6, -8, -1)
+    go, ge = -go, -ge
+    Q, S, pad = 448, 512, 24
+    q, s, sl, planted = tsw.eterm_windows(np.random.default_rng(W), 6, Q, S,
+                                          pad, W, edges, 1, go, ge)
+    got = _check(m, go, ge, pad, W, C, (q, s, sl))
+    assert (got[0] >= planted).all()
+
+
 @pytest.mark.parametrize("pen,entry", [((200, -200), np.int16),
                                        ((40000, -80000), np.int32)])
 def test_multi_order_wide_matrix_and_nothing_scores(pen, entry):

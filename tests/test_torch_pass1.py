@@ -38,6 +38,7 @@ from smalt_tpu_torch.align import core as tali
 from smalt_tpu_torch.map import fastlane as tfl
 from smalt_tpu_torch.map.pipeline import (device_lane, run_device_fastq,
                                           run_pipeline_raw_fastq)
+from smalt_tpu_torch.ops import bounds
 from smalt_tpu_torch.ops import sw as tsw
 from test_torch_exact import _port_engine
 from smalt_tpu.index.table import build_index
@@ -150,21 +151,26 @@ def test_step_gathers_int64_starts():
 # ------------------------------------------------------------------
 
 def strip_render(q, s, slens, matrix, go: int, ge: int):
-    """What sw_full.cu's sw_strip_kernel computes, in numpy, lane for lane:
-    strips of 512 columns on 32 lanes of 16, strip k over every row of
-    the window before strip k + 1; across a strip boundary a row hands on
-    only {H of the last column, the running prefix max of H0 + j*ge},
-    lane 0 folds the latter into its total before the scan; each lane
+    """What sw_full.cu's sw_strip_kernel (the one-warp path) computes, in
+    numpy, lane for lane: strips of 512 columns on 32 lanes of 16, strip k
+    over every row of the window before strip k + 1, and only the strips
+    below the window's qend (one past its last column not of code 7:
+    strips of pad code alone are skipped); across a strip boundary a row
+    hands on only {H of the last column, the running prefix max of H0 +
+    j*ge}, lane 0 folds the latter into its total before the scan; each lane
     keeps a tracking record a strip (key T*256 + 255 - c, strictly
     greater) and merges it into its running one by highest T, lowest row,
-    lowest column, as the warp's reduction does at the end.  Returns
-    ((best, ti, tj), score-only best) as int64 arrays."""
+    lowest column, as the warp's reduction does at the end.  (The kernel
+    is built for int8 matrices alone; a wider one renders the same order
+    of work.)  Returns ((best, ti, tj), score-only best) as int64
+    arrays."""
     C, L = 16, 32
     q, s = np.asarray(q, np.int64), np.asarray(s, np.int64)
     matrix = np.asarray(matrix, np.int64)
     B, Q = q.shape
     S = s.shape[1]
     rows = np.minimum(np.asarray(slens, np.int64), S)
+    nstrip = -(-bounds.query_ends(q) // (C * L))
     c = np.arange(C)
     carry_x = np.zeros((B, S), np.int64)
     carry_y = np.full((B, S), NEG, np.int64)
@@ -183,7 +189,7 @@ def strip_render(q, s, slens, matrix, go: int, ge: int):
         ny = np.full((B, S), NEG, np.int64)
         hprev = np.zeros(B, np.int64)
         for i in range(int(rows.max(initial=0))):
-            live = i < rows
+            live = (i < rows) & (k < nstrip)
             w = matrix[(s[:, i] & 7)[:, None, None], qc]     # [B, L, C]
             hleft = np.concatenate([hprev[:, None], H[:, :-1, C - 1]], 1)
             if k > 0:
@@ -215,6 +221,7 @@ def strip_render(q, s, slens, matrix, go: int, ge: int):
         st, sj = lkey >> 8, j0 + 255 - (lkey & 255)
         take = (st > bt) | ((st == bt) & ((li < bi) | ((li == bi) &
                                                        (sj < bj))))
+        take &= (k < nstrip)[:, None]
         bt, bi, bj = (np.where(take, a, b) for a, b in ((st, bt), (li, bi),
                                                         (sj, bj)))
     lane = np.argmin(-bt * (1 << 32) + bi * (1 << 16) + bj, axis=1)
@@ -278,7 +285,7 @@ def test_sw_full_cuda_strip_limits():
     sl = torch.full((2,), 8, dtype=torch.int32)
     for Q in (640, 16385, 32768, 100_000):
         q = torch.zeros((2, Q), dtype=torch.int32)
-        assert tsw.sw_full_instance(Q, 8, m, True) == "sw_full_track_strip"
+        assert tsw.sw_full_instance(2, Q, 8, m, True) == "sw_full_track_strip"
         with pytest.raises(ValueError, match="cuda"):
             tsw.sw_full_cuda(q, s, sl, m, 2, 1)
     with pytest.raises(ValueError, match="empty query"):

@@ -676,8 +676,11 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
     """The timing script's inputs (ops/time_sw.py; it needs a card to
     run): every case carries windows of its shape, a plain version that
     runs on a head of them, the band's launch arguments and a roofline
-    bound; tie-heavy windows of the widest shapes are checked, not timed.
-    Without a card the script exits 1."""
+    bound; tie-heavy windows of the widest shapes are checked, not timed;
+    sw_full's shapes of short reads in their bucket (FULL_QEND) carry pad
+    code from qend on and a bound over the cells inside the query, and
+    its STRIP_ROUTES shapes both strip kernels' routes.  Without a card
+    the script exits 1."""
     from smalt_tpu_torch.ops import time_sw
     m, go, ge = scoring
     monkeypatch.setattr(time_sw, "FULL_SHAPES" if kernel == "sw_full"
@@ -685,9 +688,26 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
     monkeypatch.setattr(time_sw, "BAND_WIDE", [(640, 3, 200,
                                                 ("many", "cluster"))])
     monkeypatch.setattr(time_sw, "WIDE_HEAD_ROWS", 96)
+    monkeypatch.setattr(time_sw, "FULL_QEND", [(600, 64, 6, 520)])
+    monkeypatch.setattr(time_sw, "STRIP_ROUTES", [(600, 64, 4)])
     mat = tsw.device_matrix(m, "cpu")
     got = list(time_sw.cases(kernel, np.random.default_rng(3), "cpu", mat,
                              go, ge))
+    if kernel == "sw_full":
+        # reads shorter than their bucket (the strip path): pad code from
+        # qend on, and the bound over the cells inside the query
+        both, qe, got = got[4:], got[2:4], got[:2]
+        assert [c.kind for c in both] == ["random", "ties"]
+        for c in both:
+            assert c.routes == ("wave", "warp") and c.shape == "Q=600 S=64 B=4"
+            assert c.tensors[0].shape == (4, 600) and c.timed == \
+                (c.kind == "random")
+        assert [c.kind for c in qe] == ["random", "ties"]
+        for c in qe:
+            assert c.shape.endswith("qend=520") and \
+                bool((c.tensors[0][:, 520:] == 7).all())
+            work = c.work(True)
+            assert 0 < work["cells"] < work["cells_all"]
     if kernel == "sw_band":
         # past 512 lanes: the routes, the subject cut to its rows, and
         # the plain version on the first WIDE_HEAD_ROWS of them
@@ -727,6 +747,43 @@ def test_time_sw_cases(scoring, monkeypatch, kernel, shapes):
 # so the card's routing is held here)
 # ------------------------------------------------------------------
 
+@pytest.mark.parametrize("B,Q,S,entry,track,want", [
+    (256, 32768, 2048, 127, False, "sw_full_strip"),   # the pass-1 lane, 20 kb
+    (1535, 2048, 2304, 127, True, "sw_full_track_strip"),
+    (1536, 2048, 2304, 127, True, "sw_full_track_warp"),
+    (32768, 2048, 2304, 127, False, "sw_full_warp"),   # 1,500 bp, pass 1
+    (384, 1504, 1792, 127, True, "sw_full_track_strip"),  # the 1x2 mesh
+    # WIDE and the record: the wavefront at any batch
+    (32768, 2048, 2304, 200, False, "sw_full_strip_wide"),
+    (4096, 2048, 2304, 200, True, "sw_full_track_strip_wide"),
+    (4096, 2048, 2304, 5000, True, "sw_full_track_strip_rec"),
+    (4096, 2048, 2304, 5000, False, "sw_full_strip_wide"),
+    (4096, 70_000, 70_000, 127, True, "sw_full_track_strip_rec"),  # int8
+    (1, 512, 640, 127, True, "sw_full_track"),         # in registers: any B
+    (100_000, 512, 640, 200, False, "sw_full_wide"),
+])
+def test_sw_full_instance_names_the_strip_kernel(B, Q, S, entry, track,
+                                                  want):
+    """Past 512 columns the name tells the strip path's two kernels apart,
+    as strip_warps routes the batch: "_strip" on the wavefront, "_warp" on
+    the one-warp kernel (an int8 instance keeping the key, from
+    STRIP_ONE_WARP_B windows); the record and the WIDE suffix as in
+    registers.  Every name is a launch count's, and its `wide` code the C
+    interface's (never WIDE on the one-warp kernel)."""
+    m = np.zeros((8, 8), np.int32)
+    m[0, 0] = entry
+    mat = tsw.device_matrix(m, "cpu")
+    got = tsw.sw_full_instance(B, Q, S, mat, track)
+    assert got == want
+    wide = tsw._wide_code(got) > 0
+    assert got.endswith("_warp") == \
+        (Q > tsw.MAX_Q and tsw.strip_warps(B, Q, S, wide) == 1)
+    assert not (wide and "_warp" in got)
+    assert want in tsw.launches
+    assert tsw._wide_code(want) == (2 if want.endswith("_rec") else
+                                    1 if want.endswith("_wide") else 0)
+
+
 @pytest.mark.parametrize("Q,S,entry,track,want", [
     (112, 128, 127, True, "sw_full_track"),            # int8, in registers
     (112, 128, 200, True, "sw_full_track_wide"),       # a matrix past int8
@@ -749,12 +806,13 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     sw_full.cu's _rec kernels), whatever the matrix; every other tracked
     launch keeps the key, a matrix past int8 on the WIDE instance; a
     score-only launch tracks no cell and never takes the record.  Every
-    name is a launch count's, and its `wide` code the C interface's."""
+    name is a launch count's, and its `wide` code the C interface's.  (A
+    batch of one window: past 512 columns the wavefront.)"""
     m = np.zeros((8, 8), np.int32)
     m[0, 0] = entry
     mat = tsw.device_matrix(m, "cpu")
     assert tsw.key_over(mat, Q, S) == (entry * min(Q, S) >= 1 << 23)
-    assert tsw.sw_full_instance(Q, S, mat, track) == want
+    assert tsw.sw_full_instance(1, Q, S, mat, track) == want
     assert want in tsw.launches
     assert tsw._wide_code(want) == (2 if want.endswith("_rec") else
                                     1 if want.endswith("_wide") else 0)
