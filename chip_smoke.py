@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (smalt_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one GPU
+    python3 chip_smoke.py --long-fast 720000 2
+        # only `map --fast` on 2 reads of 720 kb (below), no phase
 
 1. Prints the toolchain (card, power limit, CUDA, nvcc); fails without
    a GPU.
@@ -82,24 +84,35 @@
    Every sw_band call of phase 3b must launch exactly the instance
    ops/sw.py sw_band_instance names.  Then the kernels of bands past
    12,800 lanes (ops/sw.py TILED_BAND_W):
-   sw_band_cluster_kernel with ops/sw.py TILED_BAND_W lowered to 0, so
-   that every band takes it, and sw_band_tiled_kernel with CLUSTER_BAND_W
-   lowered to 0 too, at W = 768 (Q = 4,096, 512 windows) and W = 3,840
+   sw_band_cluster_kernel with ops/sw.py TILED_BAND_W lowered to 0 and
+   CLUSTER_BAND_W raised to its widest band (CLUSTER_MAX_W), so that
+   every band takes it, and sw_band_strips_kernel with CLUSTER_BAND_W
+   lowered to 0, at W = 768 (Q = 4,096, 512 windows) and W = 3,840
    (Q = 20,000, 12 windows) on the first 4,096 subject rows of planted
-   and tie-heavy windows (a seventh of them with slen 0; the cluster
-   kernel also with the matrix outside int8), and at W = 200 and 330 (Q =
-   640); the cluster kernel at its own route on 7 CTAs (W = 12,928, the
-   first width past TILED_BAND_W) and 16 CTAs (W = 32,768, 40,000
-   and 131,072, its widest), on their first rows; then both on the
-   6 windows of 2 reads of 100 kb (W = 18,816, S = 112,512: the cluster
-   kernel at its route, 10 CTAs), timed, with their bound.  Then the
-   one-row-old E term: ops/sw.py eterm_windows (the best path takes a
-   vertical gap into a warp's or a CTA's last lane and a horizontal gap
-   from it) through the several-warps kernel at W = 768 and 3,840 and
-   the cluster kernel (TILED_BAND_W lowered to 0) at the same widths,
-   against the plain version; and cudaOccupancyMaxActiveClusters for
-   every shape cluster_shape returns (fails where the card cannot place
-   one).
+   and tie-heavy windows (a seventh of them with slen 0; both also with
+   the matrix outside int8), and at W = 200 and 330 (Q = 640); the
+   cluster kernel on 7 CTAs (W = 12,928, the first width past
+   TILED_BAND_W) and 16 CTAs (W = 32,768, 40,000 and 131,072, its
+   widest), on their first rows; then both on the 6 windows of 2 reads of
+   100 kb (W = 18,816, S = 112,512: the cluster kernel on 10 CTAs), timed,
+   with their bound.  Then sw_band_strips_kernel at its own route (W past
+   CLUSTER_BAND_W): the 3 windows of a read of 700 kb (W = 131,328,
+   S = 787,584) on their first 4,096 subject rows, planted and
+   tie-heavy (most band lanes there lie left of column 0: the skipped
+   strips, the edge rows), and the first with pad 0 (prepad W / 2) on its
+   first 69,760 rows, whose last 4,096 lie wholly inside the query (every
+   strip's middle rows), against the plain version, exactly; then timed
+   on all their rows, with the bound.  Then the one-row-old E term:
+   ops/sw.py eterm_windows (the best path takes a vertical gap into a
+   warp's or a CTA's last lane and a horizontal gap from it) through the
+   several-warps kernel at W = 768 and 3,840 and the cluster kernel
+   (TILED_BAND_W lowered to 0) at the same widths, and through the strip
+   kernel (CLUSTER_BAND_W lowered to 0) with its horizontal gap planted
+   across a strip edge inside a group and across a group edge (query
+   columns 256 (2 NW + 1) and 512 NW, NW the warps a CTA), against the
+   plain version; and
+   cudaOccupancyMaxActiveClusters for every shape cluster_shape returns
+   (fails where the card cannot place one).
 3c. Holds swq (device pass 2: banded fill + walk) against its plain
    version swq_fill_walk_ref, exactly (best, mi, mj and every record
    row), on 8,192 pass-2-style windows at Qp=128 / Sp=256 (the main
@@ -365,23 +378,35 @@ ETERM_PEN = (1, -6, -8, -1)
 ETERM = [(4096, 4608, (384,), (512,)),
          (20000, 5120, (3200, 2560), (3584, 2048))]
 ETERM_B = 8
-# bands past TILED_BAND_W: sw_band_cluster_kernel (to 131,072 lanes) with
-# ops/sw.py TILED_BAND_W lowered to 0 (every band on it), and
-# sw_band_tiled_kernel (past that) with CLUSTER_BAND_W lowered too, held
-# at the band geometry of TILED_SMALL (Q, windows: W = 768 and 3,840: the
-# cluster kernel on 1 and 2 CTAs, the tiled one on one tile and two) on
-# planted and tie-heavy windows, a seventh of them with slen 0, and at
-# ODD_BAND_WIDTHS; the cluster kernel also with WIDE_PEN, and at its own
-# route on CLUSTER_WIDE (W, windows, subject rows: 7 CTAs at the first
-# width past TILED_BAND_W, then 16 CTAs of 128, 160 and 512
-# threads); then both at the windows of TILED_READS reads of
-# TILED_READLEN bp (W = 18,816, three windows a read: the cluster kernel
-# on 10 CTAs), timed there
-TILED_SMALL = [(4096, 512), (20000, 12)]
-TILED_SMALL_ROWS = 4096               # subject rows held at those widths
+# bands past TILED_BAND_W: sw_band_cluster_kernel (to CLUSTER_MAX_W =
+# 131,072 lanes) with ops/sw.py TILED_BAND_W lowered to 0 and
+# CLUSTER_BAND_W raised to CLUSTER_MAX_W (every band on it), and
+# sw_band_strips_kernel with CLUSTER_BAND_W lowered to 0, held at the
+# band geometry of BIG_SMALL (Q, windows: W = 768 and 3,840: the cluster
+# kernel on 1 and 2 CTAs, the strip kernel on bands of 2 and 8 strips'
+# width) on planted and tie-heavy windows, a seventh of them with slen 0,
+# and at ODD_BAND_WIDTHS; both also with WIDE_PEN; the cluster kernel on
+# CLUSTER_WIDE (W, windows, subject rows: 7 CTAs at the first width past
+# TILED_BAND_W, then 16 CTAs of 128, 160 and 512 threads); then both at
+# the windows of R100K_N reads of R100K_LEN bp (W = 18,816, three windows
+# a read: the cluster kernel on 10 CTAs), timed there.  The strip kernel
+# at its own route: the STRIPS_B windows of a read of STRIPS_READLEN bp,
+# their first STRIPS_ROWS rows (planted and tie-heavy) and, with pad 0,
+# the first STRIPS_PAD0_B's first STRIPS_PAD0_ROWS; timed on all their
+# rows.  Its E-term
+# windows: STRIPS_ETERM (Q, band lanes a), the horizontal gap across
+# query columns 256 (2 NW + 1) (a strip edge inside a group) and 512 NW
+# (a group edge), NW the warps a CTA
+BIG_SMALL = [(4096, 512), (20000, 12)]
+BIG_SMALL_ROWS = 4096               # subject rows held at those widths
 CLUSTER_WIDE = [(12928, 8, 2048), (32768, 2, 384), (40000, 2, 256),
                 (131072, 2, 128)]
-TILED_READLEN, TILED_READS = 100_000, 2
+R100K_LEN, R100K_N = 100_000, 2
+STRIPS_READLEN, STRIPS_B, STRIPS_ROWS = 700_000, 3, 4096
+# (the plain version takes ~40 s on this set, at 1 window as at 3: its
+# row steps, not the windows, set its time)
+STRIPS_PAD0_ROWS, STRIPS_PAD0_B = 69_760, 1
+STRIPS_ETERM = (8192, (1500, 1480, 1460))
 WIDE_SPEC = "match=200,subst=-2"
 # phase 12: the split-word index, (k, step) each, on the phase-4 genome:
 # BATCH reads of READLEN bp and N_BIGK_LONG of LONG_READLEN bp
@@ -1345,11 +1370,11 @@ def check_eterm(rng, card: str):
 
 def check_cluster_occupancy(card: str):
     """Phase 3b: cudaOccupancyMaxActiveClusters for every (CTAs, threads)
-    shape ops/sw.py cluster_shape returns up to CLUSTER_BAND_W, tracked
+    shape ops/sw.py cluster_shape returns up to CLUSTER_MAX_W, tracked
     and score-only; fails where the card cannot place one."""
     from smalt_tpu_torch.ops import sw
     shapes = sorted({sw.cluster_shape(W)
-                     for W in range(1, sw.CLUSTER_BAND_W + 1)})
+                     for W in range(1, sw.CLUSTER_MAX_W + 1)})
     fewest = {}
     for ncta, nt in shapes:
         for track in (True, False):
@@ -1367,23 +1392,22 @@ def check_cluster_occupancy(card: str):
 def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
     """Phase 3b, bands past TILED_BAND_W: sw_band_cluster_kernel (a
     cluster of up to 16 CTAs a window, the row exchanged in distributed
-    shared memory) and sw_band_tiled_kernel (one block a window over tiles
-    of 2,048 lanes, the row's state in a global scratch) against
-    sw_band_score_ref.  First with ops/sw.py TILED_BAND_W lowered to 0, so
-    that every band takes the cluster route, and then with CLUSTER_BAND_W
-    lowered to 0 too, so that every band takes the tiled one: the
-    geometry of TILED_SMALL on planted and on tie-heavy windows (on their
-    first TILED_SMALL_ROWS subject rows, a seventh of the windows with
-    slen 0), and ODD_BAND_WIDTHS (a thread's or a tile's lanes past W);
-    the cluster kernel also with the WIDE_PEN matrix, and on CLUSTER_WIDE
-    at its own route (16 CTAs, up to 512 threads).  Then at the module's
-    thresholds the windows of TILED_READS reads of TILED_READLEN bp
-    (band_windows: the mapping path's geometry, three windows a read),
-    the cluster kernel at its route and the tiled one with CLUSTER_BAND_W
-    lowered, both timed beside the plain version (the score-only plain
+    shared memory) and sw_band_strips_kernel (the band as column strips of
+    512 across many CTAs a window) against sw_band_score_ref.  First with
+    ops/sw.py TILED_BAND_W lowered to 0 and CLUSTER_BAND_W raised to
+    CLUSTER_MAX_W, so that every band takes the cluster route, and then
+    with CLUSTER_BAND_W lowered to 0, so that every band takes the strip
+    route: the geometry of BIG_SMALL on planted and on tie-heavy windows
+    and with the WIDE_PEN matrix (on their first BIG_SMALL_ROWS subject
+    rows, a seventh of the windows with slen 0), and ODD_BAND_WIDTHS (a
+    thread's or a strip's lanes past W); the cluster kernel also on
+    CLUSTER_WIDE (16 CTAs, up to 512 threads).  Then the windows of
+    R100K_N reads of R100K_LEN bp (band_windows: the mapping path's
+    geometry, three windows a read) through both kernels (each route set
+    as above), both timed beside the plain version (the score-only plain
     version on its first S / 16 rows: a minute a call at the full shape)
     and their bound.  Returns (max_abs_err, cluster tracked, cluster
-    score-only, tiled tracked, tiled score-only) as check_band_kernel
+    score-only, strips tracked, strips score-only) as check_band_kernel
     returns its kernel's, at that real shape."""
     import torch
     from smalt_tpu_torch.align import core as ali
@@ -1392,23 +1416,20 @@ def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
     thresh, cap = sw.TILED_BAND_W, sw.CLUSTER_BAND_W
     wm, wgo, wge = ali.make_score_matrix(*WIDE_PEN)
     wmat = sw.device_matrix(wm, "cuda")
+    routes = (("cluster", "TILED_BAND_W lowered to 0", sw.CLUSTER_MAX_W),
+              ("strips", "TILED_BAND_W and CLUSTER_BAND_W lowered to 0", 0))
     try:
         sw.TILED_BAND_W = 0
-        for route, lowered in (("cluster", "TILED_BAND_W"),
-                               ("tiled", "TILED_BAND_W and CLUSTER_BAND_W")):
+        for route, lowered, sw.CLUSTER_BAND_W in routes:
             names = ("sw_band_track_" + route, "sw_band_" + route)
-            if route == "tiled":
-                sw.CLUSTER_BAND_W = 0
-            for Q, B in TILED_SMALL:
+            for Q, B in BIG_SMALL:
                 kinds = (("planted", sw.band_windows, mat, go, ge),
-                         ("tie-heavy", sw.band_tie_windows, mat, go, ge))
-                if route == "cluster":
-                    kinds += (("wide matrix", sw.band_windows, wmat, -wgo,
-                               -wge),)
+                         ("tie-heavy", sw.band_tie_windows, mat, go, ge),
+                         ("wide matrix", sw.band_windows, wmat, -wgo, -wge))
                 for kind, gen, m, g_, e_ in kinds:
                     q, s, sl, pad, W, S = gen(rng, B, Q)
-                    if S > TILED_SMALL_ROWS:  # the plain version: a row a step
-                        S = TILED_SMALL_ROWS
+                    if S > BIG_SMALL_ROWS:  # the plain version: a row a step
+                        S = BIG_SMALL_ROWS
                         s = np.ascontiguousarray(s[:, :S])
                         sl = np.minimum(sl, S).astype(np.int32)
                     sl[::7] = 0
@@ -1417,18 +1438,19 @@ def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
                     e, want = band_equal(q, s, sl, m, g_, e_, pad, W,
                                          f"Q={Q} W={W} S={S}, {kind} "
                                          f"({route})")
-                    band_launched(before, names, f"with {lowered} lowered")
+                    band_launched(before, names, f"with {lowered}")
                     if int(want[0].max()) <= 0:
                         fail(f"degenerate {kind} windows at Q={Q} ({route})")
                     err = max(err, e)
                     shape = (f"{sw.cluster_shape(W)} (CTAs, threads)"
-                             if route == "cluster"
-                             else f"{-(-W // 2048)} tiles a row")
+                             if route == "cluster" else
+                             f"{sw.BAND_STRIP_WARPS} strips of "
+                             f"{sw.BAND_STRIP_W} columns a CTA")
                     print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} "
-                          f"windows, {B // 7 + 1} with slen 0, {lowered} "
-                          f"lowered to 0, {shape}: sw_band_{route}_kernel "
-                          f"equal to sw_band_score_ref (best, ti, tj and "
-                          f"score-only) | {card}", flush=True)
+                          f"windows, {B // 7 + 1} with slen 0, {lowered}, "
+                          f"{shape}: sw_band_{route}_kernel equal to "
+                          f"sw_band_score_ref (best, ti, tj and score-only) | "
+                          f"{card}", flush=True)
             Q, B = ODD_BAND_Q, 256
             for kind, gen in (("planted", sw.band_windows),
                               ("tie-heavy", sw.band_tie_windows)):
@@ -1439,86 +1461,192 @@ def check_band_past_16384(rng, mat, go: int, ge: int, card: str):
                                               f"Q={Q} W={W} S={S}, {kind} "
                                               f"({route})")[0])
                     print(f"# sw_band Q={Q} W={W} S={S} B={B}, {kind} "
-                          f"windows, {lowered} lowered to 0: "
-                          f"sw_band_{route}_kernel equal to sw_band_score_ref"
-                          f" | {card}", flush=True)
+                          f"windows, {lowered}: sw_band_{route}_kernel "
+                          f"equal to sw_band_score_ref | {card}", flush=True)
+            if route != "cluster":
+                continue
+            for W, B, rows in CLUSTER_WIDE:
+                q, s, sl, pad, _, S = sw.band_windows(rng, B, W * 16 // 3)
+                s = np.ascontiguousarray(s[:, :rows])
+                sl = np.minimum(sl, rows).astype(np.int32)
+                q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+                before = dict(sw.launches)
+                err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
+                                          f"W={W}, first {rows} rows "
+                                          f"(cluster)")[0])
+                band_launched(before, names, f"at W={W}")
+                print(f"# sw_band Q={q.shape[1]} W={W} B={B}, first {rows} "
+                      f"subject rows, {sw.cluster_shape(W)} (CTAs, threads): "
+                      f"sw_band_cluster_kernel equal to sw_band_score_ref | "
+                      f"{card}", flush=True)
     finally:
         sw.TILED_BAND_W, sw.CLUSTER_BAND_W = thresh, cap
-    for W, B, rows in CLUSTER_WIDE:
-        q, s, sl, pad, _, S = sw.band_windows(rng, B, W * 16 // 3)
-        s = np.ascontiguousarray(s[:, :rows])
-        sl = np.minimum(sl, rows).astype(np.int32)
-        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-        before = dict(sw.launches)
-        err = max(err, band_equal(q, s, sl, mat, go, ge, pad, W,
-                                  f"W={W}, first {rows} rows (cluster)")[0])
-        band_launched(before, ("sw_band_track_cluster", "sw_band_cluster"),
-                      f"at W={W}")
-        print(f"# sw_band Q={q.shape[1]} W={W} B={B}, first {rows} subject "
-              f"rows, {sw.cluster_shape(W)} (CTAs, threads): "
-              f"sw_band_cluster_kernel equal to sw_band_score_ref | {card}",
-              flush=True)
-    Q = -(-TILED_READLEN // 16) * 16
-    B = 3 * TILED_READS
+    Q = -(-R100K_LEN // 16) * 16
+    B = 3 * R100K_N
     q, s, sl, pad, W, S = sw.band_windows(rng, B, Q)
-    if not sw.TILED_BAND_W < W <= sw.CLUSTER_BAND_W:
-        fail(f"the band of {TILED_READLEN} bp reads is {W} lanes")
+    if not sw.TILED_BAND_W < W <= sw.CLUSTER_MAX_W:
+        fail(f"the band of {R100K_LEN} bp reads is {W} lanes")
     q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
-    before = dict(sw.launches)
-    times = {}
-    e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
-                         f"Q={Q} W={W} S={S} (cluster)", times)
-    band_launched(before, ("sw_band_track_cluster", "sw_band_cluster"),
-                  f"at W={W}")
+    times, ms = {}, {}
+    want = None
+    for route, _, sw.CLUSTER_BAND_W in routes:
+        try:
+            names = ("sw_band_track_" + route, "sw_band_" + route)
+            before = dict(sw.launches)
+            if want is None:
+                e, want = band_equal(q, s, sl, mat, go, ge, pad, W,
+                                     f"Q={Q} W={W} S={S} ({route})", times)
+                err = max(err, e)
+            else:
+                got = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                      track=True)
+                got0 = sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
+                                       track=False)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)) \
+                        or not torch.equal(got0, want[0]):
+                    fail(f"sw_band_{route}_kernel differs from "
+                         f"sw_band_score_ref at Q={Q} W={W}")
+            band_launched(before, names, f"at W={W} ({route})")
+            ms[route] = [time_ms(lambda t=t: sw.sw_band_cuda(
+                q, s, sl, mat, go, ge, pad, W, track=t), 3, warm=1)
+                for t in (True, False)]
+        finally:
+            sw.CLUSTER_BAND_W = cap
     if int(want[0].max()) <= Q // 4:
         fail(f"degenerate band windows at Q={Q}")
-    err = max(err, e)
-    c_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
-                                           track=True), 3, warm=1)
-    c0_ms = time_ms(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad, W,
-                                            track=False), 3, warm=1)
-    sw.CLUSTER_BAND_W = sw.TILED_BAND_W
-    try:                      # the tiled kernel on the same windows, once
-        before = dict(sw.launches)
-        got, k_ms = timed(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge, pad,
-                                                  W, track=True))
-        got0, k0_ms = timed(lambda: sw.sw_band_cuda(q, s, sl, mat, go, ge,
-                                                    pad, W, track=False))
-        band_launched(before, ("sw_band_track_tiled", "sw_band_tiled"),
-                      f"with CLUSTER_BAND_W lowered at W={W}")
-    finally:
-        sw.CLUSTER_BAND_W = cap
-    if not all(torch.equal(g, w) for g, w in zip(got, want)) or \
-            not torch.equal(got0, want[0]):
-        fail(f"sw_band_tiled_kernel differs from sw_band_score_ref at Q={Q} "
-             f"W={W}")
     p_ms = times["plain"]
     rows = S // 16
     p0_ms = time_ms(lambda: sw.sw_band_score_ref(
         q, s[:, :rows].contiguous(), torch.clamp_max(sl, rows), mat.t, go,
         ge, pad, W), 1, warm=0)
-    print(f"# sw_band Q={Q} W={W} S={S} B={B} (the windows of {TILED_READS} "
-          f"reads of {TILED_READLEN} bp): sw_band_cluster_kernel "
-          f"{sw.cluster_shape(W)} (CTAs, threads) and sw_band_tiled_kernel "
-          f"({-(-W // 2048)} tiles of 2,048 lanes a row) equal to "
+    print(f"# sw_band Q={Q} W={W} S={S} B={B} (the windows of {R100K_N} "
+          f"reads of {R100K_LEN} bp): sw_band_cluster_kernel "
+          f"{sw.cluster_shape(W)} (CTAs, threads) and sw_band_strips_kernel "
+          f"({sw.BAND_STRIP_WARPS} strips a CTA) equal to "
           f"sw_band_score_ref (best, ti, tj and score-only); cluster track "
-          f"{c_ms:.1f} ms, score-only {c0_ms:.1f} ms (3 calls); tiled track "
-          f"{k_ms:.1f} ms, score-only {k0_ms:.1f} ms (1 call); plain "
-          f"{p_ms:.1f} ms tracked, {p0_ms:.1f} ms score-only on the first "
-          f"{rows} rows | {card}", flush=True)
+          f"{ms['cluster'][0]:.1f} ms, score-only {ms['cluster'][1]:.1f} ms; "
+          f"strips track {ms['strips'][0]:.1f} ms, score-only "
+          f"{ms['strips'][1]:.1f} ms (3 calls each); plain {p_ms:.1f} ms "
+          f"tracked, {p0_ms:.1f} ms score-only on the first {rows} rows | "
+          f"{card}", flush=True)
     wt, w0 = (bounds.sw_band_work(Q, S, W, pad, sl, t) for t in (True, False))
     recs = []
-    for name, ms, w in (("sw_band_track_cluster", c_ms, wt),
-                        ("sw_band_cluster", c0_ms, w0),
-                        ("sw_band_track_tiled", k_ms, wt),
-                        ("sw_band_tiled", k0_ms, w0)):
-        print(bound_line(f"{name} Q={Q} W={W} S={S} B={B}", w, ms, card),
+    for route in ("cluster", "strips"):
+        for k, (name, w) in enumerate(((f"sw_band_track_{route}", wt),
+                                       (f"sw_band_{route}", w0))):
+            print(bound_line(f"{name} Q={Q} W={W} S={S} B={B}", w,
+                             ms[route][k], card), flush=True)
+            rec = dict(ms=ms[route][k], plain_ms=p_ms, bound_ms=w["bound_ms"],
+                       bound_by=w["bound_by"], windows=B)
+            if "track" not in name:
+                rec.update(plain_ms=p0_ms, plain_rows=rows)
+            recs.append(rec)
+    return (err, *recs)
+
+
+def check_band_strips(rng, mat, go: int, ge: int, card: str):
+    """Phase 3b, sw_band_strips_kernel at its own route (W past
+    CLUSTER_BAND_W): the STRIPS_B windows of a read of STRIPS_READLEN bp
+    (band_windows: W = 131,328), planted and tie-heavy, on their first
+    STRIPS_ROWS subject rows (most band lanes there lie left of column 0:
+    the strips not run, the first edge rows), and the first STRIPS_PAD0_B
+    planted ones with pad 0 (prepad W / 2) on their first
+    STRIPS_PAD0_ROWS rows, the last STRIPS_ROWS of which lie wholly inside
+    the query (every strip's middle rows), each against
+    sw_band_score_ref, exactly, tracked and
+    score-only, each call launching the strip kernel alone; then the
+    planted windows timed on all their rows (3 calls), with the bound.
+    Then ops/sw.py eterm_windows at STRIPS_ETERM with CLUSTER_BAND_W
+    lowered to 0 and the horizontal gap across query columns 256 (2 NW +
+    1) (a strip edge inside a group: the ring) and 512 NW (a group edge:
+    the carry in device memory), NW the warps a CTA.  Returns (max_abs_err, tracked, score-only) as
+    check_band_kernel returns its kernel's: the time and bound on all
+    rows, the plain version's on the pad-0 rows."""
+    import torch
+    from smalt_tpu_torch.align import core as ali
+    from smalt_tpu_torch.ops import bounds, sw
+    names = ("sw_band_track_strips", "sw_band_strips")
+    err = 0
+    full = None
+    for kind, gen in (("planted", sw.band_windows),
+                      ("tie-heavy", sw.band_tie_windows)):
+        q, s, sl, pad, W, S = gen(rng, STRIPS_B, STRIPS_READLEN)
+        if W <= sw.CLUSTER_BAND_W:
+            fail(f"the band of {STRIPS_READLEN} bp reads is {W} lanes, not "
+                 f"past CLUSTER_BAND_W")
+        q, s, sl = (torch.from_numpy(x).cuda() for x in (q, s, sl))
+        if kind == "planted":
+            full = (q, s, sl, pad)
+        cuts = [(pad, STRIPS_ROWS, STRIPS_B)]
+        if kind == "planted":
+            cuts.append((0, STRIPS_PAD0_ROWS, STRIPS_PAD0_B))
+        for p_, rows, nb in cuts:
+            sc = s[:nb, :rows].contiguous()
+            slc = torch.clamp_max(sl[:nb], rows)
+            times = {}
+            before = dict(sw.launches)
+            e, want = band_equal(q[:nb], sc, slc, mat, go, ge, p_, W,
+                                 f"Q={STRIPS_READLEN} W={W}, first {rows} "
+                                 f"rows, pad {p_}, {kind}", times)
+            band_launched(before, names, f"at W={W}")
+            if int(want[0].max()) <= 0:
+                fail(f"degenerate {kind} windows at W={W}, pad {p_}")
+            err = max(err, e)
+            print(f"# sw_band Q={STRIPS_READLEN} W={W} S={S} B={nb}, "
+                  f"{kind} windows, pad {p_} (prepad {p_ + W // 2}), first "
+                  f"{rows} subject rows: sw_band_strips_kernel "
+                  f"({sw.BAND_STRIP_WARPS} strips a CTA) equal "
+                  f"to sw_band_score_ref (best, ti, tj and score-only; best "
+                  f"{int(want[0].min())}..{int(want[0].max())}); plain "
+                  f"{times['plain']:.1f} ms tracked | {card}", flush=True)
+            if p_ == 0:
+                p_ms, p_rows = times["plain"], rows
+    q, s, sl, pad = full
+    S = s.shape[1]
+    k_ms = [time_ms(lambda t=t: sw.sw_band_cuda(
+        q, s, sl, mat, go, ge, pad, W, track=t), 3, warm=1)
+        for t in (True, False)]
+    recs = []
+    for k, name in enumerate(names):
+        w = bounds.sw_band_work(STRIPS_READLEN, S, W, pad, sl, k == 0)
+        print(bound_line(f"{name} Q={STRIPS_READLEN} W={W} S={S} "
+                         f"B={STRIPS_B} (all rows)", w, k_ms[k], card),
               flush=True)
-        rec = dict(ms=ms, plain_ms=p_ms, bound_ms=w["bound_ms"],
-                   bound_by=w["bound_by"], windows=B)
-        if "track" not in name:
-            rec.update(plain_ms=p0_ms, plain_rows=rows)
-        recs.append(rec)
+        recs.append(dict(ms=k_ms[k], plain_ms=p_ms, plain_rows=p_rows,
+                         plain_pad=0, bound_ms=w["bound_ms"],
+                         bound_by=w["bound_by"], windows=STRIPS_B))
+    # the carry across a strip edge and a group edge
+    m, ego, ege = ali.make_score_matrix(*ETERM_PEN)
+    emat = sw.device_matrix(m, "cuda")
+    Q, edges = STRIPS_ETERM
+    S, pad, W = sw.band_geometry(Q)
+    # a strip edge inside a group and a group edge, past the first strips
+    # (the planted runs need room above them)
+    nw, sw_ = sw.BAND_STRIP_WARPS, sw.BAND_STRIP_W
+    cross = (sw_ * (2 * nw + 1), sw_ * 2 * nw)
+    q, s, sl, planted = sw.eterm_windows(rng, ETERM_B, Q, S, pad, W, edges,
+                                         ETERM_PEN[0], -ego, -ege, cross)
+    t_ = [torch.from_numpy(x).cuda() for x in (q, s, sl)]
+    cap = sw.CLUSTER_BAND_W
+    sw.CLUSTER_BAND_W = 0
+    try:
+        before = dict(sw.launches)
+        _, want = band_equal(*t_, emat, -ego, -ege, pad, W,
+                             f"W={W}, E-term windows across query columns "
+                             f"{cross} (strips)")
+        band_launched(before, names, f"at W={W} (E-term windows)")
+    finally:
+        sw.CLUSTER_BAND_W = cap
+    low = int((want[0].cpu().numpy() < planted).sum())
+    if low:
+        fail(f"E-term windows at W={W} (strips): {low} below the planted "
+             f"score")
+    print(f"# sw_band_strips_kernel W={W}, {ETERM_B} E-term windows (band "
+          f"lanes {edges}, the horizontal gap across query columns {cross}: "
+          f"a strip edge and a group edge at {nw} strips a CTA): equal to "
+          f"sw_band_score_ref (best, ti, tj and score-only; best "
+          f"{want[0].min().item()}..{want[0].max().item()}, each at least "
+          f"its planted path's) | {card}", flush=True)
     return (err, *recs)
 
 
@@ -3028,7 +3156,7 @@ def run_very_long(d: str, genome, card: str):
     --device cpu and (d) `map --device-pass1` (the WIDE score-only strips)
     against the host C lane; (e) BATCH reads of READLEN bp through `map
     --fast -S KEY_SHORT_SPEC` (sw_full's two-part record) against --device
-    cpu; (f) TILED_READS reads of TILED_READLEN bp through `map --fast` on
+    cpu; (f) R100K_N reads of R100K_LEN bp through `map --fast` on
     the card at the default batch (sw_band_cluster_kernel; the batch's pad
     reads take no rows), placed within LONG_TOL bp: reads
     this long take the plain versions minutes a batch on the CPU, so they
@@ -3121,32 +3249,39 @@ def run_very_long(d: str, genome, card: str):
           f"bp: SAM byte-identical to --device cpu, {wall:.3f} s on the card; "
           f"placed {placement(body, truth, rev)}/{BATCH} within {PLACE_TOL} "
           f"bp; launches {runs['fast key short']} | {card}", flush=True)
-    # (f) reads whose band passes 16,384 lanes: sw_band_cluster_kernel,
-    # at the default batch: the pipeline pads the batch to its size, and
-    # the pad reads' windows take no rows (mesh.py pad_read_slens)
-    reads, truth, rev = make_long_reads(rng, genome, TILED_READS,
-                                        TILED_READLEN)
+    # (f) reads whose band passes 16,384 lanes (the band kernel
+    # sw_band_instance routes them to), at the default batch: the pipeline
+    # pads the batch to its size, and the pad reads' windows take no rows
+    # (mesh.py pad_read_slens)
+    reads, truth, rev = make_long_reads(rng, genome, R100K_N,
+                                        R100K_LEN)
     fq, _ = write_fastq(os.path.join(d, "vlong100k.fq"), reads, b"t")
     sam = os.path.join(d, "vlong100k.sam")
     runs["fast 100 kb"], wall, m = map_cli("cuda", idx_name, sam, [fq],
                                            BATCH)
     body = sam_body(sam)
     placed = placement(body, truth, rev, LONG_TOL)
-    if len(body) != TILED_READS or placed != TILED_READS or \
-            runs["fast 100 kb"]["sw_band_track_cluster"] < 1:
-        fail(f"--fast on {TILED_READS} reads of {TILED_READLEN} bp: "
+    Q100 = max(len(r) for r in reads)
+    Q100 = -(-Q100 // 16) * 16
+    S100, _, W100 = sw.band_geometry(Q100)
+    routed = sw.sw_band_instance(Q100, S100, W100, sw.device_matrix(
+        np.eye(8, dtype=np.int32), "cpu"), True)
+    if len(body) != R100K_N or placed != R100K_N or \
+            runs["fast 100 kb"][routed] < 1:
+        fail(f"--fast on {R100K_N} reads of {R100K_LEN} bp: "
              f"{len(body)} records, {placed} placed, launches "
-             f"{runs['fast 100 kb']}")
-    print(f"# map --fast on {TILED_READS} reads of {TILED_READLEN} bp (bands "
-          f"past 16,384 lanes) at the default batch ({BATCH}): {wall:.1f} s "
-          f"on the card, pipeline {m.group(3) if m else '?'} s (the tiled "
-          f"kernel, PERF.md: 344.3 s at this batch, 10.1 s at a batch of "
-          f"{TILED_READS}), placed {placed}/{TILED_READS} within {LONG_TOL} "
-          f"bp; launches {runs['fast 100 kb']} | {card}", flush=True)
+             f"{runs['fast 100 kb']} ({routed} expected)")
+    print(f"# map --fast on {R100K_N} reads of {R100K_LEN} bp (bands "
+          f"past 16,384 lanes, {routed}) at the default batch ({BATCH}): "
+          f"{wall:.1f} s on the card, pipeline {m.group(3) if m else '?'} s "
+          f"(a one-block tiled kernel, PERF.md: 344.3 s at this batch, 10.1 s "
+          f"at a batch of {R100K_N}), placed {placed}/{R100K_N} within "
+          f"{LONG_TOL} bp; launches {runs['fast 100 kb']} | {card}",
+          flush=True)
     # where that run's time goes: the step on the 2 reads alone and
     # padded to the batch, and the host tail
     from smalt_tpu_torch.map.fastmode import iter_fastq_hybrid
-    batch_split(f"--fast {TILED_READS} x {TILED_READLEN} bp", idx_name,
+    batch_split(f"--fast {R100K_N} x {R100K_LEN} bp", idx_name,
                 next(iter(iter_fastq_hybrid(fq, BATCH))), False, "cuda", card,
                 pad_to=BATCH, reps=3)
     return runs
@@ -3656,7 +3791,9 @@ def main() -> int:
                                "the several-warps kernel"),
                               ("sw_full", "sw_strip", "the one-warp strip "
                                "kernel"),
-                              ("sw_full", "sw_wave", "the strip wavefront")):
+                              ("sw_full", "sw_wave", "the strip wavefront"),
+                              ("sw_band", "sw_band_strips",
+                               "the band's strip kernel")):
         spilled = ptxas_summary(build.build_info[src]["log"], kernel)
         if not spilled.endswith("spill bytes 0"):
             fail(f"{what} spills: {spilled}")
@@ -3684,10 +3821,15 @@ def main() -> int:
     berr, k_band_t, k_band, k_many_t, k_many = check_band_kernel(rng, card)
     wberr, k_wband_t, k_wband = check_wide_band(rng, card)
     m_, go_, ge_ = ali.make_score_matrix()
-    terr, k_clu_t, k_clu, k_tiled_t, k_tiled = check_band_past_16384(
+    terr, k_clu_t, k_clu, k_s100_t, k_s100 = check_band_past_16384(
         rng, sw.device_matrix(m_, "cuda"), -go_, -ge_, card)
+    serr_b, k_strips_t, k_strips = check_band_strips(
+        rng, sw.device_matrix(m_, "cuda"), -go_, -ge_, card)
+    # the strip kernel's entries: at its own route (700 kb windows), and on
+    # the 100 kb windows beside the cluster kernel
+    k_strips_t["at_100kb"], k_strips["at_100kb"] = k_s100_t, k_s100
     eerr = check_eterm(rng, card)
-    berr, terr = max(berr, eerr), max(terr, eerr)
+    berr, terr = max(berr, eerr), max(terr, eerr, serr_b)
     check_cluster_occupancy(card)
     print(f"# phase 3b (sw_band against plain): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3795,7 +3937,7 @@ def main() -> int:
              (f"--device-pass1 -S {KEY_SPEC} {KEY_READLEN} bp", vl["dp1 key"],
               N_VLONG),
              (f"--fast -S {KEY_SHORT_SPEC}", vl["fast key short"], BATCH),
-             (f"--fast {TILED_READLEN} bp", vl["fast 100 kb"], TILED_READS)) + \
+             (f"--fast {R100K_LEN} bp", vl["fast 100 kb"], R100K_N)) + \
         tuple((f"--fast k{k} {rl} bp", n, BATCH if rl == READLEN
                else N_BIGK_LONG) for (k, rl), n in bk.items()) + \
         (("--device-exact k13 s16 (device hits)", dxh, BATCH),
@@ -3840,8 +3982,8 @@ def main() -> int:
             ("sw_full_track_rec", full, serr, k_far["sw_full_track_rec"]),
             ("sw_full_track_strip_rec", full, serr,
              k_far["sw_full_track_strip_rec"]),
-            ("sw_band_track_tiled", band, terr, k_tiled_t),
-            ("sw_band_tiled", band, terr, k_tiled),
+            ("sw_band_track_strips", band, terr, k_strips_t),
+            ("sw_band_strips", band, terr, k_strips),
             ("sw_band_track_cluster", band, terr, k_clu_t),
             ("sw_band_cluster", band, terr, k_clu))]}))
     print(card_line())
@@ -3851,5 +3993,77 @@ def main() -> int:
     return 0
 
 
+def long_fast_main(readlen: int, n: int) -> int:
+    """`python3 chip_smoke.py --long-fast READLEN N`: no phase, only
+    `map --fast` through the CLI on N reads of READLEN bp (phase 5's
+    generator) against phase 4's genome and index, at a batch of N (the
+    default batch would pad it with 4,094 pad reads, whose windows at this
+    length alone take tens of GB), on the card: its SAM records and
+    placement, its pipeline seconds (SMALT_TIMING), its launches, and the
+    device step on the same batch timed alone (CUDA events, 3 calls), the
+    rest of the pipeline (the host tail, parsing and writing) being the
+    difference.  Run it under a time limit: the host tail grows as the
+    square of the read length."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.fastmode import (encode_batch, get_device_step,
+                                              iter_fastq_hybrid)
+    from smalt_tpu_torch.ops import sw
+    from smalt_tpu_torch.parallel.mesh import window_len, window_pad
+    from smalt_tpu_torch.seq.refset import RefSet
+    card = card_line()
+    print(f"# {card} | torch {torch.__version__}", flush=True)
+    d = os.path.join(ROOT, "build", "smoke_long")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    genome = make_genome(rng, GENOME_LEN)
+    fa, _, _ = write_inputs(d, genome, np.zeros((0, 1), np.uint8))
+    idx_name = os.path.join(d, "idx")
+    if cli.main(["index", "-k", str(KMER), "-s", str(NSKIP), idx_name,
+                 fa]) != 0:
+        fail("index build")
+    reads, truth, rev = make_long_reads(rng, genome, n, readlen)
+    fq, _ = write_fastq(os.path.join(d, "long.fq"), reads, b"L")
+    Q = -(-reads.shape[1] // 16) * 16
+    W = sw.clamp_band_width(Q, window_pad(Q))
+    routed = sw.sw_band_instance(Q, window_len(Q), W, sw.device_matrix(
+        np.eye(8, dtype=np.int32), "cpu"), True)
+    print(f"# data + index: {time.perf_counter() - t0:.1f} s; {n} reads of "
+          f"{readlen} bp (Q={Q}, S={window_len(Q)}, W={W}: {routed})",
+          flush=True)
+    sam = os.path.join(d, "long.sam")
+    launches, wall, m = map_cli("cuda", idx_name, sam, [fq], n)
+    body = sam_body(sam)
+    placed = placement(body, truth, rev, LONG_TOL)
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"# map --fast on {n} reads of {readlen} bp at a batch of {n}: "
+          f"{len(body)} records, placed {placed}/{n} within {LONG_TOL} bp; "
+          f"the CLI {wall:.1f} s, pipeline {m.group(3) if m else '?'} s; "
+          f"launches {ran} | {card}", flush=True)
+    refset, idx = RefSet.load(idx_name), KmerIndex.load(idx_name)
+    item = next(iter(iter_fastq_hybrid(fq, n)))
+    arr = torch.from_numpy(item.encode(Q) if hasattr(item, "encode")
+                           else encode_batch(item[1], Q)).cuda()
+    step = get_device_step(refset, idx, "cuda", (1, -2, -4, -3))
+    step_ms = time_ms(lambda: step(arr), 3, warm=1)
+    pipe_ms = 1e3 * float(m.group(3)) if m else float("nan")
+    print(f"# the device step on that batch: {step_ms:.1f} ms (CUDA events, "
+          f"3 calls); the rest of the pipeline (host tail, parse, write): "
+          f"{pipe_ms - step_ms:.1f} ms of {pipe_ms:.1f} | {card}",
+          flush=True)
+    if len(body) != n:
+        fail(f"--fast on {n} reads of {readlen} bp: {len(body)} records")
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--long-fast":
+        sys.exit(long_fast_main(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -49,16 +49,19 @@
 // to four windows a block.  Wider bands run the several-warps kernel,
 // sw_band_multi_kernel (sw_band_multi.cuh), one window a block on up to 8
 // warps of 12 lanes a thread or up to 20 warps of 20 lanes (W <= 12,800:
-// reads up to ~68 kb); bands past ops/sw.py TILED_BAND_W = 12,800 run
-// sw_band_cluster_kernel (sw_band_cluster.cuh), one
-// thread-block cluster of up to 16 CTAs a window with the row exchanged in
-// distributed shared memory (W <= 131,072: reads up to ~700 kb), and past
-// that sw_band_tiled_kernel (sw_band_tiled.cuh), one block a window over
-// tiles of the band with the row's state in a global scratch.  In all of
-// them a thread holds C consecutive band lanes [t0, t0 + C) of H and E in
-// registers; lanes at or past W are padding that never reaches a real
-// lane (E flows from the right, only through NEG, and F only to the
-// right).
+// reads up to ~68 kb); bands past ops/sw.py CLUSTER_BAND_W = TILED_BAND_W
+// = 12,800 run sw_band_strips_kernel (sw_band_strips.cuh), the band in
+// the query's own frame as column strips of 256 across many CTAs a
+// window.  sw_band_cluster_kernel (sw_band_cluster.cuh), one thread-block
+// cluster of up to 16 CTAs a window with the row exchanged in distributed
+// shared memory (W <= 131,072), measured slower than the strip kernel at
+// every width it held, so ops/sw.py routes it no band (chip_smoke.py holds
+// it with the route raised).  In the first four a thread holds C
+// consecutive band lanes [t0, t0 + C) of H and E in registers; lanes at or
+// past W are padding that never reaches a real lane (E flows from the
+// right, only through NEG, and F only to the right).  The strip kernel's
+// lanes hold query columns, and its header says how the band's edges
+// cross them.
 
 // sw_band_warp_kernel, and what each part is for.
 //   - Hopper's 3-input integer instructions carry the recurrence, each
@@ -155,6 +158,7 @@
 // instance are printed by chip_smoke.py phase 2.
 
 #include <climits>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -362,7 +366,7 @@ sw_band_warp_kernel(const int* __restrict__ q, const int* __restrict__ subj,
 }
 
 #include "sw_band_multi.cuh"                  // 512 < W <= 12,800
-#include "sw_band_tiled.cuh"                  // W > CLUSTER_BAND_W
+#include "sw_band_strips.cuh"                 // W > CLUSTER_BAND_W
 #include "sw_band_cluster.cuh"                // 12,800 < W <= 131,072
 
 struct Args {
@@ -471,6 +475,14 @@ cudaError_t launch_cluster(bool track, int ncta, int nthreads,
                             a.ti, a.tj);
 }
 
+// The strip kernel's instance: tracked or not, int32 lookups or not.
+auto strips_kernel(bool track, bool wide) {
+  return track ? (wide ? sw_band_strips_kernel<true, true>
+                       : sw_band_strips_kernel<true, false>)
+               : (wide ? sw_band_strips_kernel<false, true>
+                       : sw_band_strips_kernel<false, false>);
+}
+
 }  // namespace
 
 // Scores B windows on `stream`.  q [B,Q], subj [B,S], slens [B] and
@@ -486,7 +498,7 @@ cudaError_t launch_cluster(bool track, int ncta, int nthreads,
 // stand-in for NEG).  Returns the CUDA error of the launch (0 on
 // success), or -1 when an argument is out of range (W outside 1..MANY_W
 // included: wider bands take sw_band_cluster_launch or
-// sw_band_tiled_launch).
+// sw_band_strips_launch).
 extern "C" int sw_band_launch(const void* q, const void* subj,
                               const void* slens, const void* matrix, int B,
                               int Q, int S, int W, int prepad, int go,
@@ -582,26 +594,52 @@ extern "C" int sw_band_cluster_occupancy(int ncta, int nthreads, int track,
       static_cast<int*>(count), kernel, &cfg));
 }
 
-// Scores B windows with the tiled kernel (sw_band_tiled.cuh), for bands
+// Scores B windows with the strip kernel (sw_band_strips.cuh), for bands
 // of any width; ops/sw.py routes W past CLUSTER_BAND_W here.  The arguments
-// are sw_band_launch's less `wide` (the kernel looks its scores up in the
-// int32 matrix), and scratch, int32 [B, W, 2] on the device: each
-// window's row state, written before it is read.  Returns the CUDA error
-// of the launch (0 on success), or -1 when an argument is out of range.
-extern "C" int sw_band_tiled_launch(const void* q, const void* subj,
-                                    const void* slens, const void* matrix,
-                                    int B, int Q, int S, int W, int prepad,
-                                    int go, int ge, int track, void* best,
-                                    void* ti, void* tj, void* stream,
-                                    void* scratch) {
-  if (Q < 1 || S < 0 || B < 0 || W < 1 || ge < 0) return -1;
+// are sw_band_launch's, then carry, an int32 [B, S, 2] device scratch the
+// kernel writes before it reads, flags, int32 device words (ops/sw.py
+// band_strip_flag_words: the ticket, each window's record chain and its
+// chunk flags), cleared here on the stream before the launch, nw, the
+// warps (strips) a CTA, 1..STRIPS_WARPS (ops/sw.py BAND_STRIP_WARPS), and
+// wide: nonzero for a matrix outside int8 (int32 lookups in place of the
+// int8 profile).  Returns the CUDA error of the clearing, of setting the
+// shared memory or of the launch (0 on success), or -1 when an argument
+// is out of range.
+extern "C" int sw_band_strips_launch(const void* q, const void* subj,
+                                     const void* slens, const void* matrix,
+                                     int B, int Q, int S, int W, int prepad,
+                                     int go, int ge, int track, void* best,
+                                     void* ti, void* tj, void* stream,
+                                     void* carry, void* flags, int nw,
+                                     int wide) {
+  if (Q < 1 || S < 0 || B < 0 || W < 1 || ge < 0 || nw < 1 ||
+      nw > STRIPS_WARPS)
+    return -1;
   if (B == 0) return 0;
-  auto kernel = track ? sw_band_tiled_kernel<true>
-                      : sw_band_tiled_kernel<false>;
-  kernel<<<B, TILED_NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  // the groups of a window: strips below ceil(Q / 512) whose rows start
+  // below S (the kernel counts each window's own)
+  const long long num = (long long)S + W - 1 - prepad;
+  const long long kq = (Q + STRIPS_W - 1LL) / STRIPS_W;
+  const long long ks = num > 0 ? (num + STRIPS_W - 1) / STRIPS_W : 0;
+  const long long kmax = kq < ks ? kq : ks;
+  const long long G = kmax > nw ? (kmax + nw - 1) / nw : 1;
+  if ((long long)B * G > INT_MAX) return -1;
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      flags, 0, strips_flag_words(B, S) * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = strips_kernel(track != 0, wide != 0);
+  // the carry ring, then (int8) a profile a warp
+  const int smem = nw * 2 * 32 * static_cast<int>(sizeof(int2)) +
+                   (wide ? 0 : nw * STRIPS_WSTRIDE);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<int>(B * G), nw * 32, smem, st>>>(
       static_cast<const int*>(q), static_cast<const int*>(subj),
       static_cast<const int*>(slens), static_cast<const int*>(matrix), B, Q,
-      S, W, prepad, go, ge, static_cast<int2*>(scratch),
-      static_cast<int*>(best), static_cast<int*>(ti), static_cast<int*>(tj));
+      S, W, prepad, go, ge, static_cast<int2*>(carry),
+      static_cast<int*>(flags), static_cast<int*>(best),
+      static_cast<int*>(ti), static_cast<int*>(tj));
   return static_cast<int>(cudaGetLastError());
 }

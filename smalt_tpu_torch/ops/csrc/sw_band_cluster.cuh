@@ -3,7 +3,7 @@
 // 512 threads x 16 lanes = 131,072 lanes (reads up to ~700 kb).  It
 // computes _make_swb_kernel's function (smalt_tpu/ops/sw.py:269), the
 // recurrence at the top of sw_band.cu, with the same tracking rule;
-// sw_band_tiled_kernel stays the route past it.
+// sw_band_strips_kernel (sw_band_strips.cuh) takes the bands past it.
 //
 // One thread-block cluster scores one window.  Its K CTAs hold the band
 // in contiguous slices, CTA r the lanes [r * NT * C, (r + 1) * NT * C), a

@@ -29,10 +29,10 @@ MAX_Q = 512        # widest query sw_full keeps in registers (16 a lane)
 # Queries past MAX_Q run sw_full's strip path (strips of MAX_Q columns on
 # a wavefront of warps a window, or a warp a window for a large int8
 # batch: strip_warps), which has no limit on Q, and bands past
-# CLUSTER_BAND_W run sw_band's tiled kernel, which has no limit on W.  Their scratch
-# (int32 [windows, S, 2] of strip carry, int32 [windows, W, 2] of band row
-# state) is kept within this many bytes by launching groups of windows
-# (scratch_groups).
+# CLUSTER_BAND_W run sw_band's strip kernel, which has no limit on W.
+# Their scratch (int32 [windows, S, 2] of strip carry, and for the band
+# its flags, band_strip_flag_words) is kept within this many bytes by
+# launching groups of windows (scratch_groups).
 SCRATCH_BYTES = 1 << 30
 STRIP_WARPS = 16     # most warps a window of sw_full's strip wavefront
 # windows from which sw_full's strip path runs a warp a window on an int8
@@ -46,15 +46,25 @@ WARP_BAND_W = 512    # widest band of sw_band_warp_kernel (one warp a window)
 MULTI_BAND_W = 3072
 # widest band of the several-warps kernel (20 warps of 20 lanes: reads up
 # to ~68 kb), which beats the cluster kernel there 2.5x, tracked and
-# score-only (PERF.md); wider bands run sw_band_cluster_kernel, a
-# thread-block cluster a window, up to CLUSTER_BAND_W (CLUSTER_MAX CTAs of
-# 512 threads of 16 lanes: reads up to ~700 kb), and past that
-# sw_band_tiled_kernel, which keeps the row's state in a global scratch
+# score-only (PERF.md).  Wider bands run sw_band_strips_kernel, the band
+# as column strips of BAND_STRIP_W across many CTAs a window, past
+# CLUSTER_BAND_W; sw_band_cluster_kernel, a thread-block cluster a window
+# (CLUSTER_MAX CTAs of up to 512 threads of 16 lanes: CLUSTER_MAX_W, reads
+# up to ~700 kb), takes TILED_BAND_W < W <= CLUSTER_BAND_W, which is no
+# band: the strip kernel measured faster at every width past 12,800 (from
+# 14,336 to 131,072 lanes, PERF.md).
 TILED_BAND_W = 12800
 CLUSTER_MAX = 16            # CTAs a cluster (past 8: a non-portable size)
 CLUSTER_C = 16              # band lanes a thread
-CLUSTER_BAND_W = CLUSTER_MAX * 512 * CLUSTER_C
+CLUSTER_MAX_W = CLUSTER_MAX * 512 * CLUSTER_C   # the widest band it holds
+CLUSTER_BAND_W = TILED_BAND_W
 CLUSTER_CTA_LANES = 2048    # band lanes a CTA holds where the band allows
+BAND_STRIP_W = 256          # query columns a strip of sw_band's strip kernel
+# strips (warps) a CTA of the strip kernel (its launch takes 1 to 4): 2
+# measured the fastest tracked, or within 5% of it, among 2, 4 and 8 on the
+# 6 windows of 2 x 100 kb, the 3 of 700 kb and of 1 Mb, and 132 windows at
+# W 32,768 (PERF.md)
+BAND_STRIP_WARPS = 2
 # The tracking key T * 256 + 255 - c (sw_full.cu, sw_band.cu's one-warp
 # kernel) holds |T| < 2^23; a window can score no more than max|entry| *
 # (query columns or subject rows, the fewer), and a tracked launch that
@@ -85,8 +95,8 @@ DP_CAP = 1 << 30
 # kernel (sw_strip_kernel, int8 only), as strip_warps chooses;
 # "_many": sw_band_multi_kernel past MULTI_BAND_W (20 lanes a thread);
 # "_cluster":
-# sw_band_cluster_kernel, bands past TILED_BAND_W; "_tiled":
-# sw_band_tiled_kernel, bands past CLUSTER_BAND_W.  The names are what
+# sw_band_cluster_kernel, bands past TILED_BAND_W; "_strips":
+# sw_band_strips_kernel, bands past CLUSTER_BAND_W.  The names are what
 # sw_full_instance and sw_band_instance return.
 launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_band": 0, "sw_full_track_wide": 0, "sw_full_wide": 0,
@@ -96,7 +106,7 @@ launches = {"sw_full_track": 0, "sw_full": 0, "sw_band_track": 0,
             "sw_full_track_warp": 0, "sw_full_warp": 0,
             "sw_band_track_many": 0, "sw_band_many": 0,
             "sw_full_track_rec": 0, "sw_full_track_strip_rec": 0,
-            "sw_band_track_tiled": 0, "sw_band_tiled": 0,
+            "sw_band_track_strips": 0, "sw_band_strips": 0,
             "sw_band_track_cluster": 0, "sw_band_cluster": 0}
 
 _libs: dict = {}
@@ -208,8 +218,9 @@ def _wide_code(name: str) -> int:
 
 def scratch_groups(B: int, per_window: int):
     """[(first, end)) groups of B windows whose scratch (`per_window`
-    bytes each: 8 * S for sw_full's strip carry, 8 * W for sw_band's
-    tiled row state) fits SCRATCH_BYTES, at least one window a group."""
+    bytes each: 8 * S for sw_full's strip carry, band_strip_bytes(S) for
+    sw_band's strip kernel) fits SCRATCH_BYTES, at least one window a
+    group."""
     per = max(1, SCRATCH_BYTES // max(per_window, 1))
     return [(g, min(B, g + per)) for g in range(0, B, per)]
 
@@ -217,9 +228,10 @@ def scratch_groups(B: int, per_window: int):
 def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
                      track: bool) -> str:
     """The sw_band.cu instance a launch runs, by its name in `launches`:
-    "_tiled" (sw_band_tiled_kernel: int32 lookups, no packed key, any
-    width) past CLUSTER_BAND_W lanes; "_cluster" (sw_band_cluster_kernel:
-    the same lookups and record) past TILED_BAND_W; "_many" (the
+    "_strips" (sw_band_strips_kernel: no packed key, any width, an int8
+    profile or int32 lookups by the matrix) past CLUSTER_BAND_W lanes;
+    "_cluster" (sw_band_cluster_kernel: int32 lookups, no packed key)
+    past TILED_BAND_W; "_many" (the
     several-warps kernel on 20 lanes a thread) past MULTI_BAND_W; "_wide"
     (the several-warps kernel, on its int16 profile or int32 lookups) for
     a matrix outside int8, or a tracked band of up to WARP_BAND_W lanes
@@ -230,7 +242,7 @@ def sw_band_instance(Q: int, S: int, W: int, matrix: DeviceMatrix,
     nothing past WARP_BAND_W."""
     name = "sw_band_track" if track else "sw_band"
     if W > CLUSTER_BAND_W:
-        return name + "_tiled"
+        return name + "_strips"
     if W > TILED_BAND_W:
         return name + "_cluster"
     if W > MULTI_BAND_W:
@@ -253,15 +265,29 @@ def band_wide_code(matrix: DeviceMatrix, several: bool = False) -> int:
 
 def cluster_shape(W: int):
     """(CTAs, threads a CTA) of sw_band_cluster_kernel for a band of W <=
-    CLUSTER_BAND_W lanes, CLUSTER_C a thread: CTAs of about
+    CLUSTER_MAX_W lanes, CLUSTER_C a thread: CTAs of about
     CLUSTER_CTA_LANES lanes, so that a few windows spread over many SMs,
     up to CLUSTER_MAX of them (then up to 512 threads a CTA), in whole
     warps."""
-    if not 1 <= W <= CLUSTER_BAND_W:
+    if not 1 <= W <= CLUSTER_MAX_W:
         raise ValueError(f"sw_band_cluster: band width {W} outside "
-                         f"1..{CLUSTER_BAND_W}")
+                         f"1..{CLUSTER_MAX_W}")
     ncta = min(CLUSTER_MAX, -(-W // CLUSTER_CTA_LANES))
     return ncta, 32 * -(-W // (32 * ncta * CLUSTER_C))
+
+
+def band_strip_flag_words(B: int, S: int) -> int:
+    """int32 words of sw_band_strips_launch's flags for B windows of S
+    subject rows (sw_band_strips.cuh strips_flag_words): the ticket and
+    padding (8), then per window its record chain (8) and a flag for each
+    chunk of 32 rows (S // 32 + 2)."""
+    return 8 + B * (8 + S // 32 + 2)
+
+
+def band_strip_bytes(S: int) -> int:
+    """Scratch bytes a window of sw_band_strips_kernel takes: its carry
+    column (int32 [S, 2]) and its flag words."""
+    return 8 * S + 4 * (8 + S // 32 + 2)
 
 
 def cluster_occupancy(ncta: int, nthreads: int, track: bool) -> int:
@@ -418,7 +444,7 @@ def band_tie_windows(rng, B: int, Q: int):
 
 
 def eterm_windows(rng, B: int, Q: int, S: int, pad: int, W: int, edges,
-                  match: int, go: int, ge: int):
+                  match: int, go: int, ge: int, cross=()):
     """B band windows whose best path crosses a band kernel's boundary
     lane on the E of the row before (for holding the several-warps and
     the cluster kernel's exchange: a warp's posted total lacks its last
@@ -435,6 +461,10 @@ def eterm_windows(rng, B: int, Q: int, S: int, pad: int, W: int, edges,
     match - 2 * go - 2 * (k - 1) * ge (or a little more, from the random
     bases around the runs), and a kernel that drops the correction scores
     less: its best path avoids the boundary and opens a third gap.
+    `cross`, query columns cycled over the windows: the runs are placed so
+    that the horizontal gap steps from column c - 1 into column c (for
+    sw_band's strip kernel, whose edges are query columns: F then comes
+    from the carry of the strip or the group to the left).
     Returns int32 numpy (q [B, Q], subj [B, S], slens [B]) and the planted
     scores [B]."""
     prepad = pad + W // 2
@@ -448,10 +478,13 @@ def eterm_windows(rng, B: int, Q: int, S: int, pad: int, W: int, edges,
         lane = a - 1 + k
         n = -(-2 * (go + k * ge) // match) + 32   # a run outscores it
         r0 = max(1, prepad - lane + 1) + int(rng.integers(0, 8))
+        if len(cross):                   # the gap spans columns (c_v, c_v + k]
+            c = int(cross[b % len(cross)])
+            r0 = c - int(rng.integers(0, k)) - n + prepad - lane
         rows = np.arange(r0 - 1, r0 + 2 * n + k + 1)
         cols = rows + lane - prepad
-        if not 0 < a < lane < W or rows[-1] >= S or cols[0] < 0 or \
-                cols[-1] >= Q:
+        if not 0 < a < lane < W or rows[0] < 0 or rows[-1] >= S or \
+                cols[0] < 0 or cols[-1] >= Q:
             raise ValueError(f"eterm_windows: no room for edge {a}, k {k} "
                              f"at Q={Q} S={S} W={W}")
         mid = (rows >= r0 + n) & (rows < r0 + n + k)
@@ -470,12 +503,13 @@ def eterm_windows(rng, B: int, Q: int, S: int, pad: int, W: int, edges,
 # timed beside them (ops/time_sw.py).  sw_full_strip is sw_full.cu's entry
 # for queries past MAX_Q: sw_full's arguments, the carry scratch and the
 # warps a window (strip_warps; last, as `wide` is, for the same reason);
-# sw_band_cluster and sw_band_tiled are sw_band.cu's entries for bands
+# sw_band_cluster and sw_band_strips are sw_band.cu's entries for bands
 # past TILED_BAND_W and CLUSTER_BAND_W: sw_band's arguments less `wide`,
-# then the cluster's shape (cluster_shape) or the row-state scratch.
+# then the cluster's shape (cluster_shape), or the carry and flag
+# scratch, the warps a CTA (BAND_STRIP_WARPS) and the matrix's `wide`.
 _SIGS = {"sw_full": "ppppiiiiiippppi", "sw_band": "ppppiiiiiiiippppi",
          "swq": "ppppiiiiiippppp", "sw_full_strip": "ppppiiiiiippppipi",
-         "sw_band_tiled": "ppppiiiiiiiippppp",
+         "sw_band_strips": "ppppiiiiiiiippppppii",
          "sw_band_cluster": "ppppiiiiiiiippppii"}
 
 
@@ -668,10 +702,10 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     contiguous int32 on one CUDA device, the matrix a DeviceMatrix; the
     instance as sw_band_instance names it.  A band past TILED_BAND_W runs
     the cluster kernel (sw_band_cluster_launch, one launch in the shape
-    cluster_shape gives), and one past CLUSTER_BAND_W the tiled kernel
-    (sw_band_tiled_launch) over the groups of windows scratch_groups
-    makes, one launch a group, with an int32 row-state scratch for one
-    group made here."""
+    cluster_shape gives), and one past CLUSTER_BAND_W the strip kernel
+    (sw_band_strips_launch, BAND_STRIP_WARPS strips a CTA) over the groups
+    of windows scratch_groups makes, one launch a group, with the int32
+    carry and flag scratch for one group made here."""
     if W < 1:
         raise ValueError(f"sw_band: band width {W} < 1")
     B, Q = qcodes.shape
@@ -685,12 +719,16 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
     lib = _kernel_lib("sw_band")
     outs = [torch.empty(B, dtype=torch.int32, device=dev)
             for _ in range(3 if track else 1)]
-    tiled = name.endswith("_tiled")
-    groups = scratch_groups(B, 8 * W) if tiled else [(0, B)]
-    scratch = ()
-    if tiled and groups:
+    strips = name.endswith("_strips")
+    groups = scratch_groups(B, band_strip_bytes(S)) if strips else [(0, B)]
+    tail = ()                          # the strip kernel's scratch and shape
+    if strips and groups:
         g = groups[0][1] - groups[0][0]
-        scratch = (torch.empty((g, W, 2), dtype=torch.int32, device=dev),)
+        carry = torch.empty((g, S, 2), dtype=torch.int32, device=dev)
+        flags = torch.empty(band_strip_flag_words(g, S), dtype=torch.int32,
+                            device=dev)
+        tail = (carry.data_ptr(), flags.data_ptr(), BAND_STRIP_WARPS,
+                int(matrix.wide))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for lo, hi in groups:          # pointers at the group's first window
@@ -701,8 +739,8 @@ def sw_band_cuda(qcodes, subj, slens, matrix, gapopen_pos: int,
                     matrix.t.data_ptr(), hi - lo, Q, S, W, pad + W // 2,
                     int(gapopen_pos), int(gapext_pos), 1 if track else 0,
                     *outp, stream)
-            if tiled:
-                rc = lib.sw_band_tiled_launch(*args, scratch[0].data_ptr())
+            if strips:
+                rc = lib.sw_band_strips_launch(*args, *tail)
             elif name.endswith("_cluster"):
                 rc = lib.sw_band_cluster_launch(*args, *cluster_shape(W))
             else:

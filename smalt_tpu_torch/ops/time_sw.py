@@ -3,7 +3,7 @@ earlier versions of the source.
 
     python3 -m smalt_tpu_torch.ops.time_sw [--kernel sw_full|sw_band|swq]
         [--baseline old.cu]... [--rounds 5] [--reps 20] [--wide]
-        [--shapes REGEX] [--out build/time_sw.json]
+        [--shapes REGEX] [--strip-warps 2,4,8] [--out build/time_sw.json]
 
 Builds the kernel as shipped and, for each --baseline, another version of
 the source (same C interface, or for swq the earlier full-frame one,
@@ -13,10 +13,19 @@ sw_band_score_ref, swq_fill_walk_ref) exactly on a head of every input
 (all of it for swq), and every baseline must equal the shipped kernel on
 all of it, before anything is timed.  sw_band's bands past 512 lanes
 (BAND_WIDE) are timed through each entry point a version has and the
-shape names (sw_band_launch's one-block kernels, "many"; the cluster and
-the tiled kernel), each labelled "<version> <route>", with one launch a
-timing and at most 3 rounds; there the plain version holds every route
-on the windows' first rows and the routes hold each other on all.
+shape names (sw_band_launch's one-block kernels, "many"; the cluster
+kernel; the strip kernel, "strips", or in an earlier source the tiled
+kernel, "tiled"), each labelled "<version> <route>", with one launch a
+timing, a warm-up launch in the first round only, and at most 3 rounds;
+there the plain version holds every route on the windows' first rows and
+the routes hold each other on all.
+--strip-warps runs the strip kernel at each of those warps a CTA
+("strips<NW>", 1 to 4) in place of the routed count (ops/sw.py
+BAND_STRIP_WARPS).
+For sw_band the shipped sw_full.cu is built too, and the row loops
+(innermost loops of 16 or more 3-input add-max instructions) of the
+strip kernel's instances are printed, opcode by opcode, beside those of
+sw_full's strip wavefront.
 The versions are then timed in turns (CUDA events over --reps launches,
 --rounds rounds, each round in the opposite order of the last), at the
 shapes the mapping paths use, on random windows and on tie-heavy ones
@@ -88,16 +97,29 @@ BAND_SHAPES = [(1504, 12288), (640, 12288), (2560, 4096)]
 # there too, beside the cluster kernel; W = 3,840, 6,144, 8,192, 12,288,
 # 12,416, 12,800 (the one-block kernels' widest), 14,336 and 16,384 (87
 # kb reads) on 132 windows of 4,096 rows, where the one-block kernels and
-# the cluster kernel meet; the 6 windows of 2 reads of 100 kb (W =
-# 18,816), where the cluster and the tiled kernel meet
+# the cluster kernel meet, and from W 12,416 on the strip kernel; the 6
+# windows of 2 reads of 100 kb (W = 18,816: the cluster and the strip
+# kernel, and an earlier source's tiled kernel), and W = 32,768 and 65,536
+# (Q 174,096 and 348,864) on 132 windows of 4,096 rows; the 3 windows of
+# a read of 700 kb (W = 131,328, the strip kernel's own route) on their
+# first 65,536 rows, with the tiled kernel, and in full; and of a read of
+# 1 Mb (W = 187,520) in full
 BAND_WIDE = [(Q, 12288, 0, ("many",)) for Q in (4096, 10000, 16384)] + \
     [(20000, 12288, 0, ("many", "cluster"))] + \
     [(Q, 132, 4096, ("many", "cluster"))
-     for Q in (20000, 32768, 43520, 65280, 65552, 67600, 75792, 87040)] + \
-    [(100_000, 6, 0, ("cluster", "tiled"))]
+     for Q in (20000, 32768, 43520, 65280)] + \
+    [(Q, 132, 4096, ("many", "cluster", "strips"))
+     for Q in (65552, 67600, 75792, 87040)] + \
+    [(100_000, 6, 0, ("cluster", "strips", "tiled"))] + \
+    [(Q, 132, 4096, ("cluster", "strips")) for Q in (174_096, 348_864)] + \
+    [(700_000, 3, 65536, ("strips", "tiled")), (700_000, 3, 0, ("strips",)),
+     (1_000_000, 3, 0, ("strips",))]
 WIDE_HEAD_ROWS = 2048      # subject rows the plain version holds there
 ENTRY = {"many": "sw_band_launch", "cluster": "sw_band_cluster_launch",
-         "tiled": "sw_band_tiled_launch"}
+         "strips": "sw_band_strips_launch", "tiled": "sw_band_tiled_launch"}
+# the C signature of an earlier sw_band.cu's tiled kernel (one block a window):
+# sw_band's arguments less `wide`, then its row-state scratch [B, W, 2]
+TILED_SIG = "ppppiiiiiiiippppp"
 # swq, (Qp, Sp, W): chip_smoke.py phase 3c's synth_windows (bands 8-64
 # columns wide) at the 100 bp lane's shape and at Qp256; then bands of
 # 70-250 columns (3-8 tiles a row)
@@ -143,9 +165,14 @@ def load(kernel: str, src: str = ""):
         sig = "ppppiiiiipppppp"
     fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
                    for c in sig]
-    for entry in ("sw_full_strip", "sw_band_tiled", "sw_band_cluster"):
+    for entry in ("sw_full_strip", "sw_band_strips", "sw_band_cluster"):
         if hasattr(lib, entry + "_launch"):
             sw.bind(lib, entry)
+    if hasattr(lib, "sw_band_tiled_launch"):
+        fn = lib.sw_band_tiled_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in TILED_SIG]
     return lib
 
 
@@ -192,10 +219,11 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
              band=(), route: str = ""):
     """fn() launches `lib`'s kernel on these tensors into outputs made
     once, and returns them: (best, ti, tj), or (best,) without track.
-    band = (W, prepad) for sw_band; route "cluster" or "tiled" takes that
-    entry point of sw_band.cu (its shape, or its row-state scratch, made
-    here), any other sw_band_launch; sw_full's strip path runs as routed,
-    or on route "wave" the wavefront, on "warp" the one-warp kernel."""
+    band = (W, prepad) for sw_band; route "cluster", "strips" (or
+    "strips<NW>", at NW warps a CTA) or "tiled" takes that entry point of
+    sw_band.cu (its shape, or its scratch, made here), any other
+    sw_band_launch; sw_full's strip path runs as routed, or on route
+    "wave" the wavefront, on "warp" the one-warp kernel."""
     if kernel == "swq":
         return swq_launcher(lib, q, s, sl, mat, go, ge, *band)
     B, Q = q.shape
@@ -222,6 +250,15 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
         scratch.append(torch.empty((B, band[0], 2), dtype=torch.int32,
                                    device=q.device))
         tail = []
+    elif route.startswith("strips"):
+        launch = lib.sw_band_strips_launch
+        S = s.shape[1]
+        scratch += [torch.empty((B, S, 2), dtype=torch.int32,
+                                device=q.device),
+                    torch.empty(sw.band_strip_flag_words(B, S),
+                                dtype=torch.int32, device=q.device)]
+        nw = [int(route[6:] or sw.BAND_STRIP_WARPS), int(mat.wide)]
+        tail = []
     elif route == "cluster":
         launch = lib.sw_band_cluster_launch
         tail = list(sw.cluster_shape(band[0]))
@@ -237,21 +274,91 @@ def launcher(kernel: str, lib, q, s, sl, mat, go: int, ge: int, track: bool,
     return fn
 
 
-def sass_by_kernel(path: str) -> dict:
-    """{kernel's mangled name: its SASS instructions, addresses and
-    encodings dropped} of a built library (cuobjdump, from the CUDA
-    toolkit beside nvcc).  The anonymous namespace's part of a name,
-    which carries the source file's name and a hash, is dropped."""
+ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/")
+
+
+def _sass(path: str) -> dict:
+    """{kernel's mangled name: its cuobjdump -sass text} of a built
+    library (cuobjdump, from the CUDA toolkit beside nvcc).  The anonymous
+    namespace's part of a name, which carries the source file's name and a
+    hash, is dropped."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, check=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", out)
-    addr = re.compile(r"/\*[0-9a-f]{4}\*/")
     anon = re.compile(r"^_ZN\d+_GLOBAL__N__\w+?_[0-9a-f]{8}(?=\d)")
-    return {anon.sub("_ZN", name): [addr.sub("", ln).split(";")[0].strip()
-                                    for ln in body.splitlines()
-                                    if addr.search(ln)]
+    return {anon.sub("_ZN", name): body
             for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def sass_by_kernel(path: str) -> dict:
+    """{kernel's mangled name: its SASS instructions, addresses and
+    encodings dropped} of a built library."""
+    return {name: [ADDR.sub("", ln).split(";")[0].strip()
+                   for ln in body.splitlines() if ADDR.search(ln)]
+            for name, body in _sass(path).items()}
+
+
+def row_loops(body: str, least: int = 16) -> list:
+    """The innermost loops of a kernel's SASS that hold at least `least`
+    VIADDMNMX (3-input add-max) instructions, the row loops of the SW
+    kernels: for each, {opcode: count} over the instructions from a
+    backward branch's target to the branch, largest loop first."""
+    ins = []                              # (address, opcode, text)
+    for ln in body.splitlines():
+        m = ADDR.search(ln)
+        if not m:
+            continue
+        text = ln[m.end():].split(";")[0].strip()
+        toks = [x for x in text.split() if not x.startswith("@")]
+        if toks:
+            ins.append((int(m.group(1), 16), toks[0].split(".")[0], text))
+    at = {a: n for n, (a, _, _) in enumerate(ins)}
+    loops = []
+    for n, (a, op, text) in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if op == "BRA" and m and int(m.group(1), 16) in at and \
+                int(m.group(1), 16) < a:
+            lo = at[int(m.group(1), 16)]
+            ops = [o for _, o, _ in ins[lo:n + 1]]
+            if ops.count("VIADDMNMX") >= least:
+                loops.append((lo, n, ops))
+    inner = [x for x in loops if not any(
+        y is not x and x[0] <= y[0] and y[1] <= x[1] for y in loops)]
+    out = []
+    for _, _, ops in sorted(inner, key=lambda x: -len(x[2])):
+        hist = {}
+        for o in ops:
+            hist[o] = hist.get(o, 0) + 1
+        out.append(hist)
+    return out
+
+
+def loop_line(hist: dict) -> str:
+    """A row loop's instruction count and its commonest opcodes."""
+    top = sorted(hist.items(), key=lambda kv: -kv[1])[:9]
+    return f"{sum(hist.values())} instructions (" + \
+        ", ".join(f"{k} {v}" for k, v in top) + ")"
+
+
+def compare_row_loops(band_path: str, full_path: str):
+    """Print the row loops of sw_band's strip kernel instances beside
+    those of the sw_full.cu strip wavefront instance with the same
+    record: the keyed sw_wave_kernel for the int8 and score-only ones,
+    sw_wave_rec_kernel (the two-part record) for the tracked WIDE ones."""
+    band = {short_name(k): v for k, v in _sass(band_path).items()}
+    full = {short_name(k): v for k, v in _sass(full_path).items()}
+    for name in sorted(band):
+        if not name.startswith("sw_band_strips_kernel"):
+            continue
+        track, wide, maxw = name.split()[1].split(",")
+        twin = ("sw_wave_rec_kernel" if track == "1" and wide == "1"
+                else "sw_wave_kernel") + f" {track},{wide},{maxw}"
+        for label, loops in ((name, row_loops(band[name])),
+                             (twin, row_loops(full.get(twin, "")))):
+            for k, hist in enumerate(loops):
+                print(f"# row loop [{label}] {k}: {loop_line(hist)}",
+                      flush=True)
 
 
 def short_name(mangled: str) -> str:
@@ -395,6 +502,10 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", default="",
                     help="time only the shapes whose label this regular "
                          "expression finds")
+    ap.add_argument("--strip-warps", default="",
+                    help="sw_band: run the strip kernel at each of these "
+                         "warps a CTA (comma-separated) in place of the "
+                         "routed count")
     ap.add_argument("--out", default="build/time_sw.json")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -406,9 +517,13 @@ def main(argv=None) -> int:
     srcs = {"shipped": ""}
     for path in a.baseline:
         srcs[os.path.splitext(os.path.basename(path))[0]] = path
-    with ThreadPoolExecutor(len(srcs)) as pool:         # one nvcc each
+    with ThreadPoolExecutor(len(srcs) + 1) as pool:     # one nvcc each
+        twin = pool.submit(build.load, "sw_full") \
+            if a.kernel == "sw_band" else None
         libs = dict(zip(srcs, pool.map(lambda p: load(a.kernel, p),
                                        srcs.values())))
+        if twin:
+            twin.result()
     for ident, info in build.build_info.items():
         worst = max((int(x) for x in re.findall(r"Used (\d+) registers",
                                                 info["log"])), default=0)
@@ -435,6 +550,10 @@ def main(argv=None) -> int:
                 if shipped[k] != base[k]:
                     print(f"#   differs: {short_name(k)} ({len(base[k])} -> "
                           f"{len(shipped[k])} instructions)", flush=True)
+    if a.kernel == "sw_band":
+        compare_row_loops(build.build_info["sw_band"]["path"],
+                          build.build_info["sw_full"]["path"])
+    warps = [int(x) for x in a.strip_warps.split(",") if x]
 
     m, go, ge = ali.make_score_matrix(*(WIDE_PEN if a.wide else ()))
     go, ge = -go, -ge
@@ -457,13 +576,17 @@ def main(argv=None) -> int:
         routed = case.routes != ("",)
         wide_band = routed and a.kernel == "sw_band"
         fns = {}
+        routes = [x for r in case.routes for x in (
+            [f"strips{n}" for n in warps] if r == "strips" and warps
+            else [r])]
         for label, lib in libs.items():
-            for route in case.routes:
+            for route in routes:
                 if route == "warp" and mat.wide:
                     continue          # the one-warp kernel is int8 only
+                entry = ENTRY.get(re.sub(r"\d+$", "", route),
+                                  a.kernel + "_launch")
                 if not takes(a.kernel, lib, q.shape[1]) or \
-                        not hasattr(lib, ENTRY.get(route, a.kernel +
-                                                   "_launch")):
+                        not hasattr(lib, entry):
                     continue
                 if route == "many" and not takes_band(lib, case.band[0]):
                     print(f"# {where}: {label} has no one-block kernel for "
@@ -498,7 +621,8 @@ def main(argv=None) -> int:
             (a.rounds, a.reps)
         for r in range(rounds):
             for label in (order if r % 2 == 0 else order[::-1]):
-                fns[label]()
+                if r == 0 or not wide_band:   # a launch of seconds: once
+                    fns[label]()
                 times[label].append(event_ms(fns[label], reps))
         for label in fns:
             med = statistics.median(times[label])

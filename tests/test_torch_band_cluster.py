@@ -206,7 +206,7 @@ def test_cluster_order_wide_matrix_and_nothing_scores(scoring):
 
 @pytest.mark.parametrize("W", [1, 200, 768, 2048, 2049, 3840, 16385, 18816,
                                30720, 32768, 32769, 40000, 100_000,
-                               tsw.CLUSTER_BAND_W])
+                               tsw.CLUSTER_MAX_W])
 def test_cluster_shape_holds_the_band(W):
     """cluster_shape gives a launch sw_band_cluster_launch takes: 1 to
     CLUSTER_MAX CTAs of whole warps, up to 512 threads, room for the band
@@ -225,27 +225,30 @@ def test_cluster_shape_holds_the_band(W):
 
 def test_cluster_shape_of_100kb_reads():
     """The 6 windows of 2 reads of 100 kb (W = 18,816) take 10 CTAs of
-    128 threads, 2,048 lanes each: 60 SMs, not the tiled kernel's 6."""
+    128 threads, 2,048 lanes each: 60 SMs, where one block a window (an
+    earlier tiled kernel) took 6."""
     from smalt_tpu_torch.parallel.mesh import window_pad
     W = tsw.clamp_band_width(100_000, window_pad(100_000))
     assert W == 18816
     assert tsw.cluster_shape(W) == (10, 128)
-    assert tsw.cluster_shape(tsw.CLUSTER_BAND_W) == (16, 512)
-    assert tsw.CLUSTER_BAND_W == 16 * 512 * tsw.CLUSTER_C
-    for bad in (0, tsw.CLUSTER_BAND_W + 1):
+    assert tsw.cluster_shape(tsw.CLUSTER_MAX_W) == (16, 512)
+    assert tsw.CLUSTER_MAX_W == 16 * 512 * tsw.CLUSTER_C
+    for bad in (0, tsw.CLUSTER_MAX_W + 1):
         with pytest.raises(ValueError, match="band width"):
             tsw.cluster_shape(bad)
 
 
-@pytest.mark.parametrize("tiled,cluster", [(12800, 131072), (512, 4096),
-                                           (0, 768)])
+@pytest.mark.parametrize("tiled,cluster", [(12800, 12800), (12800, 131072),
+                                           (512, 4096), (0, 768)])
 def test_band_routes_across_both_thresholds(tiled, cluster, monkeypatch):
     """sw_band_instance names the cluster kernel for TILED_BAND_W < W <=
-    CLUSTER_BAND_W and the tiled kernel past CLUSTER_BAND_W, whatever the
-    matrix and tracking, at the module's values and lowered ones (as
-    chip_smoke.py lowers them to hold both kernels at small widths); every
-    name is a launch counter."""
-    assert (tsw.TILED_BAND_W, tsw.CLUSTER_BAND_W) == (12800, 131072)
+    CLUSTER_BAND_W and the strip kernel past CLUSTER_BAND_W, whatever the
+    matrix and tracking, at the module's values (no band for the cluster
+    kernel), with the cluster route raised to CLUSTER_MAX_W and at lowered
+    ones (as chip_smoke.py sets them to hold both kernels at small widths);
+    every name is a launch counter."""
+    assert (tsw.TILED_BAND_W, tsw.CLUSTER_BAND_W, tsw.CLUSTER_MAX_W) == \
+        (12800, 12800, 131072)
     monkeypatch.setattr(tsw, "TILED_BAND_W", tiled)
     monkeypatch.setattr(tsw, "CLUSTER_BAND_W", cluster)
     for entry in (3, 200):
@@ -259,16 +262,18 @@ def test_band_routes_across_both_thresholds(tiled, cluster, monkeypatch):
             for track in (True, False):
                 name = tsw.sw_band_instance(W * 5, W * 6, W, dm, track)
                 assert name.endswith("_cluster") == (tiled < W <= cluster)
-                assert name.endswith("_tiled") == (W > cluster), (W, name)
+                assert name.endswith("_strips") == (W > cluster), (W, name)
                 assert name.startswith("sw_band_track" if track
                                        else "sw_band")
                 assert name in tsw.launches
 
 
-def test_cluster_wrapper_takes_cuda_tensors_only(scoring):
+def test_cluster_wrapper_takes_cuda_tensors_only(scoring, monkeypatch):
     """The wrapper never runs the plain version in place of the cluster
-    kernel: a band on the cluster route with CPU tensors raises before
-    anything of the card."""
+    kernel: a band on the cluster route (raised to CLUSTER_MAX_W, as
+    chip_smoke.py raises it: the module routes it no band) with CPU
+    tensors raises before anything of the card."""
+    monkeypatch.setattr(tsw, "CLUSTER_BAND_W", tsw.CLUSTER_MAX_W)
     m, go, ge = scoring
     q, s, sl = _windows(3, 4, 256, 320, 16, 200)
     args = [torch.from_numpy(x) for x in (q, s, sl)]

@@ -536,7 +536,7 @@ def test_band_query_cut_never_binds():
         QB = -(-(Sp + W) // 128) * 128
         assert QB - prepad >= Q, Q
         assert not tsw.sw_band_instance(Q, S, W, tsw.device_matrix(
-            np.eye(8, dtype=np.int32), "cpu"), True).endswith("_tiled"), Q
+            np.eye(8, dtype=np.int32), "cpu"), True).endswith("_strips"), Q
 
 
 def test_band_cpu_path_launches_no_kernel(scoring):
@@ -552,7 +552,7 @@ def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
     """The kernel wrapper takes CUDA tensors only: it never runs the plain
     version in place of the kernel.  A band past TILED_BAND_W is no longer
     refused for its width (it runs the cluster kernel, and past
-    CLUSTER_BAND_W the tiled one); a width below 1 is."""
+    CLUSTER_BAND_W the strip kernel); a width below 1 is."""
     m, go, ge = scoring
     q, s, slens = _band_windows(3, 4, 128, 256, 16, 128)
     args = [torch.from_numpy(x) for x in (q, s, slens)]
@@ -561,6 +561,8 @@ def test_band_cuda_wrapper_rejects_cpu_tensors_and_wide_bands(scoring):
         tsw.sw_band_cuda(*args, go, ge, 16, 128, track=True)
     with pytest.raises(ValueError, match="cuda"):
         tsw.sw_band_cuda(*args, go, ge, 16, tsw.TILED_BAND_W + 128)
+    with pytest.raises(ValueError, match="cuda"):
+        tsw.sw_band_cuda(*args, go, ge, 16, tsw.CLUSTER_BAND_W + 128)
     with pytest.raises(ValueError, match="band width 0"):
         tsw.sw_band_cuda(*args, go, ge, 16, 0)
     # the int32 DP's bound (check_score_cap), before anything of the
@@ -827,21 +829,22 @@ def test_sw_full_instance_routing(Q, S, entry, track, want):
     (12288, 73472, 200, True, "sw_band_track_many"),  # wide matrix: many
     (12416, 73728, 3, False, "sw_band_many"),         # past 12,288 lanes
     (12800, 76160, 3, True, "sw_band_track_many"),    # the kernel's widest
-    (12928, 76928, 3, False, "sw_band_cluster"),      # past 12,800 lanes
-    (16384, 97920, 200, True, "sw_band_track_cluster"),  # wide matrix too
-    (16512, 98048, 3, True, "sw_band_track_cluster"),   # past 16,384 lanes
-    (18816, 112_512, 3, False, "sw_band_cluster"),      # 100 kb reads
-    (18816, 112_512, 200, True, "sw_band_track_cluster"),  # wide too
-    (131072, 700_000, 3, True, "sw_band_track_cluster"),  # its widest
-    (131200, 700_000, 3, False, "sw_band_tiled"),       # past 131,072
-    (131200, 700_000, 200, True, "sw_band_track_tiled"),
+    (12928, 76928, 3, False, "sw_band_strips"),       # past 12,800 lanes
+    (16384, 97920, 200, True, "sw_band_track_strips"),  # wide matrix too
+    (16512, 98048, 3, True, "sw_band_track_strips"),    # past 16,384 lanes
+    (18816, 112_512, 3, False, "sw_band_strips"),       # 100 kb reads
+    (18816, 112_512, 200, True, "sw_band_track_strips"),  # wide too
+    (131072, 700_000, 3, True, "sw_band_track_strips"),  # the cluster's widest
+    (131200, 700_000, 3, False, "sw_band_strips"),      # past 131,072
+    (131200, 700_000, 200, True, "sw_band_track_strips"),
     (384, 1792, 200, True, "sw_band_track_wide"),
     (512, 70_000, 127, True, "sw_band_track_wide"),  # 2^23 on int8 entries
     (512, 70_000, 127, False, "sw_band"),
 ])
 def test_sw_band_instance_routing(W, S, entry, track, want):
-    """W > 131,072 (CLUSTER_BAND_W) runs sw_band_tiled_kernel, W > 12,800
-    (TILED_BAND_W) sw_band_cluster_kernel and W > 3,072 (MULTI_BAND_W)
+    """W > 12,800 (CLUSTER_BAND_W, = TILED_BAND_W: no band is left to
+    sw_band_cluster_kernel) runs sw_band_strips_kernel, to 131,072 lanes
+    and past, and W > 3,072 (MULTI_BAND_W)
     the several-warps kernel on 20 lanes a thread ("_many"), whatever the
     matrix; below it a matrix past int8, or a tracked band of up to 512
     lanes that could score 2^23, runs the several-warps kernel ("_wide":
@@ -853,13 +856,13 @@ def test_sw_band_instance_routing(W, S, entry, track, want):
     assert tsw.sw_band_instance(Q, S, W, mat, track) == want
     assert want in tsw.launches
     assert tsw.MULTI_BAND_W == 3072 and tsw.TILED_BAND_W == 12800
-    assert tsw.CLUSTER_BAND_W == 131072
+    assert tsw.CLUSTER_BAND_W == 12800 and tsw.CLUSTER_MAX_W == 131072
 
 
 def test_band_width_of_long_reads_fits_the_many_kernel():
     """The band of a read padded to Q: past ~16 kb it is wider than the
     several-warps kernel's 3,072 lanes of 12 a thread, up to ~68 kb within
-    TILED_BAND_W (20 lanes a thread), and past that the cluster
+    TILED_BAND_W (20 lanes a thread), and past that the strip
     kernel's."""
     from smalt_tpu_torch.parallel.mesh import window_pad
     for Q, many in ((16384, False), (16400, True), (20000, True),
@@ -895,7 +898,7 @@ def test_strip_groups_split_the_scratch(B, S, budget, want, monkeypatch):
 @pytest.mark.parametrize("thresh", [16384, 512])
 def test_tiled_route_follows_the_threshold(thresh, monkeypatch):
     """Past TILED_BAND_W sw_band_instance names the cluster kernel, and
-    the tiled kernel exactly when W passes CLUSTER_BAND_W too: with
+    the strip kernel exactly when W passes CLUSTER_BAND_W too: with
     TILED_BAND_W at the module's own value and at a lowered one (as
     chip_smoke.py lowers it to hold these kernels at small widths), and
     CLUSTER_BAND_W at its own value and lowered to twice TILED_BAND_W,
@@ -911,33 +914,35 @@ def test_tiled_route_follows_the_threshold(thresh, monkeypatch):
                       thresh + 128, 2 * thresh, 2 * thresh + 1, 4 * thresh):
                 for track in (True, False):
                     name = tsw.sw_band_instance(W * 5, W * 6, W, mat, track)
-                    assert name.endswith("_tiled") == (W > cap), (W, name)
+                    assert name.endswith("_strips") == (W > cap), (W, name)
                     assert name.endswith("_cluster") == \
                         (thresh < W <= cap), (W, name)
                     assert name in tsw.launches
 
 
 def test_tiled_scratch_groups_fit_the_budget(monkeypatch):
-    """The tiled kernel's row state (8 * W bytes a window) goes in groups
-    of windows within SCRATCH_BYTES, the budget the strip path's carry
-    uses: one group for the 6 windows of 2 reads of ~100 kb at the
-    module's budget, and as many as the budget holds for the default
-    batch's 12,288 windows or once it is lowered, every group within it."""
-    from smalt_tpu_torch.parallel.mesh import window_pad
-    Q = 100_000
-    W = tsw.clamp_band_width(Q, window_pad(Q))
-    assert W > tsw.TILED_BAND_W
-    per = tsw.SCRATCH_BYTES // (8 * W)
-    assert tsw.scratch_groups(6, 8 * W) == [(0, 6)]
-    assert len(tsw.scratch_groups(3 * 4096, 8 * W)) == -(-3 * 4096 // per)
-    for budget in (8 * W * 5, 8 * W * 5 + 7, 8 * W - 1):
+    """The strip kernel's scratch (band_strip_bytes(S) a window: the carry
+    column and the flags) goes in groups of windows within SCRATCH_BYTES,
+    the budget sw_full's strip carry uses: one group for the 3 windows of
+    a read of 700 kb at the module's budget, and as many as the budget
+    holds for the default batch's 12,288 windows or once it is lowered,
+    every group within it."""
+    S, _, W = tsw.band_geometry(700_000)
+    assert W > tsw.CLUSTER_BAND_W
+    per_w = tsw.band_strip_bytes(S)
+    assert per_w == 8 * S + 4 * (10 + S // 32) and \
+        tsw.band_strip_flag_words(3, S) == 8 + 3 * (10 + S // 32)
+    per = tsw.SCRATCH_BYTES // per_w
+    assert tsw.scratch_groups(3, per_w) == [(0, 3)]
+    assert len(tsw.scratch_groups(3 * 4096, per_w)) == -(-3 * 4096 // per)
+    for budget in (per_w * 5, per_w * 5 + 7, per_w - 1):
         monkeypatch.setattr(tsw, "SCRATCH_BYTES", budget)
-        groups = tsw.scratch_groups(12, 8 * W)
+        groups = tsw.scratch_groups(12, per_w)
         assert groups[0][0] == 0 and groups[-1][1] == 12
         assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
-        assert all(8 * W * (hi - lo) <= max(budget, 8 * W)
+        assert all(per_w * (hi - lo) <= max(budget, per_w)
                    for lo, hi in groups)
-        assert len(groups) == (3 if budget >= 8 * W else 12)
+        assert len(groups) == (3 if budget >= per_w else 12)
 
 
 def test_band_past_16384_lanes_matches_jax(scoring):
@@ -957,65 +962,25 @@ def test_band_past_16384_lanes_matches_jax(scoring):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def _tiled_model(q, s, slens, m, go, ge, pad, W, tw):
-    """A numpy rendering of sw_band_tiled_kernel's order of work
-    (csrc/sw_band_tiled.cuh) at a tile width of `tw` lanes: each subject
-    row is walked tile by tile, left to right, over a row state [W, 2] in
-    memory; a tile's last lane reads E of the next tile's first lane from
-    that state (still the previous row's), F's prefix max carries from
-    tile to tile, and the row's maximum and its lowest lane are taken
-    over the tiles (a later tile only when strictly greater) before the
-    running best.  Returns (best, ti, tj) and the score-only best."""
-    B, Q = q.shape
-    S = s.shape[1]
-    prepad = pad + W // 2
-    NEG = -(1 << 28)
-    out = np.zeros((4, B), np.int64)
-    for b in range(B):
-        st = np.zeros((W + 1, 2), np.int64)
-        st[:, 1] = NEG                  # st[W]: the lane past the band
-        best = bi = blane = acc = 0
-        for i in range(min(int(slens[b]), S)):
-            carry, rmax, rlane = NEG, None, 0
-            for t0 in range(0, W, tw):
-                t = np.arange(t0, min(t0 + tw, W))
-                H, E = st[t, 0].copy(), st[t, 1].copy()
-                ein = st[t + 1, 1]
-                j = i - prepad + t
-                qc = np.where((j >= 0) & (j < Q), q[b, j.clip(0, Q - 1)], 7)
-                T = H + m[s[b, i], qc]
-                H0 = np.maximum(np.maximum(T, ein), 0)
-                run = np.maximum.accumulate(H0 + t * ge)
-                excl = np.maximum(carry, np.concatenate([[NEG], run[:-1]]))
-                carry = max(carry, int(run[-1]))
-                Hn = np.maximum(H0, excl - go - (t - 1) * ge)
-                st[t, 0] = Hn
-                st[t, 1] = np.maximum(ein - ge, Hn - go)
-                tm = int(T.max())
-                if rmax is None or tm > rmax:
-                    rmax, rlane = tm, int(t[np.argmax(T == tm)])
-                acc = max(acc, tm)
-            if rmax > best:
-                best, bi, blane = rmax, i, rlane
-        out[:, b] = best, bi, bi + blane - prepad, acc
-    return out
-
-
 @pytest.mark.parametrize("seed,W,tw", [(1, 256, 64), (2, 200, 64),
                                        (3, 330, 128), (4, 96, 96)])
 def test_tiled_order_matches_plain(scoring, seed, W, tw):
-    """The tiled kernel's order of work (_tiled_model, tiles much narrower
-    than the band so that every window crosses several tile edges, and
-    widths that end inside a tile) equals sw_band_score_ref exactly,
-    tracked and score-only, on planted and on tie-heavy windows."""
+    """The kernel past CLUSTER_BAND_W, the strip kernel: its order of work
+    (test_torch_band_strips.band_strips_render, strips of tw columns on
+    lanes of tw / 8, much narrower than the band, so that every window
+    crosses many strip and group edges, and widths that end inside a
+    strip) equals sw_band_score_ref exactly, tracked and score-only, on
+    planted and on tie-heavy windows."""
+    from test_torch_band_strips import band_strips_render
     m, go, ge = scoring
     rng = np.random.default_rng(seed)
     Q, S, pad = 320, 448, 24
     q, s, slens = _band_windows(seed, 6, Q, S, pad, W)
     tq, ts, tsl = tsw.tie_windows(rng, 8, Q, S)
     for q_, s_, sl_ in ((q, s, slens), (tq, ts, tsl)):
-        got = _tiled_model(q_, s_, sl_, m.astype(np.int64), go, ge, pad, W,
-                           tw)
+        (b_, i_, j_), b0 = band_strips_render(
+            q_, s_, sl_, m, go, ge, pad, W, C=tw // 8, L=8, NW=2, slots=4)
+        got = (b_, i_, j_, b0)
         args = [torch.from_numpy(np.ascontiguousarray(x, np.int32))
                 for x in (q_, s_, sl_)]
         want = tsw.sw_band_score_ref(*args, torch.from_numpy(m), go, ge,
