@@ -201,7 +201,8 @@ def _map_argparser(prog):
                          "as a count or fraction of read length")
     ap.add_argument("--profile", default=None, dest="profdir",
                     help="write a torch profiler trace of the device "
-                         "mapping loop to this directory (--fast only)")
+                         "mapping loop to this directory (--fast, "
+                         "--device-exact, --device-pass1)")
     ap.add_argument("--device-pass1", action="store_true",
                     dest="device_pass1",
                     help="score the exact pass-1 candidate windows on "
@@ -574,12 +575,13 @@ def _run_device_lane(a, lane, engine, out, refset, fmt: str, mods, ihist,
     checkpoints, insert histogram).  Returns the exit code."""
     from .map.pipeline import run_device_lane
     dev, plane = lane
-    run_device_lane(dev, engine, a.reads, out, refset, fmt=fmt,
-                    soft_clip="clip" not in mods, x_mismatch="x" in mods,
-                    seed=(a.randseed if a.randseed is not None else 0),
-                    fix_primary=fix_primary, ali_out=a.aliout,
-                    mates_path=a.mates, plane=plane, ihist=ihist,
-                    resume_log=resume_log)
+    with _profiled(a.profdir, str(dev.device)):
+        run_device_lane(dev, engine, a.reads, out, refset, fmt=fmt,
+                        soft_clip="clip" not in mods, x_mismatch="x" in mods,
+                        seed=(a.randseed if a.randseed is not None else 0),
+                        fix_primary=fix_primary, ali_out=a.aliout,
+                        mates_path=a.mates, plane=plane, ihist=ihist,
+                        resume_log=resume_log)
     return 0
 
 
@@ -704,10 +706,11 @@ def cmd_merge_shards(argv: List[str]) -> int:
 
 
 def _profiled(profdir: Optional[str], device: str):
-    """--profile DIR: torch.profiler over the block (the host's ops, and
-    the card's kernels when the device is a card), its trace written
-    under DIR as <host>_<pid>.<time>.pt.trace.json when the block ends.
-    Without DIR, a context that does nothing."""
+    """--profile DIR: torch.profiler over the block (the host's ops on
+    every thread where this torch can record them all, the lanes' spans
+    among them, and the card's kernels when the device is a card), its
+    trace written under DIR as <host>_<pid>.<time>.pt.trace.json when the
+    block ends.  Without DIR, a context that does nothing."""
     import contextlib
     if not profdir:
         return contextlib.nullcontext()
@@ -717,8 +720,14 @@ def _profiled(profdir: Optional[str], device: str):
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(profdir, exist_ok=True)
+    extra = {}
+    try:
+        extra["experimental_config"] = \
+            torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass                    # this torch records the calling thread only
     return profile(activities=acts, on_trace_ready=(
-        torch.profiler.tensorboard_trace_handler(profdir)))
+        torch.profiler.tensorboard_trace_handler(profdir)), **extra)
 
 
 def cmd_sample(argv: List[str]) -> int:

@@ -51,8 +51,9 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
-from collections import deque
+from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -61,7 +62,8 @@ import torch
 
 from .. import rand
 from ..align import core as ali_mod
-from ..native import get_lib
+from ..native import (fl_prof_set, fl_prof_take, fl_restage_fetch,
+                      get_lib)
 from ..ops.sw import device_matrix, sw_score_batch
 from ..parallel.exact_collate import CollateCfg, build_exact_collate
 from ..parallel.exact_pass2 import (band_tiles, build_pass2_step,
@@ -489,6 +491,33 @@ class PairLane:
         return "".join(parts)
 
 
+class _Span:
+    """The context of DevicePass1._span: the block's seconds on
+    perf_counter into rec[name] (and in `s`), and a record_function
+    `<tag>.<name>` around it only while a torch profiler records."""
+    __slots__ = ("rec", "name", "tag", "t0", "s", "rf")
+
+    def __init__(self, rec, name: str, tag: str):
+        self.rec, self.name, self.tag = rec, name, tag
+        self.s = 0.0
+        self.rf = None
+
+    def __enter__(self):
+        if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+            self.rf = torch.profiler.record_function(
+                f"{self.tag}.{self.name}")
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.s = time.perf_counter() - self.t0
+        self.rec[self.name] += self.s
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
 class DevicePass1:
     """Device-assisted exact mapping, `map --device-pass1`: the device
     scores the pass-1 full-matrix candidate windows of whole batches
@@ -528,7 +557,14 @@ class DevicePass1:
         self.host_batches = 0
         self.n_restaged = 0
         self._timing = False
+        self._remap = False
         self._exec = None
+        # the record of the batch each thread works on (_drive's; outside
+        # a run, a scratch record that takes any span or counter)
+        self._tag = "dp1"
+        self._cur = threading.local()
+        self._scratch = defaultdict(float)
+        self._t_write = 0.0
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out, fix_primary,
@@ -712,9 +748,6 @@ class DevicePass1:
                 scores64.ctypes.data, len(scores64),
                 lane._rng_io.ctypes.data, out.ctypes.data, cap,
                 float(lane.engine.lam), *dev_args)
-            if os.environ.get("SMALT_DX_DEBUG"):
-                print(f"# fl_pass2_block rc={rc} n={n} dev={dev is not None}",
-                      file=sys.stderr, flush=True)
             if rc == -3:
                 cap *= 4
                 continue
@@ -726,40 +759,119 @@ class DevicePass1:
 
     # ---------------- batch loop ----------------
 
+    # the spans of one batch, in the order its `# <tag>-batch` line gives
+    # them: the main thread's, then the worker thread's; then the lane's
+    # counters
+    MAIN_SPANS = ("read", "pre", "stage", "wait", "post", "tail", "oracle",
+                  "fallback", "write")
+    WORKER_SPANS = ("score", "fetch")
+    COUNTERS: tuple = ()
+
     def _log(self, msg: str) -> None:
         if self._timing:
             print(msg, file=sys.stderr, flush=True)
 
-    def _drive(self, batches, tag: str, lane_args, mid, fin, write) -> float:
+    def _record(self) -> dict:
+        """The record of the batch this thread works on."""
+        return getattr(self._cur, "rec", self._scratch)
+
+    def _span(self, name: str) -> "_Span":
+        """`with self._span(name):` adds the block's seconds to the record
+        of the batch this thread works on and, while a torch profiler
+        records, names the block `<tag>.<name>` in its trace."""
+        return _Span(self._record(), name, self._tag)
+
+    def _leg(self, rec: dict, fn, *args):
+        """fn(*args) on the worker thread, for the batch of record rec."""
+        self._cur.rec = rec
+        return fn(*args)
+
+    def _take_remap(self) -> None:
+        """After a batch's tail: the seconds the C blocks spent mapping
+        its re-staged reads again (SMALT_FL_TIMING's `remap` slot)."""
+        if self._remap:
+            self._record()["remap"] += fl_prof_take("remap")
+
+    def _on_host(self, render, *args):
+        """A batch the lane does not take, rendered on the host."""
+        self.host_batches += 1
+        with self._span("fallback"):
+            return render(*args)
+
+    def _batch_line(self, rec: dict) -> None:
+        """The batch's `# <tag>-batch` line, once it is written: its
+        rows, the seconds since the previous batch was written, its spans
+        and its counters."""
+        now = time.perf_counter()
+        period, self._t_write = now - self._t_write, now
+        if not self._timing:
+            return
+        fields = " ".join(f"{k}={v:.6f}" if isinstance(v, float) else
+                          f"{k}={v}" for k, v in rec.items() if k != "n")
+        sys.stderr.write(f"# {self._tag}-batch n={rec['n']} "
+                         f"period={period:.6f} {fields}\n")
+        sys.stderr.flush()
+
+    def _drive(self, batches, tag: str, lane_args, mid, fin, write,
+               counters: tuple = ()) -> float:
         """The lane's batch loop, pipelined one batch deep at each stage:
         _launch(lane_args(raw)) -> mid(item, raw) -> fin(item, raw) ->
         write(text, raw), in input order.  A batch the lane does not take
         goes through the queues as None and is rendered by fin(), so the
-        output and the host RNG stream keep the input order.  Returns the
-        seconds the loop took."""
+        output and the host RNG stream keep the input order.  Each batch
+        carries a record of its spans and counters (with `counters`, the
+        caller's own) to its `# <tag>-batch` line.  Returns the seconds
+        the loop took."""
         self._timing = bool(os.environ.get("SMALT_DP1_TIMING"))
+        self._remap = bool(os.environ.get("SMALT_FL_TIMING"))
+        fl_prof_set(self._remap)
+        self._tag = tag
+        spans = self.MAIN_SPANS + self.WORKER_SPANS + \
+            (("remap",) if self._remap else ())
+        blank = dict.fromkeys(spans, 0.0)
+        blank.update(dict.fromkeys(("n",) + self.COUNTERS + counters, 0))
         self._exec = ThreadPoolExecutor(max_workers=1)
         self.n_restaged = 0
-        t_run = time.time()
+        t_run = self._t_write = time.perf_counter()
         midq, finq = deque(), deque()
+        batches = iter(batches)
+
+        def land(entry):
+            item, raw, rec = entry
+            self._cur.rec = rec
+            finq.append((mid(item, raw), raw, rec))
+
+        def out(entry):
+            item, raw, rec = entry
+            self._cur.rec = rec
+            text = fin(item, raw)
+            with self._span("write"):
+                write(text, raw)
+            self._batch_line(rec)
+
         try:
-            for raw in batches:
-                midq.append((self._launch(lane_args(raw), tag), raw))
+            while True:
+                rec = self._cur.rec = blank.copy()
+                with self._span("read"):
+                    raw = next(batches, None)
+                if raw is None:
+                    break
+                with self._span("stage"):
+                    args = lane_args(raw)
+                rec["n"] = len(args[0])
+                midq.append((self._launch(args, tag), raw, rec))
                 while len(midq) > 1:
-                    it, rw = midq.popleft()
-                    finq.append((mid(it, rw), rw))
+                    land(midq.popleft())
                 while len(finq) > 1:
-                    it, rw = finq.popleft()
-                    write(fin(it, rw), rw)
+                    out(finq.popleft())
             while midq:
-                it, rw = midq.popleft()
-                finq.append((mid(it, rw), rw))
+                land(midq.popleft())
             while finq:
-                it, rw = finq.popleft()
-                write(fin(it, rw), rw)
+                out(finq.popleft())
         finally:
             self._exec.shutdown(wait=True)
-        return time.time() - t_run
+            self._cur.__dict__.pop("rec", None)
+        return time.perf_counter() - t_run
 
     def _launch(self, args, tag: str):
         """Phase A for one batch (names, seqs, quals) and its device leg
@@ -768,46 +880,51 @@ class DevicePass1:
         the lane does not take the batch (a read without its quality
         string, fl_pass1_block refuses)."""
         names, seqs, quals = args
-        n = len(names)
-        read_offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(x) for x in seqs], out=read_offs[1:])
-        name_offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(x) for x in names], out=name_offs[1:])
-        qmax = int((read_offs[1:] - read_offs[:-1]).max()) if n else 1
-        has_qual = np.empty(n, dtype=np.uint8)
-        for i, q in enumerate(quals):
-            if q is None or len(q) != len(seqs[i]):
-                return None
-            has_qual[i] = 1
-        codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
-        qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
-        narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
-        st = self._pass1(n, qmax, codes, read_offs, qarr, has_qual,
-                         ascii_codes=True)
+        with self._span("stage"):
+            n = len(names)
+            read_offs = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(x) for x in seqs], out=read_offs[1:])
+            name_offs = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(x) for x in names], out=name_offs[1:])
+            qmax = int((read_offs[1:] - read_offs[:-1]).max()) if n else 1
+            has_qual = np.empty(n, dtype=np.uint8)
+            for i, q in enumerate(quals):
+                if q is None or len(q) != len(seqs[i]):
+                    return None
+                has_qual[i] = 1
+            codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+            qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
+            narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+        with self._span("pre"):
+            st = self._pass1(n, qmax, codes, read_offs, qarr, has_qual,
+                             ascii_codes=True)
         if st is None:
             return None
         state, state_offs, win_desc = st
         fut = None
         if len(win_desc):
-            fwd, qlens = self._padded_reads(
-                np.frombuffer(codec_encode_bulk(codes), np.uint8),
-                read_offs, n, qmax)
-            fut = self._exec.submit(self._device_leg, win_desc, fwd, qlens)
+            with self._span("stage"):
+                fwd, qlens = self._padded_reads(
+                    np.frombuffer(codec_encode_bulk(codes), np.uint8),
+                    read_offs, n, qmax)
+                fut = self._exec.submit(self._leg, self._record(),
+                                        self._device_leg, win_desc, fwd,
+                                        qlens)
         return (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs,
                 state, state_offs), fut
 
     def _device_leg(self, win_desc, fwd, qlens):
         """The worker thread's part of a batch: the scores [nw] on the
         host.  A device error raises out of the future."""
-        t0 = time.time()
-        scores, done, nw = self._score_windows(win_desc, fwd, qlens)
-        t1 = time.time()
-        if done is not None:
-            done.synchronize()
-        t2 = time.time()
-        sc = scores[:nw].numpy()
-        self._log(f"# dp1-dev nw={nw} call={t1 - t0:.3f} wait={t2 - t1:.3f} "
-                  f"fetch={time.time() - t2:.3f}")
+        with self._span("score") as call:
+            scores, done, nw = self._score_windows(win_desc, fwd, qlens)
+        with self._span("fetch") as wait:
+            if done is not None:
+                done.synchronize()
+        with self._span("fetch") as fetch:
+            sc = scores[:nw].numpy()
+        self._log(f"# dp1-dev nw={nw} call={call.s:.3f} wait={wait.s:.3f} "
+                  f"fetch={fetch.s:.3f}")
         return sc
 
     def run_raw_fastq(self, path: str, out, fallback) -> None:
@@ -818,17 +935,17 @@ class DevicePass1:
         device error raises."""
         def fin(item, raw):
             if item is None:
-                self.host_batches += 1
-                return fallback(*raw)
+                return self._on_host(fallback, *raw)
             host, fut = item
-            t0 = time.time()
-            sc = fut.result() if fut is not None else np.zeros(0, np.int32)
-            self._log(f"# dp1-main stall={time.time() - t0:.3f}")
-            text = self._pass2(*host, sc, ascii_codes=True, names_raw=True)
-            if text is None:
-                self.host_batches += 1
-                return fallback(*raw)
-            return text
+            with self._span("wait") as wait:
+                sc = fut.result() if fut is not None else \
+                    np.zeros(0, np.int32)
+            self._log(f"# dp1-main stall={wait.s:.3f}")
+            with self._span("tail"):
+                text = self._pass2(*host, sc, ascii_codes=True,
+                                   names_raw=True)
+            self._take_remap()
+            return self._on_host(fallback, *raw) if text is None else text
 
         nreads = [0]
 
@@ -854,6 +971,12 @@ class DeviceExact(DevicePass1):
     geometry mismatch) is re-staged fully on host by fl_pass2_block."""
 
     QMAX = 255          # packed row fields gate (cover/qs/qe <= 255)
+    WORKER_SPANS = ("collate", "fetch", "pass2")
+    # the reads a batch re-staged, and their causes: the host hit
+    # expansion overflowed (rs_h), the collate step flagged the read
+    # (rs_dev), and the post block's four checks
+    COUNTERS = ("restaged", "rs_h", "rs_dev", "rs_ck", "rs_stats",
+                "rs_geom", "rs_simd")
 
     def __init__(self, lane: FastLane, batch: int = 0, device="cuda"):
         super().__init__(lane, batch=batch or
@@ -870,6 +993,8 @@ class DeviceExact(DevicePass1):
         self.p2_used = 0
         self.p2_fb = 0
         self.p2_hit = 0
+        self.steps_built = 0            # collate and pass-2 step builds
+        self._tag = "dx"
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
@@ -969,6 +1094,7 @@ class DeviceExact(DevicePass1):
             cache[key] = build_exact_collate(self._di, eng._seq_ivals,
                                              matrix, -eng.gapopen,
                                              -eng.gapext, cfg)
+            self.steps_built += 1
         self._collate = cache[key]
         self._cfg = cfg
         return self._collate
@@ -979,6 +1105,7 @@ class DeviceExact(DevicePass1):
             self._p2_fn = build_pass2_step(np.asarray(eng.matrix, np.int32),
                                            -eng.gapopen, -eng.gapext,
                                            self.device)
+            self.steps_built += 1
         return self._p2_fn
 
     def _p2_args(self, win):
@@ -1020,12 +1147,6 @@ class DeviceExact(DevicePass1):
         flat = self._pass2_step()(self._di.ref_alpha, codes_pad, qlens, wd,
                                   Sp, tiles)
         best64, mi64, mj64, rec16 = unpack_pass2(flat.cpu().numpy(), nw, Sp)
-        if os.environ.get("SMALT_DX_DEBUG"):
-            v = valid[:nw] != 0
-            print(f"# p2-dispatch nw={nw} valid={int(v.sum())} "
-                  f"best>0={int((best64[v] > 0).sum())} "
-                  f"best_mean={float(best64[v].mean()) if v.any() else 0:.1f}",
-                  file=sys.stderr, flush=True)
         return best64, mi64, mj64, rec16, valid, Sp, nw
 
     # ---------------- host halves ----------------
@@ -1070,7 +1191,9 @@ class DeviceExact(DevicePass1):
         """pair=True: replay the depth sort under the PAIR flow's
         parameter mods (fl_pair_map_single: MINSCOR_BELOW_MAX_BEST=0,
         rmapflg|PAIRED&~ALLPAIR) so the state equals what the pair
-        flow's unrestricted stage 1 would produce."""
+        flow's unrestricted stage 1 would produce.  Returns (state,
+        state_offs, reads re-staged, {cause: reads} of them:
+        native RESTAGE_CAUSES), or None where the C block refuses."""
         lane = self.lane
         eng = lane.engine
         p = eng.params
@@ -1086,6 +1209,7 @@ class DeviceExact(DevicePass1):
         nrest = np.zeros(1, np.int64)
         state = np.empty(state_cap, np.int64)
         state_offs = np.empty(n + 1, np.int64)
+        fl_restage_fetch()              # this call's causes alone
         rc = lane.lib.fl_exact_post_block(
             eng.index.wordlen, eng.index.nskip,
             lane._offsets.ctypes.data, eng.refset.nseq,
@@ -1101,7 +1225,7 @@ class DeviceExact(DevicePass1):
             nrest.ctypes.data)
         if rc != 0:
             return None
-        return state, state_offs, int(nrest[0])
+        return state, state_offs, int(nrest[0]), fl_restage_fetch()
 
 
     # ---------------- device pass 2: host window prep ----------------
@@ -1148,81 +1272,82 @@ class DeviceExact(DevicePass1):
         for one batch (fastlane.py:1174-1255).  Returns None when the
         lane does not take the batch (the caller renders it on the
         host), else (host state, collate arguments)."""
-        n = len(names)
-        read_offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(s) for s in seqs], out=read_offs[1:])
-        name_offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum([len(x) for x in names], out=name_offs[1:])
-        qlens_n = (read_offs[1:] - read_offs[:-1]).astype(np.int32)
-        qmax = int(qlens_n.max()) if n else 1
-        if qmax > self.QMAX or n > self.batch:
-            return None
-        while self._qcap < qmax:
-            self._qcap *= 2
-            self._collate = None            # new shape: a new step
-        Qcap = self._qcap
-        has_qual = np.empty(n, dtype=np.uint8)
-        for i, q in enumerate(quals):
-            if q is None or len(q) != len(seqs[i]):
+        with self._span("stage"):
+            n = len(names)
+            read_offs = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(s) for s in seqs], out=read_offs[1:])
+            name_offs = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum([len(x) for x in names], out=name_offs[1:])
+            qlens_n = (read_offs[1:] - read_offs[:-1]).astype(np.int32)
+            qmax = int(qlens_n.max()) if n else 1
+            if qmax > self.QMAX or n > self.batch:
                 return None
-            has_qual[i] = 1
-        codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
-        qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
-        narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
-        B = self.batch
-        host_hits = self._host_hits
-        self._collate_fn()                  # cfg (H) first
-        st = self._pre(n, codes, read_offs, qarr, has_qual, Qcap,
-                       hits_B=B if host_hits else 0,
-                       hits_H=self._cfg.H if host_hits else 0)
+            while self._qcap < qmax:
+                self._qcap *= 2
+                self._collate = None            # new shape: a new step
+            Qcap = self._qcap
+            has_qual = np.empty(n, dtype=np.uint8)
+            for i, q in enumerate(quals):
+                if q is None or len(q) != len(seqs[i]):
+                    return None
+                has_qual[i] = 1
+            codes = np.frombuffer(b"".join(seqs) or b"\0", np.uint8)
+            qarr = np.frombuffer(b"".join(quals) or b"\0", np.uint8)
+            narr = np.frombuffer(b"".join(names) or b"\0", np.uint8)
+            B = self.batch
+            host_hits = self._host_hits
+            self._collate_fn()                  # cfg (H) first
+        with self._span("pre"):
+            st = self._pre(n, codes, read_offs, qarr, has_qual, Qcap,
+                           hits_B=B if host_hits else 0,
+                           hits_H=self._cfg.H if host_hits else 0)
         if st is None:
             return None
         pre, selmask, k1, k2, tot, ks = st
-        codes_pad = np.zeros((B, Qcap), np.uint8)
-        enc = np.frombuffer(codec_encode_bulk(codes), np.uint8)
-        for i in range(n):
-            o, e = int(read_offs[i]), int(read_offs[i + 1])
-            codes_pad[i, : e - o] = enc[o:e]
-        qlens = np.zeros(B, np.int32)
-        qlens[:n] = qlens_n
-        mincov = np.zeros(B, np.int32)
-        mincov[:n] = pre[:, 5].astype(np.int32)
-        dev = self.device
-        # the padded batch goes up ONCE: the collate and the pass-2 step
-        # both read it
-        codes_t, qlens_t = (torch.from_numpy(x).to(dev)
-                            for x in (codes_pad, qlens))
-        mincov_t = torch.from_numpy(mincov).to(dev)
-        if host_hits:
-            # lanes the host expansion could not fit re-stage on the host
-            host_fb = (tot[:n] < 0).any(axis=1)
-            np.maximum(tot, 0, out=tot)
-            R, H = 2 * B, self._cfg.H
-            dargs = tuple(torch.from_numpy(x).to(dev) for x in (
-                k1.reshape(R, H), k2.reshape(R, H), tot.reshape(R))) + \
-                (codes_t, qlens_t, mincov_t)
-            if ks is not None:
-                dargs = (torch.from_numpy(ks.reshape(R, H)).to(dev),) + dargs
-        else:
-            # the device derives the hits: it takes the bases under the
-            # quality floor and the host's selected-seed mask
-            host_fb = None
-            minq = self.lane.engine.params.min_basq + 0x21
-            qbad = np.zeros((B, Qcap), bool)
+        with self._span("stage"):
+            codes_pad = np.zeros((B, Qcap), np.uint8)
+            enc = np.frombuffer(codec_encode_bulk(codes), np.uint8)
             for i in range(n):
                 o, e = int(read_offs[i]), int(read_offs[i + 1])
-                qbad[i, : e - o] = qarr[o:e] < minq
-            selm = np.zeros((B, 2, Qcap), np.uint8)
-            selm[:n] = selmask
-            dargs = (codes_t, torch.from_numpy(qbad).to(dev),
-                     torch.from_numpy(selm).to(dev), qlens_t, mincov_t)
-        host = (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs,
-                pre, host_fb, codes_t, qlens_t)
-        return host, dargs
-
-    def _collate_outputs(self, dargs):
-        """The collate step on the device, its outputs on the host."""
-        return [x.cpu().numpy() for x in self._collate_fn()(*dargs)]
+                codes_pad[i, : e - o] = enc[o:e]
+            qlens = np.zeros(B, np.int32)
+            qlens[:n] = qlens_n
+            mincov = np.zeros(B, np.int32)
+            mincov[:n] = pre[:, 5].astype(np.int32)
+            dev = self.device
+            # the padded batch goes up ONCE: the collate and the pass-2 step
+            # both read it
+            codes_t, qlens_t = (torch.from_numpy(x).to(dev)
+                                for x in (codes_pad, qlens))
+            mincov_t = torch.from_numpy(mincov).to(dev)
+            if host_hits:
+                # lanes the host expansion could not fit re-stage on the
+                # host
+                host_fb = (tot[:n] < 0).any(axis=1)
+                np.maximum(tot, 0, out=tot)
+                R, H = 2 * B, self._cfg.H
+                dargs = tuple(torch.from_numpy(x).to(dev) for x in (
+                    k1.reshape(R, H), k2.reshape(R, H), tot.reshape(R))) + \
+                    (codes_t, qlens_t, mincov_t)
+                if ks is not None:
+                    dargs = (torch.from_numpy(ks.reshape(R, H)).to(dev),
+                             ) + dargs
+            else:
+                # the device derives the hits: it takes the bases under the
+                # quality floor and the host's selected-seed mask
+                host_fb = None
+                minq = self.lane.engine.params.min_basq + 0x21
+                qbad = np.zeros((B, Qcap), bool)
+                for i in range(n):
+                    o, e = int(read_offs[i]), int(read_offs[i + 1])
+                    qbad[i, : e - o] = qarr[o:e] < minq
+                selm = np.zeros((B, 2, Qcap), np.uint8)
+                selm[:n] = selmask
+                dargs = (codes_t, torch.from_numpy(qbad).to(dev),
+                         torch.from_numpy(selm).to(dev), qlens_t, mincov_t)
+            host = (n, qmax, codes, read_offs, qarr, has_qual, narr,
+                    name_offs, pre, host_fb, codes_t, qlens_t)
+            return host, dargs
 
     def _post_batch(self, host, outs, pair: bool = False):
         """Host post block on the collate outputs (fastlane.py:1257-1297).
@@ -1246,8 +1371,18 @@ class DeviceExact(DevicePass1):
                         cksum[:n], fb[:n], pair=pair)
         if st is None:
             return None
-        state, state_offs, nrest = st
+        state, state_offs, nrest, causes = st
         self.n_restaged += nrest
+        # the post block sees a read whose host expansion overflowed as
+        # flagged; a short read it skips before any check
+        rs_h = 0 if host_fb is None else \
+            int((host_fb & (pre[:n, 0] == 0)).sum())
+        rec = self._record()
+        rec["restaged"] += nrest
+        rec["rs_h"] += rs_h
+        rec["rs_dev"] += causes["dev"] - rs_h
+        for k in ("ck", "stats", "geom", "simd"):
+            rec[f"rs_{k}"] += causes[k]
         scores64 = np.ascontiguousarray(scores, np.int64)
         prep = None
         if self._p2_on and not pair:
@@ -1281,20 +1416,29 @@ class DeviceExact(DevicePass1):
         """Host pre block for one batch (names, seqs, quals) and its
         collate step submitted to the worker thread: (host, future), or
         None when the lane does not take the batch."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         got = self._prepare(*args)
         if got is None:
             return None
         host, dargs = got
-        self._log(f"# {tag}-prep {time.time() - t0:.3f}s")
+        self._log(f"# {tag}-prep {time.perf_counter() - t0:.3f}s")
 
         def device_leg():
-            t1 = time.time()
+            t1 = time.perf_counter()
             outs = self._collate_outputs(dargs)
-            self._log(f"# {tag}-dev {time.time() - t1:.3f}s")
+            self._log(f"# {tag}-dev {time.perf_counter() - t1:.3f}s")
             return outs
 
-        return host, self._exec.submit(device_leg)
+        with self._span("stage"):
+            return host, self._exec.submit(self._leg, self._record(),
+                                           device_leg)
+
+    def _collate_outputs(self, dargs):
+        """The collate step on the device, its outputs on the host."""
+        with self._span("collate"):
+            outs = self._collate_fn()(*dargs)
+        with self._span("fetch"):
+            return [x.cpu().numpy() for x in outs]
 
     def _land(self, item, tag: str, pair: bool = False):
         """The collate step's outputs (a device error raises here) through
@@ -1303,14 +1447,20 @@ class DeviceExact(DevicePass1):
         if item is None:
             return None
         host, fut = item
-        outs = fut.result()
-        t0 = time.time()
-        got = self._post_batch(host, outs, pair=pair)
+        with self._span("wait"):
+            outs = fut.result()
+        with self._span("post") as post:
+            got = self._post_batch(host, outs, pair=pair)
         if got is None:
             return None
         item2, nrest = got
-        self._log(f"# {tag}-post {time.time() - t0:.3f}s restaged={nrest}")
+        self._log(f"# {tag}-post {post.s:.3f}s restaged={nrest}")
         return item2
+
+    def _pass2_leg(self, *args):
+        """The worker thread's pass-2 step for one batch."""
+        with self._span("pass2"):
+            return self._dispatch_pass2(*args)
 
     def run_raw_fastq(self, path: str, out, fallback,
                       resume_log=None) -> None:
@@ -1346,25 +1496,25 @@ class DeviceExact(DevicePass1):
             prep, fut2 = item2[-1], None
             if prep is not None and len(prep[2]):
                 host = item[0]
-                fut2 = self._exec.submit(self._dispatch_pass2, prep[2],
-                                         host[10], host[11])
+                with self._span("post"):
+                    fut2 = self._exec.submit(self._leg, self._record(),
+                                             self._pass2_leg, prep[2],
+                                             host[10], host[11])
             return item2, fut2
 
         def fin(item, raw):
             if item is None:
-                self.host_batches += 1
-                return fallback(*raw)
+                return self._on_host(fallback, *raw)
             item2, fut2 = item
-            p2out = None if fut2 is None else fut2.result()
-            t1 = time.time()
-            text = self._finish(item2, p2out)
-            self._log(f"# dx-pass2 {time.time() - t1:.3f}s n={item2[0]} "
+            with self._span("wait"):
+                p2out = None if fut2 is None else fut2.result()
+            with self._span("tail") as tail:
+                text = self._finish(item2, p2out)
+            self._take_remap()
+            self._log(f"# dx-pass2 {tail.s:.3f}s n={item2[0]} "
                       f"p2_used={self.p2_used} p2_fb={self.p2_fb} "
                       f"p2_hit={self.p2_hit}")
-            if text is None:
-                self.host_batches += 1
-                return fallback(*raw)
-            return text
+            return self._on_host(fallback, *raw) if text is None else text
 
         def write(text, raw):
             out.write(text)
@@ -1379,7 +1529,8 @@ class DeviceExact(DevicePass1):
         self._log(f"# dx-total {secs:.3f}s "
                   f"n_restaged={self.n_restaged} p2_used={self.p2_used} "
                   f"p2_fb={self.p2_fb} p2_hit={self.p2_hit} "
-                  f"host_batches={self.host_batches}")
+                  f"host_batches={self.host_batches} "
+                  f"steps_built={self.steps_built}")
 
     def run_raw_pairs(self, plane, pathA: str, pathB: str, out,
                       oracle_one_pair, mk_pair) -> None:
@@ -1410,7 +1561,6 @@ class DeviceExact(DevicePass1):
                 raise ValueError("paired files have different read counts")
 
         def host_batch(raw):
-            self.host_batches += 1
             text = plane.render_raw_pairs(*raw, lambda i: oracle_one_pair(
                 mk_pair(i, *raw)))
             if text is None:
@@ -1420,13 +1570,14 @@ class DeviceExact(DevicePass1):
 
         def fin(item, raw):
             if item is None:
-                return host_batch(raw)
-            t0 = time.time()
+                return self._on_host(host_batch, raw)
+            t0 = time.perf_counter()
             text = self._pair_tail(plane, raw, item[8], item[9], item[10],
                                    oracle_one_pair, mk_pair)
-            self._log(f"# dxp-tail {time.time() - t0:.3f}s "
+            self._take_remap()
+            self._log(f"# dxp-tail {time.perf_counter() - t0:.3f}s "
                       f"npairs={len(raw[0])}")
-            return host_batch(raw) if text is None else text
+            return self._on_host(host_batch, raw) if text is None else text
 
         npr = [0]
 
@@ -1437,13 +1588,14 @@ class DeviceExact(DevicePass1):
         secs = self._drive(
             batches(), "dxp",
             lambda r: (r[0] + r[3], r[1] + r[4], r[2] + r[5]),
-            lambda item, raw: self._land(item, "dxp", pair=True), fin, write)
+            lambda item, raw: self._land(item, "dxp", pair=True), fin, write,
+            counters=("oracle_pairs",))
         self._log(f"# dxp-total {secs:.3f}s n_restaged={self.n_restaged} "
-                  f"host_batches={self.host_batches} npairs={npr[0]}")
+                  f"host_batches={self.host_batches} npairs={npr[0]} "
+                  f"steps_built={self.steps_built}")
 
-    @staticmethod
-    def _pair_tail(plane, raw, state, state_offs, scores64, oracle_one_pair,
-                   mk_pair) -> Optional[str]:
+    def _pair_tail(self, plane, raw, state, state_offs, scores64,
+                   oracle_one_pair, mk_pair) -> Optional[str]:
         """The C pair block on one batch with the collate step's per-mate
         state, the reference's per-pair protocol around it: the block maps
         the leading pairs it covers, the next pair goes to the oracle, and
@@ -1451,31 +1603,40 @@ class DeviceExact(DevicePass1):
         first pair (the batch goes to the host)."""
         nmA, sqA, qlA, nmB, sqB, qlB = raw
         npr = len(nmA)
+
+        def oracle(lo, hi):
+            self._record()["oracle_pairs"] += hi - lo
+            with self._span("oracle"):
+                return [oracle_one_pair(mk_pair(i, *raw))
+                        for i in range(lo, hi)]
+
         doffA = np.ascontiguousarray(state_offs[:npr])
         doffB = np.ascontiguousarray(state_offs[npr:2 * npr])
         parts = []
         start = 0
         while start < npr:
-            arrA = plane._raw_arrays(nmA[start:], sqA[start:], qlA[start:])
-            arrB = plane._raw_arrays(nmB[start:], sqB[start:], qlB[start:])
-            if arrA is None or arrB is None:
-                return None
-            dev = (state, np.ascontiguousarray(doffA[start:]),
-                   np.ascontiguousarray(doffB[start:]), scores64)
-            res = plane._call_arrays(npr - start, arrA, arrB,
-                                     ascii_codes=True, names_raw=True,
-                                     dev=dev)
+            with self._span("tail"):
+                arrA = plane._raw_arrays(nmA[start:], sqA[start:],
+                                         qlA[start:])
+                arrB = plane._raw_arrays(nmB[start:], sqB[start:],
+                                         qlB[start:])
+                if arrA is None or arrB is None:
+                    return None
+                dev = (state, np.ascontiguousarray(doffA[start:]),
+                       np.ascontiguousarray(doffB[start:]), scores64)
+                res = plane._call_arrays(npr - start, arrA, arrB,
+                                         ascii_codes=True, names_raw=True,
+                                         dev=dev)
             if res is None:
                 if start == 0:
                     return None
-                parts.extend(oracle_one_pair(mk_pair(i, *raw))
-                             for i in range(start, npr))
+                parts.extend(oracle(start, npr))
                 break
             text, ndone = res
             parts.append(text)
             start += ndone
             if start < npr:
-                parts.append(oracle_one_pair(mk_pair(start, *raw)))
+                parts.extend(oracle(start, start + 1))
                 start += 1
         return "".join(parts)
 

@@ -239,23 +239,29 @@ def run_pipeline_raw_fastq(engine, path: str, out, refset,
             resume_log.tick(reads_done, out.tell(), rand._global._x)
     if resume_log is not None:
         resume_log.done()
-    if os.environ.get("SMALT_FL_TIMING"):
-        from ..native import fl_prof_report
-        prof = fl_prof_report()
-        if prof:
-            sc_hits = prof.pop("_shortcut_hits", 0.0)
-            dp_runs = prof.pop("_dp_runs", 0.0)
-            sub = prof.pop("_sub", {})
-            tot = sum(prof.values()) or 1.0
-            split = "  ".join(f"{k} {v:.2f}s ({100 * v / tot:.0f}%)"
-                              for k, v in prof.items())
-            if any(sub.values()):
-                split += "  | sub: " + "  ".join(
-                    f"{k} {v:.2f}s" for k, v in sub.items())
-            print(f"# SMALT_FL_TIMING exact lane ({reads_done} reads): "
-                  f"{split}  [gapless shortcut {sc_hits:.0f} / "
-                  f"DP {dp_runs:.0f}]", file=sys.stderr)
+    _fl_timing_line(f"exact lane ({reads_done} reads)")
     return True
+
+
+def _fl_timing_line(what: str) -> None:
+    """Under SMALT_FL_TIMING, the C lane's stage split since the last
+    report (native fl_prof_report) as one `# SMALT_FL_TIMING` line."""
+    if not os.environ.get("SMALT_FL_TIMING"):
+        return
+    from ..native import fl_prof_report
+    prof = fl_prof_report()
+    if not prof:
+        return
+    sub, counts = prof.pop("_sub"), prof.pop("_counts")
+    tot = sum(prof.values()) or 1.0
+    split = "  ".join(f"{k} {v:.2f}s ({100 * v / tot:.0f}%)"
+                      for k, v in prof.items())
+    if any(sub.values()):
+        split += "  | sub: " + "  ".join(
+            f"{k} {v:.2f}s" for k, v in sub.items())
+    print(f"# SMALT_FL_TIMING {what}: {split}  [gapless shortcut "
+          f"{counts['shortcut-hits']:.0f} / DP {counts['dp-runs']:.0f}]",
+          file=sys.stderr)
 
 
 def _host_batch_renderer(lane):
@@ -499,22 +505,7 @@ def run_pipeline_raw_pairs(engine, reads_path: str, mates_path: str,
         pairs_done += len(nA)
     if next(itB, None) is not None:
         raise ValueError("paired files have different read counts")
-    if os.environ.get("SMALT_FL_TIMING"):
-        from ..native import fl_prof_report
-        prof = fl_prof_report()
-        if prof:
-            sc_hits = prof.pop("_shortcut_hits", 0.0)
-            dp_runs = prof.pop("_dp_runs", 0.0)
-            sub = prof.pop("_sub", {})
-            tot = sum(prof.values()) or 1.0
-            split = "  ".join(f"{k} {v:.2f}s ({100 * v / tot:.0f}%)"
-                              for k, v in prof.items())
-            if any(sub.values()):
-                split += "  | sub: " + "  ".join(
-                    f"{k} {v:.2f}s" for k, v in sub.items())
-            print(f"# SMALT_FL_TIMING exact pair lane ({pairs_done} "
-                  f"pairs): {split}  [gapless shortcut {sc_hits:.0f} / "
-                  f"DP {dp_runs:.0f}]", file=sys.stderr)
+    _fl_timing_line(f"exact pair lane ({pairs_done} pairs)")
     return True
 
 

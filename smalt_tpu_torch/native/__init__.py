@@ -340,6 +340,7 @@ def _load():
         lib = ctypes.CDLL(_SO)
         _declare(lib)
         _declare_fastlane(lib)
+        _declare_counters(lib)
     except (OSError, AttributeError):
         return None
     _lib = lib
@@ -355,42 +356,80 @@ def ptr(a: np.ndarray, ct=None):
     return a.ctypes.data
 
 
+# fl_prof_acc's slots (native/fastlane.c, SMALT_FL_TIMING), in slot order,
+# one quantity each: the stages (seconds, additive), the sub-splits
+# (seconds within the stages, not additive with them) and the counts
 FL_PROF_STAGES = ("seed/collate", "pass1-score", "pass2-align",
-                  "report/SAM")
-# sub-splits WITHIN the stages above (not additive with them):
-# 8/9/10 split stage 0, 11 is the profile-build share of stage 1,
-# 12/13 split stage 2 (DP+traceback vs sort/mapq/filter)
+                  "report/SAM", "pair-probe", "pair-report")
 FL_PROF_SUB = ("hitinfo", "collect", "candstats", "profiles",
-               "pass2-dp", "pass2-post")
+               "pass2-dp", "pass2-post", "remap")
+FL_PROF_COUNTS = ("shortcut-hits", "dp-runs", "fast-retries",
+                  "fast-retry-gap")
+FL_PROF_SLOTS = FL_PROF_STAGES + FL_PROF_SUB + FL_PROF_COUNTS
+# the causes fl_exact_post_block counts a re-staged read under, in the
+# order fl_restage_fetch gives them
+RESTAGE_CAUSES = ("dev", "ck", "stats", "geom", "simd")
+
+
+def _declare_counters(lib):
+    import ctypes
+    lib.fl_prof_set.restype = None
+    lib.fl_prof_set.argtypes = [ctypes.c_int]
+    lib.fl_prof_take.restype = ctypes.c_double
+    lib.fl_prof_take.argtypes = [ctypes.c_int64]
+    lib.fl_restage_fetch.restype = ctypes.c_int64
+    lib.fl_restage_fetch.argtypes = [ctypes.c_void_p, ctypes.c_int]
 
 
 def fl_prof_report(reset: bool = True):
-    """Per-stage seconds accumulated by the C lane since the last
-    reset, as {stage: seconds} — empty when the lane is unavailable or
-    SMALT_FL_TIMING wasn't set (the C side only accumulates under that
-    env var, fastlane.c fl_prof)."""
+    """What the C lane's profiler accumulated since the last reset:
+    {stage: seconds} for FL_PROF_STAGES, with "_sub" {sub-split:
+    seconds} and "_counts" {count: value} beside them; empty when the
+    lane is unavailable or SMALT_FL_TIMING wasn't set (the C side only
+    accumulates under that env var, fastlane.c fl_prof)."""
     import ctypes
     lib = _load()
-    if lib is None or not hasattr(lib, "fl_prof_fetch"):
+    if lib is None:
         return {}
-    buf = (ctypes.c_double * 16)()   # FL_PROF_N doubles (fastlane.c)
-    if lib.fl_prof_fetch(buf, 1 if reset else 0) < 8:
+    buf = (ctypes.c_double * len(FL_PROF_SLOTS))()
+    if lib.fl_prof_fetch(buf, 1 if reset else 0) != len(FL_PROF_SLOTS):
+        raise RuntimeError("fastlane.c's profiler slots differ from "
+                           "FL_PROF_SLOTS")
+    vals = dict(zip(FL_PROF_SLOTS, buf))
+    if not any(vals.values()):
         return {}
-    vals = list(buf)[: len(FL_PROF_STAGES)]
-    if not any(vals):
-        return {}
-    out = dict(zip(FL_PROF_STAGES, vals))
-    # slots 6/7: pass-2 gapless-shortcut fire / full-DP counters
-    out["_shortcut_hits"] = buf[6]
-    out["_dp_runs"] = buf[7]
-    # slots 8..13: sub-splits (seconds) within the stages
-    out["_sub"] = dict(zip(FL_PROF_SUB, list(buf)[8:8 + len(FL_PROF_SUB)]))
-    global fl_prof_lastreport
-    fl_prof_lastreport = dict(out)   # survives the reset (bench.py)
+    out = {k: vals[k] for k in FL_PROF_STAGES}
+    out["_sub"] = {k: vals[k] for k in FL_PROF_SUB}
+    out["_counts"] = {k: vals[k] for k in FL_PROF_COUNTS}
     return out
 
 
-fl_prof_lastreport = {}
+def fl_prof_set(on: bool) -> None:
+    """The C lane's profiler on or off from now on (it reads
+    SMALT_FL_TIMING once, at its first use in the process)."""
+    lib = _load()
+    if lib is not None:
+        lib.fl_prof_set(1 if on else 0)
+
+
+def fl_prof_take(name: str) -> float:
+    """One profiler slot's value since its last take (0 where the lane
+    is unavailable), and the slot set to zero."""
+    lib = _load()
+    return 0.0 if lib is None else \
+        lib.fl_prof_take(FL_PROF_SLOTS.index(name))
+
+
+def fl_restage_fetch(reset: bool = True) -> dict:
+    """{cause: reads} that fl_exact_post_block re-staged since the last
+    reset, under RESTAGE_CAUSES (always counted)."""
+    lib = _load()
+    out = np.zeros(len(RESTAGE_CAUSES), np.int64)
+    if lib is not None and lib.fl_restage_fetch(
+            out.ctypes.data, 1 if reset else 0) != len(RESTAGE_CAUSES):
+        raise RuntimeError("fastlane.c's re-stage causes differ from "
+                           "RESTAGE_CAUSES")
+    return dict(zip(RESTAGE_CAUSES, out.tolist()))
 
 
 class GrowBuf:

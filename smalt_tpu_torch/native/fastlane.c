@@ -32,17 +32,27 @@
 #include <string.h>
 #include <time.h>
 
-/* Env-gated stage profiler (SMALT_FL_TIMING): seconds accumulated per
- * stage across calls, fetched (and optionally reset) from Python via
- * fl_prof_fetch.  Stages: 0 seed/collate, 1 pass-1 candidate scoring,
- * 2 pass-2 align+mapq+filter, 3 report+SAM render, 4/5 reused by the
- * pair block (timing) and the fast tail (retry counters), 6 pass-2
- * gapless-shortcut fires, 7 pass-2 full-DP runs.  8..13 are
- * sub-splits WITHIN stages 0-2 (not additive with them): 8 hit-info
- * scan, 9 hit collection/collation, 10 candidate stats+deficits,
- * 11 striped-profile build, 12 pass-2 DP+traceback only, 13 pass-2
- * sort/mapq/filter tail. */
-#define FL_PROF_N 16
+/* Env-gated stage profiler (SMALT_FL_TIMING): one quantity a slot,
+ * accumulated across calls, fetched (and optionally reset) from Python
+ * via fl_prof_fetch (native/__init__.py names every slot, in this
+ * order).  Stages, seconds, additive: seed/collate, pass-1 candidate
+ * scoring, pass-2 align+mapq+filter, report+SAM render, the pair
+ * block's hit-info probe and its pair report.  Sub-splits, seconds
+ * WITHIN the stages (not additive with them): hit-info scan, hit
+ * collection/collation, candidate stats+deficits, striped-profile
+ * build, pass-2 DP+traceback only, pass-2 sort/mapq/filter tail, and
+ * the host re-mapping of reads the device-exact lane re-staged (taken
+ * batch by batch with fl_prof_take).  Counts: pass-2 gapless-shortcut
+ * fires, pass-2 full-DP runs, the fast tail's full-band retries and
+ * their summed score gap (-1 a retry without a traceback). */
+enum {
+    FLP_SEED, FLP_PASS1, FLP_PASS2, FLP_REPORT, FLP_PAIR_PROBE,
+    FLP_PAIR_REPORT,
+    FLP_HITINFO, FLP_COLLECT, FLP_CANDSTATS, FLP_PROFILES, FLP_P2_DP,
+    FLP_P2_POST, FLP_REMAP,
+    FLP_SHORTCUT, FLP_DP_RUNS, FLP_FAST_RETRY, FLP_FAST_RETRY_GAP,
+    FL_PROF_N
+};
 static int fl_prof_on = -1;
 static double fl_prof_acc[FL_PROF_N];
 
@@ -66,6 +76,38 @@ int64_t fl_prof_fetch(double *out, int reset)
     for (i = 0; i < FL_PROF_N; i++) out[i] = fl_prof_acc[i];
     if (reset) memset(fl_prof_acc, 0, sizeof fl_prof_acc);
     return FL_PROF_N;
+}
+
+/* The profiler on or off from now on, whatever SMALT_FL_TIMING said
+ * when it was first asked (a lane that starts reads the variable). */
+void fl_prof_set(int on)
+{
+    fl_prof_on = on != 0;
+}
+
+/* One slot's value since its last take, and the slot set to zero. */
+double fl_prof_take(int64_t slot)
+{
+    double v;
+    if (slot < 0 || slot >= FL_PROF_N) return 0.0;
+    v = fl_prof_acc[slot];
+    fl_prof_acc[slot] = 0.0;
+    return v;
+}
+
+/* Why fl_exact_post_block re-staged reads, always counted: the
+ * fallback flag it was given, the hit-info checksum, the depth stats,
+ * the geometry and the SIMD cross-check against the device's scores.
+ * Each re-staged read counts under exactly one cause. */
+enum { FL_RS_DEV, FL_RS_CK, FL_RS_STATS, FL_RS_GEOM, FL_RS_SIMD, FL_RS_N };
+static int64_t fl_restage_acc[FL_RS_N];
+
+int64_t fl_restage_fetch(int64_t *out, int reset)
+{
+    int i;
+    for (i = 0; i < FL_RS_N; i++) out[i] = fl_restage_acc[i];
+    if (reset) memset(fl_restage_acc, 0, sizeof fl_restage_acc);
+    return FL_RS_N;
 }
 
 /* from mapcore.c / swdp.c (same shared object) */
@@ -2050,7 +2092,7 @@ static int fl_read_stage1(const FLParams *P, FLScratch *s,
     nF = hout[0]; rankF = hout[1]; nR = hout[2]; rankR = hout[3];
     o->nF = nF;
     o->nR = nR;
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[8] += t1 - tp; tp = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_HITINFO] += t1 - tp; tp = t1; }
 
     /* _covermin (engine.py:562-568) */
     if (P->min_cover_frac < 1.01) {
@@ -2115,7 +2157,7 @@ static int fl_read_stage1(const FLParams *P, FLScratch *s,
         if (n < 0) return FL_ERR_CAP;
         ncand += n;
     }
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[9] += t1 - tp; tp = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_COLLECT] += t1 - tp; tp = t1; }
 
     /* cover deficits (engine.py:483) */
     o->deficit_f = mc_cover_deficit(s->qoffsF, s->sidxF, nF, has_rankF,
@@ -2154,7 +2196,7 @@ static int fl_read_stage1(const FLParams *P, FLScratch *s,
         o->hits_used = nrankF + nrankR;
         o->hits_tot = totF + totR;
     }
-    if (prof) fl_prof_acc[10] += fl_prof_now() - tp;
+    if (prof) fl_prof_acc[FLP_CANDSTATS] += fl_prof_now() - tp;
     return 0;
 }
 
@@ -2350,11 +2392,11 @@ static int fl_read_finish(const FLParams *P, FLScratch *s,
                         s->ares[5] = 0;
                         s->ares[6] = dn;
                         nali = 1;
-                        if (fl_prof()) fl_prof_acc[6] += 1.0;
+                        if (fl_prof()) fl_prof_acc[FLP_SHORTCUT] += 1.0;
                     }
                 }
             }
-            if (nali < 0 && fl_prof()) fl_prof_acc[7] += 1.0;
+            if (nali < 0 && fl_prof()) fl_prof_acc[FLP_DP_RUNS] += 1.0;
             if (nali < 0) {
             ndir_need = (qlen + slen + 2) * (slen + 1);
             if (fl_grow((void **)&s->dirm, &s->dirm_cap, ndir_need, 1) != 0)
@@ -2420,7 +2462,7 @@ static int fl_read_finish(const FLParams *P, FLScratch *s,
             rc = rs_add_from_ali(rs, s->ares, nali, crs, qlen, sqidx, is_rev);
             if (rc != 0) return rc;
         }
-        if (prof) fl_prof_acc[12] += fl_prof_now() - tp;
+        if (prof) fl_prof_acc[FLP_P2_DP] += fl_prof_now() - tp;
     }
 
     {
@@ -2451,7 +2493,7 @@ static int fl_read_finish(const FLParams *P, FLScratch *s,
     if (do_filter)
         rs_filter(rs, qlen, P->filter_minscor, P->filter_belowmax,
                   P->filter_minid);
-    if (prof) fl_prof_acc[13] += fl_prof_now() - tp;
+    if (prof) fl_prof_acc[FLP_P2_POST] += fl_prof_now() - tp;
     }
     return 0;
 }
@@ -2476,7 +2518,7 @@ static int fl_map_pass(const FLParams *P, FLScratch *s,
 
     rc = fl_read_stage1(P, s, codes, qual, qlen, NULL, &st,
                         sec_qs, sec_qe);
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[0] += t1 - t0; t0 = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_SEED] += t1 - t0; t0 = t1; }
     if (rc != 0) return rc;
     if (st.shortseq) return 0;
 
@@ -2489,7 +2531,7 @@ static int fl_map_pass(const FLParams *P, FLScratch *s,
     if (do_profiles) {
         fl_profiles(P, codes, qlen, s->Wf, s->Wr);
         fl_perfect_prep(P, s, codes, qlen);
-        if (prof) { double t1 = fl_prof_now(); fl_prof_acc[11] += t1 - t0; }
+        if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_PROFILES] += t1 - t0; }
     }
 
     /* pass 1 (engine.py:500-501 -> mc_score_cands) */
@@ -2501,11 +2543,11 @@ static int fl_map_pass(const FLParams *P, FLScratch *s,
                              (P->rmapflg & RMAPFLG_BEST) != 0,
                              st.deficit_f, st.deficit_r,
                              s->Hbuf, s->Ebuf, s->score_out, out_max);
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[1] += t1 - t0; t0 = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_PASS1] += t1 - t0; t0 = t1; }
     if (rc != 0) return FL_ERR_ASSERT;
     rc = fl_read_finish(P, s, qual, qlen, out_max[2],
                         out_max[0], out_max[1], search_split, 0, NULL);
-    if (prof) fl_prof_acc[2] += fl_prof_now() - t0;
+    if (prof) fl_prof_acc[FLP_PASS2] += fl_prof_now() - t0;
     return rc;
 }
 
@@ -2779,7 +2821,7 @@ int64_t fl_map_block(
                     if (rc != 0) break;
                 }
             }
-            if (prof) fl_prof_acc[3] += fl_prof_now() - t0;
+            if (prof) fl_prof_acc[FLP_REPORT] += fl_prof_now() - t0;
             if (rc != 0) goto done;
         }
         if (t.overflow) {
@@ -3162,7 +3204,10 @@ int64_t fl_pass2_block(
             /* device-exact fallback: full host re-stage of this read
              * (capacity overflow / checksum / geometry mismatch) —
              * identical to the one-phase lane's per-read body */
+            int prof = fl_prof();
+            double t0 = prof ? fl_prof_now() : 0.0;
             rc = fl_map_pass(&P, &s, codes, qual, qlen, -1, -1, 0, 1);
+            if (prof) fl_prof_acc[FLP_REMAP] += fl_prof_now() - t0;
             if (rc != 0) goto done;
         } else if (!hdr[0]) {            /* not shortseq */
             int64_t n_sort = hdr[1];
@@ -3614,11 +3659,6 @@ int64_t fl_exact_post_block(
     int64_t cap_cand = 0;
     uint32_t *keys = NULL, *idxs = NULL;
     int64_t *rows11 = NULL;
-    /* SMALT_DX_DEBUG: restage-cause breakdown (device fallback flag /
-     * checksum / depth-stats / geometry / is_simd cross-check) */
-    int64_t rs_dev = 0, rs_ck = 0, rs_stats = 0, rs_geom = 0,
-            rs_simd = 0;
-    int dbg = getenv("SMALT_DX_DEBUG") != NULL;
 
     for (i = 0; i < n_reads; i++) {
         int64_t c = counts2[i * 2] + counts2[i * 2 + 1];
@@ -3653,11 +3693,14 @@ int64_t fl_exact_post_block(
             continue;
         }
         /* divergence guards: device fallback flag + hit-info checksum */
-        if (dev_fallback[i]) { restage = 1; rs_dev++; }
+        if (dev_fallback[i]) { restage = 1; fl_restage_acc[FL_RS_DEV]++; }
         else if (dev_cksum[i * 4 + 0] != p[6] ||
                  dev_cksum[i * 4 + 1] != p[7] ||
                  dev_cksum[i * 4 + 2] != p[8] ||
-                 dev_cksum[i * 4 + 3] != p[9]) { restage = 1; rs_ck++; }
+                 dev_cksum[i * 4 + 3] != p[9]) {
+            restage = 1;
+            fl_restage_acc[FL_RS_CK]++;
+        }
 
         if (!restage) {
             /* unpack pool rows to out11 form; maxcov = top-2 distinct */
@@ -3703,7 +3746,7 @@ int64_t fl_exact_post_block(
                                     target_depth, max_depth,
                                     (rmapflg & RMAPFLG_SENSITIVE) != 0,
                                     keys, idxs, &n_mincover);
-            if (n_sort < 0) { restage = 1; rs_stats++; }
+            if (n_sort < 0) { restage = 1; fl_restage_acc[FL_RS_STATS]++; }
             else {
                 if (state_used + FL_HDR_FIELDS +
                     n_sort * FL_GEOM_FIELDS > state_cap) goto cap;
@@ -3724,7 +3767,7 @@ int64_t fl_exact_post_block(
                                             nseq, qlen, &qs, &qe, &rs_,
                                             &re_, &bl, &br) != 0) {
                         restage = 1;
-                        rs_geom++;
+                        fl_restage_acc[FL_RS_GEOM]++;
                         break;
                     }
                     is_simd = (qlen >= 32 && (br - bl) * 48 > qlen &&
@@ -3738,7 +3781,7 @@ int64_t fl_exact_post_block(
                         (is_simd ? scores[pidx] == -1
                                  : scores[pidx] != -1)) {
                         restage = 1;
-                        rs_simd++;
+                        fl_restage_acc[FL_RS_SIMD]++;
                         break;
                     }
                     g[0] = qs; g[1] = qe; g[2] = rs_; g[3] = re_;
@@ -3765,12 +3808,6 @@ int64_t fl_exact_post_block(
     state_offs[n_reads] = state_used;
     free(keys); free(idxs); free(rows11);
     if (n_restage_out) *n_restage_out = n_restage;
-    if (dbg && n_restage)
-        fprintf(stderr, "# dx-post restage split: dev_fb=%lld ck=%lld "
-                "stats=%lld geom=%lld simdx=%lld of %lld\n",
-                (long long)rs_dev, (long long)rs_ck,
-                (long long)rs_stats, (long long)rs_geom,
-                (long long)rs_simd, (long long)n_restage);
     return 0;
 cap:
     free(keys); free(idxs); free(rows11);
@@ -5038,7 +5075,7 @@ static int fl_pair_map_single(const FLParams *Pbase, FLScratch *s,
         rs_blank(s->rs);
     rc = fl_read_stage1(&P, s, codes, qual, qlen, pre_hout, &st,
                         -1, -1);
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[0] += t1 - t0; t0 = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_SEED] += t1 - t0; t0 = t1; }
     if (rc != 0) return rc;
     if (st.shortseq) return 1;
     for (j = 0; j < st.nF; j++)
@@ -5062,12 +5099,12 @@ static int fl_pair_map_single(const FLParams *Pbase, FLScratch *s,
                              (P.rmapflg & RMAPFLG_BEST) != 0,
                              st.deficit_f, st.deficit_r,
                              s->Hbuf, s->Ebuf, s->score_out, out_max);
-    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[1] += t1 - t0; t0 = t1; }
+    if (prof) { double t1 = fl_prof_now(); fl_prof_acc[FLP_PASS1] += t1 - t0; t0 = t1; }
     if (rc != 0) return FL_ERR_ASSERT;
     rc = fl_read_finish(&P, s, qual, qlen, out_max[2],
                         out_max[0], out_max[1],
                         (P.rmapflg & RMAPFLG_SPLIT) != 0, 1, NULL);
-    if (prof) fl_prof_acc[2] += fl_prof_now() - t0;
+    if (prof) fl_prof_acc[FLP_PASS2] += fl_prof_now() - t0;
     if (rc != 0) return rc;
     for (q = 0; q < s->rs->qsegno; q++)
         rs_propagate_prob(s->rs, q);
@@ -5167,7 +5204,7 @@ static int64_t fl_pair_probe(const FLParams *P, FLScratch *s,
         for (j = 0; j < nR; j++)
             if (P->ktuple_maxhit < 1 || s->nhitsR[j] <= P->ktuple_maxhit)
                 n += s->nhitsR[j];
-        if (prof) fl_prof_acc[4] += fl_prof_now() - t0;
+        if (prof) fl_prof_acc[FLP_PAIR_PROBE] += fl_prof_now() - t0;
         return n;
     }
     rc = (int)mc_hitinfo_short2(P->words, P->starts, P->nwords, P->table,
@@ -5189,7 +5226,7 @@ static int64_t fl_pair_probe(const FLParams *P, FLScratch *s,
             n += s->nhitsR[j];
     hout[4] = nF > 1;
     hout[5] = nR > 1;
-    if (prof) fl_prof_acc[4] += fl_prof_now() - t0;
+    if (prof) fl_prof_acc[FLP_PAIR_PROBE] += fl_prof_now() - t0;
     return n;
 }
 
@@ -5491,8 +5528,12 @@ int64_t fl_map_pair_block(
             const uint8_t *qq = nhitA < 0 ? qB : qA;
             int64_t qq_l = nhitA < 0 ? qlB : qlA;
             const int64_t *hh = nhitA < 0 ? houtB : houtA;
+            const int64_t *hd = nhitA < 0 ? hdrB : hdrA;
+            int remap = fl_prof() && hd != NULL && hd[7] == 1;
+            double t0 = remap ? fl_prof_now() : 0.0;
             mrc = fl_pair_map_single(&P, st_, cc, qq, qq_l, NULL, 0, 1,
                                      hh, &nh1);
+            if (remap) fl_prof_acc[FLP_REMAP] += fl_prof_now() - t0;
             if (mrc < 0) { rng = rng_save; *done_io = i; goto finish; }
             /* mrc == 1 (ShortSeq): the Python flow passes with an
              * empty result set (engine.py: `except ShortSeq: pass`) */
@@ -5529,11 +5570,17 @@ int64_t fl_map_pair_block(
             hdr1 = hdrA; hdr2 = hdrB;
             use_dev1 = use_devA; use_dev2 = use_devB;
         }
+        {
+        /* a mate the post block re-staged maps here on the host */
+        int remap = fl_prof() && hdr1 != NULL && hdr1[7] == 1;
+        double t0 = remap ? fl_prof_now() : 0.0;
         mrc = use_dev1
               ? fl_pair_map_single_dev(&P, s1, c1, q1, ql1, hdr1,
                                        dev_scores, dev_n_scores, 1)
               : fl_pair_map_single(&P, s1, c1, q1, ql1, NULL, 0, 1,
                                    h1, &nh1);
+        if (remap) fl_prof_acc[FLP_REMAP] += fl_prof_now() - t0;
+        }
         if (mrc != 0) { rng = rng_save; *done_io = i; goto finish; }
         {
             int64_t mapq1 = 0, swscor1 = 0, swscor2r = 0, niv;
@@ -5560,6 +5607,8 @@ int64_t fl_map_pair_block(
                  * unless no proper pair was found.  Only the fine-
                  * rehash continuation stays with the Python oracle. */
                 int64_t mapq2 = 0, swscor2 = 0;
+                int remap = fl_prof() && hdr2 != NULL && hdr2[7] == 1;
+                double t0 = remap ? fl_prof_now() : 0.0;
                 mrc = use_dev2
                       ? fl_pair_map_single_dev(&P, s2, c2, q2, ql2,
                                                hdr2, dev_scores,
@@ -5568,6 +5617,7 @@ int64_t fl_map_pair_block(
                       : fl_pair_map_single(&P, s2, c2, q2, ql2, NULL,
                                            0, fp.n_proper < 1, h2,
                                            &nh1);
+                if (remap) fl_prof_acc[FLP_REMAP] += fl_prof_now() - t0;
                 if (mrc != 0) {
                     rng = rng_save;
                     *done_io = i;
@@ -5719,7 +5769,7 @@ report:
                          soft_clip, x_mismatch,
                          out_fmt, offsets, ali_out, refcodes);
         }
-        if (prof) fl_prof_acc[5] += fl_prof_now() - t0;
+        if (prof) fl_prof_acc[FLP_PAIR_REPORT] += fl_prof_now() - t0;
         }
         if (rc != 0) goto done;
         if (t.overflow) { rc = FL_ERR_TEXT; goto done; }
@@ -6069,8 +6119,8 @@ int64_t fl_fast_tail_block(
                         int64_t half = diff_cap / 2;
                         int64_t nf;
                         if (fl_prof()) {
-                            fl_prof_acc[4] += 1.0;      /* retry count */
-                            fl_prof_acc[5] += have_tb
+                            fl_prof_acc[FLP_FAST_RETRY] += 1.0;
+                            fl_prof_acc[FLP_FAST_RETRY_GAP] += have_tb
                                 ? (double)(sc1 - best[0]) : -1.0;
                         }
                         nf = mc_fast_align(
