@@ -4,6 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one GPU
     python3 chip_smoke.py --long-fast 720000 2
         # only `map --fast` on 2 reads of 720 kb (below), no phase
+    python3 chip_smoke.py --repeat-tier
+        # only phase 7c (below), then segcand's kernels-line entry
 
 1. Prints the toolchain (card, power limit, CUDA, nvcc); fails without
    a GPU.
@@ -168,6 +170,17 @@
    of 250 bp with indels, and of 250 bp with indels under the phase-8
    matrix (first batch each, outside the CLI): widths by 32-column tile,
    swq held against its plain version on those windows and timed.
+7c. The exact lane's repeat tier: `map --device-exact` on 8,192 reads
+   of 100 bp from a 3 Mb genome of dispersed repeat copies (1,200 of a
+   300 bp unit, 150 of a 1 kb unit, diverged up to 12% / 10%; k 13,
+   step 13): SAM byte-identical to the host C lane, tier rows in each
+   batch and none re-staged for its hits, segcand launched once a step.
+   The first batch's two scans (the tier's, the main step's), as that
+   run gave them, through segcand.cu and the plain scan on the card: rows,
+   counts and flags bit for bit; both timed, beside segcand's bound
+   (ops/bounds.py segcand_work).  Then the tier's step at its ceilings
+   (4,096 rows, 16,384 hits and candidates a lane, a pool of 2,097,152
+   rows, Q = 256) on lanes of 16,384 hits: its peak device memory.
 8. `-S match=200,subst=-2` (a matrix outside int8) on the same genome
    and index: `map --fast` on 4,096 reads, SAM equal to `--device cpu`,
    through the WIDE tracked sw_full; `map --device-exact` with
@@ -261,7 +274,8 @@
    {"ok": true, "device": {...}}.
 
 Kernel launch counts are set to 0 just before each mapping run (4, 5,
-6 and their -n runs, 6b's, 7's three device runs, 8's three, 9's, 10's,
+6 and their -n runs, 6b's, 7's three device runs, 7c's two, 8's three,
+9's, 10's,
 11's, 12's and 13's device runs, 14's mesh runs) and read just after it;
 the comparisons with the plain versions do not count (14(e)'s two host
 processes count their own).  Any failed check exits non-zero
@@ -2066,10 +2080,11 @@ def ptxas_summary(log: str, kernel: str = "") -> str:
 def cli_run(argv, **env):
     """The port's CLI in this process with `env` set (a value of None
     unsets) and stderr caught, the launch counts set to 0 just before and
-    read just after.  Returns (exit code, stderr text, launches, wall
-    seconds)."""
+    read just after (ops/sw.py's and segcand's).  Returns (exit code,
+    stderr text, launches, wall seconds)."""
     from smalt_tpu_torch import cli
     from smalt_tpu_torch.ops import sw
+    from smalt_tpu_torch.parallel import exact_collate as ec
     saved = {k: os.environ.get(k) for k in env}
     err = io.StringIO()
     try:
@@ -2080,11 +2095,12 @@ def cli_run(argv, **env):
                 os.environ[k] = v
         for k in sw.launches:
             sw.launches[k] = 0
+        ec.launches["segcand"] = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        launches = dict(sw.launches)
+        launches = dict(sw.launches, segcand=ec.launches["segcand"])
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2573,6 +2589,230 @@ def run_exact(d: str, genome, card: str):
     return (launches["--device-exact SMALT_DX_P2=1"],
             launches["--device-exact"], launches["--device-exact -f bam"],
             err, (bodies["host C lane"], host_wall))
+
+
+# phase 7c: the exact lane's repeat tier.  A genome of random bases with
+# dispersed copies of two units (Alu- and L1-like: length, copies, most
+# divergence of a copy), indexed k 13, step 13 as the chr20 cells are:
+# reads from a copy pass the main step's 128 hits a lane
+TIER_GENOME_LEN = 3_000_000
+TIER_UNITS = ((300, 1_200, 0.12), (1_000, 150, 0.10))
+N_TIER = 2 * BATCH
+
+
+def repeat_genome(rng, n: int) -> np.ndarray:
+    """n uniform random bases (ASCII) with TIER_UNITS's copies planted at
+    random, each on either strand and diverged by a share drawn up to its
+    unit's."""
+    g = rng.choice(ACGT, n)
+    for ulen, copies, div in TIER_UNITS:
+        unit = rng.integers(0, 4, ulen)
+        for _ in range(copies):
+            cp = substitute(rng, unit, rng.uniform(0, div))
+            if rng.random() < 0.5:
+                cp = 3 - cp[::-1]
+            at = int(rng.integers(0, n - ulen))
+            g[at:at + ulen] = ACGT[cp]
+    return g
+
+
+def scan_equal(cfg, args, what: str, card: str):
+    """segcand_scan (the kernel) against the plain scan (_segcand_scan +
+    _compact_rows) on the card, on one step's lanes as that step gave
+    them: rows, counts, overflow and bad flags bit for bit.  The plain
+    scan runs over the lanes' most hits (its H + 1 steps).  Returns the
+    kernels-line entry: kernel ms (CUDA events), plain ms, bound."""
+    import dataclasses
+    import torch
+    from smalt_tpu_torch.ops import bounds
+    from smalt_tpu_torch.parallel import exact_collate as ec
+    k1s, k2s, ivl, tot, mdsh, minc = args
+    R = k1s.shape[0]
+    m = max(1, int(tot.max()))
+    sync = torch.cuda.synchronize if k1s.is_cuda else (lambda: None)
+    got = ec.segcand_scan(cfg, *args)
+    sync()
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, H=m)
+    valid = torch.arange(m, device=k1s.device)[None, :] < tot[:, None]
+    rev = (torch.arange(R, device=k1s.device) % 2) == 1
+    ef, er, pbad = ec._segcand_scan(
+        pcfg, k1s[:, :m], k2s[:, :m], valid, mdsh, minc, rev,
+        ivl=None if ivl is None else ivl[:, :m])
+    want = ec._compact_rows(pcfg, ef, er) + (pbad,)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    lanes_off = torch.zeros(R, dtype=torch.bool, device=k1s.device)
+    for g, w in zip(got, want):
+        lanes_off |= (g != w).reshape(R, -1).any(dim=1)
+    off = int(lanes_off.sum())
+    if k1s.is_cuda:
+        k_ms = time_ms(lambda: ec.segcand_scan(cfg, *args), 5)
+    else:
+        t0 = time.perf_counter()
+        ec.segcand_scan(cfg, *args)
+        k_ms = 1e3 * (time.perf_counter() - t0)
+    work = bounds.segcand_work(tot, got[1], cfg.C, ivl is not None)
+    cand = int(got[1].sum())
+    print(f"# segcand, {what}: {R} lanes, {work['cells']} hits (most "
+          f"{m} a lane), {cand} candidates, C {cfg.C}; lanes unequal to "
+          f"the plain scan {off}; kernel {k_ms:.4f} ms (CUDA events, 5 "
+          f"calls), plain {plain_ms:.1f} ms; bound {work['bound_ms']:.4f} "
+          f"ms by {work['bound_by']} ({work['bytes']} bytes), bound / "
+          f"kernel = {100 * bounds.share(work['bound_ms'], k_ms):.2f}% | "
+          f"{card}", flush=True)
+    if off:
+        fail(f"segcand, {what}: {off} lanes differ from the plain scan")
+    return off, dict(ms=k_ms, plain_ms=plain_ms, bound_ms=work["bound_ms"],
+                     bound_by=work["bound_by"], lanes=R, hits=work["cells"],
+                     candidates=cand)
+
+
+def check_repeat_tier(d: str, card: str, device: str = "cuda"):
+    """Phase 7c: `map --device-exact` on N_TIER 100 bp reads of
+    repeat_genome (two batches) against the host C lane: SAM byte for
+    byte, the repeat tier taking rows in every batch and none re-staged
+    for its hits (rs_h), segcand launched once a step (the main step's
+    and the tier's, each batch).  Then the first batch's two scans, as
+    that run gave them, through segcand_scan and the plain scan on the
+    card (scan_equal), and the tier's step at its ceilings (the batch's
+    rows, HASH_MAXNHITS hits a lane and candidates, target_depth pool
+    rows a row, Q = 256) on lanes of that many hits: its peak memory.
+    Returns (the run's launches, lanes unequal (0), the kernels-line
+    entry of segcand).  device: the lane's (the CPU runs a small copy of
+    the phase in a test; peak memory is read on CUDA only)."""
+    import torch
+    from smalt_tpu_torch import cli
+    from smalt_tpu_torch.index.table import KmerIndex
+    from smalt_tpu_torch.map.engine import MapEngine, MapParams
+    from smalt_tpu_torch.map.fastlane import DeviceExact
+    from smalt_tpu_torch.parallel import exact_collate as ec
+    from smalt_tpu_torch.seq.refset import RefSet
+    td = os.path.join(d, "tier")
+    os.makedirs(td, exist_ok=True)
+    rng = np.random.default_rng(SEED + 11)
+    genome = repeat_genome(rng, TIER_GENOME_LEN)
+    fa, _, _ = write_inputs(td, genome, np.zeros((0, 1), np.uint8))
+    idx_name = os.path.join(td, "idx")
+    if cli.main(["index", "-k", "13", "-s", "13", idx_name, fa]) != 0:
+        fail("repeat genome: index build")
+    reads = make_reads(rng, genome, N_TIER, READLEN)[0]
+    fq, _ = write_fastq(os.path.join(td, "tier.fq"), reads, b"t")
+    # the first batch's scans (the tier's step goes first), copied as
+    # the steps gave them
+    seen, scan = [], ec.segcand_scan
+
+    def keep(cfg, *args):
+        if len(seen) < 2:
+            seen.append((cfg, tuple(None if a is None else a.clone()
+                                    for a in args)))
+        return scan(cfg, *args)
+
+    runs = {}
+    for label, flags in (("host C lane", []),
+                         ("--device-exact repeat tier",
+                          ["--device-exact", "--device", device])):
+        sam = os.path.join(td, f"tier_{len(runs)}.sam")
+        ec.segcand_scan = keep if flags else scan
+        try:
+            rc, err, launches, wall = cli_run(
+                ["map", "-r", "1", "-o", sam] + flags + [idx_name, fq],
+                SMALT_DP1_TIMING="1", SMALT_DX_P2=None, SMALT_DX_H=None,
+                SMALT_DX_POOL=None, SMALT_DX_BATCH=None)
+        finally:
+            ec.segcand_scan = scan
+        if rc != 0:
+            sys.stderr.write(err)
+            fail(f"map {' '.join(flags)} on the repeat genome exited {rc}")
+        runs[label] = (sam_body(sam), err, launches, wall)
+    (host, _, _, host_wall), (body, err, launches, wall) = runs.values()
+    lines = [{k: int(float(v)) for k, v in re.findall(r"(\w+)=([0-9.]+)", ln)}
+             for ln in err.splitlines() if ln.startswith("# dx-batch ")]
+    n = sum(b["n"] for b in lines)
+    tier = sum(b["tier"] for b in lines)
+    print(f"# map --device-exact on {N_TIER} reads of the repeat genome: "
+          f"{len(body)} records, {wall:.2f} s (host C lane {host_wall:.2f} "
+          f"s); batches {len(lines)}: tier rows {tier} of {n} "
+          f"({100 * tier / max(n, 1):.2f}%), tier re-staged "
+          f"{sum(b['tier_rs'] for b in lines)}, rs_h "
+          f"{sum(b['rs_h'] for b in lines)}, re-staged "
+          f"{sum(b['restaged'] for b in lines)}; launches {launches} | "
+          f"{card}", flush=True)
+    if body != host or len(body) != N_TIER:
+        fail(f"repeat tier: {len(body)} records, equal to the host lane's "
+             f"{body == host}")
+    if len(lines) != N_TIER // BATCH or n != N_TIER or \
+            any(b["tier"] < 1 or b["rs_h"] for b in lines):
+        fail(f"repeat tier: batch lines {lines}")
+    if launches["segcand"] != 2 * len(lines):
+        fail(f"repeat tier: segcand launched {launches['segcand']} times "
+             f"in {len(lines)} batches (one a step)")
+    main_cfg = min((c for c, _ in seen), key=lambda c: c.H)
+    tier_cfg = max((c for c, _ in seen), key=lambda c: c.H)
+    if len(seen) != 2 or main_cfg.H == tier_cfg.H:
+        fail(f"repeat tier: scans seen {[c.H for c, _ in seen]}")
+    off_t, rec = scan_equal(tier_cfg, dict(seen)[tier_cfg],
+                            "the repeat tier's lanes of the first batch",
+                            card)
+    off_m, rec_main = scan_equal(main_cfg, dict(seen)[main_cfg],
+                                 "the main step's lanes of the first batch",
+                                 card)
+    rec["main_step"] = rec_main
+    del seen[:]
+
+    # the tier's step at its ceilings, at the paired cell's read cap
+    eng = MapEngine(RefSet.load(idx_name), KmerIndex.load(idx_name),
+                    MapParams())
+    dev = DeviceExact.make(eng, "sam", True, False, False, False,
+                           batch=BATCH, device=device)
+    dev._qcap = 256
+    dev._collate_fn()
+    Bt, Ht, Pt = dev._tier_ceilings()
+    dev._tier_B, dev._tier_H, dev._tier_C, dev._tier_P = Bt, Ht, Ht, Pt
+    step = dev._tier_fn()
+    cfg = None
+    for key, fn in dev._dx_cache().items():
+        if fn is step:
+            cfg = key[0]
+    R = 2 * Bt
+    cuda = device == "cuda"
+    # each lane's hits in runs of 8 on one shift, 13 query bases apart
+    # (one seed of 104 bases, one candidate), the shifts rising by 8-99
+    g = torch.Generator(device=device).manual_seed(SEED)
+    gaps = torch.randint(8, 100, (R, Ht // 8), device=device,
+                         dtype=torch.int32, generator=g)
+    k1 = torch.cumsum(gaps, dim=1, dtype=torch.int32).repeat_interleave(
+        8, dim=1)
+    k2 = (13 * torch.arange(8, device=device, dtype=torch.int32)).repeat(
+        Ht // 8)[None, :].expand(R, Ht).to(torch.uint8).contiguous()
+    tot = torch.full((R,), Ht, dtype=torch.int32, device=device)
+    codes = torch.randint(0, 4, (Bt, 256), device=device, dtype=torch.int32,
+                          generator=g).to(torch.uint8)
+    qlens = torch.full((Bt,), 250, dtype=torch.int32, device=device)
+    minc = torch.full((Bt,), 20, dtype=torch.int32, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    outs = step(k1, k2, tot, codes, qlens, minc)
+    if cuda:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    rec["ceiling"] = dict(B=cfg.B, H=cfg.H, C=cfg.C, P=cfg.P, Q=cfg.Q,
+                          SPAD=cfg.SPAD, inputs_bytes=base,
+                          peak_bytes=peak, step_s=step_s)
+    print(f"# the repeat tier's step at its ceilings (B {cfg.B}, H {cfg.H}, "
+          f"C {cfg.C}, P {cfg.P}, Q {cfg.Q}, SPAD {cfg.SPAD}) on lanes of "
+          f"{Ht} hits: peak {peak} bytes allocated on the card ({base} "
+          f"before the step, its inputs and the index), {step_s:.2f} s with "
+          f"its first call | {card}", flush=True)
+    rec["ceiling"]["candidates"] = int(outs[1].sum())
+    del outs, k1, k2, gaps, tot, codes, step, dev
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, off_t + off_m, rec
 
 
 def check_lane_bands(d: str, genome, card: str):
@@ -3873,6 +4113,10 @@ def main() -> int:
         print(f"# phase 7b (lane band widths): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         t0 = time.perf_counter()
+        dxt, cerr, k_seg = check_repeat_tier(d, card)
+        print(f"# phase 7c (the repeat tier, segcand): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
         wf, wx, wp = run_wide_matrix(d, genome, card)
         print(f"# phase 8 (-S {WIDE_SPEC}): {time.perf_counter() - t0:.2f} s",
               flush=True)
@@ -3920,6 +4164,7 @@ def main() -> int:
              ("--device-exact", dx0, N_EXACT),
              ("--device-exact SMALT_DX_P2=1", dx, N_EXACT),
              ("--device-exact -f bam", dxb, N_EXACT),
+             ("--device-exact repeat tier", dxt, N_TIER),
              (f"--fast -S {WIDE_SPEC}", wf, BATCH),
              (f"--device-exact -S {WIDE_SPEC} SMALT_DX_P2=1", wx, BATCH),
              (f"--device-pass1 -S {WIDE_SPEC}", wp, BATCH),
@@ -3944,17 +4189,20 @@ def main() -> int:
          ("--device-exact k13 s16 SMALT_DX_P2=1", dxh2, BATCH),
          ("--device-exact k13 s16 pairs", dxhp, BATCH)) + \
         tuple((what, n, reads) for what, (n, reads) in meshed.items())
-    for k in sw.launches:
+    kinds = list(sw.launches) + ["segcand"]
+    for k in kinds:
         print(f"# launches {k}: " + "; ".join(
-            f"{what} {n[k]} ({n[k] * BATCH / reads:.2f} per {BATCH} reads)"
-            for what, n, reads in paths), flush=True)
-    launches = {k: sum(n[k] for _, n, _ in paths) for k in sw.launches}
+            f"{what} {n.get(k, 0)} ({n.get(k, 0) * BATCH / reads:.2f} per "
+            f"{BATCH} reads)" for what, n, reads in paths), flush=True)
+    launches = {k: sum(n.get(k, 0) for _, n, _ in paths) for k in kinds}
     full = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_full.cu",
             "replaces": "smalt_tpu/ops/sw.py:60"}
     band = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/sw_band.cu",
             "replaces": "smalt_tpu/ops/sw.py:269"}
     swq = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/swq.cu",
            "replaces": "smalt_tpu/parallel/exact_pass2.py:179"}
+    seg = {"route": "cuda", "source": "smalt_tpu_torch/ops/csrc/segcand.cu",
+           "replaces": "smalt_tpu/parallel/exact_collate.py:203"}
     # no single PyTorch call computes a Smith-Waterman score (a scan over
     # rows with a prefix max inside): there is no library time to take
     print(json.dumps({"kernels": [
@@ -3985,7 +4233,8 @@ def main() -> int:
             ("sw_band_track_strips", band, terr, k_strips_t),
             ("sw_band_strips", band, terr, k_strips),
             ("sw_band_track_cluster", band, terr, k_clu_t),
-            ("sw_band_cluster", band, terr, k_clu))]}))
+            ("sw_band_cluster", band, terr, k_clu),
+            ("segcand", seg, cerr, k_seg))]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4063,7 +4312,43 @@ def long_fast_main(readlen: int, n: int) -> int:
     return 0
 
 
+def repeat_tier_main() -> int:
+    """`python3 chip_smoke.py --repeat-tier`: phase 7c alone (segcand.cu
+    and sw_full.cu built on the way), then segcand's entry of the kernels
+    line and the last line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    card = card_line()
+    print(f"# {card} | torch {torch.__version__}", flush=True)
+    d = os.path.join(ROOT, "build", "smoke_tier")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        t0 = time.perf_counter()
+        launches, err, k_seg = check_repeat_tier(d, card)
+        print(f"# phase 7c (the repeat tier, segcand): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(json.dumps({"kernels": [dict(
+        name="segcand", route="cuda",
+        source="smalt_tpu_torch/ops/csrc/segcand.cu",
+        replaces="smalt_tpu/parallel/exact_collate.py:203",
+        launches=launches["segcand"], max_abs_err=err, library_ms=None,
+        **k_seg)]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--long-fast":
         sys.exit(long_fast_main(int(sys.argv[2]), int(sys.argv[3])))
+    if len(sys.argv) == 2 and sys.argv[1] == "--repeat-tier":
+        sys.exit(repeat_tier_main())
     sys.exit(main())

@@ -49,6 +49,7 @@ the C post block in place of the host's.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import threading
@@ -973,10 +974,17 @@ class DeviceExact(DevicePass1):
     QMAX = 255          # packed row fields gate (cover/qs/qe <= 255)
     WORKER_SPANS = ("collate", "fetch", "pass2")
     # the reads a batch re-staged, and their causes: the host hit
-    # expansion overflowed (rs_h), the collate step flagged the read
-    # (rs_dev), and the post block's four checks
+    # expansion overflowed the tier too (rs_h), the collate step flagged
+    # the read (rs_dev), and the post block's four checks; then the rows
+    # the repeat tier took (tier) and, of those, the re-staged (tier_rs)
     COUNTERS = ("restaged", "rs_h", "rs_dev", "rs_ck", "rs_stats",
-                "rs_geom", "rs_simd")
+                "rs_geom", "rs_simd", "tier", "tier_rs")
+    # the repeat tier's first candidate cap a lane and pool rows a tier
+    # row: chr20-exact's tier reads gave at most 2,253 (100 bp) and 2,900
+    # (150 bp) candidates a lane, 1,160 and 1,672 rows a read on average
+    # (PERF.md §6); both grow to fit what a batch shows
+    TIER_C = 4096
+    TIER_P_ROW = 1024
 
     def __init__(self, lane: FastLane, batch: int = 0, device="cuda"):
         super().__init__(lane, batch=batch or
@@ -995,6 +1003,12 @@ class DeviceExact(DevicePass1):
         self.p2_hit = 0
         self.steps_built = 0            # collate and pass-2 step builds
         self._tag = "dx"
+        # the repeat tier's sticky shape (rows, hits, candidates a lane,
+        # pool rows; 0 rows: no tier step yet), grown by doubling to fit
+        # what batches show, up to _tier_ceilings
+        self._tier_B = self._tier_H = self._tier_P = 0
+        self._tier_C = self.TIER_C
+        self.n_tier = self.n_tier_rs = 0    # tier rows, re-staged of them
 
     @classmethod
     def make(cls, engine, fmt, soft_clip, x_mismatch, ali_out,
@@ -1064,7 +1078,7 @@ class DeviceExact(DevicePass1):
         # objects there too)
         # (the host-hits step reads only the reference codes; the device
         # hit expansion reads the direct table and the positions too)
-        cache = idx.__dict__.setdefault("_torch_dx_cache", {})
+        cache = self._dx_cache()
         dkey = ("ref_only" if host_hits else "full", str(self.device))
         if dkey not in cache:
             build = (DeviceIndex.build_ref_only if host_hits
@@ -1087,17 +1101,81 @@ class DeviceExact(DevicePass1):
                          NS=eng.refset.nseq if host_hits else 1,
                          SPAD=(128 if self._qcap <= 128
                                else self._qcap + 128))
+        self._collate = self._step_for(cfg)
+        self._cfg = cfg
+        return self._collate
+
+    def _dx_cache(self) -> dict:
+        return self.lane.engine.index.__dict__.setdefault("_torch_dx_cache",
+                                                          {})
+
+    def _step_for(self, cfg: CollateCfg):
+        """The collate step of shape cfg, built once for the index."""
+        eng = self.lane.engine
+        cache = self._dx_cache()
         matrix = np.asarray(eng.matrix, np.int32)
         key = (cfg, matrix.tobytes(), eng.gapopen, eng.gapext,
                str(self.device))
         if key not in cache:
-            cache[key] = build_exact_collate(self._di, eng._seq_ivals,
-                                             matrix, -eng.gapopen,
-                                             -eng.gapext, cfg)
+            cache[key] = build_exact_collate(
+                self._di, eng._seq_ivals, matrix, -eng.gapopen, -eng.gapext,
+                cfg)
             self.steps_built += 1
-        self._collate = cache[key]
-        self._cfg = cfg
-        return self._collate
+        return cache[key]
+
+    # ---------------- the repeat tier ----------------
+
+    def _tier_ceilings(self):
+        """The most the tier's shape grows to: (rows, hits a lane,
+        pool rows).  Rows: the batch; hits: the engine's hit budget of a
+        lane's selected seeds (HASH_MAXNHITS); pool: target_depth
+        candidates a row of the batch.  A lane's candidates never
+        outnumber its hits, so C never passes H."""
+        return (self.batch, eng_mod.HASH_MAXNHITS,
+                self.batch * self.lane.engine.params.target_depth)
+
+    def _tier_fit(self, nrows: int, hits: int) -> bool:
+        """Grow the tier's rows and hits a lane by doubling to fit a
+        batch's nrows rows of at most `hits` hits a lane; True where
+        either grew."""
+        B0, H0 = self._tier_B, self._tier_H
+        Bmax, Hmax, _ = self._tier_ceilings()
+        B = max(B0, 64)
+        while B < nrows:
+            B *= 2
+        H = max(H0, 2 * self._cfg.H)
+        while H < hits:
+            H *= 2
+        self._tier_B = min(B, Bmax)
+        self._tier_H = min(H, Hmax)
+        return (self._tier_B, self._tier_H) != (B0, H0)
+
+    def _tier_fn(self):
+        """The tier's collate step: the main step's with the tier's
+        rows, hits, candidates a lane and pool, and pass-1 windows 128
+        columns past the main step's pad (a repeat read's candidates join
+        segments of more shifts: at the main step's pad chr20's tier
+        re-staged 1 read in 12, PERF.md §6)."""
+        _, _, Pmax = self._tier_ceilings()
+        P = max(self._tier_P, self.TIER_P_ROW * self._tier_B)
+        self._tier_P = min(P, Pmax)
+        cfg = dataclasses.replace(
+            self._cfg, B=self._tier_B, H=self._tier_H,
+            C=min(self._tier_C, self._tier_H), P=self._tier_P,
+            SPAD=self._cfg.SPAD + 128)
+        return self._step_for(cfg)
+
+    def _tier_grow(self, tcounts2) -> None:
+        """After a tier step: grow its candidate cap and pool by doubling
+        to fit the rows it found (the reads past them re-staged)."""
+        _, Hmax, Pmax = self._tier_ceilings()
+        need_c = int(tcounts2.max()) if tcounts2.size else 0
+        while self._tier_C < need_c and self._tier_C < Hmax:
+            self._tier_C *= 2
+        need_p = int(tcounts2.sum())
+        while self._tier_P < need_p and self._tier_P < Pmax:
+            self._tier_P *= 2
+        self._tier_P = min(self._tier_P, Pmax)
 
     def _pass2_step(self):
         if self._p2_fn is None:
@@ -1152,9 +1230,14 @@ class DeviceExact(DevicePass1):
     # ---------------- host halves ----------------
 
     def _pre(self, n, codes, read_offs, quals, has_qual, Qcap,
-             hits_B=0, hits_H=0):
+             hits_B=0, hits_H=0, tier_B=0, tier_H=0):
         """hits_B > 0: also host-expand the packed hit keys into
-        B-padded [B, 2, H] arrays (host_hits mode)."""
+        B-padded [B, 2, H] arrays (host_hits mode); a lane past H gets
+        no keys there but its hit count in tot, and with tier_B > 0 the
+        read's keys go to the next free row of the repeat tier's
+        [tier_B, 2, tier_H] arrays where both lanes fit.  Returns
+        (pre, selmask, k1, k2, tot, ks, tier), tier = (each read's tier
+        row or -1, k1, k2, tot, ks) or None."""
         lane = self.lane
         p = lane.engine.params
         wa, sa, nwords, ta, pa = lane._idx_addrs
@@ -1162,7 +1245,20 @@ class DeviceExact(DevicePass1):
         pre = np.zeros((n, 12), np.int64)
         selmask = np.zeros((n, 2, Qcap), np.uint8)
         nseq = lane.engine.refset.nseq
-        ks = None
+        ks = tier = None
+        targs = (0, 0, None, None, None, None, None)
+        if hits_B and tier_B:
+            # rows past a lane's count are never read: left unset
+            tier = (np.empty(n, np.int32),
+                    np.empty((tier_B, 2, tier_H), np.int32),
+                    np.empty((tier_B, 2, tier_H), np.uint8),
+                    np.zeros((tier_B, 2), np.int32),
+                    np.empty((tier_B, 2, tier_H), np.int32)
+                    if nseq > 1 else None)
+            t_row, t_k1, t_k2, t_tot, t_ks = tier
+            targs = (tier_H, tier_B, t_k1.ctypes.data, t_k2.ctypes.data,
+                     None if t_ks is None else t_ks.ctypes.data,
+                     t_tot.ctypes.data, t_row.ctypes.data)
         if hits_B:
             k1 = np.zeros((hits_B, 2, hits_H), np.int32)
             k2 = np.zeros((hits_B, 2, hits_H), np.uint8)
@@ -1181,10 +1277,10 @@ class DeviceExact(DevicePass1):
             p.min_cover_frac, 1,
             n, codes.ctypes.data, read_offs.ctypes.data,
             quals.ctypes.data, has_qual.ctypes.data,
-            Qcap, pre.ctypes.data, selmask.ctypes.data, *args)
+            Qcap, pre.ctypes.data, selmask.ctypes.data, *args, *targs)
         if rc != 0:
             return None
-        return pre, selmask, k1, k2, tot, ks
+        return pre, selmask, k1, k2, tot, ks, tier
 
     def _post(self, n, read_offs, pre, pool, counts2, scores, cksum,
               fallback, pair=False):
@@ -1298,12 +1394,13 @@ class DeviceExact(DevicePass1):
             host_hits = self._host_hits
             self._collate_fn()                  # cfg (H) first
         with self._span("pre"):
-            st = self._pre(n, codes, read_offs, qarr, has_qual, Qcap,
-                           hits_B=B if host_hits else 0,
-                           hits_H=self._cfg.H if host_hits else 0)
+            st = (self._pre_hits(n, codes, read_offs, qarr, has_qual, Qcap)
+                  if host_hits else
+                  self._pre(n, codes, read_offs, qarr, has_qual, Qcap))
         if st is None:
             return None
-        pre, selmask, k1, k2, tot, ks = st
+        pre, selmask, k1, k2, tot, ks, tier = st
+        t_rows = None
         with self._span("stage"):
             codes_pad = np.zeros((B, Qcap), np.uint8)
             enc = np.frombuffer(codec_encode_bulk(codes), np.uint8)
@@ -1321,11 +1418,20 @@ class DeviceExact(DevicePass1):
                                 for x in (codes_pad, qlens))
             mincov_t = torch.from_numpy(mincov).to(dev)
             if host_hits:
-                # lanes the host expansion could not fit re-stage on the
-                # host
-                host_fb = (tot[:n] < 0).any(axis=1)
-                np.maximum(tot, 0, out=tot)
+                # a read with a lane past H is not the main step's (which
+                # still takes its other lane, as the reference's does): the
+                # repeat tier's where it took the read, else re-staged on
+                # the host
                 R, H = 2 * B, self._cfg.H
+                over = (tot > H).any(axis=1)
+                tot[tot > H] = 0
+                host_fb = over[:n]
+                if tier is not None and (tier[0] >= 0).any():
+                    t_rows = tier[0]
+                    host_fb = host_fb & (t_rows < 0)
+                    tier = self._tier_inputs(tier, codes_pad, qlens, mincov)
+                else:
+                    tier = None
                 dargs = tuple(torch.from_numpy(x).to(dev) for x in (
                     k1.reshape(R, H), k2.reshape(R, H), tot.reshape(R))) + \
                     (codes_t, qlens_t, mincov_t)
@@ -1346,8 +1452,75 @@ class DeviceExact(DevicePass1):
                 dargs = (codes_t, torch.from_numpy(qbad).to(dev),
                          torch.from_numpy(selm).to(dev), qlens_t, mincov_t)
             host = (n, qmax, codes, read_offs, qarr, has_qual, narr,
-                    name_offs, pre, host_fb, codes_t, qlens_t)
+                    name_offs, pre, host_fb, codes_t, qlens_t, t_rows, tier)
             return host, dargs
+
+    def _pre_hits(self, n, codes, read_offs, qarr, has_qual, Qcap):
+        """The pre block with the host hit expansion, the reads past H
+        routed to the repeat tier; run again where the tier's shape grows
+        to fit the batch (a read past the tier's ceiling of hits stays
+        out of it)."""
+        H = self._cfg.H
+        _, Hmax, _ = self._tier_ceilings()
+        while True:
+            st = self._pre(n, codes, read_offs, qarr, has_qual, Qcap,
+                           hits_B=self.batch, hits_H=H,
+                           tier_B=self._tier_B, tier_H=self._tier_H)
+            if st is None:
+                return None
+            top = st[4][:n].max(axis=1)
+            fits = (top > H) & (top <= Hmax)
+            if not fits.any() or \
+                    not self._tier_fit(int(fits.sum()), int(top[fits].max())):
+                return st
+
+    def _tier_inputs(self, tier, codes_pad, qlens, mincov):
+        """The tier step and its arguments on the device: its rows' keys
+        from the pre block, and their reads' codes, lengths and cover
+        floors (the tier's rows hold its reads in read order)."""
+        t_rows, t_k1, t_k2, t_tot, t_ks = tier
+        src = np.nonzero(t_rows >= 0)[0]
+        Bt, Ht = self._tier_B, self._tier_H
+        Rt = 2 * Bt
+        tc = np.zeros((Bt, codes_pad.shape[1]), np.uint8)
+        tq = np.zeros(Bt, np.int32)
+        tm = np.zeros(Bt, np.int32)
+        tc[:len(src)] = codes_pad[src]
+        tq[:len(src)] = qlens[src]
+        tm[:len(src)] = mincov[src]
+        args = (t_k1.reshape(Rt, Ht), t_k2.reshape(Rt, Ht),
+                t_tot.reshape(Rt), tc, tq, tm)
+        if t_ks is not None:
+            args = (t_ks.reshape(Rt, Ht),) + args
+        return self._tier_fn(), tuple(torch.from_numpy(x).to(self.device)
+                                      for x in args)
+
+    @staticmethod
+    def _merge_tier(n, outs, touts, t_rows):
+        """The main step's and the tier step's outputs as one collate
+        step's over the batch's n reads, each read's from the step that
+        took it: (pool, counts2, scores, fallback), the pools per-read
+        contiguous in read order; a flagged read keeps no rows (the post
+        block re-stages it unread)."""
+        pool, counts2, scores, fb = outs
+        tpool, tcounts2, tscores, tfb = touts
+        src = np.nonzero(t_rows >= 0)[0]
+        m = len(src)
+        fb = fb[:n].copy()
+        fb[src] = tfb[:m]
+        c2 = counts2[:n].copy()
+        c2[src] = tcounts2[:m]
+        c2[fb != 0] = 0
+        # each read's first row in the two pools laid end to end
+        cm = counts2.sum(axis=1)
+        first = (np.cumsum(cm) - cm)[:n]
+        ct = tcounts2.sum(axis=1)
+        first[src] = (np.cumsum(ct) - ct)[:m] + len(pool)
+        cnt = c2.sum(axis=1)
+        idx = np.repeat(first - (np.cumsum(cnt) - cnt), cnt) + \
+            np.arange(int(cnt.sum()))
+        return (np.concatenate([pool, tpool])[idx], c2,
+                np.concatenate([scores, tscores])[idx], fb)
 
     def _post_batch(self, host, outs, pair: bool = False):
         """Host post block on the collate outputs (fastlane.py:1257-1297).
@@ -1357,10 +1530,13 @@ class DeviceExact(DevicePass1):
         pair=True: the state of a paired batch (the pair flow's parameters,
         no pass-2 window prep: the C pair block runs pass 2)."""
         (n, qmax, codes, read_offs, qarr, has_qual, narr, name_offs, pre,
-         host_fb, _, _) = host
+         host_fb, _, _, t_rows, _) = host
         if len(outs) == 5:          # the device-hit step: its own checksum
             pool, counts2, scores, cksum, fb = outs
         else:
+            if t_rows is not None:
+                self._tier_grow(outs[5])
+                outs = self._merge_tier(n, outs[:4], outs[4:], t_rows)
             pool, counts2, scores, fb = outs
             cksum = np.ascontiguousarray(pre[:, 6:10].reshape(n, 2, 2),
                                          np.int32)
@@ -1383,6 +1559,13 @@ class DeviceExact(DevicePass1):
         rec["rs_dev"] += causes["dev"] - rs_h
         for k in ("ck", "stats", "geom", "simd"):
             rec[f"rs_{k}"] += causes[k]
+        if t_rows is not None:
+            took = np.nonzero(t_rows >= 0)[0]
+            rs = int((state[state_offs[took] + 7] == 1).sum())
+            rec["tier"] += len(took)
+            rec["tier_rs"] += rs
+            self.n_tier += len(took)
+            self.n_tier_rs += rs
         scores64 = np.ascontiguousarray(scores, np.int64)
         prep = None
         if self._p2_on and not pair:
@@ -1425,7 +1608,18 @@ class DeviceExact(DevicePass1):
 
         def device_leg():
             t1 = time.perf_counter()
+            # the repeat tier's step goes first: its kernels run while the
+            # main step's launches are made, and its outputs are on the
+            # host's side of the main step's fetch
+            tier = None
+            if host[13] is not None:
+                fn, targs = host[13]
+                with self._span("collate"):
+                    tier = fn(*targs)
             outs = self._collate_outputs(dargs)
+            if tier is not None:
+                with self._span("fetch"):
+                    outs = outs + [x.cpu().numpy() for x in tier]
             self._log(f"# {tag}-dev {time.perf_counter() - t1:.3f}s")
             return outs
 

@@ -341,6 +341,7 @@ def _load():
         _declare(lib)
         _declare_fastlane(lib)
         _declare_counters(lib)
+        _declare_tier(lib)
     except (OSError, AttributeError):
         return None
     _lib = lib
@@ -379,6 +380,16 @@ def _declare_counters(lib):
     lib.fl_prof_take.argtypes = [ctypes.c_int64]
     lib.fl_restage_fetch.restype = ctypes.c_int64
     lib.fl_restage_fetch.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+
+def _declare_tier(lib):
+    """The port's pre block takes the repeat tier's arrays after the
+    reference's arguments (fastlane.c fl_exact_pre_block: Ht, Bt, t_k1,
+    t_k2, t_ks, t_tot, t_row)."""
+    import ctypes
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.fl_exact_pre_block.argtypes = \
+        lib.fl_exact_pre_block.argtypes + [i64, i64, vp, vp, vp, vp, vp]
 
 
 def fl_prof_report(reset: bool = True):

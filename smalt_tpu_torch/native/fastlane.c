@@ -3437,6 +3437,55 @@ done:
 
 /* ---------------- device-exact pre/post blocks ---------------- */
 
+/* One (read, strand) lane's selected hits as packed sort keys (the
+ * host hit expansion of fl_exact_pre_block): k1 = p -/+ q/nskip, k2 = q
+ * and, with ks, each hit's sequence index. */
+static void fl_expand_lane(const int64_t *qo, const int64_t *nh,
+                           const int64_t *sl, const uint32_t *sx,
+                           int64_t nsel, int strand, int nskip,
+                           const uint32_t *pos, const int64_t *seq_offsets,
+                           int64_t nseq, int32_t *k1, uint8_t *k2,
+                           int32_t *ks)
+{
+    int64_t tot = 0, r;
+    for (r = 0; r < nsel; r++) {
+        int64_t ix = sx[r], q = qo[ix], c = nh[ix], l;
+        int32_t qd = (int32_t)(q / nskip);
+        const uint32_t *pp = pos + sl[ix];
+        if (strand) {
+            for (l = 0; l < c; l++)
+                k1[tot + l] = (int32_t)pp[l] + qd;
+        } else {
+            for (l = 0; l < c; l++)
+                k1[tot + l] = (int32_t)pp[l] - qd;
+        }
+        memset(k2 + tot, (int)q, (size_t)c);
+        if (ks != NULL && c > 0) {
+            /* hit p is in sequence v iff
+             * offs[v]/nskip <= p < offs[v+1]/nskip (the
+             * serial ranges partition: hi_v == lo_{v+1});
+             * runs ascend, so bsearch the first hit then
+             * advance the boundary pointer */
+            int64_t lo_ = 0, hi_ = nseq - 1, sq;
+            while (lo_ < hi_) {
+                int64_t mid = (lo_ + hi_ + 1) >> 1;
+                if ((uint32_t)(seq_offsets[mid] / nskip) <= pp[0])
+                    lo_ = mid;
+                else
+                    hi_ = mid - 1;
+            }
+            sq = lo_;
+            for (l = 0; l < c; l++) {
+                while (sq + 1 < nseq &&
+                       pp[l] >= (uint32_t)(seq_offsets[sq + 1] / nskip))
+                    sq++;
+                ks[tot + l] = (int32_t)sq;
+            }
+        }
+        tot += c;
+    }
+}
+
 /* Host half of the device-exact front end (parallel/exact_collate.py).
  * Per read: hit-info + NR rank selection (mc_hitinfo_short2), cover
  * deficits, hit-number stats, min_cover, and the rank-selected seed
@@ -3458,8 +3507,9 @@ int64_t fl_exact_pre_block(
     /* optional host-side hit expansion (device gathers from pos[] are
      * the TPU bottleneck — sequential host writes are ~free): packed
      * sort keys per (read, strand) lane, k1 = p -/+ q/nskip (int32),
-     * k2 = q (uint8), valid prefix length in tot_out; tot_out = -1
-     * when a lane exceeds Hcap (read falls back).  NULL = skip.
+     * k2 = q (uint8), valid prefix length in tot_out; a lane past
+     * Hcap writes no key there but its hit count (> Hcap: the read is
+     * not the main step's).  NULL = skip.
      * Requires the seq-by-seq full-cover interval regime (the caller
      * gates on it): the union of in-range slices = the seed's full
      * position run, and each hit's interval id is its sequence.
@@ -3468,10 +3518,17 @@ int64_t fl_exact_pre_block(
      * the device substitutes zeros). */
     const uint32_t *pos, int64_t Hcap,
     int32_t *k1_out, uint8_t *k2_out, int32_t *tot_out,
-    const int64_t *seq_offsets, int64_t nseq, int32_t *ks_out)
+    const int64_t *seq_offsets, int64_t nseq, int32_t *ks_out,
+    /* the repeat tier (optional, with the expansion): where both
+     * lanes of a read past Hcap fit Ht hits and one of the Bt rows is
+     * free, its keys go to the next row of t_k1 / t_k2 / t_ks
+     * ([Bt,2,Ht], as above) with t_tot [Bt,2]; t_row [n] names each
+     * read's row (-1: not in the tier).  t_k1 NULL = no tier. */
+    int64_t Ht, int64_t Bt, int32_t *t_k1, uint8_t *t_k2, int32_t *t_ks,
+    int32_t *t_tot, int32_t *t_row)
 {
     FLScratch s;
-    int64_t i, qmax = 1;
+    int64_t i, qmax = 1, nt = 0;
     int rc = 0;
 
     for (i = 0; i < n_reads; i++) {
@@ -3501,6 +3558,7 @@ int64_t fl_exact_pre_block(
                 s.enc[j] = fl_codtab[codes[j]];
             codes = s.enc;
         }
+        if (t_row != NULL) t_row[i] = -1;
         if (qlen < wordlen) {
             p[0] = 1;
             continue;
@@ -3569,64 +3627,48 @@ int64_t fl_exact_pre_block(
             p[8] = nR;
             p[9] = ck & 0x7FFFFFFF;
         }
-        /* rank-selected seed masks (+ optional hit expansion) */
-        for (strand = 0; strand < 2; strand++) {
-            const int64_t *qo = strand ? s.qoffsR : s.qoffsF;
-            const int64_t *nh = strand ? s.nhitsR : s.nhitsF;
-            const int64_t *sl = strand ? s.slotR : s.slotF;
-            const uint32_t *sx = strand ? s.sidxR : s.sidxF;
-            int64_t n = strand ? nR : nF;
-            int64_t rank = strand ? rankR : rankF;
-            int64_t nsel = rank > 0 ? rank : n, r;
-            uint8_t *m = selmask + (i * 2 + strand) * Qpad;
-            for (r = 0; r < nsel; r++)
-                m[qo[sx[r]]] = 1;
-            if (k1_out != NULL) {
-                int32_t *k1 = k1_out + (i * 2 + strand) * Hcap;
-                uint8_t *k2 = k2_out + (i * 2 + strand) * Hcap;
-                int32_t *ks = ks_out ? ks_out + (i * 2 + strand) * Hcap
-                                     : NULL;
-                int64_t tot = 0;
-                for (r = 0; r < nsel; r++) {
-                    int64_t ix = sx[r], q = qo[ix], c = nh[ix], l;
-                    int32_t qd = (int32_t)(q / nskip);
-                    const uint32_t *pp = pos + sl[ix];
-                    if (tot + c > Hcap) { tot = -1; break; }
-                    if (strand) {
-                        for (l = 0; l < c; l++)
-                            k1[tot + l] = (int32_t)pp[l] + qd;
-                    } else {
-                        for (l = 0; l < c; l++)
-                            k1[tot + l] = (int32_t)pp[l] - qd;
-                    }
-                    memset(k2 + tot, (int)q, (size_t)c);
-                    if (ks != NULL && c > 0) {
-                        /* hit p is in sequence v iff
-                         * offs[v]/nskip <= p < offs[v+1]/nskip (the
-                         * serial ranges partition: hi_v == lo_{v+1});
-                         * runs ascend, so bsearch the first hit then
-                         * advance the boundary pointer */
-                        int64_t lo_ = 0, hi_ = nseq - 1, sq;
-                        while (lo_ < hi_) {
-                            int64_t mid = (lo_ + hi_ + 1) >> 1;
-                            if ((uint32_t)(seq_offsets[mid] / nskip)
-                                    <= pp[0])
-                                lo_ = mid;
-                            else
-                                hi_ = mid - 1;
-                        }
-                        sq = lo_;
-                        for (l = 0; l < c; l++) {
-                            while (sq + 1 < nseq &&
-                                   pp[l] >= (uint32_t)
-                                       (seq_offsets[sq + 1] / nskip))
-                                sq++;
-                            ks[tot + l] = (int32_t)sq;
-                        }
-                    }
-                    tot += c;
+        /* rank-selected seed masks (+ optional hit expansion: each lane
+         * that fits Hcap into the main arrays; a read with a lane past
+         * Hcap also into a row of the repeat tier where one is free and
+         * both lanes fit Ht) */
+        {
+            const int64_t *qo[2] = {s.qoffsF, s.qoffsR};
+            const int64_t *nh[2] = {s.nhitsF, s.nhitsR};
+            const int64_t *sl[2] = {s.slotF, s.slotR};
+            const uint32_t *sx[2] = {s.sidxF, s.sidxR};
+            int64_t nsel[2], tot[2] = {0, 0}, r;
+            nsel[0] = rankF > 0 ? rankF : nF;
+            nsel[1] = rankR > 0 ? rankR : nR;
+            for (strand = 0; strand < 2; strand++) {
+                uint8_t *m = selmask + (i * 2 + strand) * Qpad;
+                for (r = 0; r < nsel[strand]; r++) {
+                    m[qo[strand][sx[strand][r]]] = 1;
+                    tot[strand] += nh[strand][sx[strand][r]];
                 }
-                tot_out[i * 2 + strand] = (int32_t)tot;
+            }
+            for (strand = 0; k1_out != NULL && strand < 2; strand++) {
+                int64_t lane = i * 2 + strand;
+                tot_out[lane] = (int32_t)tot[strand];
+                if (tot[strand] <= Hcap)
+                    fl_expand_lane(qo[strand], nh[strand], sl[strand],
+                                   sx[strand], nsel[strand], strand, nskip,
+                                   pos, seq_offsets, nseq,
+                                   k1_out + lane * Hcap, k2_out + lane * Hcap,
+                                   ks_out ? ks_out + lane * Hcap : NULL);
+            }
+            if (t_k1 != NULL && (tot[0] > Hcap || tot[1] > Hcap) &&
+                tot[0] <= Ht && tot[1] <= Ht && nt < Bt) {
+                t_row[i] = (int32_t)nt;
+                for (strand = 0; strand < 2; strand++) {
+                    int64_t lane = nt * 2 + strand;
+                    fl_expand_lane(qo[strand], nh[strand], sl[strand],
+                                   sx[strand], nsel[strand], strand, nskip,
+                                   pos, seq_offsets, nseq, t_k1 + lane * Ht,
+                                   t_k2 + lane * Ht,
+                                   t_ks ? t_ks + lane * Ht : NULL);
+                    t_tot[lane] = (int32_t)tot[strand];
+                }
+                nt++;
             }
         }
     }

@@ -1,7 +1,8 @@
 """The work of the Smith-Waterman kernels and the least time an H100
 could take for it.
 
-For each kernel (ops/csrc/sw_full.cu, sw_band.cu, swq.cu) a function
+For each kernel (ops/csrc/sw_full.cu, sw_band.cu, swq.cu; segcand.cu
+below) a function
 counts, from the inputs of one call, the DP cells those inputs need and
 the bytes the function must move, and `bound` turns the two into the
 kernel's roofline bound:
@@ -146,3 +147,24 @@ def swq_work(Qp: int, Sp: int, par) -> dict:
     rows = int(np.where(valid, np.minimum(sn, Sp) - sl, 0).sum())
     nbytes = 4 * (nv * Qp + rows + 8 * W + 64) + 12 * W + 2 * W * Sp
     return bound(cells, nbytes)
+
+
+# segcand.cu, the exact lane's seed / segment / candidate scan, is no
+# Smith-Waterman kernel: its "cells" are the hits it walks, and a hit's
+# step is counted at OPS_PER_HIT integer instructions, a floor (its
+# compares and selects; the dependent chain a hit is some 100)
+OPS_PER_HIT = 20
+
+
+def segcand_work(tot, counts, C: int, ivl: bool) -> dict:
+    """segcand_scan on lanes of tot [R] hits: each hit's keys read once
+    (k1, k2 and, with sequence ids, ivl; 4 bytes each), each lane's
+    first C candidate rows of 7 int32 written, its tot, mdsh and
+    mincover read and its count and bad flag written."""
+    t = _np(tot)
+    hits = int(t.sum())
+    rows = int(np.minimum(_np(counts), C).sum())
+    nbytes = hits * (12 if ivl else 8) + 28 * rows + 20 * len(t)
+    out = bound(hits * OPS_PER_HIT // OPS_PER_CELL, nbytes)
+    out["cells"] = hits
+    return out

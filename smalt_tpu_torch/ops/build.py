@@ -8,7 +8,9 @@ loaded with `ctypes`.  Nothing is compiled at import: the first call
 of `load(name)` builds (a few seconds for a plain-C-interface file) and
 later calls reuse the loaded library; builds of different sources may
 run side by side from several threads.  A missing `nvcc` or a failed
-build raises; there is no fallback.
+build raises; there is no fallback.  `load_host(name)` builds the host
+code a `csrc/<name>.cuh` shares with its kernel (csrc/segcand.cuh) with
+the system C++ compiler, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -59,6 +61,36 @@ def _source_bytes(src: str) -> bytes:
         with open(os.path.join(os.path.dirname(src), inc.decode()), "rb") as f:
             data += f.read()
     return data
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host build of `csrc/<name>.cuh`:
+    the header compiled by the system C++ compiler ($CXX, else c++) with
+    <NAME>_HOST defined, which exposes its code for CPU tensors."""
+    ident = f"{name} host"
+    src = os.path.join(CSRC, name + ".cuh")
+    flags = ["-std=c++17", "-O2", "-shared", "-fPIC",
+             f"-D{name.upper()}_HOST", "-x", "c++"]
+    with _locks_guard:
+        lock = _locks.setdefault(ident, threading.Lock())
+    with lock:
+        lib = _libs.get(ident)
+        if lib is not None:
+            return lib
+        key = hashlib.sha256(_source_bytes(src) + " ".join(flags).encode())
+        so = os.path.join(BUILD_DIR, f"{name}_host-{key.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([os.environ.get("CXX", "c++")] + flags +
+                                  ["-o", tmp, src], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"c++ failed on {src}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        lib = _libs[ident] = ctypes.CDLL(so)
+        return lib
 
 
 def load(name: str, src: str = "") -> ctypes.CDLL:

@@ -322,10 +322,22 @@ def sw_score_ref(qcodes, subj, slens, matrix, gapopen_pos: int,
     rows with F by prefix max.  Tensors on any device, all on one.
 
     qcodes [B, Q] codes 0..7, subj [B, S], slens [B], matrix [8, 8].
-    Returns best [B] (>= 0) or, with track, (best, ti, tj)."""
+    Returns best [B] (>= 0) or, with track, (best, ti, tj).  As the
+    kernel does, it spends no step on a row at or past a window's slen:
+    empty windows (best 0 at (0, 0)) are left out and the scan stops at
+    the longest slen."""
     device = qcodes.device
     B, Q = qcodes.shape
-    S = subj.shape[1]
+    live = slens > 0
+    if not bool(live.all()):
+        at = torch.nonzero(live).squeeze(1)
+        got = sw_score_ref(qcodes[at], subj[at], slens[at], matrix,
+                           gapopen_pos, gapext_pos, track=track)
+        got = got if track else (got,)
+        full = tuple(torch.zeros(B, dtype=torch.int32, device=device)
+                     .index_copy_(0, at, x.to(torch.int32)) for x in got)
+        return full if track else full[0]
+    S = min(subj.shape[1], int(slens.max())) if B else 0
     go, ge = int(gapopen_pos), int(gapext_pos)
     i32 = torch.int32
     jidx = torch.arange(Q, dtype=i32, device=device)

@@ -12,16 +12,18 @@ checksum the host verifies), then, for each of the V reference
 intervals, finds each seed's in-interval slice of its positions by binary
 search and expands it into hit keys.  Both steps then sort the keys,
 form seeds, constant-shift segments, regions and candidates in one
-sequential scan (segment.c semantics), compact the candidate rows into
-one pool in per-read (strand, interval, emission) order, compute each
-candidate's pass-1 window (mc_calc_seg_offsets) and score the
-SIMD-eligible windows with the score-only full-matrix kernel (ops/sw.py
-`sw_score_batch`, `track=False`: csrc/sw_full.cu on CUDA).  The host
-then verifies and finishes byte-identically; any read the device cannot
-serve exactly is flagged and re-staged on the host.
+sequential scan (segment.c semantics; `segcand_scan`: csrc/segcand.cu
+on CUDA, one thread a lane), compact the candidate rows into one pool in
+per-read (strand, interval, emission) order, compute each candidate's
+pass-1 window (mc_calc_seg_offsets) and score the SIMD-eligible windows
+with the score-only full-matrix kernel (ops/sw.py `sw_score_batch`,
+`track=False`: csrc/sw_full.cu on CUDA).  The host then verifies and
+finishes byte-identically; any read the device cannot serve exactly is
+flagged and re-staged on the host.
 
-Everything here is plain torch on int32 tensors, held to the JAX step
-value for value.  Where torch would drift from JAX: JAX's multi-key
+Everything else here is plain torch on int32 tensors, held to the JAX
+step value for value; the scan's plain torch version (`_segcand_scan` +
+`_compact_rows`) is the reference the tests hold segcand_scan to.  Where torch would drift from JAX: JAX's multi-key
 `lax.sort` becomes chained stable sorts (least significant key first);
 cumulative sums and reductions name int32, which torch would otherwise
 widen to int64; the int32 shifts and the BIG-pad sums wrap as in JAX;
@@ -47,6 +49,9 @@ MINLEN_QUERY_STRIPED = 32
 BWSCAL_QLEN = 48
 BIG = 0x7FFFFFF0
 MMALI_BIT = -(1 << 31)
+# pass-1 window cells (rows x SPAD) a scoring group: with the gather's
+# int64 indices some 1.2 GB of scratch a group
+SCORE_GROUP_CELLS = 1 << 26
 
 _I32 = torch.int32
 
@@ -198,7 +203,8 @@ def _segcand_scan(cfg: CollateCfg, k1, k2, valid, mdsh, mincover,
     (exact_collate.py:203): seeds (segment.c:455), constant-shift
     segments (:535), regions (:396) and the greedy candidate merge
     (:1140, derriveSEGCAND :929), up to two packed rows a step.  A Python
-    loop of H + 1 steps of lane-parallel torch ops.
+    loop of H + 1 steps of lane-parallel torch ops: the plain version of
+    segcand_scan, which the steps run.
 
     k1, k2, valid [R, H]; mdsh, mincover [R]; strand_is_rev [R] bool;
     ivl [R, H] interval id per sorted hit (None: one interval).
@@ -398,6 +404,58 @@ def _compact_rows(cfg: CollateCfg, ef, er):
     return torch.where(slot_ok[:, :, None], rows, 0), counts, counts > C
 
 
+_segcand_libs: dict = {}
+# launches of csrc/segcand.cu, calls of its host build
+launches = {"segcand": 0, "segcand_host": 0}
+
+
+def segcand_scan(cfg: CollateCfg, k1s, k2s, ivl, tot, mdsh, mincover):
+    """_segcand_scan + _compact_rows as csrc/segcand.cuh's code, one
+    thread a lane: on CUDA one launch of csrc/segcand.cu on the current
+    stream, on the CPU the header's host build.  k1s, k2s (ivl or None)
+    [R, H] int32 sorted as the host-hits step sorts them, tot [R] each
+    lane's hits, mdsh, mincover [R], all contiguous int32 on one device.
+    Returns what the plain version's pair returns, (rows [R, C, 7],
+    counts [R], overflow [R]), and its bad [R]."""
+    import ctypes
+    dev = k1s.device
+    R, H = k1s.shape
+    for t in [k1s, k2s, tot, mdsh, mincover] + ([] if ivl is None
+                                                else [ivl]):
+        if t.device != dev or t.dtype != _I32 or not t.is_contiguous():
+            raise ValueError("segcand: contiguous int32 tensors on one "
+                             "device")
+    cuda = dev.type == "cuda"
+    lib = _segcand_libs.get(cuda)
+    if lib is None:
+        from ..ops import build
+        lib = build.load("segcand") if cuda else build.load_host("segcand")
+        fn = lib.segcand_launch if cuda else lib.segcand_host
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p] * (4 if cuda else 3)
+        lib = _segcand_libs[cuda] = lib
+    rows = torch.zeros((R, cfg.C, 7), dtype=_I32, device=dev)
+    counts = torch.empty(R, dtype=_I32, device=dev)
+    bad = torch.empty(R, dtype=_I32, device=dev)
+    args = (k1s.data_ptr(), k2s.data_ptr(),
+            None if ivl is None else ivl.data_ptr(), tot.data_ptr(),
+            mdsh.data_ptr(), mincover.data_ptr(), R, H, cfg.C, cfg.wordlen,
+            cfg.nskip, cfg.Q, rows.data_ptr(), counts.data_ptr(),
+            bad.data_ptr())
+    if cuda:
+        with torch.cuda.device(dev):
+            rc = lib.segcand_launch(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
+        launches["segcand"] += 1
+    else:
+        rc = lib.segcand_host(*args)
+        launches["segcand_host"] += 1
+    if rc != 0:
+        raise RuntimeError(f"segcand failed (code {rc})")
+    return rows, counts, counts > cfg.C, bad != 0
+
+
 def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
                         cfg: CollateCfg):
     """The collation + pass-1 scoring step on di's device
@@ -423,7 +481,10 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
     then, from the device-hit step only,
       cksum     [B, 2, 2]   the device's hit-info checksum per strand
     and last
-      fallback  [B] bool    device-side per-read fallback flags."""
+      fallback  [B] bool    device-side per-read fallback flags.
+
+    Both steps scan each lane's sorted hits with segcand_scan (one
+    kernel launch on CUDA, the host build of its code on the CPU)."""
     if not cfg.host_hits and di.table is None:
         raise ValueError("device-exact hit expansion needs the "
                          "direct-address table (host_hits does not)")
@@ -456,6 +517,7 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
     ref_alpha = di.ref_alpha
     L = ref_alpha.shape[0]
     SPAD = (cfg.SPAD + 127) // 128 * 128
+    G = max(1, min(P, SCORE_GROUP_CELLS // SPAD))   # pass-1 rows a group
     bsteps = int(np.ceil(np.log2(max(B, 2)))) + 1
     mdsh_cap = k * SEG_DIFFSHIFT // nskip
     strand_is_rev = (torch.arange(R, dtype=_I32, device=dev) % 2) == 1
@@ -571,18 +633,26 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
         # ---- pass-1 scoring of the SIMD-eligible pool rows ----
         do_sc = is_simd & fit
         slen_sc = torch.where(do_sc, slen, 0)
-        gidx = ((ro + rs2)[:, None] + w_iota).clamp(0, L - 1)
-        wins = torch.where(w_iota >= slen_sc[:, None], 7,
-                           ref_alpha[gidx.long()])
         reads32 = codes.to(_I32)
         src = qlens[:, None] - 1 - q_iota
         gq = torch.gather(reads32, 1, src.clamp(0, Q - 1).long())
         rcq = torch.where(src >= 0,
                           torch.where((gq & 4) == 0, gq ^ 3, gq) & 7, 7)
         fwdq = torch.where(q_iota < qlens[:, None], reads32 & 7, 7)
-        qcs = torch.where(rev[:, None], rcq[pool_read], fwdq[pool_read])
-        sc = sw_score_batch(qcs, wins, slen_sc, matrix, go, ge, device=dev,
-                            track=False)
+        sc = torch.empty(P, dtype=_I32, device=dev)
+        # in groups of G rows: a window's [SPAD] subject and [Q] query
+        # are made for a group at a time, so the step's memory does not
+        # grow as P * SPAD (a repeat tier's pool of 2^21 rows)
+        for g0 in range(0, P, G):
+            g1 = min(g0 + G, P)
+            sl = slen_sc[g0:g1]
+            gidx = ((ro + rs2)[g0:g1, None] + w_iota).clamp(0, L - 1)
+            wins = torch.where(w_iota >= sl[:, None], 7,
+                               ref_alpha[gidx.long()])
+            pr = pool_read[g0:g1]
+            qcs = torch.where(rev[g0:g1, None], rcq[pr], fwdq[pr])
+            sc[g0:g1] = sw_score_batch(qcs, wins, sl, matrix, go, ge,
+                                       device=dev, track=False)
         scores = torch.where(do_sc, sc, -1)
         return pool, counts2, scores, fallback
 
@@ -605,9 +675,8 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
         else:
             ivl, k1s, k2s = lexsort_rows([torch.where(valid, ks, BIG), k1v,
                                           k2v])
-        ef, er, badscan = _segcand_scan(cfg, k1s, k2s, valid, mdsh, mincovR,
-                                        strand_is_rev, ivl=ivl)
-        rows, counts, overC = _compact_rows(cfg, ef, er)
+        rows, counts, overC, badscan = segcand_scan(
+            cfg, k1s, k2s, ivl, tot, mdsh, mincovR)
         fallback = (badscan | overC).reshape(B, 2).any(dim=1)
         return pool_geom_score([rows.reshape(B, 2, C, 7)],
                                [counts.reshape(B, 2)], fallback, codes,
@@ -656,10 +725,8 @@ def build_exact_collate(di, ivals_np, matrix_np, go: int, ge: int,
             nh = torch.where(selR, b - a, 0)
             k1, k2, _, total = _expand_hits(cfg, pos, a, nh, strand_is_rev)
             k1s, k2s = lexsort_rows([k1, k2])
-            validS = h_iota < total[:, None]
-            ef, er, badscan = _segcand_scan(cfg, k1s, k2s, validS, mdsh,
-                                            mincovR, strand_is_rev)
-            rows, counts, overC = _compact_rows(cfg, ef, er)
+            rows, counts, overC, badscan = segcand_scan(
+                cfg, k1s, k2s, None, total.contiguous(), mdsh, mincovR)
             lane_bad = (total > H) | badscan | overC
             fallback = fallback | lane_bad.reshape(B, 2).any(dim=1)
             rows_v.append(rows.reshape(B, 2, C, 7))

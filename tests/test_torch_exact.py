@@ -352,7 +352,11 @@ def test_device_hit_collate_matches_jax(tmp_path, monkeypatch, seed, k,
                                      ("contigs", "1")])
 def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
     """The port's lane on the CPU == the host C lane == the JAX lane,
-    byte for byte, with the JAX lane's counters."""
+    byte for byte, with the JAX lane's counters but for the reads past H
+    that the port's repeat tier kept on the device (the JAX lane re-stages
+    them): the port re-stages exactly those fewer, and its pass-2
+    counters exceed the JAX lane's by exactly what those reads alone give
+    the port."""
     if get_lib() is None:
         pytest.skip("native lib required")
     if p2 is None:
@@ -360,6 +364,33 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
     else:
         monkeypatch.setenv("SMALT_DX_P2", p2)
     refset, idx, fq = _corpus(tmp_path, kind)
+    post = DeviceExact._post_batch
+
+    def port(path):
+        """The port's lane on the reads in path: (the lane, its SAM, the
+        places in path of the reads its repeat tier kept)."""
+        kept, seen = [], [0]
+
+        def spy(self, host, outs, pair=False):
+            got = post(self, host, outs, pair)
+            t_rows = host[12]
+            if got is not None and t_rows is not None:
+                state, offs = got[0][8], got[0][9]
+                took = np.nonzero(t_rows >= 0)[0]
+                kept.extend(seen[0] + took[state[offs[took] + 7] != 1])
+            seen[0] += host[0]
+            return got
+
+        peng, prs = _port_engine(refset, idx)
+        buf = io.StringIO()
+        with monkeypatch.context() as mp:
+            mp.setattr(DeviceExact, "_post_batch", spy)
+            dev = run_device_exact_fastq(peng, path, buf, prs, batch=64,
+                                         device="cpu")
+        assert dev.host_batches == 0
+        assert len(kept) == dev.n_tier - dev.n_tier_rs
+        return dev, buf.getvalue(), kept
+
     outs, counters = [], []
     for which in ("host", "jax", "port"):
         rand.ranseed(1)
@@ -375,17 +406,31 @@ def test_end_to_end_byte_identical(tmp_path, monkeypatch, kind, p2):
             dev.run_raw_fastq(fq, buf, lambda a, b, c:
                               lane.render_raw_block(a, b, c))
         else:
-            peng, prs = _port_engine(refset, idx)
-            dev = run_device_exact_fastq(peng, fq, buf, prs, batch=64,
-                                         device="cpu")
-            assert dev.host_batches == 0
+            dev, text, kept = port(fq)
+            buf.write(text)
         if which != "host":
             counters.append((dev.n_restaged, dev.p2_used, dev.p2_fb,
                              dev.p2_hit))
         outs.append(buf.getvalue())
     assert len(outs[0].splitlines()) == 204
     assert outs[2] == outs[0] and outs[1] == outs[0]
-    assert counters[1] == counters[0], counters
+    extra = (0, 0, 0)
+    if kept:
+        # the kept reads alone through the port: the tier takes and keeps
+        # every one again, and their pass-2 counts are the difference
+        lines = open(fq).read().splitlines(keepends=True)
+        sub = tmp_path / "kept.fq"
+        sub.write_text("".join("".join(lines[4 * i:4 * i + 4])
+                               for i in sorted(kept)))
+        rand.ranseed(1)
+        trand.ranseed(1)
+        alone, _, again = port(str(sub))
+        assert alone.n_restaged == 0 and len(again) == len(kept)
+        extra = (alone.p2_used, alone.p2_fb, alone.p2_hit)
+    jx, pt = counters
+    assert pt[0] + len(kept) == jx[0], (counters, len(kept))
+    assert pt[1:] == tuple(j + e for j, e in zip(jx[1:], extra)), \
+        (counters, extra)
     n_restaged, p2_used, _, p2_hit = counters[1]
     assert n_restaged > 0
     assert (p2_used >= 50 and p2_hit >= 5) if p2 else p2_used == 0

@@ -42,11 +42,12 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _lanes(refset, idx, fq1, fq2, batch=BATCH, jax=False):
+def _lanes(refset, idx, fq1, fq2, batch=BATCH, jax=False, tier_hits=0):
     """{lane: SAM text} for the port's host C pair lane, the port's
-    device-exact lane on the CPU and (jax=True) smalt_tpu's paired
-    device-exact lane, each from drand48 seed 1; and {lane: the
-    device-exact lane object}."""
+    device-exact lane on the CPU (tier_hits > 0: its repeat tier's
+    ceiling of hits a lane, in place of the engine's) and (jax=True)
+    smalt_tpu's paired device-exact lane, each from drand48 seed 1; and
+    {lane: the device-exact lane object}."""
     outs, devs = {}, {}
     trand.ranseed(1)
     peng, prs = _port_engine(refset, idx)
@@ -56,8 +57,13 @@ def _lanes(refset, idx, fq1, fq2, batch=BATCH, jax=False):
     trand.ranseed(1)
     peng, prs = _port_engine(refset, idx)
     buf = io.StringIO()
-    devs["port"] = run_device_exact_pairs(peng, fq1, fq2, buf, prs,
-                                          batch=batch, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        if tier_hits:
+            ceil = DeviceExact._tier_ceilings
+            mp.setattr(DeviceExact, "_tier_ceilings", lambda self: (
+                ceil(self)[0], tier_hits, ceil(self)[2]))
+        devs["port"] = run_device_exact_pairs(peng, fq1, fq2, buf, prs,
+                                              batch=batch, device="cpu")
     outs["port"] = buf.getvalue()
     if jax:
         made = []
@@ -86,9 +92,13 @@ def world41(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world42(tmp_path_factory):
+    """Six contigs at k 13.  The repeat tier would take every mate past
+    H: its ceiling is cut to 2,048 hits a lane so that the mates past it
+    (78 of 141) re-stage, and the C pair block maps them on the host."""
     d = tmp_path_factory.mktemp("pe42")
     refset, idx, fq1, fq2 = _pe_world(d, seed=42, nctg=6, k=13)
-    return (d, refset, idx, fq1, fq2) + _lanes(refset, idx, fq1, fq2)
+    return (d, refset, idx, fq1, fq2) + _lanes(refset, idx, fq1, fq2,
+                                               tier_hits=2048)
 
 
 @pytest.fixture(scope="module")
@@ -118,21 +128,26 @@ def test_pairs_byte_identical_to_host_pair_lane(request, world):
     """Seed 41 (two contigs, k 11) and seed 42 (six contigs, k 13): the
     port's lane == the host C pair lane, no batch rendered on the host,
     and the state served most mates (the lane did not re-stage them
-    all)."""
+    all), re-staged mates among them and the repeat tier serving the
+    mates past H."""
     *_, outs, devs = request.getfixturevalue(world)
     assert len(outs["host"].splitlines()) == 600
     assert outs["port"] == outs["host"]
     dev = devs["port"]
     assert dev.host_batches == 0
     assert 0 < dev.n_restaged <= 300, dev.n_restaged
+    assert dev.n_tier > dev.n_tier_rs, (dev.n_tier, dev.n_tier_rs)
 
 
 def test_pairs_match_jax_lane(world41):
     """Seed 41: the port's lane == smalt_tpu's run_pipeline_raw_pairs(
-    device_exact=True), SAM byte for byte and the same re-stage count."""
+    device_exact=True), SAM byte for byte and the same re-stage count but
+    for the mates the port's repeat tier kept on the device."""
     *_, outs, devs = world41
     assert outs["port"] == outs["jax"] == outs["host"]
-    assert devs["port"].n_restaged == devs["jax"].n_restaged
+    port = devs["port"]
+    assert port.n_restaged + port.n_tier - port.n_tier_rs == \
+        devs["jax"].n_restaged
 
 
 def _with_long_mate(src, dst, at, mate):

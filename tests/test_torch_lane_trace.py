@@ -117,12 +117,14 @@ def _total(text, mode):
 
 def test_one_batch_line_a_batch_with_every_field(runs):
     """One `# dx(p)-batch` line a batch, each line one write with every
-    span, the C blocks' re-mapping seconds and every counter, all >= 0;
+    span, the C blocks' re-mapping seconds and every counter (the repeat
+    tier's among them), all >= 0;
     the rows sum to the reads (mates) mapped."""
     mode, got, _ = runs
     lines = _batches(got["on"][1], mode)
     assert len(lines) == BATCHES[mode]
-    want = {"n", "period", *MAIN, *WORKER, "remap", "restaged", *CAUSES}
+    want = {"n", "period", *MAIN, *WORKER, "remap", "restaged", *CAUSES,
+            "tier", "tier_rs"}
     if mode == "pe":
         want.add("oracle_pairs")
     for b in lines:

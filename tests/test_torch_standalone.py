@@ -170,7 +170,9 @@ CHANGED = {
         "the profiler's slots hold one quantity each, under names, and "
         "time the host re-mapping of re-staged reads; the post block "
         "counts each re-stage's cause where the lane fetches it, in "
-        "place of a debug print",
+        "place of a debug print; the pre block gives a read with a lane "
+        "past H its lanes' hit counts, and its keys to the repeat "
+        "tier's arrays where they fit",
         ("/* setupInterValFromResultSet", "int64_t fl_map_pair_block(")),
     "tools/__init__.py": (
         "the usage line names this package", ("tools: simread", "\"\"\"")),
