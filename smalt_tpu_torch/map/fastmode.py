@@ -41,6 +41,7 @@ stay global, and each host writes its batches through a ShardWriter
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import multiprocessing as mp
@@ -1215,6 +1216,57 @@ def tail_worker_facts():
             torch.cuda.is_initialized(), alien)
 
 
+def _tail_render_chunk(args):
+    """_tail_render on a tail worker: (the text, the worker's seconds
+    rendering it), so that a batch line can say how long its chunks
+    took on the workers."""
+    t = time.perf_counter()
+    text = _tail_render(args)
+    return text, time.perf_counter() - t
+
+
+def _tail_worker_loop(conn, initargs: tuple) -> None:
+    """A tail worker: _tail_worker_init(*initargs), then (fn, args)
+    requests from `conn`, answered in order with (fn(*args), None), or
+    (None, the exception).  A thread of its own takes the requests off
+    the pipe as they come, so the caller's sends never wait on a
+    render; a closed pipe or None ends the worker."""
+    import queue
+    import threading
+    inbox = queue.SimpleQueue()
+
+    def pull():
+        while True:
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                msg = None
+            inbox.put(msg)
+            if msg is None:
+                return
+    threading.Thread(target=pull, daemon=True).start()
+    failed = None
+    try:
+        _tail_worker_init(*initargs)
+    except Exception as e:      # told to the caller at its first request
+        failed = e
+    while True:
+        msg = inbox.get()
+        if msg is None:
+            return
+        fn, args = msg
+        try:
+            if failed is not None:
+                raise failed
+            reply = (fn(*args), None)
+        except Exception as e:
+            reply = (None, e)
+        try:
+            conn.send(reply)
+        except (EOFError, OSError):
+            return
+
+
 def _compact(item):
     """A RawBatch over its own records' bytes (a view: pickling sends
     only those), so that a batch crosses to a worker without the rest of
@@ -1256,75 +1308,200 @@ def _chunk(args, a: int, b: int):
 
 class TailPool:
     """n worker processes rendering batches with _tail_render, each batch
-    in chunks of at least CHUNK_MIN reads (pairs) spread over the
-    workers, the texts taken back in input order.  initargs are
+    in chunks of at least CHUNK_MIN reads (pairs) dealt to the workers in
+    turn, the texts taken back in input order.  initargs are
     _tail_worker_init's.  The workers start when the pool is made (their
     start overlaps the caller's set-up); at most 2n chunks wait in the
     pool, so the device loop, which runs on the caller's thread, stays a
-    bounded distance ahead of the tails.  A worker that fails or dies
-    fails the run (concurrent.futures' BrokenProcessPool), it does not
-    hang it.  ready_s (pool made to first text back) and wait_s (the
-    caller's time blocked on texts) say where a run's time went."""
+    bounded distance ahead of the tails.
+
+    The caller's thread sends each chunk down its worker's pipe and
+    takes each text off it itself: the pool starts no thread in the
+    caller's process.  A helper thread there (concurrent.futures' pool
+    runs two, to move every chunk and text) takes the GIL from the
+    device loop between the ~500 torch calls of each step: on an H100
+    host the step's enqueue then took 1.7 to 2 times its time without
+    the pool, by a share that differed from run to run.  A worker that
+    fails or dies fails the run (its exception, or a RuntimeError), it
+    does not hang it.  ready_s (pool made to first text back) and wait_s
+    (the caller's time blocked on texts) say where a run's time went;
+    wrender is the workers' seconds on the chunk taken last."""
 
     CHUNK_MIN = 128
 
     def __init__(self, n: int, initargs: tuple):
-        from concurrent.futures import ProcessPoolExecutor
         self.n = n
         self.ctx = mp.get_context(TAIL_START_METHOD)
-        self.pool = ProcessPoolExecutor(n, mp_context=self.ctx,
-                                        initializer=_tail_worker_init,
-                                        initargs=initargs)
+        self.conns, self.procs = [], []
+        for _ in range(n):
+            mine, theirs = self.ctx.Pipe()
+            p = self.ctx.Process(target=_tail_worker_loop,
+                                 args=(theirs, initargs), daemon=True)
+            p.start()
+            theirs.close()       # so that a dead worker's pipe ends
+            self.conns.append(mine)
+            self.procs.append(p)
         self.t0 = time.perf_counter()
-        self.ready_s = self.wait_s = 0.0
+        self.ready_s = self.wait_s = self.wrender = 0.0
         self.chunks = 0
-        for _ in range(n):             # start every worker now
-            self.pool.submit(os.getpid)
+        self.turn = 0            # the worker the next chunk goes to
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        self.pool.shutdown(wait=True, cancel_futures=exc[0] is not None)
+        for c in self.conns:
+            if exc[0] is None:
+                try:
+                    c.send(None)
+                except OSError:
+                    pass
+            c.close()
+        for p in self.procs:
+            if exc[0] is not None:
+                p.terminate()
+            p.join()
+
+    def _send(self, w: int, fn, args) -> None:
+        try:
+            self.conns[w].send((fn, args))
+        except OSError:
+            self._died(w)
+
+    def _recv(self, w: int):
+        try:
+            out, err = self.conns[w].recv()
+        except (EOFError, OSError):
+            self._died(w)
+        if err is not None:
+            raise err
+        return out
+
+    def _died(self, w: int):
+        p = self.procs[w]
+        p.join(1)
+        raise RuntimeError(f"tail worker {p.pid} died (exit code "
+                           f"{p.exitcode})")
 
     def facts(self):
-        """tail_worker_facts of the workers that take the next n tasks."""
-        return [f.result() for f in [self.pool.submit(tail_worker_facts)
-                                     for _ in range(self.n)]]
+        """tail_worker_facts of each worker."""
+        for w in range(self.n):
+            self._send(w, tail_worker_facts, ())
+        return [self._recv(w) for w in range(self.n)]
 
-    def _take(self, fut) -> str:
+    def _take(self, w: int) -> str:
+        """The text of worker w's oldest chunk."""
         t = time.perf_counter()
-        text = fut.result()
+        text, self.wrender = self._recv(w)
         self.wait_s += time.perf_counter() - t
         if not self.ready_s:
             self.ready_s = time.perf_counter() - self.t0
         return text
 
-    def render(self, batches, write) -> None:
+    def render(self, batches, write, spans: "FastSpans") -> None:
         """write(key, _tail_render(args)) for every (key, args) of
         `batches`, in order, the rendering on the workers: one write a
-        batch, its chunks' texts joined."""
-        pending = deque()    # (key on a batch's last chunk else None, future)
+        batch, its chunks' texts joined; each batch's sends, waits,
+        chunks and the workers' seconds go to its record in `spans`."""
+        pending = deque()    # (key, whether the batch's last chunk, worker)
         done = []            # the texts of the batch being written
         for key, args in batches:
+            rec = spans.rec(key)
             n = len(args[1][0]) // 2 if args[0] else _nreads(args[1])
             step = max(self.CHUNK_MIN, -(-n // self.n))
             for a in range(0, n, step):
-                pending.append((key if a + step >= n else None,
-                                self.pool.submit(_tail_render, _chunk(
-                                    args, a, min(n, a + step)))))
+                w, self.turn = self.turn, (self.turn + 1) % self.n
+                with spans.span(rec, "submit"):
+                    self._send(w, _tail_render_chunk,
+                               (_chunk(args, a, min(n, a + step)),))
+                pending.append((key, a + step >= n, w))
+                spans.count(rec, "chunks", 1)
                 self.chunks += 1
                 if len(pending) >= 2 * self.n:
-                    self._land(pending.popleft(), done, write)
+                    self._land(pending.popleft(), done, write, spans)
         while pending:
-            self._land(pending.popleft(), done, write)
+            self._land(pending.popleft(), done, write, spans)
 
-    def _land(self, item, done: list, write) -> None:
-        key, fut = item
-        done.append(self._take(fut))
-        if key is not None:
+    def _land(self, item, done: list, write, spans) -> None:
+        key, last, w = item
+        rec = spans.rec(key)
+        with spans.span(rec, "pool_wait"):
+            done.append(self._take(w))
+        spans.count(rec, "wrender", self.wrender)
+        if last:
             write(key, "".join(done))
             done.clear()
+
+
+class FastSpans:
+    """The per-batch account of run_fast_pipeline's loop (SMALT_TIMING):
+    each batch a record of its spans (seconds on perf_counter, each put
+    to the batch it works on) and counters, printed as one `# fx-batch`
+    line when the batch is written: `n` (reads; mates for pairs), `rows`
+    (the padded rows), `period` (seconds since the previous write), the
+    spans, the counters.  A span is the exact lane's helper
+    (fastlane._Span: a record_function `fx.<span>` around it while a
+    torch profiler records).  Off, it keeps no record, times nothing,
+    makes no torch call and prints nothing."""
+
+    # the main thread's spans, in the line's order; `main` is all of
+    # them but `write`.  With a tail pool the tail is `submit` and
+    # `pool_wait`, and the counters `chunks` and `wrender` (the workers'
+    # seconds on the batch's chunks); without one, `render`.
+    STEP = ("read", "encode", "enqueue", "sync", "split")
+
+    def __init__(self, on: bool, pool: bool = False):
+        self.on = on
+        tail = ("submit", "pool_wait") if pool else ("render",)
+        self.blank = dict.fromkeys(self.STEP + tail + ("write",), 0.0)
+        if pool:
+            self.blank.update(chunks=0, wrender=0.0)
+        self.recs: dict = {}
+        if on:
+            from .fastlane import _Span
+            self.span_of = _Span
+        self.t_write = time.perf_counter()
+
+    def fresh(self) -> Optional[dict]:
+        """A record for the batch about to be read (None when off)."""
+        return dict(self.blank) if self.on else None
+
+    def bind(self, key, rec: Optional[dict], n: int, rows: int) -> None:
+        """rec, once read and encoded, is batch `key`'s."""
+        if rec is not None:
+            rec.update(n=n, rows=rows)
+            self.recs[key] = rec
+
+    def rec(self, key) -> Optional[dict]:
+        return self.recs.get(key)
+
+    def span(self, rec: Optional[dict], name: str):
+        """`with spans.span(rec, name):` adds the block's seconds to
+        rec[name]."""
+        if rec is None:
+            return _NO_SPAN
+        return self.span_of(rec, name, "fx")
+
+    def count(self, rec: Optional[dict], name: str, v) -> None:
+        if rec is not None:
+            rec[name] += v
+
+    def written(self, key) -> None:
+        """Batch `key` is written: its line."""
+        rec = self.recs.pop(key, None)
+        if rec is None:
+            return
+        now = time.perf_counter()
+        period, self.t_write = now - self.t_write, now
+        n, rows = rec.pop("n"), rec.pop("rows")
+        fields = " ".join(f"{k}={v:.6f}" if isinstance(v, float) else
+                          f"{k}={v}" for k, v in rec.items())
+        sys.stderr.write(f"# fx-batch n={n} rows={rows} "
+                         f"period={period:.6f} {fields}\n")
+        sys.stderr.flush()
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 # ------------------------------------------------------------------
@@ -1560,8 +1737,12 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
 
     def force(work):
         bno, item, pend, wl, wp, Q, base = work
-        arr = pend.result()
-        outs = {k: arr[i, : _nreads(item)] for i, k in enumerate(OUT_KEYS)}
+        rec = spans.rec(bno)
+        with spans.span(rec, "sync"):
+            arr = pend.result()
+        with spans.span(rec, "split"):
+            outs = {k: arr[i, : _nreads(item)]
+                    for i, k in enumerate(OUT_KEYS)}
         return bno, (paired, item, outs, wl, wp, Q, base)
 
     def batches():
@@ -1570,13 +1751,20 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
         pending = deque()
         base = 0
         want = batch * (2 if paired else 1)   # PE: both mates
-        for bno, item in enumerate(raw_batches()):
-            if n_hosts > 1 and bno % n_hosts != host_id:
-                base += _nreads(item)   # another host's stripe
-                continue
-            if base + _nreads(item) <= skip_reads:
-                base += _nreads(item)   # checkpointed: already written
-                continue
+        items = enumerate(raw_batches())
+        while True:
+            rec = spans.fresh()     # the time to read a skipped batch too
+            with spans.span(rec, "read"):
+                bno, item = next(items, (None, None))
+            while item is not None and (
+                    (n_hosts > 1 and bno % n_hosts != host_id) or
+                    base + _nreads(item) <= skip_reads):
+                # another host's stripe, or checkpointed: already written
+                base += _nreads(item)
+                with spans.span(rec, "read"):
+                    bno, item = next(items, (None, None))
+            if item is None:
+                break
             if isinstance(item, RawBatch):
                 qmax = int(item.seq_len.max()) if item.n else 0
             else:
@@ -1584,19 +1772,24 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
             # round Q to a small multiple, NOT to 128: the window formula
             # would jump S to the next 128 multiple and double the SW cost
             Q = max(32, -(-qmax // 16) * 16)
-            if isinstance(item, RawBatch):
-                arr = item.encode(Q)
-            else:
-                arr = encode_batch(item[1], Q)
-            # keep ONE batch shape for the whole run, a multiple of dp;
-            # pad rows are all-7 (no seeds -> score 0), force() drops them
-            rows = max(want, arr.shape[0])
-            rows += -rows % dp
-            if arr.shape[0] < rows:
-                arr = np.pad(arr, ((0, rows - arr.shape[0]), (0, 0)),
-                             constant_values=7)
-            pending.append((bno, item, _InFlight(step_for(Q), arr, device),
-                            window_len(Q), window_pad(Q), Q, base))
+            with spans.span(rec, "encode"):
+                if isinstance(item, RawBatch):
+                    arr = item.encode(Q)
+                else:
+                    arr = encode_batch(item[1], Q)
+                # keep ONE batch shape for the whole run, a multiple of
+                # dp; pad rows are all-7 (no seeds -> score 0), force()
+                # drops them
+                rows = max(want, arr.shape[0])
+                rows += -rows % dp
+                if arr.shape[0] < rows:
+                    arr = np.pad(arr, ((0, rows - arr.shape[0]), (0, 0)),
+                                 constant_values=7)
+            spans.bind(bno, rec, _nreads(item), rows)
+            with spans.span(rec, "enqueue"):
+                pend = _InFlight(step_for(Q), arr, device)
+            pending.append((bno, item, pend, window_len(Q), window_pad(Q),
+                            Q, base))
             base += _nreads(item)
             if len(pending) >= PREFETCH:
                 yield force(pending.popleft())
@@ -1604,14 +1797,21 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
             yield force(pending.popleft())
 
     def emit(bno, text):
-        if shard_writer is not None:
-            shard_writer.write_batch(bno, text)
-        else:
-            out.write(text)
+        with spans.span(spans.rec(bno), "write"):
+            if shard_writer is not None:
+                shard_writer.write_batch(bno, text)
+            else:
+                out.write(text)
+        spans.written(bno)
 
     timing = os.environ.get("SMALT_TIMING")
     t_start = time.time()
     n_done = n_batches = 0
+    if pool is None:
+        _tail_init(refset, penalties, minscor, writer_args, inserts,
+                   exact_engine, seed, libcode, ihist)
+    # after the tail's set-up, which no batch's period holds
+    spans = FastSpans(bool(timing), pool is not None)
 
     def counted():
         nonlocal n_done, n_batches
@@ -1622,7 +1822,7 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
 
     if pool is not None:
         with pool:
-            pool.render(counted(), emit)
+            pool.render(counted(), emit, spans)
         if timing:
             print(f"# SMALT_TIMING tail pool: {nthreads} workers "
                   f"({TAIL_START_METHOD}), {pool.chunks} chunks, first text "
@@ -1630,10 +1830,10 @@ def run_fast_pipeline(refset: RefSet, idx: KmerIndex, reads_path: str,
                   f"loop blocked on texts {pool.wait_s:.2f} s",
                   file=sys.stderr)
     else:
-        _tail_init(refset, penalties, minscor, writer_args, inserts,
-                   exact_engine, seed, libcode, ihist)
         for bno, args in counted():
-            emit(bno, _tail_render(args))
+            with spans.span(spans.rec(bno), "render"):
+                text = _tail_render(args)
+            emit(bno, text)
             if resume_log is not None:
                 out.flush()
                 resume_log.tick(args[6] + _nreads(args[1]), out.tell(), 0)

@@ -15,6 +15,7 @@ import io
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -109,6 +110,70 @@ def test_pool_output_equals_one_process(world, what, monkeypatch):
     assert len(got.splitlines()) == (2 * N_PAIRS if what == "paired"
                                      else N_READS)
     assert got == want
+
+
+class _Sink(io.StringIO):
+    """A SAM sink that notes the caller's Python threads at each write."""
+
+    def __init__(self):
+        super().__init__()
+        self.threads = set()
+
+    def write(self, text):
+        self.threads.add(threading.active_count())
+        return super().write(text)
+
+
+@pytest.mark.parametrize("nthreads", [2, 3])
+@pytest.mark.parametrize("what", ["single", "paired"])
+def test_pool_deals_chunks_in_turn_on_the_callers_thread(world, what,
+                                                         nthreads,
+                                                         monkeypatch):
+    """The chunks (several a batch of single reads at CHUNK_MIN 16; a
+    batch of pairs, 16 of them, each) are dealt to the workers in turn and their texts taken back in input order, every
+    record once: -n 2 and -n 3 write -n 1's text; every worker renders;
+    and the pool starts no thread in the caller's process, which sends
+    and takes the chunks itself."""
+    monkeypatch.setattr(tfast.TailPool, "CHUNK_MIN", 16)
+    dealt = []
+    real = tfast.TailPool._send
+
+    def send(self, w, fn, args):
+        dealt.append(w)
+        return real(self, w, fn, args)
+    monkeypatch.setattr(tfast.TailPool, "_send", send)
+    want = _run(world, 1, what)
+    refset, idx, name, fq, fq1, fq2 = world
+    sink = _Sink()
+    before = threading.active_count()
+    tfast.run_fast_pipeline(
+        refset, idx, fq1 if what == "paired" else fq, sink,
+        nthreads=nthreads, batch=16 if what == "paired" else 64,
+        device="cpu", index_name=name,
+        **({"mates_path": fq2} if what == "paired" else {}))
+    assert sink.getvalue() == want
+    assert sink.threads == {before}
+    assert dealt == [i % nthreads for i in range(len(dealt))]
+    assert set(dealt) == set(range(nthreads))
+
+
+def test_pool_worker_that_dies_or_fails_fails_the_run(world, tmp_path):
+    """A worker killed mid-run raises RuntimeError naming it, and a worker
+    whose start fails (no index under the name) raises its error at the
+    first text, in place of a hang."""
+    refset, idx, name, fq, _, _ = world
+    args = (None, (1, -2, -4, -3), 18, (True, False), (0, 500), 1, None,
+            None)
+    with tfast.TailPool(2, (name,) + args) as pool:
+        pool.facts()
+        pool.procs[1].kill()
+        pool.procs[1].join()
+        with pytest.raises(RuntimeError, match="died"):
+            pool.facts()
+    with pytest.raises(FileNotFoundError):
+        tfast.run_fast_pipeline(refset, idx, fq, io.StringIO(), nthreads=2,
+                                batch=64, device="cpu",
+                                index_name=str(tmp_path / "none"))
 
 
 def test_pool_needs_the_index_name(world):
